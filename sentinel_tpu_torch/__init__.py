@@ -1,0 +1,80 @@
+"""sentinel_tpu_torch: the PyTorch / CUDA port of ``sentinel_tpu``.
+
+Flow control, circuit breaking and system protection — the capabilities of
+Alibaba Sentinel — on an NVIDIA GPU (written for Hopper, ``sm_90a``). The
+JAX package ``sentinel_tpu`` stays beside it as the reference that every
+module here is held to, bit for bit; this package imports neither JAX nor
+``sentinel_tpu``.
+
+This slice ports the scalar admission route (no origins, uniform
+``acquire``, no priorities) end to end::
+
+    import sentinel_tpu_torch as stt
+
+    cfg = stt.load_config(host_fast_path=False)
+    sph = stt.Sentinel(cfg)                 # device="cuda" by default
+    sph.load_flow_rules([stt.FlowRule(resource="HelloWorld", count=20)])
+    try:
+        with sph.entry("HelloWorld"):
+            do_something()
+    except stt.BlockException:
+        do_fallback()
+"""
+
+from sentinel_tpu_torch.core.clock import (
+    Clock, ManualClock, SystemClock, set_global_clock,
+)
+from sentinel_tpu_torch.core.config import SentinelConfig, load_config
+from sentinel_tpu_torch.core.errors import (
+    AuthorityException,
+    BlockException,
+    BlockReason,
+    DegradeException,
+    ErrorEntryFreeError,
+    FlowException,
+    ParamFlowException,
+    SystemBlockException,
+)
+from sentinel_tpu_torch.rules.authority import (
+    STRATEGY_BLACK, STRATEGY_WHITE, AuthorityRule,
+)
+from sentinel_tpu_torch.rules.degrade import (
+    GRADE_EXCEPTION_COUNT,
+    GRADE_EXCEPTION_RATIO,
+    GRADE_RT,
+    DegradeRule,
+)
+from sentinel_tpu_torch.rules.flow import (
+    BEHAVIOR_DEFAULT,
+    BEHAVIOR_RATE_LIMITER,
+    BEHAVIOR_WARM_UP,
+    BEHAVIOR_WARM_UP_RATE_LIMITER,
+    GRADE_QPS,
+    GRADE_THREAD,
+    STRATEGY_CHAIN,
+    STRATEGY_DIRECT,
+    STRATEGY_RELATE,
+    FlowRule,
+)
+from sentinel_tpu_torch.rules.system import SystemRule
+from sentinel_tpu_torch.runtime import (
+    ENTRY_TYPE_IN, ENTRY_TYPE_OUT, Entry, PendingVerdicts, Sentinel,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Sentinel", "Entry", "PendingVerdicts", "ENTRY_TYPE_IN", "ENTRY_TYPE_OUT",
+    "FlowRule", "DegradeRule", "SystemRule", "AuthorityRule",
+    "BlockException", "FlowException", "DegradeException",
+    "SystemBlockException", "AuthorityException", "ParamFlowException",
+    "BlockReason", "ErrorEntryFreeError",
+    "GRADE_QPS", "GRADE_THREAD", "GRADE_RT", "GRADE_EXCEPTION_RATIO",
+    "GRADE_EXCEPTION_COUNT",
+    "BEHAVIOR_DEFAULT", "BEHAVIOR_WARM_UP", "BEHAVIOR_RATE_LIMITER",
+    "BEHAVIOR_WARM_UP_RATE_LIMITER",
+    "STRATEGY_DIRECT", "STRATEGY_RELATE", "STRATEGY_CHAIN",
+    "STRATEGY_WHITE", "STRATEGY_BLACK",
+    "Clock", "ManualClock", "SystemClock", "set_global_clock",
+    "SentinelConfig", "load_config",
+]

@@ -1,0 +1,159 @@
+"""Layered startup configuration.
+
+Reference: ``sentinel-core/.../config/SentinelConfig.java:54-70`` +
+``SentinelConfigLoader`` — precedence JVM props > config file > env. Here:
+explicit kwargs > ``SENTINEL_TPU_*`` env vars > properties file named by
+``SENTINEL_TPU_CONFIG_FILE`` > defaults. All runtime-mutable knobs are held in
+:class:`SentinelProperty` cells by their owners;
+this module only covers boot-time constants and capacity planning (which fix
+tensor shapes and therefore can't hot-swap without a state migration).
+
+The PyTorch port's own copy of ``sentinel_tpu/core/config.py``: the field
+names, defaults and the ``SENTINEL_TPU_*`` environment names are identical,
+so one properties file or environment configures either package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+
+@dataclasses.dataclass(frozen=True)
+class SentinelConfig:
+    # Identity (reference: app name/type keys, SentinelConfig.java:54)
+    app_name: str = "sentinel-tpu-app"
+    app_type: int = 0
+
+    # Capacity planning — these size the device tensors. The reference caps at
+    # 6,000 slot chains / 2,000 contexts (Constants.java:37-38) and silently
+    # stops checking beyond; we pre-allocate instead and the registry can
+    # evict. Row 0 is reserved for the global inbound ENTRY_NODE.
+    max_resources: int = 8192
+    max_origins: int = 1024
+    max_flow_rules: int = 4096
+    max_degrade_rules: int = 4096
+    max_system_rules: int = 64
+    max_authority_rules: int = 1024
+    max_param_rules: int = 512
+    max_rules_per_resource: int = 4  # K in the per-event rule gather
+    param_table_slots: int = 65536   # hot-key rows (ParameterMetric LRU cap analog)
+    param_pairs_per_event: int = 4   # PV — (rule, value) checks per entry
+
+    # Statistics windows (reference: SampleCountProperty SAMPLE_COUNT=2,
+    # IntervalProperty INTERVAL=1000; minute window 60×1000ms)
+    second_sample_count: int = 2
+    second_interval_ms: int = 1000
+    minute_enabled: bool = True
+
+    # Occupy / prioritized borrow (OccupyTimeoutProperty default 500ms)
+    occupy_timeout_ms: int = 500
+
+    # Statistic max RT (SentinelConfig.java:69 default 5000)
+    statistic_max_rt: int = 5000
+
+    # Metric log (SentinelConfig.java:66-67 defaults 50MB × 6)
+    metric_log_dir: str = ""
+    metric_log_single_size: int = 50 * 1024 * 1024
+    metric_log_total_count: int = 6
+    metric_flush_interval_sec: int = 1
+
+    # Transport (TransportConfig.java: api port 8719, heartbeat 10s)
+    api_port: int = 8719
+    dashboard_server: str = ""
+    heartbeat_interval_ms: int = 10_000
+
+    # Cluster (ClusterConstants: port 18730, request timeout 20ms)
+    cluster_port: int = 18730
+    cluster_request_timeout_ms: int = 20
+    cluster_max_qps_per_namespace: float = 30_000.0  # ServerFlowConfig.java:31
+
+    # Host batching
+    batch_size: int = 1024
+
+    # Host-side fast path (SURVEY §7 hard-part 1: the local analog of
+    # fallbackToLocalOrPass). Rule-free resources decide on host with
+    # batched device stat recording; resources with one simple QPS rule
+    # serve from a host-held token lease pre-charged through the device
+    # pipeline. Disabled automatically while system rules are loaded.
+    host_fast_path: bool = True
+    fast_path_flush_events: int = 1024   # buffered stat events per flush
+    fast_path_flush_ms: int = 20         # max staleness of buffered stats
+    fast_path_lease_fraction: float = 0.5  # lease chunk = count × fraction
+
+    # Warm-up cold factor (SentinelConfig default 3)
+    cold_factor: int = 3
+
+    # Thread-gauge elision: when nothing loaded READS live concurrency
+    # (no THREAD-grade flow/param rules, no system rules), the gauge-
+    # maintenance scatters are elided from the hot steps and the gauges
+    # read 0 (reference readers: DefaultController THREAD branch,
+    # SystemRuleManager.checkSystem, ParamFlowChecker THREAD mode).
+    # Set True to always maintain the gauges — live-concurrency
+    # observability (dashboard threadNum) at ~20% step-floor cost.
+    thread_gauge_always: bool = False
+
+    # Persistent XLA compilation-cache directory of the JAX package; kept
+    # so both packages accept the same configuration (the port compiles
+    # no XLA programs and does not read it).
+    compile_cache_dir: str = ""
+
+    def __post_init__(self) -> None:
+        if not 1 <= self.max_rules_per_resource <= 31:
+            # the per-rule cluster-fallback mask is an int32 bitmask over
+            # the per-resource rule slots — slot 31+ would overflow it
+            raise ValueError("max_rules_per_resource must be in [1, 31]")
+
+    def metric_dir(self) -> str:
+        if self.metric_log_dir:
+            return self.metric_log_dir
+        return os.path.join(os.path.expanduser("~"), "logs", "csp")
+
+
+_ENV_PREFIX = "SENTINEL_TPU_"
+
+_FIELD_TYPES = {f.name: f.type for f in dataclasses.fields(SentinelConfig)}
+
+
+def _coerce(name: str, raw: str):
+    ftype = _FIELD_TYPES.get(name, "str")
+    if ftype in ("int", int):
+        return int(raw)
+    if ftype in ("float", float):
+        return float(raw)
+    if ftype in ("bool", bool):
+        return raw.strip().lower() in ("1", "true", "yes", "on")
+    return raw
+
+
+def load_config(**overrides) -> SentinelConfig:
+    """defaults < properties file < env < explicit kwargs."""
+    values = {}
+    cfg_file = os.environ.get(_ENV_PREFIX + "CONFIG_FILE")
+    if cfg_file and os.path.isfile(cfg_file):
+        with open(cfg_file) as fh:
+            for line in fh:
+                line = line.strip()
+                if not line or line.startswith("#") or "=" not in line:
+                    continue
+                k, _, v = line.partition("=")
+                k = k.strip().lower()
+                if k in _FIELD_TYPES:
+                    values[k] = _coerce(k, v.strip())
+    for name in _FIELD_TYPES:
+        raw = os.environ.get(_ENV_PREFIX + name.upper())
+        if raw is not None:
+            values[name] = _coerce(name, raw)
+    for k, v in overrides.items():
+        if k not in _FIELD_TYPES:
+            raise TypeError(f"unknown config field: {k}")
+        values[k] = _coerce(k, v) if isinstance(v, str) else v
+    cfg = SentinelConfig(**values)
+    for f in dataclasses.fields(SentinelConfig):
+        got = getattr(cfg, f.name)
+        want = {int: int, float: (int, float), bool: bool, str: str}.get(
+            f.type if isinstance(f.type, type) else {"int": int, "float": float,
+                                                     "bool": bool, "str": str}.get(f.type, str))
+        if want and not isinstance(got, want):
+            raise TypeError(f"config field {f.name} expects {f.type}, got {type(got).__name__}")
+    return cfg

@@ -1,0 +1,415 @@
+"""The decision pipeline: the slot chain as one device step.
+
+Port of ``sentinel_tpu/engine/pipeline.py`` for the SCALAR admission path
+(uniform acquire, no origins, no priorities — the batch the serving
+headline sends). The reference order is kept: every entry walks
+``AuthoritySlot → SystemSlot → FlowSlot → DegradeSlot`` and
+``StatisticSlot`` records pass/block AFTER the decision (statistics are
+post-decision, ``StatisticSlot.java:54-131``); exits record
+RT/success/exception and feed the breakers.
+
+* :func:`decide_entries` — batch of entry events → verdicts + updated state;
+* :func:`record_exits`  — batch of completions → updated state;
+* :func:`decide_and_record_exits` — both, exits landing after decisions.
+
+State is updated IN PLACE where that saves a copy (the window tables, the
+thread gauges, the RT histogram) — the port's counterpart of the JAX
+package's buffer donation; the small per-rule leaves are replaced. The
+functions run eagerly on whatever device the state lives on, without a
+host sync: every branch is taken on host values (``times`` are Python
+ints computed from the clock, the static flags are Python bools).
+
+``times`` is ``(idx_s, idx_m, rel_ms, in_win_ms)`` and ``sys_scalars``
+``(load1, cpu_usage)`` — the JAX package's packed int32[4]/float32[2]
+vectors, as host values.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sentinel_tpu_torch.core.errors import BlockReason
+from sentinel_tpu_torch.core.registry import ENTRY_NODE_ROW
+from sentinel_tpu_torch.obs import resource_hist
+from sentinel_tpu_torch.ops import scatter_add as sa
+from sentinel_tpu_torch.ops.segments import padded_table_gather
+from sentinel_tpu_torch.rules import authority as auth_mod
+from sentinel_tpu_torch.rules import degrade as deg_mod
+from sentinel_tpu_torch.rules import flow as flow_mod
+from sentinel_tpu_torch.rules import system as sys_mod
+from sentinel_tpu_torch.stats import events as ev
+from sentinel_tpu_torch.stats.window import (
+    WindowSpec, WindowState, add_one_row, add_rows_multi, add_rows_vec,
+    init_window, invalidate_rows, refresh_all, refresh_rows, row_mask,
+)
+
+Times = Tuple[int, int, int, int]
+SysScalars = Tuple[float, float]
+
+_OTHER_PATHS = ("the fast and general admission paths (origins, "
+                "prioritized events, non-uniform acquire) are not ported "
+                "yet: ROADMAP A7")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineSpec:
+    """Static engine geometry."""
+
+    rows: int                 # R — main resource rows (row 0 = ENTRY_NODE)
+    alt_rows: int             # RA — hashed (resource×origin/context) rows
+    second: WindowSpec
+    minute: Optional[WindowSpec]
+    statistic_max_rt: int
+    # HB — per-resource RT histogram buckets (obs/resource_hist.py);
+    # 0 = table disabled (state.rt_hist is None)
+    hist_buckets: int = 0
+
+
+class SentinelState(NamedTuple):
+    """All mutable device state (the JAX package's pytree without the
+    param-flow and custom-slot leaves, which later slices add)."""
+
+    second: WindowState           # [R]
+    minute: WindowState           # [R] (rows=1 when minute disabled)
+    alt_second: WindowState       # [RA]
+    threads: torch.Tensor         # int32[R]
+    alt_threads: torch.Tensor     # int32[RA]
+    flow_dyn: flow_mod.FlowDynState
+    breakers: deg_mod.BreakerState
+    rt_hist: Optional[torch.Tensor] = None   # int32[R, HB] cumulative
+
+
+class RuleSet(NamedTuple):
+    """All compiled rule tables; swapped atomically on rule reload."""
+
+    flow_table: flow_mod.FlowRuleTable
+    flow_idx: torch.Tensor
+    deg_table: deg_mod.DegradeRuleTable
+    deg_idx: torch.Tensor
+    auth_table: auth_mod.AuthorityRuleTable
+    auth_idx: torch.Tensor
+    sys_thresholds: sys_mod.SystemThresholds
+    # concat(flow_idx, deg_idx) [R, Kf+Kd]: both slots' rule ids in ONE
+    # gather over the big row table. Build it with with_joint() (or
+    # build_joint_np on the same arrays), never by hand: the consumer
+    # splits at flow_idx.shape[1].
+    joint_idx: Optional[torch.Tensor] = None
+
+    def with_joint(self) -> "RuleSet":
+        return self._replace(joint_idx=torch.cat(
+            [self.flow_idx, self.deg_idx], dim=1))
+
+    @staticmethod
+    def build_joint_np(flow_idx_np, deg_idx_np):
+        return np.concatenate([flow_idx_np, deg_idx_np], axis=1)
+
+
+class EntryBatch(NamedTuple):
+    """Entry events (padding: rows >= R, valid False)."""
+
+    rows: torch.Tensor           # int32[B]
+    origin_ids: torch.Tensor     # int32[B] (0 = none)
+    origin_rows: torch.Tensor    # int32[B] (>= RA = none)
+    context_ids: torch.Tensor    # int32[B]
+    chain_rows: torch.Tensor     # int32[B] (>= RA = none)
+    acquire: torch.Tensor        # int32[B]
+    is_in: torch.Tensor          # bool[B]
+    prioritized: torch.Tensor    # bool[B]
+    valid: torch.Tensor          # bool[B]
+
+
+class ExitBatch(NamedTuple):
+    rows: torch.Tensor           # int32[B]
+    origin_rows: torch.Tensor    # int32[B]
+    chain_rows: torch.Tensor     # int32[B]
+    acquire: torch.Tensor        # int32[B]
+    rt_ms: torch.Tensor          # int32[B]
+    error: torch.Tensor          # bool[B]
+    is_in: torch.Tensor          # bool[B]
+    valid: torch.Tensor          # bool[B]
+
+
+class Verdicts(NamedTuple):
+    allow: torch.Tensor          # bool[B]
+    reason: torch.Tensor         # int8[B] (BlockReason codes)
+    wait_ms: torch.Tensor        # int32[B]
+
+
+def init_state(spec: EngineSpec, nf: int, nd: int,
+               device="cpu") -> SentinelState:
+    """Fresh engine state on ``device``."""
+    minute_rows = spec.rows if spec.minute else 1
+    minute_spec = spec.minute or WindowSpec(1, 1000, track_rt=False)
+    return SentinelState(
+        second=init_window(spec.second, spec.rows, device=device),
+        minute=init_window(minute_spec, minute_rows, device=device),
+        alt_second=init_window(spec.second, spec.alt_rows, device=device),
+        threads=torch.zeros((spec.rows,), dtype=torch.int32, device=device),
+        alt_threads=torch.zeros((spec.alt_rows,), dtype=torch.int32,
+                                device=device),
+        flow_dyn=flow_mod.init_flow_dyn(nf, spec.second.buckets, spec.rows,
+                                        device=device),
+        breakers=deg_mod.init_breaker_state(nd, device=device),
+        rt_hist=(torch.zeros((spec.rows, spec.hist_buckets),
+                             dtype=torch.int32, device=device)
+                 if spec.hist_buckets else None),
+    )
+
+
+def _isum(x: torch.Tensor) -> torch.Tensor:
+    """int32 sum that wraps like XLA's (a plain torch sum widens to int64)."""
+    return x.sum(dtype=torch.int32)
+
+
+def _add_threads(threads: torch.Tensor, rows: torch.Tensor,
+                 amounts: torch.Tensor) -> None:
+    """``threads.at[rows].add(amounts, mode="drop")`` through the kernel
+    seam (payload mode, one lane)."""
+    sa.scatter_add(threads[:, None], rows, None, amounts[:, None])
+
+
+def _refresh_second(spec: EngineSpec, second: WindowState,
+                    rows: torch.Tensor, entry_vec_or_mask: torch.Tensor,
+                    now_idx: int) -> WindowState:
+    """The second window's lazy reset: a full sweep when B >= 2, else the
+    touched rows plus ENTRY only when this batch lands something on it (a
+    B == 1 restamp would erase the previous-window reads)."""
+    if spec.second.buckets >= 2:
+        return refresh_all(spec.second, second, now_idx)
+    entry_refresh = torch.where(entry_vec_or_mask.any(), ENTRY_NODE_ROW,
+                                spec.rows).to(torch.int32)
+    return refresh_rows(spec.second, second,
+                        torch.cat([rows, entry_refresh[None]]), now_idx)
+
+
+def decide_entries(
+    spec: EngineSpec,
+    rules: RuleSet,
+    state: SentinelState,
+    batch: EntryBatch,
+    times: Times,
+    sys_scalars: SysScalars,
+    *,
+    scalar_flow: bool = True,    # HOST-VERIFIED scalar preconditions (see
+    # flow_check_scalar); False would select the general paths
+    skip_auth: bool = False,     # no authority rules loaded
+    skip_sys: bool = False,      # no system thresholds set
+    scalar_has_rl: bool = True,  # ruleset contains rate-limiter rules
+    skip_threads: bool = False,  # nothing loaded reads the thread gauges
+) -> Tuple[SentinelState, Verdicts]:
+    """One device step: decide a batch, then record post-decision
+    statistics. Gating masks cascade through the slots, so an event
+    blocked upstream never consumes downstream quota."""
+    if not scalar_flow:
+        raise NotImplementedError(_OTHER_PATHS)
+    R = spec.rows
+    now_idx_s, now_idx_m, rel_now_ms, _in_win_ms = times
+    load1, cpu_usage = sys_scalars
+
+    live = batch.valid
+    if skip_auth:
+        auth_ok = torch.ones_like(live)
+    else:
+        auth_ok = auth_mod.authority_check(
+            rules.auth_table, rules.auth_idx, batch.rows, batch.origin_ids,
+            live)
+    live1 = live & auth_ok
+    if skip_sys:
+        sys_ok = torch.ones_like(live1)
+    else:
+        sys_ok = sys_mod.system_check(
+            rules.sys_thresholds, spec.second, state.second, state.threads,
+            batch.is_in, batch.acquire, live1, now_idx_s, load1, cpu_usage,
+            spec.statistic_max_rt)
+    live2 = live1 & sys_ok
+
+    flow_bk = deg_bk = None
+    if rules.joint_idx is not None:
+        kf = rules.flow_idx.shape[1]
+        nf = rules.flow_table.active.shape[0] - 1
+        nd = rules.deg_table.active.shape[0] - 1
+        joint = padded_table_gather(rules.joint_idx, batch.rows, 0)
+        in_r = (batch.rows < R)[:, None]
+        flow_bk = torch.where(in_r, joint[:, :kf], nf)
+        deg_bk = torch.where(in_r, joint[:, kf:], nd)
+    flow_dyn, flow_ok, wait_ms = flow_mod.flow_check_scalar(
+        rules.flow_table, state.flow_dyn, rules.flow_idx, spec.second,
+        state.second, state.threads, batch.rows, batch.acquire, live2,
+        now_idx_s, rel_now_ms,
+        minute_spec=spec.minute,
+        main_minute=state.minute if spec.minute else None,
+        now_idx_m=now_idx_m,
+        has_rate_limiter=scalar_has_rl,
+        rules_bk=flow_bk)
+    live3 = live2 & flow_ok
+    breakers, deg_ok = deg_mod.degrade_entry_check_scalar(
+        rules.deg_table, state.breakers, rules.deg_idx, batch.rows,
+        live3, rel_now_ms, rules_bk=deg_bk)
+
+    allow = live & auth_ok & sys_ok & flow_ok & deg_ok
+    reason = torch.zeros(batch.rows.shape, dtype=torch.int8,
+                         device=batch.rows.device)
+    reason = torch.where(~deg_ok, BlockReason.DEGRADE, reason)
+    reason = torch.where(~flow_ok, BlockReason.FLOW, reason)
+    reason = torch.where(~sys_ok, BlockReason.SYSTEM, reason)
+    reason = torch.where(~auth_ok, BlockReason.AUTHORITY, reason)
+    reason = torch.where(~batch.valid, BlockReason.NONE, reason)
+    wait_ms = torch.where(allow, torch.clamp(wait_ms, min=0), 0)
+
+    # ---- StatisticSlot.entry (post-decision recording) ----
+    passed = allow & batch.valid
+    blocked = ~allow & batch.valid
+    # each event lands in exactly ONE lane, so the per-row record is one
+    # fused scatter of B indices; the global ENTRY row is a reduction plus
+    # one single-row update
+    rec1 = passed | blocked
+    ev_ids1 = torch.where(passed, ev.PASS, ev.BLOCK).to(torch.int32)
+    acq = batch.acquire
+    rec_amt1 = torch.where(rec1, acq, 0)
+    main_rec1 = torch.where(rec1, batch.rows, R)
+
+    ein = batch.is_in
+    entry_vec = torch.zeros((ev.NUM_EVENTS,), dtype=torch.int32,
+                            device=acq.device)
+    entry_vec[ev.PASS] = _isum(torch.where(passed & ein, acq, 0))
+    entry_vec[ev.BLOCK] = _isum(torch.where(blocked & ein, acq, 0))
+
+    second = _refresh_second(spec, state.second, main_rec1, entry_vec != 0,
+                             now_idx_s)
+    add_rows_multi(spec.second, second, main_rec1, ev_ids1, rec_amt1,
+                   now_idx_s)
+    add_one_row(spec.second, second, ENTRY_NODE_ROW, entry_vec, now_idx_s)
+
+    if spec.minute:
+        refresh_all(spec.minute, state.minute, now_idx_m)
+        add_rows_multi(spec.minute, state.minute, main_rec1, ev_ids1,
+                       rec_amt1, now_idx_m)
+        add_one_row(spec.minute, state.minute, ENTRY_NODE_ROW, entry_vec,
+                    now_idx_m)
+
+    if not skip_threads:
+        # +1 per admitted entry (reference curThreadNum)
+        _add_threads(state.threads, torch.where(passed, batch.rows, R),
+                     passed.to(torch.int32))
+        state.threads[ENTRY_NODE_ROW].add_(
+            _isum((passed & ein).to(torch.int32)))
+
+    new_state = state._replace(second=second, flow_dyn=flow_dyn,
+                               breakers=breakers)
+    return new_state, Verdicts(allow=allow, reason=reason,
+                               wait_ms=wait_ms.to(torch.int32))
+
+
+def record_exits(
+    spec: EngineSpec,
+    rules: RuleSet,
+    state: SentinelState,
+    batch: ExitBatch,
+    times: Times,
+    *,
+    skip_threads: bool = False,
+) -> SentinelState:
+    """Completion step: ``StatisticSlot.exit`` (rt/success/exception and
+    the thread decrement, for the node and ENTRY) then ``DegradeSlot.exit``
+    (breaker feed), then the per-resource RT histogram."""
+    R = spec.rows
+    now_idx_s, now_idx_m, rel_now_ms, _in_win_ms = times
+
+    main_rows = torch.where(batch.valid, batch.rows, R)
+    acq1 = torch.where(batch.valid, batch.acquire, 0)
+    err1 = torch.where(batch.error, acq1, 0)
+    rt1 = batch.rt_ms
+    ein = batch.valid & batch.is_in
+
+    # an exit can record BOTH SUCCESS and EXCEPTION: the per-row record is
+    # one payload-mode scatter of full event-lane vectors
+    payload = torch.zeros((batch.rows.shape[0], ev.NUM_EVENTS),
+                          dtype=torch.int32, device=acq1.device)
+    payload[:, ev.SUCCESS] = acq1
+    payload[:, ev.EXCEPTION] = err1
+
+    entry_vec = torch.zeros((ev.NUM_EVENTS,), dtype=torch.int32,
+                            device=acq1.device)
+    entry_vec[ev.SUCCESS] = _isum(torch.where(ein, acq1, 0))
+    entry_vec[ev.EXCEPTION] = _isum(torch.where(ein, err1, 0))
+    # float32 BEFORE the sum: the ENTRY aggregate overflows int32 within a
+    # single large batch
+    entry_rt_add = torch.where(ein, rt1, 0).to(torch.float32).sum()
+    entry_rt_min = torch.where(ein, rt1, 2 ** 31 - 1).min()
+
+    second = _refresh_second(spec, state.second, main_rows, ein, now_idx_s)
+    add_rows_vec(spec.second, second, main_rows, payload, now_idx_s,
+                 rt_ms=rt1, rt_valid=batch.valid)
+    add_one_row(spec.second, second, ENTRY_NODE_ROW, entry_vec, now_idx_s,
+                rt_add=entry_rt_add, rt_min=entry_rt_min)
+    if spec.minute:
+        refresh_all(spec.minute, state.minute, now_idx_m)
+        add_rows_vec(spec.minute, state.minute, main_rows, payload,
+                     now_idx_m, rt_ms=rt1, rt_valid=batch.valid)
+        add_one_row(spec.minute, state.minute, ENTRY_NODE_ROW, entry_vec,
+                    now_idx_m, rt_add=entry_rt_add, rt_min=entry_rt_min)
+
+    if not skip_threads:
+        _add_threads(state.threads, main_rows, -batch.valid.to(torch.int32))
+        state.threads[ENTRY_NODE_ROW].sub_(_isum(ein.to(torch.int32)))
+        state.threads.clamp_(min=0)
+
+    breakers = deg_mod.degrade_exit_feed(
+        rules.deg_table, state.breakers, rules.deg_idx, batch.rows,
+        batch.rt_ms, batch.error, batch.valid, rel_now_ms)
+
+    if spec.hist_buckets:
+        # one +1 per valid exit at [row, log2 ms bucket] (completions, not
+        # acquire-weighted); invalid lanes ride the pad row and drop
+        bidx = resource_hist.bucket_index(rt1, spec.hist_buckets)
+        sa.scatter_add(state.rt_hist, main_rows, bidx,
+                       batch.valid.to(torch.int32))
+
+    return state._replace(second=second, breakers=breakers)
+
+
+def decide_and_record_exits(
+    spec: EngineSpec,
+    rules: RuleSet,
+    state: SentinelState,
+    entry_batch: EntryBatch,
+    exit_batch: ExitBatch,
+    times: Times,
+    sys_scalars: SysScalars,
+    *,
+    scalar_flow: bool = True,
+    skip_auth: bool = False,
+    skip_sys: bool = False,
+    scalar_has_rl: bool = True,
+    skip_threads: bool = False,
+) -> Tuple[SentinelState, Verdicts]:
+    """Fused entry+exit step: this step's decisions, then the previous
+    step's completions — identical to :func:`decide_entries` followed by
+    :func:`record_exits` at the same ``times``."""
+    state, verdicts = decide_entries(
+        spec, rules, state, entry_batch, times, sys_scalars,
+        scalar_flow=scalar_flow, skip_auth=skip_auth, skip_sys=skip_sys,
+        scalar_has_rl=scalar_has_rl, skip_threads=skip_threads)
+    state = record_exits(spec, rules, state, exit_batch, times,
+                         skip_threads=skip_threads)
+    return state, verdicts
+
+
+def invalidate_resource_rows(spec: EngineSpec, state: SentinelState,
+                             rows: torch.Tensor) -> SentinelState:
+    """Forget recycled rows' stats (registry eviction hygiene): window
+    stamps to NEVER, thread gauges and RT histogram rows to zero. The
+    scalar path writes no alt rows and no occupy bookings, so those stay.
+    Padding rows >= R drop."""
+    invalidate_rows(spec.second, state.second, rows)
+    if spec.minute:
+        invalidate_rows(spec.minute, state.minute, rows)
+    hit = row_mask(rows, spec.rows)
+    state.threads.masked_fill_(hit, 0)
+    if state.rt_hist is not None:
+        state.rt_hist.masked_fill_(hit[:, None], 0)
+    return state

@@ -1,0 +1,498 @@
+"""Flow rules: FlowSlot / FlowRuleChecker / traffic-shaping controllers,
+the scalar admission path.
+
+Port of ``sentinel_tpu/rules/flow.py`` (the scalar path's subset: the rule
+object, the compiler, :func:`flow_check_scalar` and its per-rule helpers).
+Reference semantics (``sentinel-core/.../slots/block/flow/``):
+``DefaultController.canPass:50-76``, ``RateLimiterController:30-90``,
+``WarmUpController:66-190`` and ``FlowRuleChecker``'s rule-set semantics.
+
+Rules compile host-side (numpy, identical to the JAX package) into a
+struct-of-arrays :class:`FlowRuleTable` plus a per-resource gather table
+``rule_idx[R, K]``; the check is one function over the batch's
+(event × rule-slot) pairs. Blocking behaviours return ``wait_ms`` verdicts
+instead of sleeping the caller.
+
+Parity notes (the port must reproduce the JAX package bit for bit):
+
+* int32 arithmetic wraps, floor ``//`` is ``torch.div(...,
+  rounding_mode="floor")``; float32 → int32 casts saturate as XLA's do.
+* The reference's XLA build contracts ``a * b + c`` into a fused
+  multiply-add in the warm-up token math; :func:`_fma_f32` computes the
+  same correctly rounded FMA (in float64 with round-to-odd), so warm-up
+  limits agree to the bit.
+* The packed per-rule gather bitcasts float32 columns to int32 with
+  ``Tensor.view`` (exact round trip), as ``lax.bitcast_convert_type`` did.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from sentinel_tpu_torch.ops import segments as seg
+from sentinel_tpu_torch.ops import sortfree as sfo
+from sentinel_tpu_torch.stats import events as ev
+from sentinel_tpu_torch.stats.window import (
+    WindowSpec, WindowState, prev_window_sum_rows, window_sum_rows,
+)
+
+# Grades (reference RuleConstant.FLOW_GRADE_*)
+GRADE_THREAD = 0
+GRADE_QPS = 1
+# Strategies (RuleConstant.STRATEGY_*)
+STRATEGY_DIRECT = 0
+STRATEGY_RELATE = 1
+STRATEGY_CHAIN = 2
+# Control behaviors (RuleConstant.CONTROL_BEHAVIOR_*)
+BEHAVIOR_DEFAULT = 0
+BEHAVIOR_WARM_UP = 1
+BEHAVIOR_RATE_LIMITER = 2
+BEHAVIOR_WARM_UP_RATE_LIMITER = 3
+
+# limit_origin sentinel codes (limitApp strings "default"/"other")
+LIMIT_DEFAULT = -1
+LIMIT_OTHER = -2
+
+# Stat-row selection kinds (compiled from limitApp × strategy)
+SEL_MAIN = 0    # resource's global row            (default + DIRECT)
+SEL_ORIGIN = 1  # event's per-origin row           (specific origin / other)
+SEL_REF = 2     # related resource's global row    (RELATE)
+SEL_CHAIN = 3   # event's per-context row          (CHAIN, context == refResource)
+
+
+@dataclasses.dataclass
+class FlowRule:
+    """Host-facing rule object (reference ``FlowRule.java`` field parity)."""
+
+    resource: str
+    count: float
+    grade: int = GRADE_QPS
+    limit_app: str = "default"
+    strategy: int = STRATEGY_DIRECT
+    ref_resource: str = ""
+    control_behavior: int = BEHAVIOR_DEFAULT
+    warm_up_period_sec: int = 10
+    max_queueing_time_ms: int = 500
+    cluster_mode: bool = False
+    cluster_flow_id: int = 0
+    cluster_threshold_type: int = 0      # 0 AVG_LOCAL, 1 GLOBAL
+    cluster_fallback_to_local: bool = True
+
+    def is_valid(self) -> bool:
+        if not self.resource or self.count < 0:
+            return False
+        if self.grade not in (GRADE_THREAD, GRADE_QPS):
+            return False
+        if self.strategy in (STRATEGY_RELATE, STRATEGY_CHAIN) and not self.ref_resource:
+            return False
+        if self.control_behavior == BEHAVIOR_WARM_UP and self.warm_up_period_sec <= 0:
+            return False
+        return True
+
+
+
+class FlowRuleTable(NamedTuple):
+    """Static (per rule-load) device arrays, NF+1 rows; last row = inactive
+    sentinel so padded gathers are harmless."""
+
+    active: torch.Tensor          # bool[NF+1]
+    grade: torch.Tensor           # int32
+    count: torch.Tensor           # float32
+    behavior: torch.Tensor        # int32
+    sel_kind: torch.Tensor        # int32 (SEL_*)
+    ref_row: torch.Tensor         # int32 — main-table row for SEL_REF
+    ref_context: torch.Tensor     # int32 — required context id for SEL_CHAIN
+    limit_origin: torch.Tensor    # int32 — LIMIT_DEFAULT/LIMIT_OTHER/origin id
+    max_queue_ms: torch.Tensor    # int32
+    # warm-up precomputed constants (WarmUpController ctor math)
+    warning_token: torch.Tensor   # float32
+    max_token: torch.Tensor       # float32
+    slope: torch.Tensor           # float32
+    cold_factor: torch.Tensor     # float32
+    sync_row: torch.Tensor        # int32 — main-table row used for token sync
+    cluster_mode: torch.Tensor    # bool
+
+
+class FlowDynState(NamedTuple):
+    """Per-rule mutable shaping state (device). The occupy booking ring
+    (``occupied_*``, keyed by resource row) is carried for layout parity
+    with the JAX package; the scalar path reads no bookings (prioritized
+    traffic, the only writer, is a later slice)."""
+
+    latest_passed_ms: torch.Tensor   # int32[NF+1] — rel-ms pacing clock
+    stored_tokens: torch.Tensor      # float32[NF+1]
+    last_filled_sec: torch.Tensor    # int32[NF+1] — rel seconds
+    occupied_count: torch.Tensor     # float32[R, B+1]
+    occupied_window: torch.Tensor    # int32[R, B+1]
+
+
+class CompiledFlowRules(NamedTuple):
+    """Host-side compile output."""
+
+    table: FlowRuleTable
+    rule_idx: torch.Tensor          # int32[R, K] → table row, NF = none
+    rules: Tuple[FlowRule, ...]     # original objects, index-aligned with table
+    num_active: int
+    k_used: int = 1                 # max rules on any ONE resource
+    rule_idx_np: Optional[np.ndarray] = None
+
+
+def init_flow_dyn(nf: int, buckets: int = 2, rows: int = 1,
+                  device="cpu") -> FlowDynState:
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=device)
+    return FlowDynState(
+        latest_passed_ms=full((nf + 1,), -(2 ** 30), torch.int32),
+        stored_tokens=full((nf + 1,), 0.0, torch.float32),
+        last_filled_sec=full((nf + 1,), -(2 ** 30), torch.int32),
+        occupied_count=full((rows, buckets + 1), 0.0, torch.float32),
+        occupied_window=full((rows, buckets + 1), -(2 ** 30), torch.int32),
+    )
+
+
+def compile_flow_rules(rules: Sequence[FlowRule], *, resource_registry,
+                       context_registry, capacity: int, k_per_resource: int,
+                       num_rows: int, cold_factor: float = 3.0,
+                       origin_registry=None,
+                       device="cpu") -> CompiledFlowRules:
+    """Validate + vectorize rules (the ``FlowRuleUtil`` analog).
+
+    Origin-specific ``limit_app`` strings are interned through
+    ``origin_registry`` (pinned so ids stay stable while referenced).
+    Resources named by rules are pinned in the resource registry.
+    Invalid rules are skipped (reference logs and skips); rules beyond
+    ``capacity`` or more than ``k_per_resource`` per resource raise — unlike
+    the reference's silent 6000-chain cap, overflow here is loud.
+    """
+    valid = [r for r in rules if r.is_valid()]
+    if len(valid) > capacity:
+        raise ValueError(f"too many flow rules: {len(valid)} > capacity {capacity}")
+
+    nf = capacity
+    active = np.zeros(nf + 1, np.bool_)
+    grade = np.zeros(nf + 1, np.int32)
+    count = np.zeros(nf + 1, np.float32)
+    behavior = np.zeros(nf + 1, np.int32)
+    sel_kind = np.zeros(nf + 1, np.int32)
+    ref_row = np.zeros(nf + 1, np.int32)
+    ref_context = np.full(nf + 1, -1, np.int32)
+    limit_origin = np.full(nf + 1, LIMIT_DEFAULT, np.int32)
+    max_queue_ms = np.zeros(nf + 1, np.int32)
+    warning_token = np.zeros(nf + 1, np.float32)
+    max_token = np.zeros(nf + 1, np.float32)
+    slope = np.zeros(nf + 1, np.float32)
+    cold_f = np.full(nf + 1, cold_factor, np.float32)
+    sync_row = np.full(nf + 1, num_rows, np.int32)
+    cluster_mode = np.zeros(nf + 1, np.bool_)
+
+    rule_idx = np.full((num_rows, k_per_resource), nf, np.int32)
+    slots_used = {}
+
+    for j, r in enumerate(valid):
+        row = resource_registry.pin(r.resource)
+        k = slots_used.get(row, 0)
+        if k >= k_per_resource:
+            raise ValueError(
+                f"more than {k_per_resource} flow rules for resource {r.resource!r}; "
+                f"raise max_rules_per_resource")
+        slots_used[row] = k + 1
+        rule_idx[row, k] = j
+
+        active[j] = True
+        grade[j] = r.grade
+        count[j] = r.count
+        behavior[j] = r.control_behavior
+        max_queue_ms[j] = r.max_queueing_time_ms
+        cluster_mode[j] = r.cluster_mode
+        sync_row[j] = row
+
+        la = r.limit_app or "default"
+        if la == "default":
+            limit_origin[j] = LIMIT_DEFAULT
+        elif la == "other":
+            limit_origin[j] = LIMIT_OTHER
+        else:
+            if origin_registry is None:
+                raise ValueError("origin-specific rule needs an origin registry")
+            limit_origin[j] = origin_registry.pin(la)
+
+        if r.strategy == STRATEGY_RELATE:
+            sel_kind[j] = SEL_REF
+            ref_row[j] = resource_registry.pin(r.ref_resource)
+            sync_row[j] = ref_row[j]
+        elif r.strategy == STRATEGY_CHAIN:
+            sel_kind[j] = SEL_CHAIN
+            ref_context[j] = context_registry.pin(r.ref_resource)
+        elif la in ("default",):
+            sel_kind[j] = SEL_MAIN
+        else:
+            # specific origin or "other" + DIRECT → the event's origin row
+            # (FlowRuleChecker.java:137-141,154-158)
+            sel_kind[j] = SEL_ORIGIN
+
+        if r.control_behavior in (BEHAVIOR_WARM_UP, BEHAVIOR_WARM_UP_RATE_LIMITER):
+            # WarmUpController.java:66-90 constructor math
+            wt = (r.warm_up_period_sec * r.count) / (cold_factor - 1.0)
+            mt = wt + 2.0 * r.warm_up_period_sec * r.count / (1.0 + cold_factor)
+            warning_token[j] = wt
+            max_token[j] = mt
+            slope[j] = (cold_factor - 1.0) / r.count / max(mt - wt, 1e-9)
+
+    table = FlowRuleTable(*(
+        torch.from_numpy(a).to(device) for a in (
+            active, grade, count, behavior, sel_kind, ref_row, ref_context,
+            limit_origin, max_queue_ms, warning_token, max_token, slope,
+            cold_f, sync_row, cluster_mode)))
+    return CompiledFlowRules(table=table,
+                             rule_idx=torch.from_numpy(rule_idx).to(device),
+                             rules=tuple(valid), num_active=len(valid),
+                             k_used=max(1, max(slots_used.values(),
+                                               default=0)),
+                             rule_idx_np=rule_idx)
+
+
+# ---------------------------------------------------------------------------
+# Device-side check (scalar admission path)
+# ---------------------------------------------------------------------------
+
+_INF = float("inf")
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 ``a * b + c`` (one rounding, as a fused
+    multiply-add). The float64 product of two float32 values is exact;
+    the float64 sum is made round-to-odd (nudged one ulp toward the lost
+    error when that error is nonzero and the result is even), which makes
+    the final rounding to float32 correct (53 >= 24 + 2 bits)."""
+    a64, b64, c64 = a.double(), b.double(), c.double()
+    p = a64 * b64
+    s = p + c64
+    pp = s - c64
+    cc = s - pp
+    err = (p - pp) + (c64 - cc)                  # TwoSum: exact error
+    even = (s.view(torch.int64) & 1) == 0
+    nudge = torch.isfinite(s) & (err != 0) & even
+    toward = torch.where(err > 0, _INF, -_INF)
+    return torch.where(nudge, torch.nextafter(s, toward), s).float()
+
+
+def _f32_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """float32 → int32 with XLA's conversion semantics: truncate toward
+    zero, saturate out-of-range values, NaN → 0 (a plain ``.to`` is
+    undefined out of range)."""
+    big = x >= 2.0 ** 31
+    small = x < -(2.0 ** 31)
+    safe = torch.where(big | small | torch.isnan(x), 0.0, x)
+    out = safe.to(torch.int32)
+    out = torch.where(big, 2 ** 31 - 1, out)
+    return torch.where(small, -(2 ** 31), out)
+
+
+def _floordiv(a: torch.Tensor, b) -> torch.Tensor:
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def flow_check_scalar(
+    table: FlowRuleTable,
+    dyn: FlowDynState,
+    rule_idx: torch.Tensor,
+    spec: WindowSpec,
+    main_second: WindowState,
+    main_threads: torch.Tensor,
+    rows: torch.Tensor,           # int32[B] (>= R padding)
+    acquire: torch.Tensor,        # int32[B] — HOST-VERIFIED uniform (>= 1)
+    valid: torch.Tensor,          # bool[B]
+    now_idx_s: int,
+    rel_now_ms: int,
+    minute_spec: Optional[WindowSpec] = None,
+    main_minute: Optional[WindowState] = None,
+    now_idx_m: Optional[int] = None,
+    has_rate_limiter: bool = True,
+    rules_bk: Optional[torch.Tensor] = None,
+    occupy_base: bool = False,
+) -> Tuple[FlowDynState, torch.Tensor, torch.Tensor]:
+    """Scalar-path flow check → (dyn', allow bool[B], wait_ms int32[B]).
+
+    Preconditions the HOST verifies (``runtime.decide_raw_nowait``): no
+    origins and no origin/chain rows in the batch, no prioritized events,
+    no cluster-fallback bits, ``acquire`` uniform over valid events and
+    >= 1. Under them every per-pair quantity is a function of the RULE
+    alone, so the check computes [NF+1]-sized admission budgets and
+    touches the (event × slot) pair axis only for the rule gather, the
+    per-slot arrival ranks, one packed budget gather and compares: a pair
+    with arrival rank r passes iff ``(base + r*a) + a <= limit`` (DEFAULT,
+    WARM_UP) or ``r < max_k`` (rate limiter closed form).
+    ``has_rate_limiter=False`` elides the rate-limiter columns — only
+    when the ruleset has no RL/WU-RL rule. ``rules_bk`` is the
+    pre-gathered [B, K] rule id table (the pipeline's joint gather).
+    ``occupy_base`` folds LANDED occupy bookings into the QPS base.
+    """
+    B = rows.shape[0]
+    K = rule_idx.shape[1]
+    NF = table.active.shape[0] - 1
+    R = rule_idx.shape[0]
+
+    # ---- per-rule admission state ([NF+1]-sized) ----
+    dyn, eff_limit = _warmup_sync_and_limits(
+        table, dyn, spec, main_second, now_idx_s, rel_now_ms,
+        minute_spec, main_minute, now_idx_m)
+    sel_row = torch.clamp(table.sync_row, max=R - 1)
+    base_pass = window_sum_rows(spec, main_second, sel_row, ev.PASS,
+                                now_idx_s).to(torch.float32)
+    if occupy_base:
+        base_pass = base_pass + _landed_per_rule(dyn, sel_row, spec,
+                                                 now_idx_s)
+    base_thr = main_threads[sel_row.long()].to(torch.float32)
+    base = torch.where(table.grade == GRADE_QPS, base_pass, base_thr)
+
+    # rules that can apply to an origin-less, fallback-free batch
+    applies = (table.active
+               & (table.limit_origin == LIMIT_DEFAULT)
+               & (~table.cluster_mode)
+               & ((table.sel_kind == SEL_MAIN)
+                  | (table.sel_kind == SEL_REF)))
+    acq_of_rule = torch.where(valid, acquire, 0).max().to(torch.float32)
+    if has_rate_limiter:
+        is_rl = (((table.behavior == BEHAVIOR_RATE_LIMITER)
+                  | (table.behavior == BEHAVIOR_WARM_UP_RATE_LIMITER))
+                 & (table.grade == GRADE_QPS))
+        base_time, cost, max_k = _rl_closed_form(
+            table, dyn, acq_of_rule, rel_now_ms)
+
+    # ---- per-pair work ----
+    if rules_bk is None:
+        rules_bk = seg.padded_table_gather(rule_idx, rows, NF)
+    rj = rules_bk.reshape(-1)                                # [BK]
+    valid_bk = seg.repeat_each(valid, K)
+    key = torch.where(valid_bk, rj, NF)
+    rank = sfo.ranks2d_ident(key.reshape(B, K), NF + 2).reshape(-1)
+
+    a_bk = seg.repeat_each(acquire, K).to(torch.float32)
+    limit_eff = torch.where(applies, eff_limit, 3e38)
+    cols = [base.view(torch.int32), limit_eff.view(torch.int32)]
+    if has_rate_limiter:
+        cols += [(is_rl & applies).to(torch.int32), base_time, cost, max_k]
+    vt = torch.stack(cols, dim=1)
+    g = vt[key.long()]                                       # [BK, C]
+    base_pair = g[:, 0].contiguous().view(torch.float32)
+    limit_pair = g[:, 1].contiguous().view(torch.float32)
+    rankf = rank.to(torch.float32)
+
+    pass_default = (base_pair + rankf * a_bk) + a_bk <= limit_pair
+    if has_rate_limiter:
+        pass_rl = rank < g[:, 5]
+        safe_rank = torch.minimum(rank, g[:, 5])
+        wait_pair = torch.clamp(
+            g[:, 3] + (safe_rank + 1) * g[:, 4] - rel_now_ms, min=0)
+        pair_is_rl = g[:, 2] != 0
+        pair_pass = torch.where(pair_is_rl, pass_rl, pass_default)
+        pair_pass = pair_pass | (key == NF)
+        pair_wait = torch.where(pair_is_rl & pair_pass & (key != NF),
+                                wait_pair, 0)
+        wait_ms = pair_wait.reshape(B, K).max(dim=1).values
+    else:
+        pair_pass = pass_default | (key == NF)
+        wait_ms = torch.zeros((B,), dtype=torch.int32, device=rows.device)
+
+    allow = pair_pass.reshape(B, K).all(dim=1)
+
+    # ---- pacing-clock update (only when the ruleset has RL rules) ----
+    if has_rate_limiter:
+        npairs = torch.zeros((NF + 2,), dtype=torch.int32,
+                             device=rows.device).scatter_reduce_(
+            0, key.long(), rank + 1, reduce="amax")[:NF + 1]
+        passed = torch.minimum(npairs, max_k)
+        passed = torch.where(is_rl & applies & (table.count > 0), passed, 0)
+        new_latest = torch.where(passed > 0, base_time + passed * cost,
+                                 dyn.latest_passed_ms)
+        dyn = dyn._replace(
+            latest_passed_ms=torch.maximum(dyn.latest_passed_ms, new_latest))
+
+    allow = allow | ~valid
+    return dyn, allow, wait_ms.to(torch.int32)
+
+
+def _landed_per_rule(dyn: FlowDynState, sel_row: torch.Tensor,
+                     spec: WindowSpec, now_idx_s: int) -> torch.Tensor:
+    """LANDED occupy bookings per rule → float32[NF+1]: bookings on the
+    rule's selected main row whose target window has been reached and is
+    still inside the rolling interval (age in [0, B))."""
+    r = sel_row.long()
+    occ_age = now_idx_s - dyn.occupied_window[r]             # [NF+1, S]
+    return torch.where((occ_age >= 0) & (occ_age < spec.buckets),
+                       dyn.occupied_count[r], 0.0).sum(1)
+
+
+def _rl_closed_form(table: FlowRuleTable, dyn: FlowDynState,
+                    acq_of_rule: torch.Tensor, rel_now_ms: int):
+    """Per-rule RATE_LIMITER closed form → (base_time, cost, max_k).
+
+    The admitted-rank budget ``max_k = (now + maxq - base_time) // cost``
+    has a bounded numerator, so no rank*cost product can overflow int32 —
+    a pair passes iff ``rank < max_k``. ``cost == 0`` (huge count): every
+    rank shares one wait. ``count <= 0`` blocks everything
+    (RateLimiterController.java:30-90)."""
+    count_safe = torch.clamp(table.count, min=1e-9)
+    cost = _f32_to_i32(torch.round(acq_of_rule / count_safe * 1000.0))
+    L0 = dyn.latest_passed_ms
+    due = (L0 + cost - rel_now_ms) <= 0
+    base_time = torch.where(due, rel_now_ms - cost, L0)
+    maxq_eff = torch.where(table.count > 0, table.max_queue_ms, -1)
+    rl_numer = rel_now_ms + maxq_eff - base_time
+    max_k = torch.clamp(_floordiv(rl_numer, torch.clamp(cost, min=1)), min=0)
+    wait0_ok = torch.clamp(base_time - rel_now_ms, min=0) <= maxq_eff
+    max_k = torch.where(cost > 0, max_k,
+                        torch.where(wait0_ok, 2 ** 30, 0))
+    max_k = torch.where(table.count > 0, max_k, 0).to(torch.int32)
+    return base_time, cost, max_k
+
+
+def _warmup_sync_and_limits(
+    table: FlowRuleTable, dyn: FlowDynState, spec: WindowSpec,
+    main_second: WindowState, now_idx_s: int, rel_now_ms: int,
+    minute_spec: Optional[WindowSpec], main_minute: Optional[WindowState],
+    now_idx_m: Optional[int],
+) -> Tuple[FlowDynState, torch.Tensor]:
+    """Once-per-step warm-up token refill (WarmUpController.syncToken) and
+    the per-rule effective QPS limit for this step. Token state syncs
+    against the rule's ``sync_row`` using the previous second's pass
+    count (the minute window's previous bucket when the minute window is
+    on, else the second window's previous sub-second bucket)."""
+    is_wu = ((table.behavior == BEHAVIOR_WARM_UP)
+             | (table.behavior == BEHAVIOR_WARM_UP_RATE_LIMITER)) & (
+        table.grade == GRADE_QPS)
+    R = main_second.stamps.shape[0]
+    srow = torch.clamp(table.sync_row, max=R - 1)
+    if minute_spec is not None and main_minute is not None:
+        pass_prev = prev_window_sum_rows(minute_spec, main_minute, srow,
+                                         ev.PASS, now_idx_m).to(torch.float32)
+    else:
+        pass_prev = prev_window_sum_rows(spec, main_second, srow, ev.PASS,
+                                         now_idx_s).to(torch.float32)
+
+    now_sec = rel_now_ms // 1000
+    should_sync = is_wu & (now_sec > dyn.last_filled_sec)
+    old = dyn.stored_tokens
+    elapsed_s = (now_sec - dyn.last_filled_sec).to(torch.float32)
+    refill_ok = (old < table.warning_token) | (
+        (old > table.warning_token)
+        & (pass_prev < table.count / torch.clamp(table.cold_factor,
+                                                 min=1.001)))
+    refilled = torch.minimum(_fma_f32(elapsed_s, table.count, old),
+                             table.max_token)
+    new_tokens = torch.where(refill_ok, refilled, old)
+    new_tokens = torch.clamp(new_tokens - pass_prev, min=0.0)
+    stored = torch.where(should_sync, new_tokens, old)
+    last_filled = torch.where(should_sync, now_sec, dyn.last_filled_sec)
+    dyn = dyn._replace(stored_tokens=stored, last_filled_sec=last_filled)
+
+    above = torch.clamp(stored - table.warning_token, min=0.0)
+    warning_qps = 1.0 / _fma_f32(above, table.slope,
+                                 1.0 / torch.clamp(table.count, min=1e-9))
+    eff = torch.where(is_wu & (stored >= table.warning_token),
+                      warning_qps, table.count)
+    return dyn, eff

@@ -1,0 +1,723 @@
+"""Host runtime: the public facade (SphU/SphO/Tracer analog) around the
+device pipeline — the scalar admission route.
+
+Port of ``sentinel_tpu/runtime.py`` for the route the serving headline
+takes: batches with no origin, one ``acquire`` value for every event and
+no priority. Two API tiers, as in the JAX package:
+
+* :meth:`Sentinel.entry` — per-call context manager parity with
+  ``try (Entry e = SphU.entry(name)) { ... }``: raises a
+  :class:`~sentinel_tpu_torch.core.errors.BlockException` subclass on deny,
+  sleeps (via the clock) on pass-with-wait verdicts;
+* :meth:`Sentinel.entry_batch` / :meth:`Sentinel.exit_batch` and the raw
+  ``*_nowait`` forms — numpy arrays in, verdict arrays out.
+
+Everything off that route raises :class:`NotImplementedError` naming the
+ROADMAP item that will port it — origins, prioritized events and
+non-uniform ``acquire`` (the fast and general paths), param rules, cluster
+mode, the host fast path, meshes — and never quietly takes another path.
+Host-side eligibility is decided in numpy before anything is copied to
+the device, and a decide step reads nothing back from the device: the
+verdicts come home through :class:`PendingVerdicts` (pinned memory,
+``non_blocking`` copies, one CUDA event).
+
+The engine runs on ``cuda`` unless the caller passes ``device="cpu"`` (as
+the tests do); with no CUDA device and no ``device`` given, construction
+raises instead of carrying on on the CPU.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from sentinel_tpu_torch.core.batching import pad_pow2, pad_to
+from sentinel_tpu_torch.core.clock import Clock, global_clock
+from sentinel_tpu_torch.core.config import SentinelConfig, load_config
+from sentinel_tpu_torch.core.errors import (
+    ErrorEntryFreeError, block_exception_for, is_block_exception,
+)
+from sentinel_tpu_torch.core.pending import (
+    PendingResult, start_host_copy, wait_host_copy,
+)
+from sentinel_tpu_torch.core.registry import (
+    OriginRegistry, Registry, ResourceRegistry,
+)
+from sentinel_tpu_torch.engine.pipeline import (
+    EngineSpec, EntryBatch, ExitBatch, RuleSet, Verdicts,
+    decide_and_record_exits, decide_entries, init_state,
+    invalidate_resource_rows, record_exits,
+)
+from sentinel_tpu_torch.obs.resource_hist import engine_hist_buckets
+from sentinel_tpu_torch.rules import authority as auth_mod
+from sentinel_tpu_torch.rules import degrade as deg_mod
+from sentinel_tpu_torch.rules import flow as flow_mod
+from sentinel_tpu_torch.rules import system as sys_mod
+from sentinel_tpu_torch.stats import events as ev
+from sentinel_tpu_torch.stats.window import (
+    MINUTE_SPEC, WindowSpec, rolling_totals,
+)
+
+ENTRY_TYPE_OUT = 0
+ENTRY_TYPE_IN = 1
+
+_DEFAULT_CONTEXT = "sentinel_default_context"
+
+# what this slice rejects, and where ROADMAP.md queues it
+_NOT_PORTED = {
+    "fast_path": "the host fast path (host_fast_path=True, "
+                 "engine/fastpath.py) is not ported yet: ROADMAP A6; "
+                 "construct with host_fast_path=False",
+    "general": "batches with origins, origin/chain rows, prioritized "
+               "events or non-uniform acquire take the fast and general "
+               "admission paths, which are not ported yet: ROADMAP A7",
+    "param": "param flow rules are not ported yet: ROADMAP A8",
+    "cluster": "cluster-mode flow rules are not ported yet: ROADMAP A12",
+    "mesh": "meshes (row-sharded multi-GPU engines) are not ported yet: "
+            "ROADMAP A11",
+}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given, else ``cuda`` — which must exist: with no CUDA
+    device and no explicit ``device`` this raises rather than running on
+    the CPU by itself."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available: sentinel_tpu_torch runs on the GPU; "
+            "pass device='cpu' to run on the CPU explicitly")
+    return torch.device("cuda")
+
+
+class _CpuSampler:
+    """(load1, CPU usage) from os.getloadavg and /proc/stat deltas,
+    sampled at most once per second of the clock (the JAX package's
+    sampler, so twin engines under twin clocks read alike)."""
+
+    def __init__(self, clock: Clock):
+        self._clock = clock
+        self._last_ms = -10_000
+        self._last_total = 0
+        self._last_idle = 0
+        self._load1 = -1.0
+        self._value = -1.0
+
+    def sample(self) -> Tuple[float, float]:
+        import os
+        now = self._clock.now_ms()
+        if now - self._last_ms >= 1000:
+            self._last_ms = now
+            try:
+                self._load1 = os.getloadavg()[0]
+            except OSError:  # pragma: no cover
+                self._load1 = -1.0
+            try:
+                with open("/proc/stat") as fh:
+                    parts = fh.readline().split()[1:]
+                vals = [int(x) for x in parts[:8]]
+                total = sum(vals)
+                idle = vals[3] + (vals[4] if len(vals) > 4 else 0)
+                dt = total - self._last_total
+                di = idle - self._last_idle
+                if self._last_total and dt > 0:
+                    self._value = max(0.0, min(1.0, 1.0 - di / dt))
+                self._last_total, self._last_idle = total, idle
+            except (OSError, ValueError, IndexError):  # pragma: no cover
+                self._value = -1.0
+        return self._load1, self._value
+
+
+class Entry:
+    """A granted guarded call. Context manager; reference
+    ``Entry``/``CtEntry`` with try-with-resources semantics."""
+
+    __slots__ = ("_rt", "resource", "row", "origin_row", "chain_row",
+                 "acquire", "is_in", "create_ms", "error", "_exited",
+                 "wait_ms", "_terminate_handlers")
+
+    def __init__(self, rt: "Sentinel", resource: str, row: int,
+                 origin_row: int, chain_row: int, acquire: int, is_in: bool,
+                 create_ms: int):
+        self._rt = rt
+        self.resource = resource
+        self.row = row
+        self.origin_row = origin_row
+        self.chain_row = chain_row
+        self.acquire = acquire
+        self.is_in = is_in
+        self.create_ms = create_ms
+        self.error: Optional[BaseException] = None
+        self._exited = False
+        self.wait_ms = 0   # pacing verdict; >0 only with entry(sleep=False)
+        self._terminate_handlers = None
+
+    def trace(self, exc: BaseException) -> None:
+        """Reference ``Tracer.trace``: mark a business exception so it
+        feeds exception-ratio/count breakers and exception QPS."""
+        if exc is not None and not is_block_exception(exc):
+            self.error = exc
+
+    def when_terminate(self, fn) -> None:
+        """Register ``fn(entry)`` to run after exit."""
+        if self._terminate_handlers is None:
+            self._terminate_handlers = []
+        self._terminate_handlers.append(fn)
+
+    def exit(self) -> None:
+        if self._exited:
+            raise ErrorEntryFreeError(
+                f"entry for {self.resource!r} exited twice")
+        self._exited = True
+        self._rt._exit_one(self)
+        if self._terminate_handlers:
+            for fn in self._terminate_handlers:
+                fn(self)
+
+    def __enter__(self) -> "Entry":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if exc is not None:
+            self.trace(exc)
+        self.exit()
+        return False
+
+
+class PendingVerdicts(PendingResult):
+    """Handle for an in-flight batch decide: ``result()`` waits for the
+    verdict copies (one CUDA event) and returns numpy
+    :class:`~sentinel_tpu_torch.engine.pipeline.Verdicts`."""
+
+    __slots__ = ()
+
+
+class Sentinel:
+    """The framework instance (Env/CtSph + rule managers, in one object),
+    scalar admission route."""
+
+    def __init__(self, config: Optional[SentinelConfig] = None,
+                 clock: Optional[Clock] = None, device=None, mesh=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg = config or load_config()
+        if mesh is not None:
+            raise NotImplementedError(_NOT_PORTED["mesh"])
+        if cfg.host_fast_path:
+            raise NotImplementedError(_NOT_PORTED["fast_path"])
+        self.clock = clock or global_clock()
+
+        self.resources = ResourceRegistry(cfg.max_resources)
+        self.origins = OriginRegistry(cfg.max_origins)
+        self.contexts = Registry(2048, reserved=(_DEFAULT_CONTEXT,))
+        self.spec = EngineSpec(
+            rows=cfg.max_resources,
+            alt_rows=max(2 * cfg.max_resources, 1024),
+            second=WindowSpec(cfg.second_sample_count,
+                              cfg.second_interval_ms
+                              // max(cfg.second_sample_count, 1)),
+            minute=MINUTE_SPEC if cfg.minute_enabled else None,
+            statistic_max_rt=cfg.statistic_max_rt,
+            hist_buckets=engine_hist_buckets(),
+        )
+        # process epoch: wraparound-safe int32 relative time base
+        self.epoch_ms = self.clock.now_ms()
+        self._lock = threading.RLock()
+        self._state = init_state(self.spec, cfg.max_flow_rules,
+                                 cfg.max_degrade_rules, device=self.device)
+        self._sys_rules: List[sys_mod.SystemRule] = []
+        self._rule_pins: Dict[str, Tuple[set, set, set]] = {}
+        self._cpu = _CpuSampler(self.clock)
+        self._compile_empty_rules()
+
+    # ------------------------------------------------------------------
+    # Rule management (XxxRuleManager.loadRules analog)
+    # ------------------------------------------------------------------
+
+    def _compile_flow(self, rules):
+        cfg = self.cfg
+        return flow_mod.compile_flow_rules(
+            rules, resource_registry=self.resources,
+            context_registry=self.contexts, capacity=cfg.max_flow_rules,
+            k_per_resource=cfg.max_rules_per_resource,
+            num_rows=cfg.max_resources, cold_factor=float(cfg.cold_factor),
+            origin_registry=self.origins, device=self.device)
+
+    def _compile_degrade(self, rules):
+        cfg = self.cfg
+        return deg_mod.compile_degrade_rules(
+            rules, resource_registry=self.resources,
+            capacity=cfg.max_degrade_rules,
+            k_per_resource=cfg.max_rules_per_resource,
+            num_rows=cfg.max_resources, device=self.device)
+
+    def _compile_authority(self, rules):
+        cfg = self.cfg
+        return auth_mod.compile_authority_rules(
+            rules, resource_registry=self.resources,
+            origin_registry=self.origins,
+            capacity=cfg.max_authority_rules, k_per_resource=2,
+            num_rows=cfg.max_resources, device=self.device)
+
+    def _compile_empty_rules(self) -> None:
+        self._flow = self._compile_flow([])
+        self._deg = self._compile_degrade([])
+        self._auth = self._compile_authority([])
+        self._sys = sys_mod.compile_system_rules([], device=self.device)
+        self._ruleset = self._build_ruleset()
+
+    def _build_ruleset(self) -> RuleSet:
+        """Assemble the dispatch RuleSet and the step flags from the
+        compiled tables (callers hold ``self._lock``, or are __init__).
+
+        The rule-gather width is sliced to the most rules on any ONE
+        resource; the flags elide work that is a structural no-op for the
+        loaded rules, exactly as the JAX package's runtime does."""
+        kf = self._flow.k_used
+        kd = self._deg.k_used
+        self._scalar_has_rl = any(
+            r.control_behavior in (flow_mod.BEHAVIOR_RATE_LIMITER,
+                                   flow_mod.BEHAVIOR_WARM_UP_RATE_LIMITER)
+            and r.grade == flow_mod.GRADE_QPS for r in self._flow.rules)
+        self._skip_auth = self._auth.num_active == 0
+        self._skip_sys = not self._sys_rules
+        prev_skip = getattr(self, "_skip_threads", None)
+        # nothing loaded READS live concurrency → the gauge scatters are
+        # elided (readers: THREAD-grade flow rules, system rules)
+        self._skip_threads = (
+            not self.cfg.thread_gauge_always
+            and self._skip_sys
+            and not any(r.grade == flow_mod.GRADE_THREAD
+                        for r in self._flow.rules))
+        if prev_skip is not None and prev_skip != self._skip_threads:
+            # a flip invalidates the gauges: zero them (transient
+            # under-count only; decrements clamp at 0)
+            self._state.threads.zero_()
+            self._state.alt_threads.zero_()
+        fi_np = self._flow.rule_idx_np[:, :kf]
+        di_np = self._deg.rule_idx_np[:, :kd]
+        joint_np = RuleSet.build_joint_np(fi_np, di_np)
+        flow_idx, deg_idx, joint = (torch.from_numpy(np.ascontiguousarray(a))
+                                    .to(self.device)
+                                    for a in (fi_np, di_np, joint_np))
+        return RuleSet(
+            flow_table=self._flow.table, flow_idx=flow_idx,
+            deg_table=self._deg.table, deg_idx=deg_idx,
+            auth_table=self._auth.table, auth_idx=self._auth.rule_idx,
+            sys_thresholds=self._sys, joint_idx=joint)
+
+    def _update_rule_pins_locked(self, family: str, res: set, org: set,
+                                 ctx: set) -> None:
+        """Refcounted rule-pin release: names the previous table of this
+        family pinned that no family references any more are unpinned, so
+        formerly ruled keys become evictable again."""
+        old = self._rule_pins.get(family, (set(), set(), set()))
+        new = (set(res), set(org), set(ctx))
+        self._rule_pins[family] = new
+        regs = (self.resources, self.origins, self.contexts)
+        for kind in range(3):
+            still: set = set()
+            for fam, sets in self._rule_pins.items():
+                if fam != family:
+                    still |= sets[kind]
+            for name in old[kind] - new[kind] - still:
+                regs[kind].unpin(name)
+
+    def load_flow_rules(self, rules: Sequence[flow_mod.FlowRule]) -> None:
+        if any(r.cluster_mode for r in rules if r.is_valid()):
+            raise NotImplementedError(_NOT_PORTED["cluster"])
+        compiled = self._compile_flow(rules)
+        with self._lock:
+            self._flow = compiled
+            self._ruleset = self._build_ruleset()
+            # fresh shaping state for the new tables (the reference
+            # rebuilds its raters); this route books no occupy tokens,
+            # so there are no bookings to settle into the window
+            self._state = self._state._replace(
+                flow_dyn=flow_mod.init_flow_dyn(
+                    self.cfg.max_flow_rules, self.spec.second.buckets,
+                    self.spec.rows, device=self.device))
+            res: set = set()
+            org: set = set()
+            ctxs: set = set()
+            for r in compiled.rules:
+                res.add(r.resource)
+                la = r.limit_app or "default"
+                if la not in ("default", "other"):
+                    org.add(la)
+                if r.strategy == flow_mod.STRATEGY_RELATE:
+                    res.add(r.ref_resource)
+                elif r.strategy == flow_mod.STRATEGY_CHAIN:
+                    ctxs.add(r.ref_resource)
+            self._update_rule_pins_locked("flow", res, org, ctxs)
+
+    def load_degrade_rules(self, rules: Sequence[deg_mod.DegradeRule]) -> None:
+        compiled = self._compile_degrade(rules)
+        with self._lock:
+            self._deg = compiled
+            self._ruleset = self._build_ruleset()
+            self._state = self._state._replace(
+                breakers=deg_mod.init_breaker_state(
+                    self.cfg.max_degrade_rules, device=self.device))
+            self._update_rule_pins_locked(
+                "degrade", {r.resource for r in compiled.rules}, set(),
+                set())
+
+    def load_system_rules(self, rules: Sequence[sys_mod.SystemRule]) -> None:
+        with self._lock:
+            self._sys_rules = list(rules)
+            self._sys = sys_mod.compile_system_rules(rules,
+                                                     device=self.device)
+            self._ruleset = self._build_ruleset()
+
+    def load_authority_rules(self,
+                             rules: Sequence[auth_mod.AuthorityRule]) -> None:
+        compiled = self._compile_authority(rules)
+        with self._lock:
+            self._auth = compiled
+            self._ruleset = self._build_ruleset()
+            org: set = set()
+            for r in compiled.rules:
+                org.update(o.strip() for o in r.limit_app.split(",")
+                           if o.strip())
+            self._update_rule_pins_locked(
+                "authority", {r.resource for r in compiled.rules}, org,
+                set())
+
+    def load_param_flow_rules(self, rules) -> None:
+        raise NotImplementedError(_NOT_PORTED["param"])
+
+    # ------------------------------------------------------------------
+    # Time and device helpers
+    # ------------------------------------------------------------------
+
+    def _rel_ms(self, now_ms: int) -> int:
+        return int((now_ms - self.epoch_ms + 2 ** 31) % 2 ** 32 - 2 ** 31)
+
+    def _time_scalars(self, now_ms: int) -> Tuple[int, int, int, int]:
+        """(idx_s, idx_m, rel_ms, in_win_ms) — host ints, int32 range."""
+        s = self.spec
+        return (s.second.index_of(now_ms),
+                s.minute.index_of(now_ms) if s.minute else 0,
+                self._rel_ms(now_ms), now_ms % s.second.win_ms)
+
+    def _sys_scalars(self) -> Tuple[float, float]:
+        load1, cpu = self._cpu.sample()
+        return float(np.float32(load1)), float(np.float32(cpu))
+
+    def _dev(self, arr: np.ndarray) -> torch.Tensor:
+        """Host column → device tensor. On CUDA the column is staged in
+        pinned memory and copied with ``non_blocking`` (no stream sync)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _drain_evictions_locked(self) -> None:
+        """Rows recycled by registry pressure lose their history before
+        they serve a new resource."""
+        evicted = self.resources.drain_evicted()
+        if evicted:
+            rows = pad_to(np.asarray(evicted, np.int32),
+                          pad_pow2(len(evicted)), self.spec.rows, np.int32)
+            self._state = invalidate_resource_rows(self.spec, self._state,
+                                                   self._dev(rows))
+
+    def _flags(self) -> dict:
+        return dict(skip_auth=self._skip_auth, skip_sys=self._skip_sys,
+                    scalar_has_rl=self._scalar_has_rl,
+                    skip_threads=self._skip_threads)
+
+    def _check_scalar(self, acquire, origin_ids, origin_rows, chain_rows,
+                      prioritized, vfull) -> None:
+        """Host-side route check (numpy, before any copy): the batch must
+        be scalar-eligible — valid lanes carry one ``acquire`` >= 1, no
+        origin id, no origin/chain row, no prioritized event."""
+        pad_a = self.spec.alt_rows
+        acq_v = np.asarray(acquire)[vfull]
+        acq_uniform = (acq_v.size > 0
+                       and int(acq_v.min()) == int(acq_v.max()) >= 1)
+        no_origin_ids = int(np.max(np.asarray(origin_ids)[vfull],
+                                   initial=0)) == 0
+        no_alt = (np.min(origin_rows, initial=pad_a) >= pad_a
+                  and np.min(chain_rows, initial=pad_a) >= pad_a)
+        if not (acq_uniform and no_origin_ids and no_alt
+                and not np.asarray(prioritized).any()):
+            raise NotImplementedError(_NOT_PORTED["general"])
+
+    def _entry_batch(self, rows, origin_ids, origin_rows, context_ids,
+                     chain_rows, acquire, is_in, prioritized,
+                     vfull) -> EntryBatch:
+        """Pad the raw columns to a power of two and copy them over."""
+        b = pad_pow2(rows.shape[0])
+        r, ra = self.spec.rows, self.spec.alt_rows
+        col = self._dev
+        return EntryBatch(
+            rows=col(pad_to(rows, b, r, np.int32)),
+            origin_ids=col(pad_to(origin_ids, b, 0, np.int32)),
+            origin_rows=col(pad_to(origin_rows, b, ra, np.int32)),
+            context_ids=col(pad_to(context_ids, b, 0, np.int32)),
+            chain_rows=col(pad_to(chain_rows, b, ra, np.int32)),
+            acquire=col(pad_to(acquire, b, 0, np.int32)),
+            is_in=col(pad_to(is_in, b, False, np.bool_)),
+            prioritized=col(pad_to(prioritized, b, False, np.bool_)),
+            valid=col(pad_to(vfull, b, False, np.bool_)))
+
+    def _exit_batch(self, rows, origin_rows, chain_rows, acquire, rt_ms,
+                    error, is_in, valid) -> ExitBatch:
+        b = pad_pow2(rows.shape[0])
+        r, ra = self.spec.rows, self.spec.alt_rows
+        col = self._dev
+        return ExitBatch(
+            rows=col(pad_to(rows, b, r, np.int32)),
+            origin_rows=col(pad_to(origin_rows, b, ra, np.int32)),
+            chain_rows=col(pad_to(chain_rows, b, ra, np.int32)),
+            acquire=col(pad_to(acquire, b, 0, np.int32)),
+            rt_ms=col(pad_to(rt_ms, b, 0, np.int32)),
+            error=col(pad_to(error, b, False, np.bool_)),
+            is_in=col(pad_to(is_in, b, False, np.bool_)),
+            valid=col(pad_to(valid, b, False, np.bool_)))
+
+    @staticmethod
+    def _valid_full(n: int, valid) -> np.ndarray:
+        vfull = np.ones(n, np.bool_)
+        if valid is not None:
+            vsrc = np.asarray(valid, bool)
+            m = min(n, vsrc.shape[0])
+            vfull[:] = False
+            vfull[:m] = vsrc[:m]
+        return vfull
+
+    @staticmethod
+    def _pending(verdicts: Verdicts, n: int) -> PendingVerdicts:
+        host, event = start_host_copy(
+            (verdicts.allow[:n], verdicts.reason[:n], verdicts.wait_ms[:n]))
+
+        def _read() -> Verdicts:
+            allow, reason, wait_ms = wait_host_copy(host, event)
+            return Verdicts(allow=allow, reason=reason, wait_ms=wait_ms)
+
+        return PendingVerdicts(_read)
+
+    # ------------------------------------------------------------------
+    # Per-call API
+    # ------------------------------------------------------------------
+
+    def entry(self, resource: str, *, origin: Optional[str] = None,
+              acquire: int = 1, entry_type: int = ENTRY_TYPE_IN,
+              prioritized: bool = False, args: Sequence = (),
+              sleep: bool = True) -> Entry:
+        """Guard a call. Raises a BlockException subclass when denied;
+        sleeps (via the clock) on pass-with-wait verdicts, or with
+        ``sleep=False`` reports the wait on ``Entry.wait_ms``."""
+        if origin or prioritized:
+            raise NotImplementedError(_NOT_PORTED["general"])
+        if args:
+            raise NotImplementedError(_NOT_PORTED["param"])
+        row = self.resources.get_or_create(resource)
+        ra = self.spec.alt_rows
+        is_in = entry_type == ENTRY_TYPE_IN
+        verdict = self.decide_raw(
+            np.array([row], np.int32), np.zeros(1, np.int32),
+            np.array([ra], np.int32), np.zeros(1, np.int32),
+            np.array([ra], np.int32), np.array([acquire], np.int32),
+            np.array([is_in], np.bool_), np.zeros(1, np.bool_))
+        if not bool(verdict.allow[0]):
+            raise block_exception_for(int(verdict.reason[0]), resource)
+        wait = int(verdict.wait_ms[0])
+        if wait > 0 and sleep:
+            self.clock.sleep_ms(wait)
+        now = self.clock.now_ms()
+        # sleep=False: project create_ms past the wait the caller will
+        # await, so rt excludes the pacing delay as with sleep=True
+        e = Entry(self, resource, row, ra, ra, acquire, is_in,
+                  now if sleep else now + wait)
+        if not sleep:
+            e.wait_ms = wait
+        return e
+
+    def _exit_one(self, e: Entry) -> None:
+        rt = max(0, self.clock.now_ms() - e.create_ms)
+        self.exit_batch(
+            rows=np.array([e.row], np.int32),
+            origin_rows=np.array([e.origin_row], np.int32),
+            chain_rows=np.array([e.chain_row], np.int32),
+            acquire=np.array([e.acquire], np.int32),
+            rt_ms=np.array([min(rt, self.cfg.statistic_max_rt)], np.int32),
+            error=np.array([e.error is not None], np.bool_),
+            is_in=np.array([e.is_in], np.bool_))
+
+    # ------------------------------------------------------------------
+    # Batch API (throughput tier)
+    # ------------------------------------------------------------------
+
+    def intern_resources(self, resources: Sequence[str]) -> np.ndarray:
+        """Intern every DISTINCT name once → the int32 row array, for
+        serving loops that pass it to :meth:`entry_batch` step after step
+        (moving the intern cost out of the per-step path)."""
+        names = list(dict.fromkeys(resources))
+        drows = np.fromiter((self.resources.get_or_create(r) for r in names),
+                            np.int32, count=len(names))
+        if len(names) == len(resources):
+            return drows
+        by_name = dict(zip(names, drows))
+        return np.fromiter((by_name[r] for r in resources), np.int32,
+                           count=len(resources))
+
+    def entry_batch(self, resources, **kwargs) -> Verdicts:
+        return self.entry_batch_nowait(resources, **kwargs).result()
+
+    def entry_batch_nowait(
+            self, resources, *,
+            origins: Optional[Sequence[str]] = None,
+            contexts: Optional[Sequence[str]] = None,
+            acquire: Optional[Sequence[int]] = None,
+            entry_types: Optional[Sequence[int]] = None,
+            prioritized: Optional[Sequence[bool]] = None,
+            args_list=None) -> PendingVerdicts:
+        """Dispatch-only batch tier: the decide is enqueued and the
+        verdict copy started; ``.result()`` materializes. ``resources``
+        may be names or a numpy INTEGER array of pre-interned rows
+        (:meth:`intern_resources`)."""
+        if origins is not None and any(origins):
+            raise NotImplementedError(_NOT_PORTED["general"])
+        if contexts is not None and any(
+                c and c != _DEFAULT_CONTEXT for c in contexts):
+            raise NotImplementedError(_NOT_PORTED["general"])
+        if args_list is not None:
+            raise NotImplementedError(_NOT_PORTED["param"])
+        n = len(resources)
+        if isinstance(resources, np.ndarray) and resources.dtype.kind in "iu":
+            rows = np.ascontiguousarray(resources, np.int32)
+        else:
+            rows = np.fromiter(
+                (self.resources.get_or_create(r) for r in resources),
+                np.int32, count=n)
+        ra = self.spec.alt_rows
+        acq = (np.asarray(acquire, np.int32) if acquire is not None
+               else np.ones(n, np.int32))
+        is_in = ((np.asarray(entry_types, np.int32) == ENTRY_TYPE_IN)
+                 if entry_types is not None else np.ones(n, np.bool_))
+        prio = (np.asarray(prioritized, np.bool_) if prioritized is not None
+                else np.zeros(n, np.bool_))
+        return self.decide_raw_nowait(
+            rows, np.zeros(n, np.int32), np.full(n, ra, np.int32),
+            np.zeros(n, np.int32), np.full(n, ra, np.int32), acq, is_in,
+            prio)
+
+    def decide_raw(self, rows, origin_ids, origin_rows, context_ids,
+                   chain_rows, acquire, is_in, prioritized, *,
+                   valid=None) -> Verdicts:
+        """Lowest-level host entry point: pre-resolved numpy arrays."""
+        return self.decide_raw_nowait(
+            rows, origin_ids, origin_rows, context_ids, chain_rows, acquire,
+            is_in, prioritized, valid=valid).result()
+
+    def decide_raw_nowait(self, rows, origin_ids, origin_rows, context_ids,
+                          chain_rows, acquire, is_in, prioritized, *,
+                          valid=None) -> PendingVerdicts:
+        """:meth:`decide_raw` with the verdict readback deferred: the step
+        is enqueued (state advanced in order under the lock) and the
+        device→host verdict copy started; ``.result()`` materializes.
+        Only the scalar route is ported (see the module docstring)."""
+        n = rows.shape[0]
+        vfull = self._valid_full(n, valid)
+        self._check_scalar(acquire, origin_ids, origin_rows, chain_rows,
+                           prioritized, vfull)
+        batch = self._entry_batch(rows, origin_ids, origin_rows, context_ids,
+                                  chain_rows, acquire, is_in, prioritized,
+                                  vfull)
+        times = self._time_scalars(self.clock.now_ms())
+        sys_scalars = self._sys_scalars()
+        with self._lock:
+            self._drain_evictions_locked()
+            self._state, verdicts = decide_entries(
+                self.spec, self._ruleset, self._state, batch, times,
+                sys_scalars, **self._flags())
+            return self._pending(verdicts, n)
+
+    def decide_and_exit_raw_nowait(
+            self, rows, origin_ids, origin_rows, context_ids, chain_rows,
+            acquire, is_in, prioritized, *, exit_rows,
+            exit_origin_rows=None, exit_chain_rows=None, exit_acquire=None,
+            exit_rt_ms=None, exit_error=None, exit_is_in=None,
+            exit_valid=None, valid=None) -> PendingVerdicts:
+        """Fused decide+exit: this step's entry decisions and the previous
+        step's completions in one engine step (exits land after decides,
+        identical to the decide-then-exit pair). Exit columns default to
+        padding-free trivia (no origins, acquire=1, rt=0, no errors)."""
+        n = rows.shape[0]
+        n_x = exit_rows.shape[0]
+        ra = self.spec.alt_rows
+        vfull = self._valid_full(n, valid)
+        x_orows = (exit_origin_rows if exit_origin_rows is not None
+                   else np.full(n_x, ra, np.int32))
+        x_crows = (exit_chain_rows if exit_chain_rows is not None
+                   else np.full(n_x, ra, np.int32))
+        self._check_scalar(acquire, origin_ids, origin_rows, chain_rows,
+                           prioritized, vfull)
+        if (np.min(x_orows, initial=ra) < ra
+                or np.min(x_crows, initial=ra) < ra):
+            raise NotImplementedError(_NOT_PORTED["general"])
+        batch = self._entry_batch(rows, origin_ids, origin_rows, context_ids,
+                                  chain_rows, acquire, is_in, prioritized,
+                                  vfull)
+        xbatch = self._exit_batch(
+            exit_rows, x_orows, x_crows,
+            exit_acquire if exit_acquire is not None
+            else np.ones(n_x, np.int32),
+            exit_rt_ms if exit_rt_ms is not None else np.zeros(n_x, np.int32),
+            exit_error if exit_error is not None
+            else np.zeros(n_x, np.bool_),
+            exit_is_in if exit_is_in is not None
+            else np.ones(n_x, np.bool_),
+            exit_valid if exit_valid is not None
+            else np.ones(n_x, np.bool_))
+        times = self._time_scalars(self.clock.now_ms())
+        sys_scalars = self._sys_scalars()
+        with self._lock:
+            self._drain_evictions_locked()
+            self._state, verdicts = decide_and_record_exits(
+                self.spec, self._ruleset, self._state, batch, xbatch, times,
+                sys_scalars, **self._flags())
+            return self._pending(verdicts, n)
+
+    def exit_batch(self, *, rows, origin_rows, chain_rows, acquire, rt_ms,
+                   error, is_in) -> None:
+        """Record a batch of completions (``StatisticSlot.exit`` +
+        ``DegradeSlot.exit``)."""
+        ra = self.spec.alt_rows
+        if (np.min(origin_rows, initial=ra) < ra
+                or np.min(chain_rows, initial=ra) < ra):
+            raise NotImplementedError(_NOT_PORTED["general"])
+        n = rows.shape[0]
+        batch = self._exit_batch(rows, origin_rows, chain_rows, acquire,
+                                 rt_ms, error, is_in, np.ones(n, np.bool_))
+        times = self._time_scalars(self.clock.now_ms())
+        with self._lock:
+            self._drain_evictions_locked()
+            self._state = record_exits(self.spec, self._ruleset, self._state,
+                                       batch, times,
+                                       skip_threads=self._skip_threads)
+
+    # ------------------------------------------------------------------
+    # Introspection
+    # ------------------------------------------------------------------
+
+    def node_totals(self, resource: str) -> dict:
+        """Current rolling-second totals for a resource (ClusterNode view):
+        pass, block, success, exception, threads."""
+        row = self.resources.lookup(resource)
+        if row is None:
+            return {}
+        idx_s = self.spec.second.index_of(self.clock.now_ms())
+        with self._lock:
+            tot = rolling_totals(self.spec.second, self._state.second,
+                                 idx_s)[row].cpu().numpy()
+            threads = int(self._state.threads[row])
+        return {"pass": int(tot[ev.PASS]), "block": int(tot[ev.BLOCK]),
+                "success": int(tot[ev.SUCCESS]),
+                "exception": int(tot[ev.EXCEPTION]), "threads": threads}
