@@ -9,15 +9,19 @@ It builds the port's CUDA kernels from ``sentinel_tpu_torch/csrc`` (into
 the git-ignored ``sentinel_tpu_torch/_build/``), then:
 
 1. builds every kernel, in parallel, and prints the build times;
-2. holds each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it, and times both, the bound and one
-   PyTorch library call as a yardstick (``library_ms``; the port never
-   calls it);
+2. holds each kernel against its plain PyTorch version on the card, exactly,
+   at the shapes the main path gives it (and at a one-key stream and both
+   sides of the shared-memory threshold), as its launch plan launches it;
+   then times each launch cold (L2 flushed before every launch) and warm,
+   in alternating turns with one PyTorch library call as a yardstick
+   (``library_ms``; the port never calls it), beside the bound, the plain
+   version's time and an empty interval after the same flush;
 3. drives the engine at the serving headline's geometry (1M resources,
    512k-event batches, 4096 QPS rules, 1024 exception-ratio breakers, RT
    histograms on) for a run of fused decide+exit steps twice from one
    initial state — with the kernel, and with the plain scatter put in the
-   seam — and requires identical verdicts and state;
+   seam — and requires identical verdicts and state, and 6 kernel launches
+   per step;
 4. drives the runtime through the entry points a user calls
    (``Sentinel(device="cuda")`` at 1M resources: ``entry``,
    ``entry_batch``, ``exit_batch``, full-width fused decide+exit steps)
@@ -27,8 +31,9 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    line, and as the last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile`` also records the engine steps with
-``torch.profiler`` (device time by operator, and a Chrome trace in
-``chiprun_out/engine_trace.json``).
+``torch.profiler`` (device time by operator and per step, and a Chrome
+trace in ``chiprun_out/engine_trace.json``) and fails if ``index_add_``
+still runs in the step.
 
 Any failed phase exits non-zero before the last line is printed. Without
 a CUDA device, or outside a checkout of the repository, it fails at once.
@@ -38,6 +43,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import os
 import subprocess
@@ -64,19 +70,103 @@ def sync() -> None:
     torch.cuda.synchronize()
 
 
-def cuda_time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events,
-    after one warm-up call)."""
+class CudaTimer:
+    """Device time of single launches, cold and warm, in turns.
+
+    Every timed interval is preceded by a ``torch.cuda._sleep`` long enough
+    for the host to enqueue the events and the launches behind it, so the
+    interval holds device work only and no host dispatch gaps.
+
+    * cold: before each launch a 256 MB scratch buffer is read (the L2
+      holds 50 MB), which evicts the last launch's lines and leaves the L2
+      holding clean lines only, so no write-back of the flush falls into
+      the timed interval; then that one launch is timed alone. ``empty``
+      times an interval with nothing in it after the same flush: the
+      floor of the method;
+    * warm: one untimed launch, then ``iters`` launches back to back on the
+      same data, timed together (mean per launch).
+
+    Functions are timed in alternating turns: a, b, c, then c, b, a, ...
+    (with two: kernel, library, library, kernel, ...), so a drift of the
+    card's clocks falls on all of them alike."""
+
+    FLUSH_BYTES = 256 << 20
+    HOST_MS_PER_LAUNCH = 0.25          # generous host cost of one launch
+
+    def __init__(self):
+        self.flush = torch.zeros(self.FLUSH_BYTES // 4, dtype=torch.int32,
+                                 device="cuda")
+        start, end = self._events()
+        torch.cuda._sleep(1_000)
+        start.record()
+        torch.cuda._sleep(1_000_000)
+        end.record()
+        end.synchronize()
+        self.cycles_per_ms = 1_000_000 / max(start.elapsed_time(end), 1e-3)
+
+    @staticmethod
+    def _events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def _hold(self, launches: int) -> None:
+        torch.cuda._sleep(int(self.cycles_per_ms * (
+            0.2 + launches * self.HOST_MS_PER_LAUNCH)))
+
+    @staticmethod
+    def _order(names, turn):
+        return names if turn % 2 == 0 else names[::-1]
+
+    def cold(self, fns: dict, samples: int) -> dict:
+        fns = {**fns, "empty": lambda: None}
+        names = list(fns)
+        marks = {name: [] for name in names}
+        for turn in range(samples):
+            for name in self._order(names, turn):
+                self.flush.amax()               # read-only L2 flush
+                self._hold(1)
+                start, end = self._events()
+                start.record()
+                fns[name]()
+                end.record()
+                marks[name].append((start, end))
+        torch.cuda.synchronize()
+        return {name: [s.elapsed_time(e) for s, e in marks[name]]
+                for name in names}
+
+    def warm(self, fns: dict, rounds: int = 6, iters: int = 20) -> dict:
+        names = list(fns)
+        out = {name: [] for name in names}
+        for turn in range(rounds):
+            for name in self._order(names, turn):
+                fns[name]()
+                self._hold(iters)
+                start, end = self._events()
+                start.record()
+                for _ in range(iters):
+                    fns[name]()
+                end.record()
+                end.synchronize()
+                out[name].append(start.elapsed_time(end) / iters)
+        return out
+
+
+def host_time_ms(fn, iters: int) -> float:
+    """Mean wall time of ``fn()`` over ``iters`` calls, synchronised (the
+    plain version, whose boolean indexing synchronises anyway)."""
     fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    sync()
+    t = time.perf_counter()
     for _ in range(iters):
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    sync()
+    return (time.perf_counter() - t) / iters * 1e3
+
+
+def summary(times) -> dict:
+    """median, min and max of a list of ms."""
+    return {"median": float(np.median(times)), "min": float(min(times)),
+            "max": float(max(times)), "n": len(times)}
 
 
 # ---------------------------------------------------------------------------
@@ -105,118 +195,184 @@ def phase_build(_build) -> dict:
 # Phase 2: kernel against its plain version, main-path shapes
 # ---------------------------------------------------------------------------
 
-def _bound_ms(keys, events, amounts, row_stride, e_dim, itemsize=4) -> float:
+def _bound_ms(keys, events, amounts, k_dim, row_stride, e_dim,
+              itemsize=4) -> float:
     """Least time for the scatter on this data: the stream read once plus
-    one 32-byte sector read and written per distinct sector touched."""
+    one 32-byte sector read and written back per distinct sector that a
+    nonzero, in-range amount touches."""
     k = keys.long()
+    k = torch.where(k < 0, k + k_dim, k)
     n = k.shape[0]
     if events is None:                       # payload: each nonzero lane
         lane = torch.arange(e_dim, device=k.device).expand(n, e_dim)
-        hit = amounts != 0
+        hit = (amounts != 0) & ((k >= 0) & (k < k_dim))[:, None]
         flat = (k[:, None] * row_stride + lane)[hit]
         stream = n * 4 + amounts.numel() * 4
     else:
-        ok = (k >= 0) & (events >= 0) & (events < e_dim)
-        flat = (k * row_stride + events.long())[ok & (amounts != 0)]
+        ev = events.long()
+        ev = torch.where(ev < 0, ev + e_dim, ev)
+        ok = (k >= 0) & (k < k_dim) & (ev >= 0) & (ev < e_dim)
+        flat = (k * row_stride + ev)[ok & (amounts != 0)]
         stream = n * 12
     sectors = torch.unique(torch.div(flat * itemsize, 32,
                                      rounding_mode="floor")).numel()
     return (stream + 2 * 32 * sectors) / HBM_BYTES_PER_S * 1e3
 
 
+def _library_call(table, view, keys, events, amounts):
+    """The yardstick: ONE ``index_add_`` over the flattened table with the
+    flat index precomputed and the dropped lanes removed (a call the port
+    never makes)."""
+    k_dim, e_dim = view.shape
+    flat_t = table.view(-1)
+    kk = torch.where(keys < 0, keys + k_dim, keys).long()
+    if events is None:
+        lane = torch.arange(e_dim, device=keys.device).expand(keys.shape[0],
+                                                              e_dim)
+        fi = kk[:, None] * view.stride(0) + lane
+        ok = ((kk >= 0) & (kk < k_dim))[:, None].expand_as(fi)
+    else:
+        ev = torch.where(events < 0, events + e_dim, events).long()
+        fi = kk * view.stride(0) + ev
+        ok = (kk >= 0) & (kk < k_dim) & (ev >= 0) & (ev < e_dim)
+    fi = (fi + view.storage_offset() - table.storage_offset())[ok]
+    fi = fi.contiguous()
+    amt = amounts[ok].to(table.dtype).contiguous()
+    return lambda: flat_t.index_add_(0, fi, amt)
+
+
 def phase_kernels(sa, hist_buckets: int, dev="cuda", R=1 << 20,
-                  B=1 << 19) -> list:
+                  B=1 << 19, timer=None, samples: int = 31) -> list:
     g = torch.Generator(device=dev)
     g.manual_seed(7)
 
-    def hot_keys(n, k_dim):
-        hot = torch.randint(1, 4097, (n // 4,), device=dev, generator=g)
-        cold = torch.randint(1, k_dim, (n - n // 4,), device=dev, generator=g)
+    def rint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, dtype=torch.int32, device=dev,
+                             generator=g)
+
+    def hot_keys(n, k_dim, hot_rows=4096):
+        hot = rint(1, hot_rows + 1, (n // 4,))
+        cold = rint(1, k_dim, (n - n // 4,))
         keys = torch.cat([hot, cold])[torch.randperm(n, device=dev,
                                                      generator=g)]
-        keys = keys.to(torch.int32)
         keys[::97] = k_dim                   # padding lanes (dropped)
         keys[5] = -1                         # wraps once to K-1
-        return keys
+        return keys.contiguous()
 
+    ones = torch.ones(B, dtype=torch.int32, device=dev)
     cases = []
+
+    def case(name, per_step, table, view_of, keys, events, amounts,
+             path=None):
+        cases.append(dict(name=name, per_step=per_step, table=table,
+                          view_of=view_of, keys=keys, events=events,
+                          amounts=amounts, path=path))
+
+    whole = (lambda t: t)
+    bucket1 = (lambda t: t[:, 1, :])
     # (a) decide step: the second window's bucket slice [R, 8] of [R, 2, 8]
-    base = torch.randint(0, 50, (R, 2, 8), dtype=torch.int32, device=dev,
-                         generator=g)
-    keys = hot_keys(B, R)
-    events = torch.randint(0, 2, (B,), dtype=torch.int32, device=dev,
-                           generator=g)
-    amounts = torch.ones(B, dtype=torch.int32, device=dev)
-    cases.append(("decide [R,8] slice of [R,2,8], N=B", base, 1, keys,
-                  events, amounts))
+    base = rint(0, 50, (R, 2, 8))
+    case("decide [R,8] slice of [R,2,8], N=B", 1, base, bucket1,
+         hot_keys(B, R), rint(0, 2, (B,)), ones)
     # (b) exit step: payload mode, SUCCESS/EXCEPTION lanes of [N, 8]
     payload = torch.zeros((B, 8), dtype=torch.int32, device=dev)
     payload[:, 3] = 1
     payload[:, 2] = (torch.rand(B, device=dev, generator=g) < 0.1).int()
-    cases.append(("exit payload [R,8] slice, N=B", base.clone(), 0,
-                  hot_keys(B, R), None, payload))
+    case("exit payload [R,8] slice, N=B", 1, base.clone(), bucket1,
+         hot_keys(B, R), None, payload)
     # (c) rt_hist: [R, HB]
-    hist = torch.zeros((R, hist_buckets), dtype=torch.int32, device=dev)
-    cases.append(("rt_hist [R,HB], N=B", hist, None, hot_keys(B, R),
-                  torch.randint(0, hist_buckets, (B,), dtype=torch.int32,
-                                device=dev, generator=g),
-                  torch.ones(B, dtype=torch.int32, device=dev)))
-    # (d) float32 counters [4096, 8] (sums stay far below 2^24)
-    small = torch.randint(0, 50, (4096, 8), device=dev,
-                          generator=g).float()
-    cases.append(("f32 [4096,8], N=B", small, None, hot_keys(B, 4096),
-                  torch.randint(0, 8, (B,), dtype=torch.int32, device=dev,
-                                generator=g),
-                  torch.randint(1, 4, (B,), dtype=torch.int32, device=dev,
-                                generator=g)))
+    case(f"rt_hist [R,{hist_buckets}], N=B", 1,
+         torch.zeros((R, hist_buckets), dtype=torch.int32, device=dev),
+         whole, hot_keys(B, R), rint(0, hist_buckets, (B,)), ones)
+    # (d) rt_sum: f32 column [R, 1] of [R, 2] (row stride 2), payload E=1;
+    # a quarter of the lanes are exit padding (row R), rt in [1, 200]
+    rt_keys = hot_keys(B, R)
+    rt_keys[torch.rand(B, device=dev, generator=g) < 0.25] = R
+    case("rt_sum f32 [R,1] col of [R,2], N=B", 1,
+         torch.randint(0, 50, (R, 2), device=dev, generator=g).float(),
+         lambda t: t[:, 1:2], rt_keys, None, rint(1, 201, (B, 1)))
+    # (e) breakers' per-rule counts: [1025, 1], 1024 rules + the ND row;
+    # 1/16 of the lanes carry a rule and a 1, the rest sit on ND with 0
+    brk = torch.full((B,), 1024, dtype=torch.int32, device=dev)
+    on = torch.rand(B, device=dev, generator=g) < 1 / 16
+    brk[on] = rint(0, 1024, (int(on.sum()),))
+    case("breakers int32 [1025,1], N=B", 2,
+         torch.zeros((1025, 1), dtype=torch.int32, device=dev), whole,
+         brk, None, on.int()[:, None].contiguous(), sa.PATH_SHARED)
+    # (f) every element on one cell
+    case("one key: [R,8] table, all on [12345, 6], N=B", 0,
+         torch.zeros((R, 8), dtype=torch.int32, device=dev), whole,
+         torch.full((B,), 12345, dtype=torch.int32, device=dev),
+         torch.full((B,), 6, dtype=torch.int32, device=dev), ones)
+    # (g, h) the shared-memory threshold: [7264, 8] int32 is 232,448 bytes,
+    # the largest table one block can privatise. The stream has 16·B
+    # elements, so that the private copies (one per SM) hold fewer cells
+    # than it has amounts and the plan takes the shared path where the
+    # table fits.
+    n_long = 16 * B
+    for k_small, path in ((7264, sa.PATH_SHARED), (7265, sa.PATH_GLOBAL)):
+        case(f"int32 [{k_small},8], N=16B", 0,
+             rint(0, 50, (k_small, 8)), whole,
+             hot_keys(n_long, k_small, 512), rint(0, 8, (n_long,)),
+             rint(1, 4, (n_long,)), path)
+    # (i) float32 counters [4096, 8] (sums stay far below 2^24)
+    case("f32 [4096,8], N=B", 0,
+         torch.randint(0, 50, (4096, 8), device=dev, generator=g).float(),
+         whole, hot_keys(B, 4096, 512), rint(0, 8, (B,)), rint(1, 4, (B,)))
 
     results = []
-    for name, table, bucket, keys, events, amounts in cases:
-        view = table[:, bucket, :] if bucket is not None else table
+    for c in cases:
+        name, view_of = c["name"], c["view_of"]
+        keys, events, amounts = c["keys"], c["events"], c["amounts"]
+        table = c["table"]
+        view = view_of(table)
         k_dim, e_dim = view.shape
+        plan = sa.plan_for(view, keys, events)
+        if c["path"] is not None and plan.path != c["path"]:
+            fail(f"{name}: planned the {plan.path} path, want {c['path']}")
         want = table.clone()
+        sa.scatter_add_reference(view_of(want), keys, events, amounts)
         got = table.clone()
-        wview = want[:, bucket, :] if bucket is not None else want
-        gview = got[:, bucket, :] if bucket is not None else got
-        sa.scatter_add_reference(wview, keys, events, amounts)
-        sa.scatter_add_kernel(gview, keys, events, amounts)
+        sa.scatter_add_kernel(view_of(got), keys, events, amounts)
         sync()
         err = float((got.double() - want.double()).abs().max())
-        if err != 0.0:
+        if err != 0.0 or not torch.equal(got, want):
             fail(f"kernel disagrees with its plain version on {name}: "
                  f"max |diff| = {err}")
+        del got, want
         tk = table.clone()
-        tv = tk[:, bucket, :] if bucket is not None else tk
-        ms = cuda_time_ms(lambda: sa.scatter_add_kernel(tv, keys, events,
-                                                        amounts), 50)
-        plain_ms = cuda_time_ms(
-            lambda: sa.scatter_add_reference(tv, keys, events, amounts), 10)
-        # library yardstick: ONE index_add_ over the flattened table with
-        # the dropped lanes removed and the flat index precomputed
-        flat_t = tk.view(-1)
-        kk = torch.where(keys < 0, keys + k_dim, keys).long()
-        if events is None:
-            lane = torch.arange(e_dim, device=dev).expand(keys.shape[0],
-                                                          e_dim)
-            fi = kk[:, None] * view.stride(0) + lane
-            ok = (kk < k_dim)[:, None].expand_as(fi)
-            amt = amounts
-        else:
-            fi = kk * view.stride(0) + events.long()
-            ok = kk < k_dim
-            amt = amounts
-        off = (view.storage_offset() - tk.storage_offset())
-        fi = (fi + off)[ok].contiguous()
-        amt = amt[ok].to(tk.dtype).contiguous()
-        library_ms = cuda_time_ms(lambda: flat_t.index_add_(0, fi, amt), 50)
-        bound = _bound_ms(keys, events, amounts, view.stride(0), e_dim)
-        log(f"[kernel] {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms:.4f} bound_ms={bound:.4f} "
-            f"max_abs_err={err}")
-        results.append({"case": name, "ms": ms, "plain_ms": plain_ms,
-                        "library_ms": library_ms, "bound_ms": bound,
-                        "max_abs_err": err})
-        del want, got, tk
+        tv = view_of(tk)
+        # turns: kernel, library, library, kernel, ...
+        fns = {"kernel": lambda: sa.scatter_add_kernel(tv, keys, events,
+                                                       amounts),
+               "library": _library_call(tk, tv, keys, events, amounts)}
+        cold = {n: summary(v) for n, v in timer.cold(fns, samples).items()}
+        warm = {n: summary(v) for n, v in timer.warm(fns).items()}
+        plain_ms = host_time_ms(
+            lambda: sa.scatter_add_reference(tv, keys, events, amounts), 3)
+        bound = _bound_ms(keys, events, amounts, k_dim, view.stride(0),
+                          e_dim, table.element_size())
+        share = bound / cold["kernel"]["median"]
+        log(f"[kernel] {name}: plan {plan.path}/E{plan.e_inst}/"
+            f"i{plan.index_bits} grid {plan.grid}x{plan.block} "
+            f"smem {plan.smem_bytes}; max_abs_err={err}")
+        for n in cold:
+            if n not in warm:
+                log(f"[kernel]   {n:12s} cold median {cold[n]['median']:.4f}"
+                    f" ms [{cold[n]['min']:.4f}, {cold[n]['max']:.4f}]")
+                continue
+            log(f"[kernel]   {n:12s} cold median {cold[n]['median']:.4f} ms "
+                f"[{cold[n]['min']:.4f}, {cold[n]['max']:.4f}]  warm "
+                f"{warm[n]['median']:.4f} ms [{warm[n]['min']:.4f}, "
+                f"{warm[n]['max']:.4f}]")
+        log(f"[kernel]   bound {bound:.4f} ms (bytes), share of bound "
+            f"(cold median) {share:.3f}, plain {plain_ms:.3f} ms")
+        results.append({"case": name, "launches_per_step": c["per_step"],
+                        "plan": dataclasses.asdict(plan),
+                        "max_abs_err": err, "bound_ms": bound,
+                        "plain_ms": plain_ms, "cold": cold, "warm": warm,
+                        "share_of_bound_cold": share})
+        del tk, tv, fns
     return results
 
 
@@ -339,8 +495,11 @@ def phase_engine(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
     sa.LAUNCHES.clear()
     s_kernel, v_kernel, step_s = run(_clone_state(init))
     launches = sa.LAUNCHES["scatter_add"]
-    if launches == 0:
-        fail("engine phase: the scatter-add kernel was never launched")
+    # per fused step: the decide record; the exit payload, rt_sum and
+    # rt_hist adds; the breakers' two per-rule counts
+    if launches != 6 * steps:
+        fail(f"engine phase: {launches} kernel launches in {steps} steps, "
+             f"want 6 per step")
     real = sa.scatter_add
     sa.scatter_add = sa.scatter_add_reference     # the plain seam, explicitly
     try:
@@ -370,21 +529,34 @@ def phase_engine(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
         f"{B / med:.0f} decisions/s, kernel launches {launches} "
         f"({launches / steps:.1f}/step), allowed {allowed}")
     if profile:
-        out["profile"] = _profile_steps(lambda: run(_clone_state(init)))
+        out["profile"] = prof = _profile_steps(
+            lambda: run(_clone_state(init)), steps)
+        if prof["index_add"]:
+            fail(f"engine phase: index_add_ still runs in the step: "
+                 f"{prof['index_add']}")
+        log(f"[engine] device time {prof['device_ms_per_step']:.3f} ms per "
+            f"step (sum of kernel, memcpy and memset durations in the trace)")
     return out
 
 
-def _profile_steps(run_steps) -> dict:
-    """Device time by operator over one run of engine steps
-    (``torch.profiler``; ``--profile`` only)."""
+def _profile_steps(run_steps, steps: int) -> dict:
+    """Device time by operator over one run of engine steps, and device
+    busy time per step from the trace (``torch.profiler``; ``--profile``
+    only)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run_steps()
         sync()
     os.makedirs("chiprun_out", exist_ok=True)
-    prof.export_chrome_trace(os.path.join("chiprun_out",
-                                          "engine_trace.json"))
+    trace = os.path.join("chiprun_out", "engine_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as fh:
+        events = json.load(fh)
+    events = events.get("traceEvents", events) if isinstance(events, dict) \
+        else events
+    busy_us = sum(float(e.get("dur", 0.0)) for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "device_time_total", None)
@@ -398,7 +570,13 @@ def _profile_steps(run_steps) -> dict:
     for r in rows[:30]:
         log(f"[profile]   {r['device_us']:12.1f} dev  {r['cpu_us']:12.1f} "
             f"cpu  x{r['count']:<5d} {r['name'][:90]}")
-    return {"top": rows[:60]}
+    ours = [r for r in rows if "scatter_add_" in r["name"]]
+    for r in ours:
+        log(f"[profile]   scatter-add kernel {r['device_us'] / steps:8.1f} us "
+            f"per step  x{r['count']:<4d} {r['name'][:90]}")
+    return {"top": rows[:60], "scatter_add_kernels": ours,
+            "index_add": [r for r in rows if "index_add" in r["name"]],
+            "device_ms_per_step": busy_us / 1e3 / steps}
 
 
 # ---------------------------------------------------------------------------
@@ -531,7 +709,8 @@ def main() -> int:
     t_all = time.perf_counter()
     report = {"card": card, "torch": torch.__version__}
     report["build"] = phase_build(_build)
-    report["kernel_cases"] = phase_kernels(sa, DEFAULT_BUCKETS)
+    report["kernel_cases"] = phase_kernels(sa, DEFAULT_BUCKETS,
+                                           timer=CudaTimer())
     report["engine"] = phase_engine(stt, sa,
                                     profile="--profile" in sys.argv[1:])
     report["runtime"] = phase_runtime(stt, sa)
@@ -544,9 +723,10 @@ def main() -> int:
         "replaces": REPLACES,
         "launches": report["runtime"]["launches"],
         "max_abs_err": max(c["max_abs_err"] for c in report["kernel_cases"]),
-        "ms": decide["ms"], "plain_ms": decide["plain_ms"],
+        "ms": decide["cold"]["kernel"]["median"],
+        "plain_ms": decide["plain_ms"],
         "bound_ms": decide["bound_ms"], "bound_by": "bytes",
-        "library_ms": decide["library_ms"],
+        "library_ms": decide["cold"]["library"]["median"],
     }]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:

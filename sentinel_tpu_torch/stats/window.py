@@ -19,9 +19,9 @@ and takes the bucket with Python's floor ``%``, which is what
 
 Every function updates ``state`` IN PLACE and returns it: the port's
 counterpart of the JAX package's buffer donation (one copy of each table,
-no new table per step). The counter scatter-adds go through
-:func:`ops.scatter_add.scatter_add`, the port of the JAX package's one
-TPU kernel; the ``rt_sum`` add and ``min_rt`` min stay plain PyTorch.
+no new table per step). The counter and ``rt_sum`` scatter-adds go
+through :func:`ops.scatter_add.scatter_add`, the port of the JAX
+package's one TPU kernel; the ``min_rt`` min stays plain PyTorch.
 """
 
 from __future__ import annotations
@@ -215,12 +215,13 @@ def refresh_all(spec: WindowSpec, state: WindowState,
 def _add_rt(spec: WindowSpec, state: WindowState, rows: torch.Tensor, k: int,
             rt_add: torch.Tensor, rt_min: torch.Tensor) -> None:
     """``rt_sum[rows, k] += rt_add``, ``min_rt[rows, k] = min(.., rt_min)``
-    with drop-mode padding (plain PyTorch: ROADMAP B2)."""
-    idx, ok = _drop_rows(rows, state.rt_sum.shape[0])
-    # index_add_ (atomics on CUDA), not index_put_(accumulate=True): the
-    # latter sorts and walks each duplicate run serially, and every
-    # dropped lane lands on index 0
-    state.rt_sum[:, k].index_add_(0, idx, torch.where(ok, rt_add, 0.0))
+    with drop-mode padding. ``rt_add`` is int32 (0 where nothing lands):
+    the sum goes through the kernel seam on the ``[R, 1]`` column view
+    (row stride B; the kernel wraps and drops the raw rows and converts
+    each amount to float32, as the JAX package's ``astype`` does); the
+    min stays plain PyTorch (ROADMAP B2)."""
+    sa.scatter_add(state.rt_sum[:, k:k + 1], rows, None, rt_add[:, None])
+    idx, ok = _drop_rows(rows, state.min_rt.shape[0])
     state.min_rt[:, k].scatter_reduce_(
         0, idx, torch.where(ok, rt_min, INT32_MAX), reduce="amin")
 
@@ -235,8 +236,7 @@ def add_rows_vec(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
     k = _bucket_of(spec, now_idx)
     sa.scatter_add(state.counters[:, k, :], rows, None, payload)
     if spec.track_rt and rt_ms is not None:
-        amt = (rt_ms if rt_valid is None
-               else torch.where(rt_valid, rt_ms, 0)).to(torch.float32)
+        amt = rt_ms if rt_valid is None else torch.where(rt_valid, rt_ms, 0)
         mn = (rt_ms if rt_valid is None
               else torch.where(rt_valid, rt_ms, INT32_MAX))
         _add_rt(spec, state, rows, k, amt, mn)
@@ -269,7 +269,7 @@ def add_rows(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
     sa.scatter_add(state.counters[:, k, :], rows,
                    torch.full_like(rows, event), amounts)
     if spec.track_rt and rt_ms is not None:
-        _add_rt(spec, state, rows, k, rt_ms.to(torch.float32), rt_ms)
+        _add_rt(spec, state, rows, k, rt_ms, rt_ms)
     return state
 
 

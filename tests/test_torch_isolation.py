@@ -1,5 +1,6 @@
-"""The port stands alone: ``sentinel_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package ``sentinel_tpu``.
+"""The port stands alone: ``sentinel_tpu_torch``, ``chip_smoke.py`` and
+``tests/test_torch_gpu_kernels.py`` import neither JAX nor the JAX
+package ``sentinel_tpu``.
 
 The test process already holds JAX (``conftest.py`` imports it), so the
 import check runs in a fresh subprocess; an AST scan of every source file
@@ -51,6 +52,8 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    # the card's test file runs where there is no JAX
+    yield os.path.join(REPO, "tests", "test_torch_gpu_kernels.py")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),

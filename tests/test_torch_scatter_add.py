@@ -3,9 +3,11 @@ package's scatter-add (``scatter_add_xla`` and the Pallas MXU kernel in
 interpret mode).
 
 On the CPU the seam runs the kernel's plain PyTorch version (the CUDA
-kernel itself is compared with it on the card: the ``gpu`` test below and
-``chip_smoke.py``). Tolerance: exact. The float32 cases keep every sum
-far below 2^24, where float32 accumulation is exact in any order.
+kernel itself is compared with it on the card: the ``gpu`` tests of
+``tests/test_torch_gpu_kernels.py`` and ``chip_smoke.py``). The launch
+plan is pure Python and is tested here. Tolerance: exact. The float32
+cases keep every sum far below 2^24, where float32 accumulation is exact
+in any order.
 """
 
 import numpy as np
@@ -214,25 +216,128 @@ def test_bucket_histogram_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.gpu
-def test_kernel_matches_plain_version_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    rng = np.random.default_rng(1)
-    for dtype in (np.int32, np.float32):
-        counters, keys, events, amounts = _random_case(
-            rng, k=1 << 16, e=8, n=1 << 18, dtype=dtype)
-        keys[::13] = counters.shape[0]
-        keys[1] = -1
-        dev = "cuda"
-        want = torch.from_numpy(counters).to(dev)
-        got = want.clone()
-        args = [torch.from_numpy(a).to(dev) for a in (keys, events, amounts)]
-        sa.scatter_add_reference(want, *args)
-        before = sa.LAUNCHES["scatter_add"]
-        sa.scatter_add(got, *args)
-        torch.cuda.synchronize()
-        assert sa.LAUNCHES["scatter_add"] == before + 1
-        assert torch.equal(got, want)
-        np.testing.assert_array_equal(got.cpu().numpy(),
-                                      _xla(counters, keys, events, amounts))
+def test_reference_skips_zero_amounts_and_drops_for_real():
+    """The plain version adds nothing for a zero amount or a dropped lane:
+    a ``-0.0`` float counter keeps its sign, as under the kernel."""
+    counters = torch.tensor([[-0.0, 1.0], [2.0, -0.0]])
+    keys = torch.tensor([0, 1, 5, -3], dtype=torch.int32)
+    events = torch.tensor([0, 1, 0, 0], dtype=torch.int32)
+    amounts = torch.tensor([0, 0, 4, 4], dtype=torch.int32)
+    sa.scatter_add(counters, keys, events, amounts)
+    assert torch.equal(torch.signbit(counters),
+                       torch.tensor([[True, False], [False, True]]))
+
+
+# --- the launch plan (pure Python: what the wrapper passes to the C side)
+
+PLAN_SHAPES = [
+    # (k, e, row_stride, n, payload, dtype): the main path's shapes first
+    (1 << 20, 8, 16, 1 << 19, False, torch.int32),      # decide
+    (1 << 20, 8, 16, 1 << 19, True, torch.int32),       # exit payload
+    (1 << 20, 32, 32, 1 << 19, False, torch.int32),     # rt_hist
+    (1 << 20, 1, 2, 1 << 19, True, torch.float32),      # rt_sum column
+    (1025, 1, 1, 1 << 19, True, torch.int32),           # breaker counts
+    (4096, 8, 8, 1 << 19, False, torch.float32),
+    (7264, 8, 8, 1 << 19, False, torch.int32),          # 232,448 bytes
+    (7265, 8, 8, 1 << 19, False, torch.int32),
+    (58112, 1, 1, 100, True, torch.float32),            # 232,448 bytes
+    (58113, 1, 1, 100, True, torch.float32),
+    (58112, 1, 1, 1 << 23, True, torch.float32),
+    (7264, 8, 8, 1 << 23, False, torch.int32),
+    (1 << 16, 1 << 15, 1 << 15, 10, False, torch.int32),    # 2^31 cells
+    (1 << 16, 8, (1 << 15) - 1, 10, False, torch.int32),
+    (1 << 26, 5, 64, 1 << 20, True, torch.int32),
+    (3, 2, 2, 0, False, torch.int32),
+    (3, 2, 2, 1, False, torch.float32),
+    (1 << 20, 8, 16, 1 << 29, True, torch.int32),       # 2^32 lanes
+    # one grid step (132·8 blocks × 256 threads × 4) below 2^31 and past it
+    (1 << 20, 1, 1, 2 ** 31 - 2 ** 21, False, torch.int32),
+    (1 << 20, 1, 1, 2 ** 31 - 2 ** 19, False, torch.int32),
+    (16, 1, 1, 2 ** 31 - 2 ** 19, True, torch.int32),
+]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_plan_rules(shape):
+    k, e, stride, n, payload, dtype = shape
+    p = sa.plan(k, e, stride, n, payload, dtype, sms=132)
+    table_bytes = k * e * 4
+    lanes = e if payload else 1
+
+    def span(q):
+        # every stream position the walk forms, one grid step past the
+        # end included, times the lanes: what 32-bit index math must hold
+        units = sa.units_per_thread(payload, q.e_inst)
+        return (n + q.grid * q.block * units) * lanes
+
+    assert p.smem_bytes <= sa.SMEM_BLOCK_MAX == 232_448
+    shared = sa.shared_plan(k, e, n, payload, dtype, sms=132)
+    if table_bytes > sa.SMEM_BLOCK_MAX:
+        assert shared is None
+    elif (n + 2 * 132 * sa.SHARED_BLOCK * 4) * lanes < 2 ** 31:
+        assert shared is not None            # the table fits
+    if shared is not None:
+        assert shared.index_bits == 32 and span(shared) < 2 ** 31
+    # the shared path exactly when the table fits and its private copies
+    # hold no more cells than the stream has amounts
+    long_enough = shared is not None and k * e * shared.grid <= n * lanes
+    assert (p.path == sa.PATH_SHARED) == long_enough
+    if p.path == sa.PATH_SHARED:
+        assert p == shared
+        assert p.smem_bytes == table_bytes
+        assert p.grid <= sa.SHARED_BLOCKS_PER_SM * 132
+    else:
+        assert p.smem_bytes == 0
+        assert p.grid <= 132 * sa.THREADS_PER_SM // p.block
+    if p.index_bits == 32:
+        assert k * stride < 2 ** 31 or p.path == sa.PATH_SHARED
+        assert span(p) < 2 ** 31
+    else:
+        assert p.index_bits == 64 and p.path == sa.PATH_GLOBAL
+        assert k * stride >= 2 ** 31 or span(p) >= 2 ** 31
+    assert p.grid >= 1 and p.block % 32 == 0 and p.block <= 1024
+    want_e = e if payload and e in (1, 8, 32) else 0
+    assert p.e_inst == want_e
+
+
+def test_plan_index_width_at_the_edge_of_32_bits():
+    """32-bit index math stops one grid step short of 2^31 stream
+    positions (the walk forms ``t0 + step`` before it compares), not at
+    2^31 itself; a 2^31-cell table needs 64 bits whatever the stream."""
+    step = 132 * sa.THREADS_PER_SM // sa.GLOBAL_BLOCK * sa.GLOBAL_BLOCK * 4
+    below = sa.plan(1 << 20, 1, 1, 2 ** 31 - step - 1, False, torch.int32,
+                    sms=132)
+    at = sa.plan(1 << 20, 1, 1, 2 ** 31 - step, False, torch.int32, sms=132)
+    assert (below.index_bits, at.index_bits) == (32, 64)
+    wide = sa.plan(1 << 16, 8, 1 << 15, 10, False, torch.int32, sms=132)
+    narrow = sa.plan(1 << 16, 8, (1 << 15) - 1, 10, False, torch.int32,
+                     sms=132)
+    assert (wide.index_bits, narrow.index_bits) == (64, 32)
+
+
+def test_plan_path_at_the_shared_memory_threshold():
+    """[7264, 8] int32 is 232,448 bytes: with a long enough stream it is
+    privatised, one row more is not; a short stream keeps even a fitting
+    table on the global path."""
+    long_n, short_n = 1 << 23, 1 << 19
+    at = sa.plan(7264, 8, 8, long_n, False, torch.int32, sms=132)
+    above = sa.plan(7265, 8, 8, long_n, False, torch.int32, sms=132)
+    short = sa.plan(7264, 8, 8, short_n, False, torch.int32, sms=132)
+    assert (at.path, above.path, short.path) == (
+        sa.PATH_SHARED, sa.PATH_GLOBAL, sa.PATH_GLOBAL)
+    assert at.smem_bytes == 232_448 and at.grid == 132
+    brk = sa.plan(1025, 1, 1, short_n, True, torch.int32, sms=132)
+    assert brk.path == sa.PATH_SHARED and brk.e_inst == 1
+
+
+def test_plan_grid_covers_the_stream_in_one_pass_when_it_can():
+    p = sa.plan(1 << 20, 8, 16, 1 << 19, False, torch.int32, sms=132)
+    per_block = p.block * sa.units_per_thread(False, p.e_inst)
+    assert p.grid * per_block >= 1 << 19
+    small = sa.plan(1 << 20, 8, 16, 1 << 19, False, torch.int32, sms=2)
+    assert small.grid == 2 * sa.THREADS_PER_SM // small.block
+
+
+def test_plan_rejects_empty_tables():
+    with pytest.raises(ValueError):
+        sa.plan(0, 8, 8, 10, False, torch.int32, sms=132)

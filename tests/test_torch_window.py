@@ -197,6 +197,63 @@ def test_adds(now):
                          rt_add=torch.tensor(17.0), rt_min=torch.tensor(3)))
 
 
+@pytest.mark.parametrize("fn", ["add_rows", "add_rows_vec"])
+@pytest.mark.parametrize("b", [2, 60])
+def test_rt_sum_goes_through_the_kernel_seam(monkeypatch, fn, b):
+    """``rt_sum[:, k] += rt`` is one call of the scatter-add seam on the
+    float32 ``[R, 1]`` column view (row stride B) with int32 amounts, and
+    the result equals the JAX package's bit for bit. The rows hold
+    duplicates, padding (R and beyond) and a -1 (wraps to R-1); every
+    bucket's sum stays below 2^24, where float32 addition is exact in any
+    order. b = 60 is the minute window's geometry."""
+    from sentinel_tpu_torch.ops import scatter_add as sa
+    calls = []
+    real = sa.scatter_add
+
+    def spy(counters, keys, events, amounts):
+        calls.append((counters.dtype, tuple(counters.shape),
+                      counters.stride(), counters.data_ptr(),
+                      events is None, amounts.dtype))
+        return real(counters, keys, events, amounts)
+
+    monkeypatch.setattr(sa, "scatter_add", spy)
+    now = 1_000 + b
+    rng = np.random.default_rng(31 + b)
+    js, ts = _spec(b)
+    d = _state(rng, b, now)
+    rows = _rows(rng, 200)
+    rows[::11] = R + 5
+    rows[1] = -1
+    rows[2:6] = 7
+    n = rows.shape[0]
+    rt = rng.integers(1, 201, n).astype(np.int32)
+    rt_valid = rng.random(n) > 0.25
+    pay = rng.integers(0, 3, (n, 8)).astype(np.int32)
+    tst = _port_ws(d)
+    if fn == "add_rows":
+        want = jw.add_rows(js, _jax_ws(d), jnp.asarray(rows), 3,
+                           jnp.asarray(pay[:, 0]), jnp.int32(now),
+                           rt_ms=jnp.asarray(rt))
+        got = tw.add_rows(ts, tst, torch.from_numpy(rows), 3,
+                          torch.from_numpy(pay[:, 0]), now,
+                          rt_ms=torch.from_numpy(rt))
+    else:
+        want = jw.add_rows_vec(js, _jax_ws(d), jnp.asarray(rows),
+                               jnp.asarray(pay), jnp.int32(now),
+                               rt_ms=jnp.asarray(rt),
+                               rt_valid=jnp.asarray(rt_valid))
+        got = tw.add_rows_vec(ts, tst, torch.from_numpy(rows),
+                              torch.from_numpy(pay), now,
+                              rt_ms=torch.from_numpy(rt),
+                              rt_valid=torch.from_numpy(rt_valid))
+    _same(want, got)
+    k = now % b
+    col = (torch.float32, (R, 1), (b, 1),
+           tst.rt_sum[:, k].data_ptr(), True, torch.int32)
+    assert calls.count(col) == 1, calls
+    assert np.asarray(want.rt_sum).max() < 2 ** 24
+
+
 def test_invalidate_rows():
     rng = np.random.default_rng(4)
     js, ts = _spec(2)
