@@ -11,29 +11,51 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
 1. builds every kernel, in parallel, and prints the build times;
 2. holds each kernel against its plain PyTorch version on the card, exactly,
    at the shapes the main path gives it (and at a one-key stream and both
-   sides of the shared-memory threshold), as its launch plan launches it;
-   then times each launch cold (L2 flushed before every launch) and warm,
-   in alternating turns with one PyTorch library call as a yardstick
-   (``library_ms``; the port never calls it), beside the bound, the plain
-   version's time and an empty interval after the same flush;
+   sides of the shared-memory threshold), as its launch plan launches it:
+   the scalar route's, the origin routes' alt-table records (a small alt
+   table's too), their bucket histogram, and the main and alt thread
+   gauges; then times each launch cold (L2
+   flushed before every launch) and warm, in alternating turns with one
+   PyTorch library call as a yardstick (``library_ms``; the port never
+   calls it), beside the bound, the plain version's time and an empty
+   interval after the same flush;
 3. drives the engine at the serving headline's geometry (1M resources,
    512k-event batches, 4096 QPS rules, 1024 exception-ratio breakers, RT
    histograms on) for a run of fused decide+exit steps twice from one
    initial state — with the kernel, and with the plain scatter put in the
-   seam — and requires identical verdicts and state, and 6 kernel launches
-   per step;
-4. drives the runtime through the entry points a user calls
+   seam — and requires identical verdicts and state, 6 kernel launches
+   per step, and no wait on the device inside a kernel-run step (PyTorch's
+   sync debug mode set to "error");
+4. drives the origin routes the same way: the general route at 1M
+   resources (2M alt rows, where the fast path's key does not fit) and the
+   fast route at 128k resources, 512k-event batches, 4096 flow rules over
+   default, specific-origin, ``other``, CHAIN and RELATE selectors, 1024
+   breakers, 64 origins on half the events and 8 contexts on 1/8; each run
+   with the kernel, with the plain seam and without sort-free grouping must
+   give identical verdicts, claim overflow counts and state, with 14
+   (general: THREAD-grade rules keep the thread gauges) or 9 (fast)
+   kernel launches per step and no wait on the device;
+5. drives the runtime through the entry points a user calls
    (``Sentinel(device="cuda")`` at 1M resources: ``entry``,
-   ``entry_batch``, ``exit_batch``, full-width fused decide+exit steps)
+   ``entry_batch``, ``exit_batch``, full-width fused decide+exit steps
+   without origins, then with origins and with a system and an authority
+   rule loaded; at 16k resources ``entry(origin=...)`` in a call
+   context, ``entry_batch(origins=, contexts=)`` and a batch that splits)
    with the launch counters zeroed just before and read just after, and
-   checks the verdicts against a CPU twin of the same runtime;
-5. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-   line, and as the last line ``{"ok": true, "device": {...}}``.
+   checks the verdicts and routes against a CPU twin of the same runtime;
+6. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
+   line (``launches`` summed over the runs of phases 3-5), and as the last
+   line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --find-syncs`` runs 3 steps of each engine phase
+with the sync debug mode at "warn" and lists every place that waits on
+the device, instead of the phases above.
 
 ``python3 chip_smoke.py --profile`` also records the engine steps with
 ``torch.profiler`` (device time by operator and per step, and a Chrome
-trace in ``chiprun_out/engine_trace.json``) and fails if ``index_add_``
-still runs in the step.
+trace per engine phase in ``chiprun_out/engine*_trace.json``; the origin
+routes also in the sorted order alone) and fails if ``index_add_`` still
+runs in the scalar step.
 
 Any failed phase exits non-zero before the last line is printed. Without
 a CUDA device, or outside a checkout of the repository, it fails at once.
@@ -68,6 +90,26 @@ def fail(msg: str) -> None:
 
 def sync() -> None:
     torch.cuda.synchronize()
+
+
+class no_host_sync:
+    """PyTorch's sync debug mode set to "error" for the body on the card:
+    an engine step that waits on the device (a readback, a boolean mask
+    index, an ``.item()``, a tensor made from a Python value) raises
+    instead of running. ``--find-syncs`` sets ``mode`` to "warn"."""
+
+    mode = "error"
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        if self.on:
+            torch.cuda.set_sync_debug_mode(self.mode)
+
+    def __exit__(self, *exc):
+        if self.on:
+            torch.cuda.set_sync_debug_mode(0)
 
 
 class CudaTimer:
@@ -319,6 +361,58 @@ def phase_kernels(sa, hist_buckets: int, dev="cuda", R=1 << 20,
     case("f32 [4096,8], N=B", 0,
          torch.randint(0, 50, (4096, 8), device=dev, generator=g).float(),
          whole, hot_keys(B, 4096, 512), rint(0, 8, (B,)), rint(1, 4, (B,)))
+    # (j-n) the origin routes' launches (the general route's geometry:
+    # RA = 2R alt rows; half the events carry an origin, 1/8 a context)
+    RA = 2 * R
+
+    def alt_keys(n, share, k_dim=RA):
+        keys = rint(0, k_dim, (n,))
+        keys[torch.rand(n, device=dev, generator=g) >= share] = k_dim
+        return keys
+
+    alt2 = torch.cat([alt_keys(B, 0.5), alt_keys(B, 0.125)])
+    alt_base = rint(0, 50, (RA, 2, 8))
+    case("alt decide [2R,8] slice of [2R,2,8], N=2B", 1, alt_base,
+         bucket1, alt2, rint(0, 2, (2 * B,)),
+         torch.ones(2 * B, dtype=torch.int32, device=dev))
+    alt_payload = torch.cat([payload, payload])
+    case("alt exit payload [2R,8] slice, N=2B", 1, alt_base.clone(),
+         bucket1, alt2, None, alt_payload)
+    case("alt rt_sum f32 [2R,1] col of [2R,2], N=2B", 1,
+         torch.randint(0, 50, (RA, 2), device=dev, generator=g).float(),
+         lambda t: t[:, 1:2], alt2, None, rint(1, 201, (2 * B, 1)))
+    # the general route's bucket histogram: 2 rules per resource, so
+    # B·K = 2B pairs; T = 2^18 claim slots, 3 rounds + the reserved
+    # bucket 3T, which every inapplicable or padding pair lands on
+    from sentinel_tpu_torch.ops.sortfree import table_bits
+    n_pairs = 2 * B
+    t_slots = 1 << table_bits(n_pairs)
+    buckets = torch.full((n_pairs,), 3 * t_slots, dtype=torch.int32,
+                         device=dev)
+    live = torch.rand(n_pairs, device=dev, generator=g) < 0.15
+    buckets[live] = rint(0, 3 * t_slots, (int(live.sum()),))
+    case("bucket histogram [3T+1,1], one hot bucket, N=2B", 1,
+         torch.zeros((3 * t_slots + 1, 1), dtype=torch.int32, device=dev),
+         whole, buckets, torch.zeros_like(buckets),
+         torch.ones_like(buckets))
+    # the fast route's alt record where RA <= 4096 (the JAX package's
+    # one-hot histogram branch): one uniform acquire on every lane
+    small_rows = torch.cat([alt_keys(B, 0.5, 4096),
+                            alt_keys(B, 0.125, 4096)])
+    case("alt decide, small table [4096,8] slice of [4096,2,8], N=2B", 0,
+         rint(0, 50, (4096, 2, 8)), bucket1, small_rows,
+         rint(0, 2, (2 * B,)),
+         torch.ones(2 * B, dtype=torch.int32, device=dev))
+    # the thread gauges (on when a THREAD-grade flow rule or a system rule
+    # is loaded): int32 [R] and [2R] as [K,1] payload columns; the exit's
+    # -1 per valid event, its padding lanes dropped (a decide adds +1 per
+    # admitted event the same way)
+    dec = torch.full((B, 1), -1, dtype=torch.int32, device=dev)
+    case("threads int32 [R,1], payload E=1, N=B", 2,
+         rint(0, 50, (R,)), lambda t: t[:, None], hot_keys(B, R), None, dec)
+    case("alt threads int32 [2R,1], payload E=1, N=2B", 2,
+         rint(0, 50, (RA,)), lambda t: t[:, None], alt2, None,
+         torch.cat([dec, dec]))
 
     results = []
     for c in cases:
@@ -435,7 +529,7 @@ def phase_engine(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
         sys_thresholds=sys_mod.compile_system_rules([], device=dev),
     ).with_joint()
     flags = dict(skip_auth=True, skip_sys=True, scalar_has_rl=False,
-                 skip_threads=True)
+                 skip_threads=True, scalar_flow=True, record_alt=False)
 
     rng = np.random.default_rng(42)
     batches = []
@@ -466,7 +560,7 @@ def phase_engine(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
 
     init = pl.init_state(spec, NRULES, 1024, device=dev)
 
-    def run(state):
+    def run(state, strict=False):
         verdicts = []
         step_s = []
         prev_rows = torch.full((B,), R, dtype=torch.int32, device=dev)
@@ -480,9 +574,10 @@ def phase_engine(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
                 valid=prev_valid)
             sync()
             t = time.perf_counter()
-            state, v = pl.decide_and_record_exits(
-                spec, rules, state, batches[i % 4], xb, times(i),
-                (0.5, 0.1), **flags)
+            with no_host_sync(strict and dev.type == "cuda"):
+                state, v = pl.decide_and_record_exits(
+                    spec, rules, state, batches[i % 4], xb, times(i),
+                    (0.5, 0.1), **flags)
             sync()
             step_s.append(time.perf_counter() - t)
             verdicts.append(v)
@@ -493,7 +588,7 @@ def phase_engine(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
     # warm-up on a throwaway copy (allocator, library handles)
     run(_clone_state(init))
     sa.LAUNCHES.clear()
-    s_kernel, v_kernel, step_s = run(_clone_state(init))
+    s_kernel, v_kernel, step_s = run(_clone_state(init), strict=True)
     launches = sa.LAUNCHES["scatter_add"]
     # per fused step: the decide record; the exit payload, rt_sum and
     # rt_hist adds; the breakers' two per-rule counts
@@ -539,17 +634,290 @@ def phase_engine(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
     return out
 
 
-def _profile_steps(run_steps, steps: int) -> dict:
+ORIGINS, CONTEXTS = 64, 8
+
+
+def _alt_rows_np(rows, kind, key_ids, ra):
+    """The runtime's alt-row hash (``runtime._alt_hash``), vectorized."""
+    h = ((rows.astype(np.uint64) * np.uint64(0x9E3779B1))
+         ^ ((key_ids.astype(np.uint64) * 2 + kind)
+            * np.uint64(0x85EBCA6B))) & np.uint64(0xFFFFFFFF)
+    return (h % np.uint64(ra)).astype(np.int32)
+
+
+def _origin_rules(flow_mod, n_rules, thread_grade: bool = False):
+    """``n_rules`` flow rules, two on each of ``n_rules // 2`` resources:
+    a default-app rule (DIRECT, or RELATE to the previous resource; 1/8
+    warm-up, 1/8 rate limiter; with ``thread_grade``, 1/8 a THREAD-grade
+    limit of 24 concurrent calls instead) and one of a specific origin,
+    ``other`` or CHAIN."""
+    rules = []
+    for i in range(n_rules // 2):
+        res = f"r{i}"
+        behavior = (flow_mod.BEHAVIOR_WARM_UP if i % 8 == 3 else
+                    flow_mod.BEHAVIOR_RATE_LIMITER if i % 8 == 5 else
+                    flow_mod.BEHAVIOR_DEFAULT)
+        if i % 4 == 1 and i:
+            rules.append(flow_mod.FlowRule(
+                resource=res, count=80.0, strategy=flow_mod.STRATEGY_RELATE,
+                ref_resource=f"r{i - 1}"))
+        elif thread_grade and i % 8 == 7:
+            rules.append(flow_mod.FlowRule(resource=res, count=24.0,
+                                           grade=flow_mod.GRADE_THREAD))
+        else:
+            rules.append(flow_mod.FlowRule(resource=res, count=50.0,
+                                           control_behavior=behavior))
+        if i % 3 == 0:
+            rules.append(flow_mod.FlowRule(resource=res, count=8.0,
+                                           limit_app=f"app-{i % ORIGINS}"))
+        elif i % 3 == 1:
+            rules.append(flow_mod.FlowRule(resource=res, count=20.0,
+                                           limit_app="other"))
+        else:
+            rules.append(flow_mod.FlowRule(
+                resource=res, count=6.0, strategy=flow_mod.STRATEGY_CHAIN,
+                ref_resource=f"ctx-{i % CONTEXTS}"))
+    return rules
+
+
+def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
+                        B=1 << 19, steps: int = 8,
+                        profile: bool = False) -> dict:
+    """The fast or general route at full width: fused decide+exit steps
+    run twice from one state (the kernel, then the plain seam) and once
+    more without sort-free grouping; verdicts, ``sf_overflow`` and state
+    must agree, and the kernel must be launched the derived number of
+    times per step. The general route's rules include THREAD-grade limits,
+    so its steps keep the thread gauges (main and alt) as the runtime
+    does when such a rule is loaded; the fast route's elide them."""
+    from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch.core.registry import (
+        OriginRegistry, Registry, ResourceRegistry,
+    )
+    from sentinel_tpu_torch.engine import pipeline as pl
+    from sentinel_tpu_torch.ops import segments as seg
+    from sentinel_tpu_torch.rules import authority as auth_mod
+    from sentinel_tpu_torch.rules import degrade as deg_mod
+    from sentinel_tpu_torch.rules import flow as flow_mod
+    from sentinel_tpu_torch.rules import system as sys_mod
+    from sentinel_tpu_torch.stats.window import WindowSpec
+
+    dev = torch.device(dev)
+    NRULES, NBRK = 4096, 1024
+    RA = 2 * R                                 # the runtime's alt rows
+    spec = pl.EngineSpec(rows=R, alt_rows=RA,
+                         second=WindowSpec(buckets=2, win_ms=500),
+                         minute=None, statistic_max_rt=5000,
+                         hist_buckets=32)
+    resources = ResourceRegistry(R)
+    origins = OriginRegistry(ORIGINS + 1)
+    contexts = Registry(CONTEXTS + 1,
+                        reserved=("sentinel_default_context",))
+    flow = flow_mod.compile_flow_rules(
+        _origin_rules(flow_mod, NRULES, thread_grade=route == "general"),
+        resource_registry=resources,
+        context_registry=contexts, capacity=NRULES, k_per_resource=2,
+        num_rows=R, origin_registry=origins, device=dev)
+    key_fits = (NRULES + 1) * (RA + 1) < 2 ** 31
+    if key_fits != (route == "fast"):
+        fail(f"{route} engine phase: R={R} gives key_fits={key_fits}")
+    deg = deg_mod.compile_degrade_rules(
+        [deg_mod.DegradeRule(resource=f"r{i}",
+                             grade=deg_mod.GRADE_EXCEPTION_RATIO,
+                             count=0.5, time_window=10)
+         for i in range(NBRK)],
+        resource_registry=resources, capacity=NBRK, k_per_resource=2,
+        num_rows=R, device=dev)
+    auth = auth_mod.compile_authority_rules(
+        [], resource_registry=resources, origin_registry=origins,
+        capacity=16, k_per_resource=2, num_rows=R, device=dev)
+    rules = pl.RuleSet(
+        flow_table=flow.table, flow_idx=flow.rule_idx[:, :flow.k_used],
+        deg_table=deg.table, deg_idx=deg.rule_idx[:, :deg.k_used],
+        auth_table=auth.table, auth_idx=auth.rule_idx,
+        sys_thresholds=sys_mod.compile_system_rules([], device=dev),
+    ).with_joint()
+    ruled = np.array([resources.lookup(f"r{i}") for i in range(NRULES // 2)],
+                     np.int32)
+    origin_ids = np.array([origins.lookup(f"app-{i}") for i in
+                           range(ORIGINS)], np.int32)
+    ctx_ids = np.array([contexts.lookup(f"ctx-{i}") for i in
+                        range(CONTEXTS)], np.int32)
+    has_rl = any(r.control_behavior == flow_mod.BEHAVIOR_RATE_LIMITER
+                 for r in flow.rules)
+    # the runtime's rule: the gauges are kept when anything reads them
+    skip_threads = not any(r.grade == flow_mod.GRADE_THREAD
+                           for r in flow.rules)
+    flags = dict(skip_auth=True, skip_sys=True, scalar_has_rl=has_rl,
+                 skip_threads=skip_threads, record_alt=True,
+                 fast_flow=route == "fast")
+
+    rng = np.random.default_rng(43)
+    batches = []
+    for _ in range(4):
+        rows = np.where(rng.random(B) < 0.25,
+                        ruled[rng.integers(0, ruled.shape[0], B)],
+                        rng.integers(1, R, B)).astype(np.int32)
+        oid = np.where(rng.random(B) < 0.5,
+                       origin_ids[rng.integers(0, ORIGINS, B)], 0)
+        cid = np.where(rng.random(B) < 0.125,
+                       ctx_ids[rng.integers(0, CONTEXTS, B)], 0)
+        orow = np.where(oid > 0, _alt_rows_np(rows, 0, oid, RA), RA)
+        crow = np.where(cid > 0, _alt_rows_np(rows, 1, cid, RA), RA)
+        acq = (np.ones(B, np.int32) if route == "fast"
+               else rng.integers(1, 3, B).astype(np.int32))
+        cols = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+                for a in (rows, oid, orow, cid, crow, acq)]
+        batches.append(pl.EntryBatch(
+            *cols, is_in=torch.ones(B, dtype=torch.bool, device=dev),
+            prioritized=torch.zeros(B, dtype=torch.bool, device=dev),
+            valid=torch.ones(B, dtype=torch.bool, device=dev)))
+    rt_ms = [torch.from_numpy(rng.integers(0, 200, B).astype(np.int32)).to(
+        dev) for _ in range(4)]
+    errors = [torch.from_numpy(rng.random(B) < 0.3).to(dev) for _ in range(4)]
+    t0_ms = 1_000_000_000
+
+    def times(i):
+        now = t0_ms + i * 2
+        return (spec.second.index_of(now), 0, now - t0_ms,
+                now % spec.second.win_ms)
+
+    init = pl.init_state(spec, NRULES, NBRK, device=dev)
+
+    def run(state, n_steps, sortfree=True, strict=False):
+        out, step_s = [], []
+        prev = batches[0]._replace(valid=torch.zeros(B, dtype=torch.bool,
+                                                     device=dev))
+        for i in range(n_steps):
+            b = batches[i % 4]
+            xb = pl.ExitBatch(
+                rows=prev.rows, origin_rows=prev.origin_rows,
+                chain_rows=prev.chain_rows, acquire=prev.acquire,
+                rt_ms=rt_ms[i % 4], error=errors[i % 4],
+                is_in=prev.is_in, valid=prev.valid)
+            sync()
+            t = time.perf_counter()
+            with no_host_sync(strict and dev.type == "cuda"):
+                state, v = pl.decide_and_record_exits(
+                    spec, rules, state, b, xb, times(i), (0.5, 0.1),
+                    sortfree=sortfree, **flags)
+            sync()
+            step_s.append(time.perf_counter() - t)
+            out.append(v)
+            prev = b._replace(valid=v.allow.clone())
+        return state, out, step_s
+
+    run(_clone_state(init), 2)                     # warm-up
+    sa.LAUNCHES.clear()
+    s_kernel, v_kernel, step_s = run(_clone_state(init), steps, strict=True)
+    launches = sa.LAUNCHES["scatter_add"]
+    # per fused step: the decide record, its alt half, (general) the
+    # counting order's bucket histogram; the exit payload, rt_sum and
+    # rt_hist, the alt payload and alt rt_sum; the breakers' two counts;
+    # with the thread gauges, +1 and -1 on the main and the alt gauges
+    per_step = 9 + (route == "general") + 4 * (not skip_threads)
+    if launches != per_step * steps:
+        fail(f"{route} engine phase: {launches} kernel launches in {steps} "
+             f"steps, want {per_step} per step")
+    real = sa.scatter_add
+    sa.scatter_add = sa.scatter_add_reference     # the plain seam
+    try:
+        sa.LAUNCHES.clear()
+        s_plain, v_plain, _ = run(_clone_state(init), steps)
+        if sa.LAUNCHES["scatter_add"]:
+            fail(f"{route} engine phase: the plain run launched the kernel")
+    finally:
+        sa.scatter_add = real
+    s_sorted, v_sorted, sorted_s = run(_clone_state(init), steps,
+                                       sortfree=False, strict=True)
+    overflow = 0
+    for i, (a, b, c) in enumerate(zip(v_kernel, v_plain, v_sorted)):
+        for f in ("allow", "reason", "wait_ms"):
+            if not (torch.equal(getattr(a, f), getattr(b, f))
+                    and torch.equal(getattr(a, f), getattr(c, f))):
+                fail(f"{route} engine phase: verdict {f} differs at step {i}")
+        if int(a.sf_overflow) != int(b.sf_overflow):
+            fail(f"{route} engine phase: sf_overflow differs at step {i}")
+        overflow += int(a.sf_overflow)
+    want = convert.to_numpy(s_kernel)
+    for other, tag in ((s_plain, "plain seam"), (s_sorted, "sorted order")):
+        bad = convert.leaf_diff(want, convert.to_numpy(other))
+        if bad:
+            fail(f"{route} engine phase: state differs from the {tag} "
+                 f"run: {bad}")
+    allowed = int(sum(int(v.allow.sum()) for v in v_kernel))
+
+    # what computing both orders costs (the reference's lax.cond computes
+    # one): the sorted fallback alone, at this step's pair shape
+    k = flow.k_used
+    on = torch.rand((B, k), device=dev) < 0.3
+    if route == "fast":
+        sentinel = NRULES * (RA + 1)
+        key = torch.full((B, k), sentinel, dtype=torch.int32, device=dev)
+        key[on] = torch.randint(0, sentinel, (int(on.sum()),),
+                                dtype=torch.int32, device=dev)
+        fallback = lambda: seg.ranks_per_slot(key)      # noqa: E731
+    else:
+        rule = torch.where(on, torch.randint(
+            0, NRULES, (B, k), dtype=torch.int32, device=dev),
+            NRULES).reshape(-1)
+        row = torch.where(on, torch.randint(
+            0, R + RA, (B, k), dtype=torch.int32, device=dev),
+            0).reshape(-1)
+        fallback = lambda: seg.sort_by_keys(rule, row)  # noqa: E731
+    fallback_ms = summary(CudaTimer().warm({"fallback": fallback},
+                                           rounds=3, iters=5)["fallback"]
+                          ) if dev.type == "cuda" else None
+    med = float(np.median(step_s[1:]))
+    med_sorted = float(np.median(sorted_s[1:]))
+    out = {"route": route, "R": R, "RA": RA, "B": B, "steps": steps,
+           "k_used": flow.k_used, "thread_gauges": not skip_threads,
+           "launches": launches,
+           "launches_per_step": launches / steps,
+           "step_ms_median": med * 1e3,
+           "step_ms_all": [x * 1e3 for x in step_s],
+           "sorted_step_ms_median": med_sorted * 1e3,
+           "decisions_per_s": B / med, "allowed": allowed,
+           "sf_overflow": overflow, "fallback_ms": fallback_ms}
+    log(f"[{route}] R={R} RA={RA} B={B} K={flow.k_used} steps={steps} "
+        f"thread gauges {'on' if not skip_threads else 'off'}: "
+        f"verdicts, sf_overflow and state equal (kernel, plain seam, sorted "
+        f"order); step median {med * 1e3:.3f} ms ({B / med:.0f} "
+        f"decisions/s), sorted-order run {med_sorted * 1e3:.3f} ms; kernel "
+        f"launches {launches} ({launches / steps:.1f}/step); allowed "
+        f"{allowed}; claim overflow {overflow}")
+    if fallback_ms is not None:
+        log(f"[{route}]   the sorted fallback computed every step: "
+            f"{fallback_ms['median']:.4f} ms warm (median)")
+    if profile:
+        out["profile"] = prof = _profile_steps(
+            lambda: run(_clone_state(init), steps), steps,
+            f"engine_{route}_trace.json")
+        # the same steps in the sorted order alone: what sort-free
+        # grouping (claim cascade, counting order and the sorted fallback
+        # computed beside it) costs the step as a whole
+        out["profile_sorted"] = prof_s = _profile_steps(
+            lambda: run(_clone_state(init), steps, sortfree=False), steps,
+            f"engine_{route}_sorted_trace.json", keep_trace=False)
+        log(f"[{route}] device time {prof['device_ms_per_step']:.3f} ms per "
+            f"step; sorted order alone {prof_s['device_ms_per_step']:.3f} "
+            f"ms per step")
+    return out
+
+
+def _profile_steps(run_steps, steps: int,
+                   trace_name: str = "engine_trace.json",
+                   keep_trace: bool = True) -> dict:
     """Device time by operator over one run of engine steps, and device
     busy time per step from the trace (``torch.profiler``; ``--profile``
-    only)."""
+    only). ``keep_trace=False`` deletes the trace once read."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run_steps()
         sync()
     os.makedirs("chiprun_out", exist_ok=True)
-    trace = os.path.join("chiprun_out", "engine_trace.json")
+    trace = os.path.join("chiprun_out", trace_name)
     prof.export_chrome_trace(trace)
     with open(trace) as fh:
         events = json.load(fh)
@@ -557,6 +925,8 @@ def _profile_steps(run_steps, steps: int) -> dict:
         else events
     busy_us = sum(float(e.get("dur", 0.0)) for e in events
                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not keep_trace:
+        os.remove(trace)
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "device_time_total", None)
@@ -615,6 +985,46 @@ def _drive_runtime(stt, sph, clock, hello_n: int = 25) -> dict:
             "first": sph.node_totals(names[0])}
 
 
+def _drive_origins(stt, sph, clock) -> dict:
+    """Origin- and context-bearing calls: ``entry(origin=...)`` inside a
+    call context, ``entry_batch(origins=, contexts=)`` with uniform and
+    with mixed acquire, and a mixed batch that splits."""
+    from sentinel_tpu_torch.core.context import ContextScope
+    from sentinel_tpu_torch.rules import flow as flow_mod
+    sph.load_flow_rules(_origin_rules(flow_mod, 512))
+    rng = np.random.default_rng(5)
+    outcomes = []
+    for i in range(24):
+        with ContextScope(f"ctx-{i % 3}" if i % 3 else "",
+                          origin=f"app-{i % 4}" if i % 4 else ""):
+            try:
+                with sph.entry(f"r{i % 6}"):
+                    clock.advance_ms(1)
+                outcomes.append("pass")
+            except stt.BlockException as exc:
+                outcomes.append(type(exc).__name__)
+    n = 2048
+    names = [f"r{i}" for i in rng.integers(0, 300, n)]
+    origins = [f"app-{i}" if i < ORIGINS else ""
+               for i in rng.integers(0, 2 * ORIGINS, n)]
+    contexts = [f"ctx-{i}" if i < CONTEXTS else ""
+                for i in rng.integers(0, 8 * CONTEXTS, n)]
+    v_fast = sph.entry_batch(names, origins=origins, contexts=contexts)
+    v_gen = sph.entry_batch(names, origins=origins, contexts=contexts,
+                            acquire=rng.integers(1, 3, n).tolist())
+    m = 6000
+    mixed = [f"r{i}" for i in rng.integers(0, 300, m)]
+    mixed_origins = [""] * m
+    for i in rng.integers(0, m, 100):
+        mixed_origins[i] = f"app-{i % ORIGINS}"
+    v_split = sph.entry_batch(mixed, origins=mixed_origins)
+    return {"entries": outcomes, "fast_allow": v_fast.allow.tolist(),
+            "general_allow": v_gen.allow.tolist(),
+            "general_reason": v_gen.reason.tolist(),
+            "split_allow": v_split.allow.tolist(),
+            "routes": dict(sph.routes)}
+
+
 def phase_runtime(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
                   full_steps: int = 4) -> dict:
     cfg_kw = dict(max_resources=R, minute_enabled=True,
@@ -631,24 +1041,59 @@ def phase_runtime(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
     names = [f"r{i}" for i in range(4096)] + [f"u{i}" for i in range(60000)]
     pool = sph.intern_resources(names)
     ra = sph.spec.alt_rows
+    # every dispatch below is checked for waits on the device
     prev = np.empty(0, np.int32)
-    step_s = []
+    step_s, origin_step_s = [], []
     allowed = 0
     for _ in range(full_steps):
         rows = pool[rng.integers(0, len(pool), B)]
         clock.advance_ms(2)
         t = time.perf_counter()
-        h = sph.decide_and_exit_raw_nowait(
-            rows, np.zeros(B, np.int32), np.full(B, ra, np.int32),
-            np.zeros(B, np.int32), np.full(B, ra, np.int32),
-            np.ones(B, np.int32), np.ones(B, np.bool_), np.zeros(B, np.bool_),
-            exit_rows=prev,
-            exit_rt_ms=rng.integers(0, 100, prev.shape[0]).astype(np.int32),
-            exit_error=rng.random(prev.shape[0]) < 0.1)
+        with no_host_sync(dev == "cuda"):
+            h = sph.decide_and_exit_raw_nowait(
+                rows, np.zeros(B, np.int32), np.full(B, ra, np.int32),
+                np.zeros(B, np.int32), np.full(B, ra, np.int32),
+                np.ones(B, np.int32), np.ones(B, np.bool_),
+                np.zeros(B, np.bool_), exit_rows=prev,
+                exit_rt_ms=rng.integers(0, 100, prev.shape[0]).astype(
+                    np.int32),
+                exit_error=rng.random(prev.shape[0]) < 0.1)
         v = h.result()
         step_s.append(time.perf_counter() - t)
         allowed += int(v.allow.sum())
         prev = rows[v.allow]
+    # origin-bearing full-width steps (alt rows hashed as the runtime
+    # hashes them): at R = 2^20 the fast path's key does not fit, so they
+    # take the general route. A system rule and an authority rule that
+    # block nothing here make them run the system and authority slots and
+    # keep the thread gauges, main and alt, too
+    sph.load_system_rules([stt.SystemRule(qps=1e12)])
+    sph.load_authority_rules([stt.AuthorityRule(resource="u0",
+                                                limit_app="app-1")])
+    if sph._skip_threads:
+        fail("runtime phase: a system rule did not turn the gauges on")
+    origin_route = "fast" if sph._key_fits() else "general"
+    routes_before = dict(sph.routes)
+    for _ in range(2):
+        rows = pool[rng.integers(0, len(pool), B)]
+        oid = np.where(rng.random(B) < 0.5,
+                       rng.integers(1, ORIGINS + 1, B), 0).astype(np.int32)
+        orow = np.where(oid > 0, _alt_rows_np(rows, 0, oid, ra), ra)
+        clock.advance_ms(2)
+        t = time.perf_counter()
+        with no_host_sync(dev == "cuda"):
+            h = sph.decide_and_exit_raw_nowait(
+                rows, oid, orow.astype(np.int32), np.zeros(B, np.int32),
+                np.full(B, ra, np.int32), np.ones(B, np.int32),
+                np.ones(B, np.bool_), np.zeros(B, np.bool_),
+                exit_rows=prev,
+                exit_rt_ms=rng.integers(0, 100, prev.shape[0]).astype(
+                    np.int32))
+        v = h.result()
+        origin_step_s.append(time.perf_counter() - t)
+        prev = rows[v.allow]
+    if sph.routes["fused"] != routes_before.get("fused", 0) + 2:
+        fail("runtime phase: the origin steps did not take the fused path")
     launches = sa.LAUNCHES["scatter_add"]
     if launches == 0:
         fail("runtime phase: the scatter-add kernel was never launched")
@@ -667,16 +1112,68 @@ def phase_runtime(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
         if got[key] != want[key]:
             fail(f"runtime phase: {key} differs from the CPU twin: "
                  f"{got[key]} vs {want[key]}")
+    # origins and contexts, on a pair of one geometry (the alt hash and
+    # the route depend on it): the card's engine and a CPU twin
+    o_cfg = dict(cfg_kw, max_resources=1 << 14)
+    o_got, o_want = [
+        _drive_origins(stt, stt.Sentinel(config=stt.load_config(**o_cfg),
+                                         clock=c, device=d), c)
+        for d, c in ((dev, stt.ManualClock(start_ms=t0)),
+                     ("cpu", stt.ManualClock(start_ms=t0)))]
+    for key in o_want:
+        if o_got[key] != o_want[key]:
+            fail(f"runtime phase: origin drive {key} differs from the CPU "
+                 f"twin: {o_got[key]} vs {o_want[key]}")
+    if set(o_got["routes"]) != {"scalar", "fast", "general", "split"}:
+        fail(f"runtime phase: origin drive routes {o_got['routes']}, want "
+             f"scalar, fast, general and split")
+    launches = sa.LAUNCHES["scatter_add"]
     med = float(np.median(step_s[1:]))
     log(f"[runtime] Sentinel(device={dev!r}) R={R}: HelloWorld 20 passes + "
         f"5 FlowExceptions; entry_batch(4096) and exit_batch agree with a "
         f"CPU twin; fused raw steps B={B}: median {med * 1e3:.2f} ms "
         f"({B / med:.0f} decisions/s end to end), allowed {allowed}; "
-        f"kernel launches {launches}")
+        f"origin-bearing fused steps ({origin_route} route) "
+        f"{', '.join(f'{x * 1e3:.2f}' for x in origin_step_s)} ms; "
+        f"entry(origin=...), entry_batch(origins=, contexts=) and a split "
+        f"batch agree with a CPU twin (routes {o_got['routes']}); kernel "
+        f"launches {launches}")
     return {"launches": launches, "hello": got["hello"],
             "full_step_ms": [s * 1e3 for s in step_s],
             "full_step_ms_median": med * 1e3,
+            "origin_step_ms": [s * 1e3 for s in origin_step_s],
+            "origin_routes": o_got["routes"],
             "decisions_per_s": B / med}
+
+
+def find_syncs(stt, sa) -> int:
+    """``--find-syncs``: every place where a kernel-run engine step waits
+    on the device, with the port's frames of its stack (the sync debug
+    mode at "warn" over 3 steps of each engine phase)."""
+    import traceback
+    import warnings
+    sites = {}
+
+    def show(message, *_args, **_kw):
+        frames = [f for f in traceback.extract_stack()
+                  if "sentinel_tpu_torch" in f.filename]
+        key = tuple((os.path.basename(f.filename), f.lineno)
+                    for f in frames)
+        if frames and key not in sites:
+            sites[key] = frames
+            log(f"[sync] {str(message)[:60]}")
+            for f in frames[-4:]:
+                log(f"[sync]   {os.path.relpath(f.filename)}:{f.lineno} "
+                    f"{f.line}")
+
+    warnings.showwarning = show
+    warnings.simplefilter("always")
+    no_host_sync.mode = "warn"
+    phase_engine(stt, sa, steps=3)
+    phase_origin_engine(stt, sa, "general", steps=3)
+    phase_origin_engine(stt, sa, "fast", R=1 << 17, steps=3)
+    log(f"[sync] {len(sites)} place(s) wait on the device in a step")
+    return 0
 
 
 def main() -> int:
@@ -706,22 +1203,32 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
+    if "--find-syncs" in sys.argv[1:]:
+        phase_build(_build)
+        return find_syncs(stt, sa)
     t_all = time.perf_counter()
     report = {"card": card, "torch": torch.__version__}
     report["build"] = phase_build(_build)
     report["kernel_cases"] = phase_kernels(sa, DEFAULT_BUCKETS,
                                            timer=CudaTimer())
-    report["engine"] = phase_engine(stt, sa,
-                                    profile="--profile" in sys.argv[1:])
+    profile = "--profile" in sys.argv[1:]
+    report["engine"] = phase_engine(stt, sa, profile=profile)
+    report["general"] = phase_origin_engine(stt, sa, "general",
+                                            profile=profile)
+    report["fast"] = phase_origin_engine(stt, sa, "fast", R=1 << 17,
+                                         profile=profile)
     report["runtime"] = phase_runtime(stt, sa)
     report["seconds"] = time.perf_counter() - t_all
 
     decide = report["kernel_cases"][0]
+    # the main path's launches: each path's run, counted from 0
+    launches = sum(report[p]["launches"]
+                   for p in ("engine", "general", "fast", "runtime"))
     kernels = [{
         "name": "scatter_add", "route": "cuda",
         "source": "sentinel_tpu_torch/csrc/scatter_add.cu",
         "replaces": REPLACES,
-        "launches": report["runtime"]["launches"],
+        "launches": launches,
         "max_abs_err": max(c["max_abs_err"] for c in report["kernel_cases"]),
         "ms": decide["cold"]["kernel"]["median"],
         "plain_ms": decide["plain_ms"],

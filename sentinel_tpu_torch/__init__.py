@@ -6,8 +6,9 @@ JAX package ``sentinel_tpu`` stays beside it as the reference that every
 module here is held to, bit for bit; this package imports neither JAX nor
 ``sentinel_tpu``.
 
-This slice ports the scalar admission route (no origins, uniform
-``acquire``, no priorities) end to end::
+It ports admission without prioritized events end to end — the scalar,
+fast and general routes of the JAX runtime, origins and entrance contexts
+included::
 
     import sentinel_tpu_torch as stt
 
@@ -15,7 +16,7 @@ This slice ports the scalar admission route (no origins, uniform
     sph = stt.Sentinel(cfg)                 # device="cuda" by default
     sph.load_flow_rules([stt.FlowRule(resource="HelloWorld", count=20)])
     try:
-        with sph.entry("HelloWorld"):
+        with sph.entry("HelloWorld", origin="app-a"):
             do_something()
     except stt.BlockException:
         do_fallback()

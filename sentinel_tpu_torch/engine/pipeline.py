@@ -1,8 +1,11 @@
 """The decision pipeline: the slot chain as one device step.
 
-Port of ``sentinel_tpu/engine/pipeline.py`` for the SCALAR admission path
-(uniform acquire, no origins, no priorities — the batch the serving
-headline sends). The reference order is kept: every entry walks
+Port of ``sentinel_tpu/engine/pipeline.py`` for the admission paths
+without prioritized events: the scalar path (uniform acquire, no origins
+— the batch the serving headline sends), the fast path (origins, alt rows
+and contexts, uniform acquire) and the general path (anything else), with
+the alt table's (resource × origin / context) records. The reference
+order is kept: every entry walks
 ``AuthoritySlot → SystemSlot → FlowSlot → DegradeSlot`` and
 ``StatisticSlot`` records pass/block AFTER the decision (statistics are
 post-decision, ``StatisticSlot.java:54-131``); exits record
@@ -50,9 +53,8 @@ from sentinel_tpu_torch.stats.window import (
 Times = Tuple[int, int, int, int]
 SysScalars = Tuple[float, float]
 
-_OTHER_PATHS = ("the fast and general admission paths (origins, "
-                "prioritized events, non-uniform acquire) are not ported "
-                "yet: ROADMAP A7")
+_OCCUPY = ("prioritized events (occupy admission) are not ported yet: "
+           "ROADMAP A7b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,6 +139,9 @@ class Verdicts(NamedTuple):
     allow: torch.Tensor          # bool[B]
     reason: torch.Tensor         # int8[B] (BlockReason codes)
     wait_ms: torch.Tensor        # int32[B]
+    # int32 scalar: claim-cascade elements that took the sorted order this
+    # step (sort-free steps only, else None)
+    sf_overflow: Optional[torch.Tensor] = None
 
 
 def init_state(spec: EngineSpec, nf: int, nd: int,
@@ -186,6 +191,27 @@ def _refresh_second(spec: EngineSpec, second: WindowState,
                         torch.cat([rows, entry_refresh[None]]), now_idx)
 
 
+def _stat_targets(spec: EngineSpec, origin_rows: torch.Tensor,
+                  chain_rows: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """The alt-table recording targets of a batch: the origin rows, then
+    the chain rows, padding (``RA``) where the event is invalid → int32[2B]
+    (the alt half of the JAX package's ``_stat_targets``; the main half is
+    the recorders' own ``main_rec1``/``main_rows``)."""
+    pad_a = spec.alt_rows
+    return torch.cat([torch.where(valid, origin_rows, pad_a),
+                      torch.where(valid, chain_rows, pad_a)])
+
+
+def _refresh_alt(spec: EngineSpec, alt_second: WindowState,
+                 alt_targets: torch.Tensor, now_idx: int) -> WindowState:
+    """The alt window's lazy reset: a full sweep when B >= 2, else the
+    rows this batch targets."""
+    if spec.second.buckets >= 2:
+        return refresh_all(spec.second, alt_second, now_idx)
+    return refresh_rows(spec.second, alt_second, alt_targets, now_idx)
+
+
 def decide_entries(
     spec: EngineSpec,
     rules: RuleSet,
@@ -194,19 +220,32 @@ def decide_entries(
     times: Times,
     sys_scalars: SysScalars,
     *,
-    scalar_flow: bool = True,    # HOST-VERIFIED scalar preconditions (see
-    # flow_check_scalar); False would select the general paths
+    enable_occupy: bool = False,  # prioritized admission: a later slice
+    record_alt: bool = True,     # False = the batch carries no origin/chain
+    # rows (host-verified all padding): the alt records are skipped
+    scalar_flow: bool = False,   # HOST-VERIFIED scalar preconditions (see
+    # flow_check_scalar); implies record_alt=False
+    fast_flow: bool = False,     # HOST-VERIFIED fast-path preconditions
+    # (uniform acquire >= 1, composite key fits int32; see flow_check_fast)
     skip_auth: bool = False,     # no authority rules loaded
     skip_sys: bool = False,      # no system thresholds set
     scalar_has_rl: bool = True,  # ruleset contains rate-limiter rules
     skip_threads: bool = False,  # nothing loaded reads the thread gauges
+    sortfree: bool = False,      # fast/general paths group through the
+    # claim cascade (ops/sortfree.py); the verdicts carry sf_overflow
 ) -> Tuple[SentinelState, Verdicts]:
     """One device step: decide a batch, then record post-decision
     statistics. Gating masks cascade through the slots, so an event
-    blocked upstream never consumes downstream quota."""
-    if not scalar_flow:
-        raise NotImplementedError(_OTHER_PATHS)
+    blocked upstream never consumes downstream quota. The flow slot takes
+    the scalar path (``scalar_flow``), the fast path (``fast_flow``) or,
+    with neither, the general path."""
+    if enable_occupy:
+        raise NotImplementedError(_OCCUPY)
+    if scalar_flow and (record_alt or fast_flow):
+        raise ValueError("scalar_flow implies record_alt=False and excludes "
+                         "fast_flow")
     R = spec.rows
+    RA = spec.alt_rows
     now_idx_s, now_idx_m, rel_now_ms, _in_win_ms = times
     load1, cpu_usage = sys_scalars
 
@@ -228,7 +267,7 @@ def decide_entries(
     live2 = live1 & sys_ok
 
     flow_bk = deg_bk = None
-    if rules.joint_idx is not None:
+    if (scalar_flow or fast_flow) and rules.joint_idx is not None:
         kf = rules.flow_idx.shape[1]
         nf = rules.flow_table.active.shape[0] - 1
         nd = rules.deg_table.active.shape[0] - 1
@@ -236,17 +275,38 @@ def decide_entries(
         in_r = (batch.rows < R)[:, None]
         flow_bk = torch.where(in_r, joint[:, :kf], nf)
         deg_bk = torch.where(in_r, joint[:, kf:], nd)
-    flow_dyn, flow_ok, wait_ms = flow_mod.flow_check_scalar(
-        rules.flow_table, state.flow_dyn, rules.flow_idx, spec.second,
-        state.second, state.threads, batch.rows, batch.acquire, live2,
-        now_idx_s, rel_now_ms,
-        minute_spec=spec.minute,
-        main_minute=state.minute if spec.minute else None,
-        now_idx_m=now_idx_m,
-        has_rate_limiter=scalar_has_rl,
-        rules_bk=flow_bk)
+    main_minute = state.minute if spec.minute else None
+    sf_ovf = torch.zeros((), dtype=torch.int32, device=live.device)
+    if scalar_flow:
+        flow_dyn, flow_ok, wait_ms = flow_mod.flow_check_scalar(
+            rules.flow_table, state.flow_dyn, rules.flow_idx, spec.second,
+            state.second, state.threads, batch.rows, batch.acquire, live2,
+            now_idx_s, rel_now_ms, minute_spec=spec.minute,
+            main_minute=main_minute, now_idx_m=now_idx_m,
+            has_rate_limiter=scalar_has_rl, rules_bk=flow_bk)
+    else:
+        fview = flow_mod.FlowBatchView(
+            rows=batch.rows, origin_ids=batch.origin_ids,
+            origin_rows=batch.origin_rows, context_ids=batch.context_ids,
+            chain_rows=batch.chain_rows, acquire=batch.acquire, valid=live2,
+            cluster_fallback=torch.zeros_like(batch.rows))
+        args = (rules.flow_table, state.flow_dyn, rules.flow_idx,
+                spec.second, state.second, state.alt_second, state.threads,
+                state.alt_threads, fview, now_idx_s, rel_now_ms)
+        common = dict(minute_spec=spec.minute, main_minute=main_minute,
+                      now_idx_m=now_idx_m, has_thread_rules=not skip_threads,
+                      sortfree=sortfree)
+        if fast_flow:
+            flow_dyn, flow_ok, wait_ms, sf_ovf = flow_mod.flow_check_fast(
+                *args, has_rate_limiter=scalar_has_rl, rules_bk=flow_bk,
+                **common)
+        else:
+            flow_dyn, flow_ok, wait_ms, sf_ovf = flow_mod.flow_check(
+                *args, **common)
     live3 = live2 & flow_ok
-    breakers, deg_ok = deg_mod.degrade_entry_check_scalar(
+    # the degrade slot is origin-independent: one check serves every path
+    # (deg_mod.degrade_entry_check says why it equals the sorted form)
+    breakers, deg_ok = deg_mod.degrade_entry_check(
         rules.deg_table, state.breakers, rules.deg_idx, batch.rows,
         live3, rel_now_ms, rules_bk=deg_bk)
 
@@ -284,6 +344,23 @@ def decide_entries(
                    now_idx_s)
     add_one_row(spec.second, second, ENTRY_NODE_ROW, entry_vec, now_idx_s)
 
+    # alt rows (origin + chain hashes), one scatter of 2B lanes: every
+    # event is recorded, so the targets are the valid events' rows
+    alt_second = state.alt_second
+    if record_alt:
+        alt_targets = _stat_targets(spec, batch.origin_rows,
+                                    batch.chain_rows, batch.valid)
+        ev_ids2 = torch.cat([ev_ids1, ev_ids1])
+        alt_second = _refresh_alt(spec, alt_second, alt_targets, now_idx_s)
+        # one scatter on every route: the JAX package's one-hot histogram
+        # branch for small alt tables (fast route, RA <= 4096) adds the
+        # same sum under its uniform acquire, and the kernel's plan takes
+        # the shared-memory path for such a table by itself
+        acq2 = torch.cat([acq, acq])
+        alt_amt = torch.where(alt_targets < RA, acq2, 0)
+        add_rows_multi(spec.second, alt_second, alt_targets, ev_ids2,
+                       alt_amt, now_idx_s)
+
     if spec.minute:
         refresh_all(spec.minute, state.minute, now_idx_m)
         add_rows_multi(spec.minute, state.minute, main_rec1, ev_ids1,
@@ -297,11 +374,17 @@ def decide_entries(
                      passed.to(torch.int32))
         state.threads[ENTRY_NODE_ROW].add_(
             _isum((passed & ein).to(torch.int32)))
+        if record_alt:
+            pass2 = torch.cat([passed, passed])
+            _add_threads(state.alt_threads,
+                         torch.where(pass2, alt_targets, RA),
+                         pass2.to(torch.int32))
 
-    new_state = state._replace(second=second, flow_dyn=flow_dyn,
-                               breakers=breakers)
+    new_state = state._replace(second=second, alt_second=alt_second,
+                               flow_dyn=flow_dyn, breakers=breakers)
     return new_state, Verdicts(allow=allow, reason=reason,
-                               wait_ms=wait_ms.to(torch.int32))
+                               wait_ms=wait_ms.to(torch.int32),
+                               sf_overflow=sf_ovf if sortfree else None)
 
 
 def record_exits(
@@ -311,11 +394,13 @@ def record_exits(
     batch: ExitBatch,
     times: Times,
     *,
+    record_alt: bool = True,
     skip_threads: bool = False,
 ) -> SentinelState:
     """Completion step: ``StatisticSlot.exit`` (rt/success/exception and
-    the thread decrement, for the node and ENTRY) then ``DegradeSlot.exit``
-    (breaker feed), then the per-resource RT histogram."""
+    the thread decrement, for the node, its origin and chain rows
+    (``record_alt``) and ENTRY) then ``DegradeSlot.exit`` (breaker feed),
+    then the per-resource RT histogram."""
     R = spec.rows
     now_idx_s, now_idx_m, rel_now_ms, _in_win_ms = times
 
@@ -346,6 +431,15 @@ def record_exits(
                  rt_ms=rt1, rt_valid=batch.valid)
     add_one_row(spec.second, second, ENTRY_NODE_ROW, entry_vec, now_idx_s,
                 rt_add=entry_rt_add, rt_min=entry_rt_min)
+    alt_second = state.alt_second
+    if record_alt:
+        alt_targets = _stat_targets(spec, batch.origin_rows,
+                                    batch.chain_rows, batch.valid)
+        alt_second = _refresh_alt(spec, alt_second, alt_targets, now_idx_s)
+        valid2 = torch.cat([batch.valid, batch.valid])
+        add_rows_vec(spec.second, alt_second, alt_targets,
+                     torch.cat([payload, payload]), now_idx_s,
+                     rt_ms=torch.cat([rt1, rt1]), rt_valid=valid2)
     if spec.minute:
         refresh_all(spec.minute, state.minute, now_idx_m)
         add_rows_vec(spec.minute, state.minute, main_rows, payload,
@@ -354,9 +448,14 @@ def record_exits(
                     now_idx_m, rt_add=entry_rt_add, rt_min=entry_rt_min)
 
     if not skip_threads:
-        _add_threads(state.threads, main_rows, -batch.valid.to(torch.int32))
+        dec1 = batch.valid.to(torch.int32)
+        _add_threads(state.threads, main_rows, -dec1)
         state.threads[ENTRY_NODE_ROW].sub_(_isum(ein.to(torch.int32)))
         state.threads.clamp_(min=0)
+        if record_alt:
+            _add_threads(state.alt_threads, alt_targets,
+                         -torch.cat([dec1, dec1]))
+            state.alt_threads.clamp_(min=0)
 
     breakers = deg_mod.degrade_exit_feed(
         rules.deg_table, state.breakers, rules.deg_idx, batch.rows,
@@ -369,7 +468,8 @@ def record_exits(
         sa.scatter_add(state.rt_hist, main_rows, bidx,
                        batch.valid.to(torch.int32))
 
-    return state._replace(second=second, breakers=breakers)
+    return state._replace(second=second, alt_second=alt_second,
+                          breakers=breakers)
 
 
 def decide_and_record_exits(
@@ -381,30 +481,41 @@ def decide_and_record_exits(
     times: Times,
     sys_scalars: SysScalars,
     *,
-    scalar_flow: bool = True,
+    enable_occupy: bool = False,
+    record_alt: bool = True,
+    scalar_flow: bool = False,
+    fast_flow: bool = False,
     skip_auth: bool = False,
     skip_sys: bool = False,
     scalar_has_rl: bool = True,
     skip_threads: bool = False,
+    sortfree: bool = False,
 ) -> Tuple[SentinelState, Verdicts]:
     """Fused entry+exit step: this step's decisions, then the previous
     step's completions — identical to :func:`decide_entries` followed by
-    :func:`record_exits` at the same ``times``."""
+    :func:`record_exits` at the same ``times`` (``record_alt`` serves
+    both halves)."""
     state, verdicts = decide_entries(
         spec, rules, state, entry_batch, times, sys_scalars,
-        scalar_flow=scalar_flow, skip_auth=skip_auth, skip_sys=skip_sys,
-        scalar_has_rl=scalar_has_rl, skip_threads=skip_threads)
+        enable_occupy=enable_occupy, record_alt=record_alt,
+        scalar_flow=scalar_flow, fast_flow=fast_flow, skip_auth=skip_auth,
+        skip_sys=skip_sys, scalar_has_rl=scalar_has_rl,
+        skip_threads=skip_threads, sortfree=sortfree)
     state = record_exits(spec, rules, state, exit_batch, times,
-                         skip_threads=skip_threads)
+                         record_alt=record_alt, skip_threads=skip_threads)
     return state, verdicts
 
 
 def invalidate_resource_rows(spec: EngineSpec, state: SentinelState,
-                             rows: torch.Tensor) -> SentinelState:
+                             rows: torch.Tensor,
+                             alt_rows: torch.Tensor) -> SentinelState:
     """Forget recycled rows' stats (registry eviction hygiene): window
-    stamps to NEVER, thread gauges and RT histogram rows to zero. The
-    scalar path writes no alt rows and no occupy bookings, so those stay.
-    Padding rows >= R drop."""
+    stamps to NEVER, thread gauges, RT histogram rows and occupy bookings
+    to their initial values — for ``rows`` and for ``alt_rows``, the
+    hashed (resource × origin/context) rows the evicted resources touched
+    (a recycled row whose new (resource, origin) pair hashes to the same
+    alt row must not inherit the old pair's counts). Padding rows >= R
+    (alt: >= RA) drop."""
     invalidate_rows(spec.second, state.second, rows)
     if spec.minute:
         invalidate_rows(spec.minute, state.minute, rows)
@@ -412,4 +523,9 @@ def invalidate_resource_rows(spec: EngineSpec, state: SentinelState,
     state.threads.masked_fill_(hit, 0)
     if state.rt_hist is not None:
         state.rt_hist.masked_fill_(hit[:, None], 0)
+    occ = state.flow_dyn
+    occ.occupied_count.masked_fill_(hit[:, None], 0.0)
+    occ.occupied_window.masked_fill_(hit[:, None], -(2 ** 30))
+    invalidate_rows(spec.second, state.alt_second, alt_rows)
+    state.alt_threads.masked_fill_(row_mask(alt_rows, spec.alt_rows), 0)
     return state

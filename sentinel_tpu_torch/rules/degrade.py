@@ -1,7 +1,9 @@
-"""Circuit breakers: DegradeSlot, the scalar admission path.
+"""Circuit breakers: DegradeSlot.
 
 Port of ``sentinel_tpu/rules/degrade.py`` (the rule object, the compiler,
-:func:`degrade_entry_check_scalar` and :func:`degrade_exit_feed`).
+:func:`degrade_entry_check`, one function for the JAX package's
+``degrade_entry_check`` and ``degrade_entry_check_scalar``, and
+:func:`degrade_exit_feed`).
 Reference (``sentinel-core/.../slots/block/degrade/``): ``DegradeSlot``,
 ``AbstractCircuitBreaker`` (CLOSED/OPEN/HALF_OPEN, one probe after
 ``timeWindow``), ``ResponseTimeCircuitBreaker`` and
@@ -149,19 +151,27 @@ def compile_degrade_rules(rules: Sequence[DegradeRule], *, resource_registry,
                                 rule_idx_np=rule_idx)
 
 
-def degrade_entry_check_scalar(
+def degrade_entry_check(
     table: DegradeRuleTable, st: BreakerState, rule_idx: torch.Tensor,
     rows: torch.Tensor, valid: torch.Tensor, rel_now_ms: int,
     rules_bk: Optional[torch.Tensor] = None,
 ) -> Tuple[BreakerState, torch.Tensor]:
-    """Entry check → (state', allow bool[B]).
+    """Entry check of every admission path → (state', allow bool[B]).
 
     CLOSED passes; an OPEN rule whose retry window elapsed passes ONE
     probe — the first valid pair in batch order, the CAS-winner analog —
     and turns HALF_OPEN, but only when that probe's event is admitted by
     every breaker of its resource; HALF_OPEN blocks. ``rules_bk`` is the
     pre-gathered [B, Kd] rule id table (None = gather here). Reference:
-    ``AbstractCircuitBreaker.tryPass`` + ``fromOpenToHalfOpen``."""
+    ``AbstractCircuitBreaker.tryPass`` + ``fromOpenToHalfOpen``.
+
+    The JAX package has two forms: ``degrade_entry_check_scalar`` and, for
+    the general path, ``degrade_entry_check``, which sorts the (event,
+    rule) pairs by rule and lets each OPEN rule's segment-first pair be
+    its probe. Breaker state is per rule, so the first valid pair in batch
+    order is the same winner (an inactive rule is structurally CLOSED: its
+    pairs pass and never win a probe, just as the sorted form routes them
+    to the sentinel), and this one function equals both, bit for bit."""
     B = rows.shape[0]
     Kd = rule_idx.shape[1]
     ND = table.active.shape[0] - 1
@@ -178,7 +188,9 @@ def degrade_entry_check_scalar(
                 & ((rel_now_ms - st.next_retry_ms) >= 0)
                 & table.active)
     pass_rule = (st.state == STATE_CLOSED) | ~table.active
-    pass_rule[ND] = True                         # sentinel never blocks
+    # (a view's fill_: an indexed store of a Python scalar would copy it
+    # from the host and wait for the stream)
+    pass_rule.narrow(0, ND, 1).fill_(True)       # sentinel never blocks
     pair_base = pass_rule[key_l]
 
     idx = torch.arange(BK, dtype=torch.int32, device=rows.device)
@@ -190,7 +202,7 @@ def degrade_entry_check_scalar(
                             max=B - 1)
     ok = open_due & (win < BK) & allow_ev[winner_ev.long()]
     new_state = torch.where(ok, STATE_HALF_OPEN, st.state)
-    new_state[ND] = STATE_CLOSED
+    new_state.narrow(0, ND, 1).fill_(STATE_CLOSED)
     return st._replace(state=new_state), allow_ev | ~valid
 
 
@@ -231,7 +243,7 @@ def degrade_exit_feed(
                              st.next_retry_ms)
     # closing resets the stat window (reference resetStat on close)
     win_stamp = torch.where(ok_r, -(2 ** 30), st.win_stamp)
-    state[ND] = STATE_CLOSED
+    state.narrow(0, ND, 1).fill_(STATE_CLOSED)
 
     # --- single-bucket lazy reset + scatter-add ---
     # every pair of a rule computes the same widx/keep, so the duplicate

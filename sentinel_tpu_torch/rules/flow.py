@@ -1,8 +1,12 @@
-"""Flow rules: FlowSlot / FlowRuleChecker / traffic-shaping controllers,
-the scalar admission path.
+"""Flow rules: FlowSlot / FlowRuleChecker / traffic-shaping controllers.
 
-Port of ``sentinel_tpu/rules/flow.py`` (the scalar path's subset: the rule
-object, the compiler, :func:`flow_check_scalar` and its per-rule helpers).
+Port of ``sentinel_tpu/rules/flow.py``: the rule object, the compiler and
+the three admission paths without prioritized events —
+:func:`flow_check_scalar` (no origins, uniform acquire),
+:func:`flow_check_fast` (origins, alt rows and CHAIN contexts live,
+uniform acquire, rank closed forms) and :func:`flow_check` (anything:
+key-grouped segments with greedy prefix admission). The occupy
+(prioritized) variants are a later slice.
 Reference semantics (``sentinel-core/.../slots/block/flow/``):
 ``DefaultController.canPass:50-76``, ``RateLimiterController:30-90``,
 ``WarmUpController:66-190`` and ``FlowRuleChecker``'s rule-set semantics.
@@ -23,6 +27,10 @@ Parity notes (the port must reproduce the JAX package bit for bit):
   limits agree to the bit.
 * The packed per-rule gather bitcasts float32 columns to int32 with
   ``Tensor.view`` (exact round trip), as ``lax.bitcast_convert_type`` did.
+* ``lax.cond(overflow, sorted, hashed)`` of the sort-free variants becomes
+  both branches and a ``torch.where`` on the device (see
+  :mod:`ops.sortfree`); a ``mode="drop"`` scatter sends its dropped lanes
+  to spare slots (:func:`ops.segments.scatter_reduce_drop`).
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ from sentinel_tpu_torch.ops import segments as seg
 from sentinel_tpu_torch.ops import sortfree as sfo
 from sentinel_tpu_torch.stats import events as ev
 from sentinel_tpu_torch.stats.window import (
-    WindowSpec, WindowState, prev_window_sum_rows, window_sum_rows,
+    WindowSpec, WindowState, prev_window_sum_rows, window_sum_all,
+    window_sum_rows,
 )
 
 # Grades (reference RuleConstant.FLOW_GRADE_*)
@@ -294,6 +303,371 @@ def _f32_to_i32(x: torch.Tensor) -> torch.Tensor:
 
 def _floordiv(a: torch.Tensor, b) -> torch.Tensor:
     return torch.div(a, b, rounding_mode="floor")
+
+
+class FlowBatchView(NamedTuple):
+    """Per-event inputs of the fast and general checks (built by the
+    engine)."""
+
+    rows: torch.Tensor          # int32[B] main row, >= R padding
+    origin_ids: torch.Tensor    # int32[B]
+    origin_rows: torch.Tensor   # int32[B] alt-table row, >= RA when absent
+    context_ids: torch.Tensor   # int32[B]
+    chain_rows: torch.Tensor    # int32[B] alt-table row, >= RA when absent
+    acquire: torch.Tensor       # int32[B]
+    valid: torch.Tensor         # bool[B]
+    cluster_fallback: torch.Tensor  # int32[B] — bit k: check slot-k
+    # cluster rule locally (the runtime sends zeros until cluster mode is
+    # ported)
+
+
+def flow_check(
+    table: FlowRuleTable,
+    dyn: FlowDynState,
+    rule_idx: torch.Tensor,
+    spec: WindowSpec,
+    main_second: WindowState,
+    alt_second: WindowState,
+    main_threads: torch.Tensor,
+    alt_threads: torch.Tensor,
+    batch: FlowBatchView,
+    now_idx_s: int,
+    rel_now_ms: int,
+    minute_spec: Optional[WindowSpec] = None,
+    main_minute: Optional[WindowState] = None,
+    now_idx_m: Optional[int] = None,
+    has_thread_rules: bool = True,
+    sortfree: bool = False,
+) -> Tuple[FlowDynState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """General-path flow check (no prioritized events) → (dyn', allow
+    bool[B], wait_ms int32[B], sf_overflow int32 scalar). ``wait_ms`` > 0
+    with ``allow`` = a rate-limiter pass after that wait.
+    ``has_thread_rules=False`` skips the thread-gauge reads (nothing loaded
+    reads them). ``sortfree`` groups the segments through the claim
+    cascade and counting order (:mod:`ops.sortfree`) — bit-identical
+    either way; ``sf_overflow`` counts the cascade's elements that took the
+    sorted order (zero without ``sortfree``).
+
+    Port of ``rules/flow._flow_check_impl`` with ``enable_occupy=False``.
+    Segments are (rule, selected stat row); each
+    is admitted greedily in batch order (:func:`ops.segments.greedy_admit`)
+    and rate limiters pace per rule by a fixed point over admitted costs."""
+    B = batch.rows.shape[0]
+    K = rule_idx.shape[1]
+    NF = table.active.shape[0] - 1
+    R = rule_idx.shape[0]
+    RA = alt_threads.shape[0]
+    dev = batch.rows.device
+    rep = seg.repeat_each
+
+    rj = seg.padded_table_gather(rule_idx, batch.rows, NF).reshape(-1)
+    # ONE packed [NF+1, 9] per-rule gather per index set
+    pk = torch.stack([
+        table.active.to(torch.int32),          # 0
+        table.limit_origin,                    # 1
+        table.cluster_mode.to(torch.int32),    # 2
+        table.sel_kind,                        # 3
+        table.ref_context,                     # 4
+        table.ref_row,                         # 5
+        table.behavior,                        # 6
+        table.grade,                           # 7
+        table.max_queue_ms,                    # 8
+    ], dim=1)
+    g = pk[rj.long()]                                       # [BK, 9]
+    act = g[:, 0] != 0
+
+    # --- applicability: limitApp × origin ---
+    lim = g[:, 1]
+    origin_bk = rep(batch.origin_ids, K)
+    ctx_bk = rep(batch.context_ids, K)
+    # "other": the origin matches no specific-origin rule of the resource
+    specific_hit = ((lim.reshape(B, K) == batch.origin_ids[:, None])
+                    & act.reshape(B, K)).any(dim=1)
+    app_other = ((lim == LIMIT_OTHER) & ~rep(specific_hit, K)
+                 & (origin_bk != 0))
+    applicable = act & ((lim == LIMIT_DEFAULT) | (lim == origin_bk)
+                        | app_other)
+    # cluster-mode rules apply locally only where their fallback bit is set
+    slot_bk = torch.arange(K, dtype=torch.int32, device=dev).repeat(B)
+    fb_bk = (rep(batch.cluster_fallback, K) >> slot_bk) & 1
+    applicable = applicable & ((g[:, 2] == 0) | (fb_bk == 1))
+    # CHAIN also needs the event's context to be refResource
+    kind = g[:, 3]
+    applicable = applicable & ((kind != SEL_CHAIN) | (ctx_bk == g[:, 4]))
+
+    # --- stat-row selection ---
+    use_alt = (kind == SEL_ORIGIN) | (kind == SEL_CHAIN)
+    sel_main_row = torch.where(kind == SEL_REF, g[:, 5], rep(batch.rows, K))
+    sel_alt_row = torch.where(kind == SEL_CHAIN, rep(batch.chain_rows, K),
+                              rep(batch.origin_rows, K))
+    # an absent alt row (no origin / chain stats): the rule passes
+    applicable = applicable & (~use_alt | (sel_alt_row < RA))
+
+    # --- current counts for the selected rows ---
+    main_r = torch.clamp(sel_main_row, max=R - 1)
+    alt_r = torch.clamp(sel_alt_row, max=RA - 1)
+    main_pass = window_sum_rows(spec, main_second, main_r, ev.PASS,
+                                now_idx_s).to(torch.float32)
+    alt_pass = window_sum_rows(spec, alt_second, alt_r, ev.PASS,
+                               now_idx_s).to(torch.float32)
+    cur_pass = torch.where(use_alt, alt_pass, main_pass)
+    if has_thread_rules:
+        cur_thr = torch.where(use_alt, alt_threads[alt_r.long()],
+                              main_threads[main_r.long()]).to(torch.float32)
+    else:
+        cur_thr = torch.zeros_like(cur_pass)
+
+    dyn, eff_limit_rule = _warmup_sync_and_limits(
+        table, dyn, spec, main_second, now_idx_s, rel_now_ms,
+        minute_spec, main_minute, now_idx_m)
+    eff_limit = eff_limit_rule[rj.long()]
+
+    # --- segment keys: (rule, stat row); a rate limiter paces per rule;
+    # inapplicable pairs share the sentinel rule NF's one segment ---
+    valid_bk = rep(batch.valid, K) & applicable
+    rj_seg = torch.where(valid_bk, rj, NF)
+    behavior_bk = g[:, 6]
+    is_rl_bk = ((behavior_bk == BEHAVIOR_RATE_LIMITER)
+                | (behavior_bk == BEHAVIOR_WARM_UP_RATE_LIMITER)) & (
+        g[:, 7] == GRADE_QPS)
+    row_seg = torch.where(use_alt, sel_alt_row + R, sel_main_row)
+    row_seg = torch.where(is_rl_bk | ~valid_bk, 0, row_seg)
+    if sortfree:
+        plan = sfo.build_pair_plan(rj_seg, row_seg, rj_seg == NF,
+                                   sfo.table_bits(B * K))
+        order = torch.where(plan.overflow,
+                            seg.sort_by_keys(rj_seg, row_seg),
+                            sfo.counting_order(plan.bucket,
+                                               plan.num_buckets))
+        sf_overflow = plan.overflow_count
+    else:
+        order = seg.sort_by_keys(rj_seg, row_seg)
+        sf_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    rj_s = rj_seg[order]
+    starts = seg.segment_starts(rj_s, row_seg[order])
+    leader = seg.segment_leader_index(starts)
+    acq_s = torch.where(valid_bk, rep(batch.acquire, K).to(torch.float32),
+                        0.0)[order]
+    g_s = pk[rj_s.long()]
+    grade_s = g_s[:, 7]
+    behavior_s = g_s[:, 6]
+    base_s = torch.where(grade_s == GRADE_QPS, cur_pass[order],
+                         cur_thr[order])
+    pass_default_s = seg.greedy_admit(base_s, acq_s, eff_limit[order],
+                                      starts, leader)
+
+    # --- rate limiter: cost per element round(acquire / count · 1000); a
+    # rejected request never advances the pacing clock, so the admitted
+    # costs' prefix is a fixed point (3 passes) ---
+    raw_count_s = table.count[rj_s.long()]
+    cost_s = _f32_to_i32(torch.round(
+        acq_s / torch.clamp(raw_count_s, min=1e-9) * 1000.0))
+    c_first = seg.segment_broadcast_first(cost_s, leader)
+    L0 = dyn.latest_passed_ms[rj_s.long()]
+    due = (L0 + c_first - rel_now_ms) <= 0
+    base_time = torch.where(due, rel_now_ms - c_first, L0)
+    is_rl = ((behavior_s == BEHAVIOR_RATE_LIMITER)
+             | (behavior_s == BEHAVIOR_WARM_UP_RATE_LIMITER)) & (
+        grade_s == GRADE_QPS)
+    pass_rl_s = torch.ones_like(starts)
+    maxq_s = g_s[:, 8]
+    for _ in range(3):
+        excl_cost, _ = seg.segment_prefix_sum(
+            torch.where(pass_rl_s, cost_s, 0), starts, leader)
+        latest_s = base_time + excl_cost + cost_s
+        wait_s = torch.clamp(latest_s - rel_now_ms, min=0)
+        pass_rl_s = (wait_s <= maxq_s) & (raw_count_s > 0)
+
+    applied_s = rj_s != NF
+    pair_pass_s = torch.where(is_rl, pass_rl_s, pass_default_s) | ~applied_s
+    paced_s = is_rl & applied_s
+    pair_wait_s = torch.where(paced_s & pair_pass_s, wait_s, 0)
+    # pacing clocks: the last passing element's latest per rule
+    new_latest = torch.where(paced_s & pair_pass_s, latest_s, -(2 ** 30))
+    dyn = dyn._replace(latest_passed_ms=seg.scatter_reduce_drop(
+        dyn.latest_passed_ms, rj_s, new_latest.to(torch.int32), paced_s,
+        "amax"))
+
+    # --- back to events ---
+    allow = seg.unsort(order, pair_pass_s).reshape(B, K).all(dim=1)
+    wait_ms = seg.unsort(order, pair_wait_s).reshape(B, K).max(dim=1).values
+    allow = allow | ~batch.valid
+    return dyn, allow, wait_ms.to(torch.int32), sf_overflow
+
+
+def flow_check_fast(
+    table: FlowRuleTable,
+    dyn: FlowDynState,
+    rule_idx: torch.Tensor,
+    spec: WindowSpec,
+    main_second: WindowState,
+    alt_second: WindowState,
+    main_threads: torch.Tensor,
+    alt_threads: torch.Tensor,
+    batch: FlowBatchView,
+    now_idx_s: int,
+    rel_now_ms: int,
+    minute_spec: Optional[WindowSpec] = None,
+    main_minute: Optional[WindowState] = None,
+    now_idx_m: Optional[int] = None,
+    has_rate_limiter: bool = True,
+    has_thread_rules: bool = True,
+    rules_bk: Optional[torch.Tensor] = None,
+    sortfree: bool = False,
+) -> Tuple[FlowDynState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fast general-path flow check → (dyn', allow bool[B], wait_ms
+    int32[B], sf_overflow int32 scalar): per-pair applicability and
+    stat-row selection live (origins, alt rows, CHAIN contexts, RELATE),
+    admission by rank closed forms over ONE composite key ``rule · (RA + 1)
+    + (alt row + 1 | 0)``. The HOST verifies ``acquire`` uniform over valid
+    events (>= 1), no prioritized events, and that the key fits int32
+    (``(NF+1)·(RA+1) < 2^31``); under them it is bit-exact with
+    :func:`flow_check` (the JAX package's ``flow_check_fast`` docstring has
+    the argument). ``sortfree`` and ``sf_overflow`` as in
+    :func:`flow_check`.
+
+    Port of ``rules/flow._flow_check_fast_impl`` with
+    ``enable_occupy=False``."""
+    B = batch.rows.shape[0]
+    K = rule_idx.shape[1]
+    NF = table.active.shape[0] - 1
+    R = rule_idx.shape[0]
+    RA = alt_threads.shape[0]
+    dev = batch.rows.device
+    if (NF + 1) * (RA + 1) >= 2 ** 31:
+        raise ValueError("rule capacity x alt rows too large for the fast "
+                         "path's int32 key")
+    if rules_bk is None:
+        rules_bk = seg.padded_table_gather(rule_idx, batch.rows, NF)
+
+    # ---- per-rule step state ----
+    dyn, eff_limit = _warmup_sync_and_limits(
+        table, dyn, spec, main_second, now_idx_s, rel_now_ms,
+        minute_spec, main_minute, now_idx_m)
+    acq_of_rule = torch.where(batch.valid, batch.acquire, 0).max().to(
+        torch.float32)
+    if has_rate_limiter:
+        is_rl_rule = (((table.behavior == BEHAVIOR_RATE_LIMITER)
+                       | (table.behavior == BEHAVIOR_WARM_UP_RATE_LIMITER))
+                      & (table.grade == GRADE_QPS))
+        base_time, cost, max_k = _rl_closed_form(
+            table, dyn, acq_of_rule, rel_now_ms)
+
+    # ---- stat reads: MAIN/REF rows are per rule (the rule's sync_row);
+    # ORIGIN/CHAIN rows per event, from the small alt table summed densely
+    # once (padding rows read the appended 0) ----
+    zero = torch.zeros((1,), dtype=torch.float32, device=dev)
+    alt_pass_dense = torch.cat([window_sum_all(
+        spec, alt_second, ev.PASS, now_idx_s).to(torch.float32), zero])
+    orow = torch.clamp(batch.origin_rows, max=RA).long()
+    crow = torch.clamp(batch.chain_rows, max=RA).long()
+    or_pass, cr_pass = alt_pass_dense[orow], alt_pass_dense[crow]
+    if has_thread_rules:
+        alt_thr_dense = torch.cat([alt_threads.to(torch.float32), zero])
+        or_thr, cr_thr = alt_thr_dense[orow], alt_thr_dense[crow]
+    srow_sel = torch.clamp(table.sync_row, max=R - 1)
+    row_pass = window_sum_rows(spec, main_second, srow_sel, ev.PASS,
+                               now_idx_s).to(torch.float32)
+
+    # ---- ONE packed per-rule gather [NF+1, C] → [B, K, C] ----
+    cols = [table.active.to(torch.int32),                    # 0
+            table.limit_origin,                              # 1
+            table.cluster_mode.to(torch.int32),              # 2
+            table.sel_kind,                                  # 3
+            table.ref_context,                               # 4
+            eff_limit.view(torch.int32),                     # 5
+            row_pass.view(torch.int32)]                      # 6
+    ncol = 7
+    if has_rate_limiter:
+        i_rl, i_bt, i_cost, i_mk = ncol, ncol + 1, ncol + 2, ncol + 3
+        cols += [is_rl_rule.to(torch.int32), base_time, cost, max_k]
+        ncol += 4
+    if has_thread_rules:
+        i_thr, i_grade = ncol, ncol + 1
+        row_thr = main_threads[srow_sel.long()].to(torch.float32)
+        cols += [row_thr.view(torch.int32), table.grade]
+    g = torch.stack(cols, dim=1)[rules_bk.long()]            # [B, K, C]
+
+    def f32(col):
+        return g[..., col].contiguous().view(torch.float32)
+
+    # ---- applicability ----
+    act = g[..., 0] != 0
+    lim = g[..., 1]
+    oid = batch.origin_ids[:, None]
+    specific_hit = ((lim == oid) & act).any(dim=1, keepdim=True)
+    app = act & ((lim == LIMIT_DEFAULT) | (lim == oid)
+                 | ((lim == LIMIT_OTHER) & ~specific_hit & (oid != 0)))
+    slot_k = torch.arange(K, dtype=torch.int32, device=dev)[None, :]
+    fb = (batch.cluster_fallback[:, None] >> slot_k) & 1
+    app = app & ((g[..., 2] == 0) | (fb == 1))
+    kind = g[..., 3]
+    app = app & ((kind != SEL_CHAIN)
+                 | (batch.context_ids[:, None] == g[..., 4]))
+    use_alt = (kind == SEL_ORIGIN) | (kind == SEL_CHAIN)
+    is_chain = kind == SEL_CHAIN
+    alt_row = torch.where(is_chain, batch.chain_rows[:, None],
+                          batch.origin_rows[:, None])
+    app = app & (~use_alt | (alt_row < RA))
+    valid_pair = batch.valid[:, None] & app
+
+    # ---- per-pair base: the selected stat row's count ----
+    cur_pass = torch.where(use_alt, torch.where(is_chain, cr_pass[:, None],
+                                                or_pass[:, None]), f32(6))
+    if has_thread_rules:
+        cur_thr = torch.where(use_alt, torch.where(
+            is_chain, cr_thr[:, None], or_thr[:, None]), f32(i_thr))
+        base = torch.where(g[..., i_grade] == GRADE_QPS, cur_pass, cur_thr)
+    else:
+        base = cur_pass
+
+    # ---- composite-key arrival ranks (the only cross-event pass) ----
+    if has_rate_limiter:
+        rl_p = g[..., i_rl] != 0
+        subrow = torch.where(use_alt & ~rl_p, alt_row + 1, 0)
+    else:
+        subrow = torch.where(use_alt, alt_row + 1, 0)
+    sentinel = NF * (RA + 1)
+    key = torch.where(valid_pair, rules_bk * (RA + 1) + subrow, sentinel)
+    if sortfree:
+        rank_h, sf_ovf = sfo.ranks2d_hashed(key, sentinel,
+                                            sfo.table_bits(B))
+        rank = torch.where(sf_ovf > 0, seg.ranks_per_slot(key), rank_h)
+    else:
+        rank = seg.ranks_per_slot(key)
+        sf_ovf = torch.zeros((), dtype=torch.int32, device=dev)
+
+    # ---- admission (closed forms) ----
+    a_f = acq_of_rule
+    pass_default = (base + rank.to(torch.float32) * a_f) + a_f <= f32(5)
+    if has_rate_limiter:
+        mk = g[..., i_mk]
+        wait_pair = torch.clamp(
+            g[..., i_bt] + (torch.minimum(rank, mk) + 1) * g[..., i_cost]
+            - rel_now_ms, min=0)
+        pair_pass = torch.where(rl_p, rank < mk, pass_default) | ~valid_pair
+        pair_wait = torch.where(rl_p & pair_pass & valid_pair, wait_pair, 0)
+        wait_ms = pair_wait.max(dim=1).values
+    else:
+        pair_pass = pass_default | ~valid_pair
+        wait_ms = torch.zeros((B,), dtype=torch.int32, device=dev)
+    allow = pair_pass.all(dim=1)
+
+    # ---- pacing-clock update (per rule) ----
+    if has_rate_limiter:
+        rl_valid = (rl_p & valid_pair).reshape(-1)
+        npairs = seg.scatter_reduce_drop(
+            torch.zeros((NF + 1,), dtype=torch.int32, device=dev),
+            rules_bk.reshape(-1), (rank + 1).reshape(-1), rl_valid, "amax")
+        passed = torch.minimum(npairs, max_k)
+        passed = torch.where(is_rl_rule & (table.count > 0), passed, 0)
+        new_latest = torch.where(passed > 0, base_time + passed * cost,
+                                 dyn.latest_passed_ms)
+        dyn = dyn._replace(latest_passed_ms=torch.maximum(
+            dyn.latest_passed_ms, new_latest))
+
+    allow = allow | ~batch.valid
+    return dyn, allow, wait_ms.to(torch.int32), sf_ovf
 
 
 def flow_check_scalar(

@@ -80,7 +80,7 @@ def system_check(
 ) -> torch.Tensor:
     """→ allow bool[B] (False = SystemBlockException)."""
     dev = main_threads.device
-    row0 = torch.tensor([ENTRY_NODE_ROW], dtype=torch.int32, device=dev)
+    row0 = torch.full((1,), ENTRY_NODE_ROW, dtype=torch.int32, device=dev)
     gated = is_in & valid
 
     entry = main_second.counters[ENTRY_NODE_ROW]                  # [Bk, E]

@@ -1,9 +1,23 @@
 """Host runtime: the public facade (SphU/SphO/Tracer analog) around the
-device pipeline — the scalar admission route.
+device pipeline.
 
-Port of ``sentinel_tpu/runtime.py`` for the route the serving headline
-takes: batches with no origin, one ``acquire`` value for every event and
-no priority. Two API tiers, as in the JAX package:
+Port of ``sentinel_tpu/runtime.py`` for batches without prioritized
+events. Each dispatch takes the JAX runtime's route, decided on the host
+in numpy before anything is copied to the device:
+
+* **scalar** — no origin, no origin/chain row, one ``acquire`` >= 1 (the
+  serving headline's batch);
+* **fast** — origins, alt rows or contexts present, one ``acquire`` >= 1,
+  and the fast path's composite key fits int32 (``(NF+1)·(RA+1) < 2^31``);
+* **general** — anything else (non-uniform ``acquire``, or a key that does
+  not fit);
+* **split** — a batch mixing kinds, with at least 4096 scalar events and
+  one other (and the fast path's conditions): the scalar events take the
+  scalar step and the rest the fast step, in one lock hold.
+
+The fast and general paths group their segments sort-free
+(``SENTINEL_SORTFREE``, on unless set to 0; read at construction and at
+every rule reload, as in the JAX package). Two API tiers:
 
 * :meth:`Sentinel.entry` — per-call context manager parity with
   ``try (Entry e = SphU.entry(name)) { ... }``: raises a
@@ -12,14 +26,13 @@ no priority. Two API tiers, as in the JAX package:
 * :meth:`Sentinel.entry_batch` / :meth:`Sentinel.exit_batch` and the raw
   ``*_nowait`` forms — numpy arrays in, verdict arrays out.
 
-Everything off that route raises :class:`NotImplementedError` naming the
-ROADMAP item that will port it — origins, prioritized events and
-non-uniform ``acquire`` (the fast and general paths), param rules, cluster
-mode, the host fast path, meshes — and never quietly takes another path.
-Host-side eligibility is decided in numpy before anything is copied to
-the device, and a decide step reads nothing back from the device: the
-verdicts come home through :class:`PendingVerdicts` (pinned memory,
-``non_blocking`` copies, one CUDA event).
+What is not ported raises :class:`NotImplementedError` naming the ROADMAP
+item that will port it — prioritized events, param rules, cluster mode,
+the host fast path, meshes — and never quietly takes another path. A
+decide step reads nothing back from the device: the verdicts (and the
+sort-free steps' claim overflow count) come home through
+:class:`PendingVerdicts` (pinned memory, ``non_blocking`` copies, one CUDA
+event).
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"`` (as
 the tests do); with no CUDA device and no ``device`` given, construction
@@ -28,6 +41,8 @@ raises instead of carrying on on the CPU.
 
 from __future__ import annotations
 
+import collections
+import os
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -37,6 +52,9 @@ import torch
 from sentinel_tpu_torch.core.batching import pad_pow2, pad_to
 from sentinel_tpu_torch.core.clock import Clock, global_clock
 from sentinel_tpu_torch.core.config import SentinelConfig, load_config
+from sentinel_tpu_torch.core.context import (
+    DEFAULT_CONTEXT_NAME, current_context,
+)
 from sentinel_tpu_torch.core.errors import (
     ErrorEntryFreeError, block_exception_for, is_block_exception,
 )
@@ -64,21 +82,42 @@ from sentinel_tpu_torch.stats.window import (
 ENTRY_TYPE_OUT = 0
 ENTRY_TYPE_IN = 1
 
-_DEFAULT_CONTEXT = "sentinel_default_context"
-
-# what this slice rejects, and where ROADMAP.md queues it
+# what the port rejects, and where ROADMAP.md queues it
 _NOT_PORTED = {
     "fast_path": "the host fast path (host_fast_path=True, "
                  "engine/fastpath.py) is not ported yet: ROADMAP A6; "
                  "construct with host_fast_path=False",
-    "general": "batches with origins, origin/chain rows, prioritized "
-               "events or non-uniform acquire take the fast and general "
-               "admission paths, which are not ported yet: ROADMAP A7",
+    "prioritized": "prioritized events (occupy admission) are not ported "
+                   "yet: ROADMAP A7b",
     "param": "param flow rules are not ported yet: ROADMAP A8",
     "cluster": "cluster-mode flow rules are not ported yet: ROADMAP A12",
     "mesh": "meshes (row-sharded multi-GPU engines) are not ported yet: "
             "ROADMAP A11",
 }
+
+
+#: a mixed batch splits when it has at least this many scalar events
+SPLIT_MIN_SCALAR = 4096
+
+_H1 = 0x9E3779B1
+_H2 = 0x85EBCA6B
+_MASK = 0xFFFFFFFF
+
+
+def _alt_hash(row: int, kind: int, key_id: int, ra: int) -> int:
+    """Stable (resource row, origin (kind 0) / context (kind 1) id) →
+    alt-table row: the JAX package's hash, so both packages share rows."""
+    h = ((row * _H1) ^ ((key_id * 2 + kind) * _H2)) & _MASK
+    return h % ra
+
+
+def sortfree_enabled() -> bool:
+    """``SENTINEL_SORTFREE``: the fast and general paths group segments
+    through the claim cascade (ops/sortfree.py). On unless the variable
+    says ``0``/``off``/``false``/``disable``/``disabled``."""
+    v = os.environ.get("SENTINEL_SORTFREE", "")
+    return not v or v.lower() not in ("0", "off", "false", "disable",
+                                      "disabled")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -197,8 +236,13 @@ class PendingVerdicts(PendingResult):
 
 
 class Sentinel:
-    """The framework instance (Env/CtSph + rule managers, in one object),
-    scalar admission route."""
+    """The framework instance (Env/CtSph + rule managers, in one object).
+
+    ``routes`` counts dispatches by route (``scalar``, ``fast``,
+    ``general``, ``split``; a fused decide+exit counts ``fused`` alone, as
+    the JAX runtime's ``split_route.*`` counters do);
+    ``sortfree_overflow`` sums the sort-free steps' claim overflow counts
+    (elements that took the sorted order), tallied as verdicts are read."""
 
     def __init__(self, config: Optional[SentinelConfig] = None,
                  clock: Optional[Clock] = None, device=None, mesh=None):
@@ -212,7 +256,7 @@ class Sentinel:
 
         self.resources = ResourceRegistry(cfg.max_resources)
         self.origins = OriginRegistry(cfg.max_origins)
-        self.contexts = Registry(2048, reserved=(_DEFAULT_CONTEXT,))
+        self.contexts = Registry(2048, reserved=(DEFAULT_CONTEXT_NAME,))
         self.spec = EngineSpec(
             rows=cfg.max_resources,
             alt_rows=max(2 * cfg.max_resources, 1024),
@@ -231,6 +275,11 @@ class Sentinel:
         self._sys_rules: List[sys_mod.SystemRule] = []
         self._rule_pins: Dict[str, Tuple[set, set, set]] = {}
         self._cpu = _CpuSampler(self.clock)
+        # main row → {alt row: (kind, key id)} it hashed to; an evicted
+        # row's alt rows are cleared with it
+        self._alt_rows_by_row: Dict[int, Dict[int, Tuple[int, int]]] = {}
+        self.routes: "collections.Counter[str]" = collections.Counter()
+        self.sortfree_overflow = 0
         self._compile_empty_rules()
 
     # ------------------------------------------------------------------
@@ -284,6 +333,7 @@ class Sentinel:
             and r.grade == flow_mod.GRADE_QPS for r in self._flow.rules)
         self._skip_auth = self._auth.num_active == 0
         self._skip_sys = not self._sys_rules
+        self._sortfree = sortfree_enabled()
         prev_skip = getattr(self, "_skip_threads", None)
         # nothing loaded READS live concurrency → the gauge scatters are
         # elided (readers: THREAD-grade flow rules, system rules)
@@ -417,36 +467,86 @@ class Sentinel:
         return t.to(self.device)
 
     def _drain_evictions_locked(self) -> None:
-        """Rows recycled by registry pressure lose their history before
-        they serve a new resource."""
+        """Rows recycled by registry pressure lose their history (and that
+        of the alt rows they hashed to) before they serve a new
+        resource."""
         evicted = self.resources.drain_evicted()
         if evicted:
+            alt: List[int] = []
+            for row in evicted:
+                alt.extend(self._alt_rows_by_row.pop(row, ()))
             rows = pad_to(np.asarray(evicted, np.int32),
                           pad_pow2(len(evicted)), self.spec.rows, np.int32)
-            self._state = invalidate_resource_rows(self.spec, self._state,
-                                                   self._dev(rows))
+            alt_arr = pad_to(np.asarray(alt, np.int32), pad_pow2(len(alt)),
+                             self.spec.alt_rows, np.int32)
+            self._state = invalidate_resource_rows(
+                self.spec, self._state, self._dev(rows), self._dev(alt_arr))
 
-    def _flags(self) -> dict:
-        return dict(skip_auth=self._skip_auth, skip_sys=self._skip_sys,
-                    scalar_has_rl=self._scalar_has_rl,
-                    skip_threads=self._skip_threads)
+    def _alt_row(self, row: int, kind: int, key_id: int) -> int:
+        """Hash (row, origin/context id) to its alt row and record the
+        edge for eviction."""
+        r = _alt_hash(row, kind, key_id, self.spec.alt_rows)
+        self._alt_rows_by_row.setdefault(row, {})[r] = (kind, key_id)
+        return r
 
-    def _check_scalar(self, acquire, origin_ids, origin_rows, chain_rows,
-                      prioritized, vfull) -> None:
-        """Host-side route check (numpy, before any copy): the batch must
-        be scalar-eligible — valid lanes carry one ``acquire`` >= 1, no
-        origin id, no origin/chain row, no prioritized event."""
+    def _alt_rows_for(self, row: int, origin: str,
+                      context_name: str) -> Tuple[int, int]:
+        """(origin row, chain row) of one call; ``alt_rows`` = none."""
+        ra = self.spec.alt_rows
+        o_row = c_row = ra
+        if origin:
+            o_row = self._alt_row(row, 0, self.origins.get_or_create(origin))
+        if context_name and context_name != DEFAULT_CONTEXT_NAME:
+            c_row = self._alt_row(row, 1,
+                                  self.contexts.get_or_create(context_name))
+        return o_row, c_row
+
+    def _no_alt(self, origin_rows, chain_rows) -> bool:
+        """Every origin/chain row is padding (>= alt_rows)."""
         pad_a = self.spec.alt_rows
+        return bool(np.min(origin_rows, initial=pad_a) >= pad_a
+                    and np.min(chain_rows, initial=pad_a) >= pad_a)
+
+    def _key_fits(self) -> bool:
+        """The fast path's composite key ``rule · (RA+1) + subrow`` fits
+        int32 for the loaded rule capacity."""
+        nf1 = self._ruleset.flow_table.active.shape[0]
+        return nf1 * (self.spec.alt_rows + 1) < 2 ** 31
+
+    @staticmethod
+    def _batch_facts(acquire, origin_ids, prioritized,
+                     vfull) -> Tuple[bool, bool]:
+        """(acquire uniform >= 1 over valid lanes, no origin id on a valid
+        lane); refuses prioritized events."""
+        if np.asarray(prioritized).any():
+            raise NotImplementedError(_NOT_PORTED["prioritized"])
         acq_v = np.asarray(acquire)[vfull]
         acq_uniform = (acq_v.size > 0
                        and int(acq_v.min()) == int(acq_v.max()) >= 1)
         no_origin_ids = int(np.max(np.asarray(origin_ids)[vfull],
                                    initial=0)) == 0
-        no_alt = (np.min(origin_rows, initial=pad_a) >= pad_a
-                  and np.min(chain_rows, initial=pad_a) >= pad_a)
-        if not (acq_uniform and no_origin_ids and no_alt
-                and not np.asarray(prioritized).any()):
-            raise NotImplementedError(_NOT_PORTED["general"])
+        return acq_uniform, no_origin_ids
+
+    def _route(self, acq_uniform: bool, no_origin_ids: bool,
+               no_alt: bool) -> str:
+        """The whole batch's route: scalar, fast or general."""
+        if no_alt and no_origin_ids and acq_uniform:
+            return "scalar"
+        if acq_uniform and self._key_fits():
+            return "fast"
+        return "general"
+
+    def _flags(self, route: str, record_alt: bool) -> dict:
+        """The engine step's flags for ``route``."""
+        flags = dict(skip_auth=self._skip_auth, skip_sys=self._skip_sys,
+                     skip_threads=self._skip_threads,
+                     sortfree=self._sortfree, record_alt=record_alt,
+                     scalar_has_rl=self._scalar_has_rl)
+        if route == "scalar":
+            flags["scalar_flow"] = True
+        elif route == "fast":
+            flags["fast_flow"] = True
+        return flags
 
     def _entry_batch(self, rows, origin_ids, origin_rows, context_ids,
                      chain_rows, acquire, is_in, prioritized,
@@ -491,14 +591,34 @@ class Sentinel:
             vfull[:m] = vsrc[:m]
         return vfull
 
-    @staticmethod
-    def _pending(verdicts: Verdicts, n: int) -> PendingVerdicts:
-        host, event = start_host_copy(
-            (verdicts.allow[:n], verdicts.reason[:n], verdicts.wait_ms[:n]))
+    def _pending(self, parts, n: int) -> PendingVerdicts:
+        """Start the verdict copies of one dispatch → a handle. ``parts``
+        is ``[(verdicts, event indices or None for 0..n-1)]`` (a split
+        dispatch has two); each part's ``sf_overflow`` rides the same
+        copy and is added to ``sortfree_overflow`` at readback."""
+        cols = []
+        for v, idx in parts:
+            m = n if idx is None else idx.shape[0]
+            cols += [v.allow[:m], v.reason[:m], v.wait_ms[:m]]
+        cols += [v.sf_overflow for v, _ in parts
+                 if v.sf_overflow is not None]
+        host, event = start_host_copy(cols)
 
         def _read() -> Verdicts:
-            allow, reason, wait_ms = wait_host_copy(host, event)
-            return Verdicts(allow=allow, reason=reason, wait_ms=wait_ms)
+            got = iter(wait_host_copy(host, event))
+            out = Verdicts(allow=np.empty(n, np.bool_),
+                           reason=np.empty(n, np.int8),
+                           wait_ms=np.empty(n, np.int32))
+            for _v, idx in parts:
+                sel = slice(None) if idx is None else idx
+                out.allow[sel] = next(got)
+                out.reason[sel] = next(got)
+                out.wait_ms[sel] = next(got)
+            overflow = sum(int(x) for x in got)
+            if overflow:
+                with self._lock:
+                    self.sortfree_overflow += overflow
+            return out
 
         return PendingVerdicts(_read)
 
@@ -512,28 +632,39 @@ class Sentinel:
               sleep: bool = True) -> Entry:
         """Guard a call. Raises a BlockException subclass when denied;
         sleeps (via the clock) on pass-with-wait verdicts, or with
-        ``sleep=False`` reports the wait on ``Entry.wait_ms``."""
-        if origin or prioritized:
-            raise NotImplementedError(_NOT_PORTED["general"])
+        ``sleep=False`` reports the wait on ``Entry.wait_ms``. The origin
+        is ``origin``, else the current context's
+        (:class:`~sentinel_tpu_torch.core.context.ContextScope`); the
+        context's name keys CHAIN rules."""
+        if prioritized:
+            raise NotImplementedError(_NOT_PORTED["prioritized"])
         if args:
             raise NotImplementedError(_NOT_PORTED["param"])
+        ctx = current_context()
+        use_origin = ctx.origin if origin is None else origin
+        # rows resolved ONCE: the same rows feed the verdict and the Entry
         row = self.resources.get_or_create(resource)
-        ra = self.spec.alt_rows
+        origin_id = self.origins.get_or_create(use_origin) if use_origin \
+            else 0
+        o_row, c_row = self._alt_rows_for(row, use_origin, ctx.name)
+        context_id = (self.contexts.get_or_create(ctx.name)
+                      if c_row < self.spec.alt_rows else 0)
         is_in = entry_type == ENTRY_TYPE_IN
         verdict = self.decide_raw(
-            np.array([row], np.int32), np.zeros(1, np.int32),
-            np.array([ra], np.int32), np.zeros(1, np.int32),
-            np.array([ra], np.int32), np.array([acquire], np.int32),
+            np.array([row], np.int32), np.array([origin_id], np.int32),
+            np.array([o_row], np.int32), np.array([context_id], np.int32),
+            np.array([c_row], np.int32), np.array([acquire], np.int32),
             np.array([is_in], np.bool_), np.zeros(1, np.bool_))
         if not bool(verdict.allow[0]):
-            raise block_exception_for(int(verdict.reason[0]), resource)
+            raise block_exception_for(int(verdict.reason[0]), resource,
+                                      origin=use_origin or "")
         wait = int(verdict.wait_ms[0])
         if wait > 0 and sleep:
             self.clock.sleep_ms(wait)
         now = self.clock.now_ms()
         # sleep=False: project create_ms past the wait the caller will
         # await, so rt excludes the pacing delay as with sleep=True
-        e = Entry(self, resource, row, ra, ra, acquire, is_in,
+        e = Entry(self, resource, row, o_row, c_row, acquire, is_in,
                   now if sleep else now + wait)
         if not sleep:
             e.wait_ms = wait
@@ -581,12 +712,8 @@ class Sentinel:
         """Dispatch-only batch tier: the decide is enqueued and the
         verdict copy started; ``.result()`` materializes. ``resources``
         may be names or a numpy INTEGER array of pre-interned rows
-        (:meth:`intern_resources`)."""
-        if origins is not None and any(origins):
-            raise NotImplementedError(_NOT_PORTED["general"])
-        if contexts is not None and any(
-                c and c != _DEFAULT_CONTEXT for c in contexts):
-            raise NotImplementedError(_NOT_PORTED["general"])
+        (:meth:`intern_resources`); ``origins`` and ``contexts`` name each
+        event's caller and entrance context (empty = none)."""
         if args_list is not None:
             raise NotImplementedError(_NOT_PORTED["param"])
         n = len(resources)
@@ -597,6 +724,22 @@ class Sentinel:
                 (self.resources.get_or_create(r) for r in resources),
                 np.int32, count=n)
         ra = self.spec.alt_rows
+        origin_ids = np.zeros(n, np.int32)
+        origin_rows = np.full(n, ra, np.int32)
+        context_ids = np.zeros(n, np.int32)
+        chain_rows = np.full(n, ra, np.int32)
+        if origins is not None:
+            for i, o in enumerate(origins):
+                if o:
+                    oid = self.origins.get_or_create(o)
+                    origin_ids[i] = oid
+                    origin_rows[i] = self._alt_row(int(rows[i]), 0, oid)
+        if contexts is not None:
+            for i, c in enumerate(contexts):
+                if c and c != DEFAULT_CONTEXT_NAME:
+                    cid = self.contexts.get_or_create(c)
+                    context_ids[i] = cid
+                    chain_rows[i] = self._alt_row(int(rows[i]), 1, cid)
         acq = (np.asarray(acquire, np.int32) if acquire is not None
                else np.ones(n, np.int32))
         is_in = ((np.asarray(entry_types, np.int32) == ENTRY_TYPE_IN)
@@ -604,9 +747,8 @@ class Sentinel:
         prio = (np.asarray(prioritized, np.bool_) if prioritized is not None
                 else np.zeros(n, np.bool_))
         return self.decide_raw_nowait(
-            rows, np.zeros(n, np.int32), np.full(n, ra, np.int32),
-            np.zeros(n, np.int32), np.full(n, ra, np.int32), acq, is_in,
-            prio)
+            rows, origin_ids, origin_rows, context_ids, chain_rows, acq,
+            is_in, prio)
 
     def decide_raw(self, rows, origin_ids, origin_rows, context_ids,
                    chain_rows, acquire, is_in, prioritized, *,
@@ -621,12 +763,27 @@ class Sentinel:
                           valid=None) -> PendingVerdicts:
         """:meth:`decide_raw` with the verdict readback deferred: the step
         is enqueued (state advanced in order under the lock) and the
-        device→host verdict copy started; ``.result()`` materializes.
-        Only the scalar route is ported (see the module docstring)."""
+        device→host verdict copy started; ``.result()`` materializes. The
+        route is the JAX runtime's (see the module docstring)."""
         n = rows.shape[0]
         vfull = self._valid_full(n, valid)
-        self._check_scalar(acquire, origin_ids, origin_rows, chain_rows,
-                           prioritized, vfull)
+        acq_uniform, no_origin_ids = self._batch_facts(
+            acquire, origin_ids, prioritized, vfull)
+        no_alt = self._no_alt(origin_rows, chain_rows)
+        if not (no_origin_ids and no_alt) and acq_uniform \
+                and self._key_fits():
+            # per-event scalar eligibility; invalid lanes are scalar-safe
+            pad_a = self.spec.alt_rows
+            ev_scalar = (((np.asarray(origin_ids) == 0)
+                          & (np.asarray(origin_rows) >= pad_a)
+                          & (np.asarray(chain_rows) >= pad_a)) | ~vfull)
+            n_general = int(np.count_nonzero(~ev_scalar & vfull))
+            n_scalar = int(np.count_nonzero(ev_scalar & vfull))
+            if n_general > 0 and n_scalar >= SPLIT_MIN_SCALAR:
+                return self._decide_split_nowait(
+                    rows, origin_ids, origin_rows, context_ids, chain_rows,
+                    acquire, is_in, ev_scalar, vfull)
+        route = self._route(acq_uniform, no_origin_ids, no_alt)
         batch = self._entry_batch(rows, origin_ids, origin_rows, context_ids,
                                   chain_rows, acquire, is_in, prioritized,
                                   vfull)
@@ -636,8 +793,43 @@ class Sentinel:
             self._drain_evictions_locked()
             self._state, verdicts = decide_entries(
                 self.spec, self._ruleset, self._state, batch, times,
-                sys_scalars, **self._flags())
-            return self._pending(verdicts, n)
+                sys_scalars, **self._flags(route, not no_alt))
+            self.routes[route] += 1
+            return self._pending([(verdicts, None)], n)
+
+    def _decide_split_nowait(self, rows, origin_ids, origin_rows,
+                             context_ids, chain_rows, acquire, is_in,
+                             ev_scalar, vfull) -> PendingVerdicts:
+        """Mixed batch: the scalar-eligible events take the scalar step,
+        the others the fast step, scalar first, under one lock hold (a
+        legitimate serialization of the batch: each sub-step is exact over
+        its own events, as the JAX package's split dispatch)."""
+        n = rows.shape[0]
+        idx_s = np.nonzero(ev_scalar)[0]
+        idx_g = np.nonzero(~ev_scalar)[0]
+
+        def batch_of(idx):
+            cols = [np.asarray(a)[idx] for a in (
+                rows, origin_ids, origin_rows, context_ids, chain_rows,
+                acquire, is_in)]
+            return self._entry_batch(*cols, np.zeros(idx.shape[0], np.bool_),
+                                     vfull[idx])
+
+        bs, bg = batch_of(idx_s), batch_of(idx_g)
+        no_alt_g = self._no_alt(np.asarray(origin_rows)[idx_g],
+                                np.asarray(chain_rows)[idx_g])
+        times = self._time_scalars(self.clock.now_ms())
+        sys_scalars = self._sys_scalars()
+        with self._lock:
+            self._drain_evictions_locked()
+            state, v1 = decide_entries(
+                self.spec, self._ruleset, self._state, bs, times,
+                sys_scalars, **self._flags("scalar", False))
+            self._state, v2 = decide_entries(
+                self.spec, self._ruleset, state, bg, times, sys_scalars,
+                **self._flags("fast", not no_alt_g))
+            self.routes["split"] += 1
+            return self._pending([(v1, idx_s), (v2, idx_g)], n)
 
     def decide_and_exit_raw_nowait(
             self, rows, origin_ids, origin_rows, context_ids, chain_rows,
@@ -648,20 +840,22 @@ class Sentinel:
         """Fused decide+exit: this step's entry decisions and the previous
         step's completions in one engine step (exits land after decides,
         identical to the decide-then-exit pair). Exit columns default to
-        padding-free trivia (no origins, acquire=1, rt=0, no errors)."""
+        padding-free trivia (no origins, acquire=1, rt=0, no errors). The
+        whole batch takes one route (no split); the alt records run when
+        either half carries an origin or chain row."""
         n = rows.shape[0]
         n_x = exit_rows.shape[0]
         ra = self.spec.alt_rows
         vfull = self._valid_full(n, valid)
+        acq_uniform, no_origin_ids = self._batch_facts(
+            acquire, origin_ids, prioritized, vfull)
         x_orows = (exit_origin_rows if exit_origin_rows is not None
                    else np.full(n_x, ra, np.int32))
         x_crows = (exit_chain_rows if exit_chain_rows is not None
                    else np.full(n_x, ra, np.int32))
-        self._check_scalar(acquire, origin_ids, origin_rows, chain_rows,
-                           prioritized, vfull)
-        if (np.min(x_orows, initial=ra) < ra
-                or np.min(x_crows, initial=ra) < ra):
-            raise NotImplementedError(_NOT_PORTED["general"])
+        no_alt = (self._no_alt(origin_rows, chain_rows)
+                  and self._no_alt(x_orows, x_crows))
+        route = self._route(acq_uniform, no_origin_ids, no_alt)
         batch = self._entry_batch(rows, origin_ids, origin_rows, context_ids,
                                   chain_rows, acquire, is_in, prioritized,
                                   vfull)
@@ -682,26 +876,25 @@ class Sentinel:
             self._drain_evictions_locked()
             self._state, verdicts = decide_and_record_exits(
                 self.spec, self._ruleset, self._state, batch, xbatch, times,
-                sys_scalars, **self._flags())
-            return self._pending(verdicts, n)
+                sys_scalars, **self._flags(route, not no_alt))
+            self.routes["fused"] += 1
+            return self._pending([(verdicts, None)], n)
 
     def exit_batch(self, *, rows, origin_rows, chain_rows, acquire, rt_ms,
                    error, is_in) -> None:
         """Record a batch of completions (``StatisticSlot.exit`` +
-        ``DegradeSlot.exit``)."""
-        ra = self.spec.alt_rows
-        if (np.min(origin_rows, initial=ra) < ra
-                or np.min(chain_rows, initial=ra) < ra):
-            raise NotImplementedError(_NOT_PORTED["general"])
+        ``DegradeSlot.exit``), on the origin and chain rows too where the
+        batch has any."""
         n = rows.shape[0]
         batch = self._exit_batch(rows, origin_rows, chain_rows, acquire,
                                  rt_ms, error, is_in, np.ones(n, np.bool_))
         times = self._time_scalars(self.clock.now_ms())
         with self._lock:
             self._drain_evictions_locked()
-            self._state = record_exits(self.spec, self._ruleset, self._state,
-                                       batch, times,
-                                       skip_threads=self._skip_threads)
+            self._state = record_exits(
+                self.spec, self._ruleset, self._state, batch, times,
+                record_alt=not self._no_alt(origin_rows, chain_rows),
+                skip_threads=self._skip_threads)
 
     # ------------------------------------------------------------------
     # Introspection

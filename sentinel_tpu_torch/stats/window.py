@@ -1,6 +1,6 @@
 """Sliding-window counters as dense tensors — the LeapArray analog.
 
-Port of ``sentinel_tpu/stats/window.py`` (the scalar path's subset). One
+Port of ``sentinel_tpu/stats/window.py`` (the admission paths' subset). One
 tensor per concern instead of one LeapArray object per resource:
 
 * ``counters: int32[R, B, E]``  — all resources × buckets × events,
@@ -132,6 +132,14 @@ def window_sum_rows(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
     sub = state.counters[r, :, event]                    # [N, B]
     mask = valid_mask(spec, state.stamps[r], now_idx)
     return torch.where(mask, sub, 0).sum(1, dtype=torch.int32)
+
+
+def window_sum_all(spec: WindowSpec, state: WindowState, event: int,
+                   now_idx: int) -> torch.Tensor:
+    """Sum of ``event`` over live buckets for every row → int32[R]."""
+    mask = valid_mask(spec, state.stamps, now_idx)       # [R, B]
+    return torch.where(mask, state.counters[:, :, event], 0).sum(
+        1, dtype=torch.int32)
 
 
 def rolling_totals(spec: WindowSpec, state: WindowState,

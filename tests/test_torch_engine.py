@@ -125,7 +125,7 @@ def test_fused_steps_match_leaf_by_leaf(variant):
             tp.EntryBatch(**{k: torch.from_numpy(a) for k, a in eb.items()}),
             tp.ExitBatch(**{k: torch.from_numpy(a) for k, a in xb.items()}),
             tuple(int(x) for x in times), tuple(float(x) for x in sysv),
-            **flags)
+            scalar_flow=True, record_alt=False, sortfree=True, **flags)
         for f in ("allow", "reason", "wait_ms"):
             want = np.asarray(getattr(jv, f))
             got = getattr(tv, f).numpy()
@@ -164,7 +164,7 @@ def test_off_route_steps_raise():
     spec = _port_spec(sph.spec)
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         tp.decide_entries(spec, None, None, None, (0, 0, 0, 0), (0.0, 0.0),
-                          scalar_flow=False)
+                          enable_occupy=True)
 
 
 def test_init_state_matches_reference():

@@ -183,3 +183,117 @@ def test_one_hot_key_combines_exactly():
         torch.cuda.synchronize()
         assert float(table[12345, 6]) == n
         assert float(table.sum()) == n
+
+
+# ---------------------------------------------------------------------------
+# The origin routes' shapes (the fast and general paths)
+# ---------------------------------------------------------------------------
+
+def _seam_equals_plain(table, view_of, keys, events, amounts):
+    """One launch through the seam on ``view_of(table)`` against the plain
+    version on a copy → the launch's plan."""
+    want = table.clone()
+    sa.scatter_add_reference(view_of(want), keys, events, amounts)
+    got = table.clone()
+    view = view_of(got)
+    plan = sa.plan_for(view, keys, events)
+    before = sa.LAUNCHES["scatter_add"]
+    sa.scatter_add(view, keys, events, amounts)
+    torch.cuda.synchronize()
+    assert sa.LAUNCHES["scatter_add"] == before + 1
+    assert torch.equal(got, want)
+    return plan
+
+
+@pytest.mark.gpu
+def test_bucket_histogram_stream_with_its_hot_reserved_bucket():
+    """The general route's counting order: 2^20 pairs, 85% of them on the
+    reserved bucket 3T (one hot key), the rest spread over the 3T claim
+    buckets; the histogram equals numpy's, and so does the order built
+    from it."""
+    from sentinel_tpu_torch.ops import sortfree as sfo
+    dev = _card()
+    n = 1 << 20
+    t = 1 << sfo.table_bits(n)
+    rng = np.random.default_rng(3)
+    buckets = np.where(rng.random(n) < 0.15, rng.integers(0, 3 * t, n),
+                       3 * t).astype(np.int32)
+    tb = torch.from_numpy(buckets).to(dev)
+    plan = _seam_equals_plain(
+        torch.zeros((3 * t + 1, 1), dtype=torch.int32, device=dev),
+        lambda x: x, tb, torch.zeros_like(tb), torch.ones_like(tb))
+    assert plan.path == sa.PATH_GLOBAL
+    hist = sfo.bucket_histogram(tb, 3 * t + 1)
+    np.testing.assert_array_equal(hist.cpu().numpy(),
+                                  np.bincount(buckets, minlength=3 * t + 1))
+    order = sfo.counting_order(tb, 3 * t + 1).cpu().numpy()
+    np.testing.assert_array_equal(order, np.argsort(buckets, kind="stable"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["decide", "exit", "rt_sum"])
+def test_alt_slice_with_half_the_lanes_padding(what):
+    """The alt table's records: 2^20 lanes (the origin half, then the
+    chain half) into the current bucket of [2^21, 2, 8], half the origin
+    lanes and 7/8 of the chain lanes padding (row RA)."""
+    dev = _card()
+    ra, half = 1 << 21, 1 << 19
+    rng = np.random.default_rng(4)
+    keys = rng.integers(0, ra, 2 * half).astype(np.int32)
+    keys[:half][rng.random(half) < 0.5] = ra
+    keys[half:][rng.random(half) < 0.875] = ra
+    k = torch.from_numpy(keys).to(dev)
+    if what == "rt_sum":
+        table = torch.from_numpy(rng.integers(0, 50, (ra, 2)).astype(
+            np.float32)).to(dev)
+        plan = _seam_equals_plain(
+            table, lambda t: t[:, 1:2], k, None,
+            torch.from_numpy(rng.integers(1, 201, (2 * half, 1)).astype(
+                np.int32)).to(dev))
+    else:
+        table = torch.from_numpy(rng.integers(0, 50, (ra, 2, 8)).astype(
+            np.int32)).to(dev)
+        if what == "decide":
+            events = torch.from_numpy(rng.integers(0, 2, 2 * half).astype(
+                np.int32)).to(dev)
+            amounts = torch.ones(2 * half, dtype=torch.int32, device=dev)
+        else:
+            events = None
+            amounts = torch.zeros((2 * half, 8), dtype=torch.int32,
+                                  device=dev)
+            amounts[:, 3] = 1
+            amounts[:, 2] = torch.from_numpy(
+                (rng.random(2 * half) < 0.1).astype(np.int32)).to(dev)
+        plan = _seam_equals_plain(table, lambda t: t[:, 1, :], k, events,
+                                  amounts)
+    assert plan.path == sa.PATH_GLOBAL
+
+
+@pytest.mark.gpu
+def test_add_rows_hist_on_the_shared_memory_path():
+    """The fast route's alt record for a small alt table (RA = 1024, the
+    runtime's least; the JAX package's ``add_rows_hist`` branch) under a
+    2^22-lane stream with one uniform acquire: ``plan`` privatises the
+    [1024, 8] bucket slice, and the record equals the one on the CPU."""
+    from sentinel_tpu_torch.stats import window as tw
+    dev = _card()
+    ra, n = 1024, 1 << 22
+    spec = tw.WindowSpec(2, 500)
+    rng = np.random.default_rng(5)
+    counters = rng.integers(0, 50, (ra, 2, 8)).astype(np.int32)
+    rows = rng.integers(0, ra, n).astype(np.int32)
+    rows[rng.random(n) < 0.6] = ra
+    ev_ids = rng.integers(0, 2, n).astype(np.int32)
+    states = []
+    for d in ("cpu", dev):
+        st = tw.init_window(spec, ra, device=d)
+        st.counters.copy_(torch.from_numpy(counters))
+        r, e = (torch.from_numpy(a).to(d) for a in (rows, ev_ids))
+        if d == dev:
+            plan = sa.plan_for(st.counters[:, 1, :], r, e)
+            assert plan.path == sa.PATH_SHARED
+        tw.add_rows_multi(spec, st, r, e,
+                          torch.full((n,), 3, dtype=torch.int32, device=d), 1)
+        states.append(st.counters.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(states[0], states[1])

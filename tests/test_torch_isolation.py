@@ -23,6 +23,12 @@ import sentinel_tpu_torch
 import sentinel_tpu_torch.convert
 import sentinel_tpu_torch.runtime
 import sentinel_tpu_torch.ops.sortfree
+import sentinel_tpu_torch.ops.segments
+import sentinel_tpu_torch.core.context
+import sentinel_tpu_torch.engine.pipeline
+import sentinel_tpu_torch.rules.flow
+import sentinel_tpu_torch.rules.degrade
+import sentinel_tpu_torch.stats.window
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "sentinel_tpu")

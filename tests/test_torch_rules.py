@@ -347,7 +347,7 @@ def test_f32_to_i32_saturates_like_xla():
 
 
 # ----------------------------------------------------------------------
-# degrade_entry_check_scalar / degrade_exit_feed
+# degrade_entry_check (the scalar form) / degrade_exit_feed
 # ----------------------------------------------------------------------
 
 def test_degrade_scalar_trip_probe_arcs():
@@ -371,7 +371,7 @@ def test_degrade_scalar_trip_probe_arcs():
         valid = rng.random(n) > 0.1
         jst, ja = je(j.table, jst, j.rule_idx, jnp.asarray(rows),
                      jnp.asarray(valid), jnp.int32(rel))
-        tst, ta = tdeg.degrade_entry_check_scalar(
+        tst, ta = tdeg.degrade_entry_check(
             t.table, tst, t.rule_idx, torch.from_numpy(rows),
             torch.from_numpy(valid), rel)
         np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))

@@ -220,28 +220,22 @@ def test_off_route_calls_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         sph.load_param_flow_rules([])
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        sph.entry("x", origin="app-a")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         sph.entry("x", prioritized=True)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         sph.entry("x", args=(1,))
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        sph.entry_batch(["a", "b"], acquire=[1, 2])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        sph.entry_batch(["a", "b"], origins=["", "app"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         sph.entry_batch(["a", "b"], prioritized=[False, True])
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        sph.entry_batch(["a"], contexts=["ctx-1"])
+        sph.entry_batch(["a", "b"], origins=["", "app"],
+                        prioritized=[True, False])
     ra = sph.spec.alt_rows
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        sph.exit_batch(rows=np.array([1], np.int32),
-                       origin_rows=np.array([3], np.int32),
-                       chain_rows=np.array([ra], np.int32),
-                       acquire=np.ones(1, np.int32),
-                       rt_ms=np.ones(1, np.int32),
-                       error=np.zeros(1, np.bool_),
-                       is_in=np.ones(1, np.bool_))
+        sph.decide_and_exit_raw_nowait(
+            np.array([1], np.int32), np.zeros(1, np.int32),
+            np.array([ra], np.int32), np.zeros(1, np.int32),
+            np.array([ra], np.int32), np.ones(1, np.int32),
+            np.ones(1, np.bool_), np.ones(1, np.bool_),
+            exit_rows=np.zeros(0, np.int32))
     # nothing off-route reached the engine
     assert sph.node_totals("a") == {"pass": 0, "block": 0, "success": 0,
                                     "exception": 0, "threads": 0}
