@@ -35,7 +35,14 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    give identical verdicts, claim overflow counts and state, with 14
    (general: THREAD-grade rules keep the thread gauges) or 9 (fast)
    kernel launches per step and no wait on the device;
-5. drives the runtime through the entry points a user calls
+5. drives the prioritized (occupy) steps the same way at the headline
+   geometry, ``step_ms`` of virtual time apart so that bookings are made,
+   land and are read: every event prioritized on the fast route's occupy
+   step (7 launches a step), 1% prioritized as the runtime splits it
+   (scalar step with the landed-booking fold, fast occupy step, exit step:
+   8), and the general route with 1/8 prioritized (15); kernel, plain seam
+   and sorted order identical, occupied admissions above zero;
+6. drives the runtime through the entry points a user calls
    (``Sentinel(device="cuda")`` at 1M resources: ``entry``,
    ``entry_batch``, ``exit_batch``, full-width fused decide+exit steps
    without origins, then with origins and with a system and an authority
@@ -43,11 +50,16 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    context, ``entry_batch(origins=, contexts=)`` and a batch that splits)
    with the launch counters zeroed just before and read just after, and
    checks the verdicts and routes against a CPU twin of the same runtime;
-6. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-   line (``launches`` summed over the runs of phases 3-5), and as the last
+   then the default configuration (host fast path on) at 1M resources:
+   FREE and LEASED resources through ``entry``/exit (renewals, a denied
+   chunk, lease expiry), ``entry(prioritized=True)`` on a full window, an
+   8k batch with 1% prioritized that splits and a rule reload with live
+   bookings, all equal to a CPU twin of the same geometry, state included;
+7. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
+   line (``launches`` summed over the runs of phases 3-6), and as the last
    line ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --find-syncs`` runs 3 steps of each engine phase
+``python3 chip_smoke.py --find-syncs`` runs 3-5 steps of each engine phase
 with the sync debug mode at "warn" and lists every place that waits on
 the device, instead of the phases above.
 
@@ -64,6 +76,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import json
@@ -413,6 +426,27 @@ def phase_kernels(sa, hist_buckets: int, dev="cuda", R=1 << 20,
     case("alt threads int32 [2R,1], payload E=1, N=2B", 2,
          rint(0, 50, (RA,)), lambda t: t[:, None], alt2, None,
          torch.cat([dec, dec]))
+    # the occupy grants (prioritized steps): float32 [R, 1], one lane a
+    # batch event, the admitted 1% with their acquire, the rest at the
+    # padding key R (dropped)
+    grant_keys = torch.full((B,), R, dtype=torch.int32, device=dev)
+    booked = torch.rand(B, device=dev, generator=g) < 0.01
+    grant_keys[booked] = rint(0, R, (int(booked.sum()),))
+    case("occupy grants f32 [R,1], payload E=1, N=B", 1,
+         torch.zeros((R, 1), dtype=torch.float32, device=dev), whole,
+         grant_keys, None, torch.where(booked, rint(1, 4, (B,)), 0)[
+             :, None].contiguous())
+    # uncount_rows (the host fast path's expired leases): the [R·B, 8]
+    # view of the second window's counters, key row·B + bucket, negative
+    # PASS amounts, 1/8 of the lanes padding rows
+    n_unc = 1 << 12
+    unc_rows = rint(0, R, (n_unc,))
+    unc_rows[::8] = R
+    unc_keys = (unc_rows * 2 + rint(0, 2, (n_unc,))).contiguous()
+    case("uncount int32 [2R,8] view of [R,2,8], N=4096", 0,
+         rint(0, 50, (R, 2, 8)), lambda t: t.view(2 * R, 8), unc_keys,
+         torch.zeros(n_unc, dtype=torch.int32, device=dev),
+         -rint(1, 250, (n_unc,)))
 
     results = []
     for c in cases:
@@ -484,9 +518,12 @@ def _clone_state(state):
     return clone(state)
 
 
-def phase_engine(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
-                 steps: int = 20, profile: bool = False) -> dict:
-    from sentinel_tpu_torch import convert
+def _scalar_fixture(dev, R: int, B: int, prio_share: float = 0.0):
+    """The serving headline's engine fixture (``bench.py:270-376``): 4096
+    QPS rules (count 50) on rows 1..4095, 1024 exception-ratio breakers,
+    four batches of B origin-free events (1/4 on ruled rows) with
+    ``prio_share`` of them prioritized, RT samples and errors → (spec,
+    rules, batches, rt_ms, errors, init state)."""
     from sentinel_tpu_torch.core.registry import (
         OriginRegistry, Registry, ResourceRegistry,
     )
@@ -497,7 +534,6 @@ def phase_engine(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
     from sentinel_tpu_torch.rules import system as sys_mod
     from sentinel_tpu_torch.stats.window import WindowSpec
 
-    dev = torch.device(dev)
     NRULES = 4096
     spec = pl.EngineSpec(rows=R, alt_rows=1024,
                          second=WindowSpec(buckets=2, win_ms=500),
@@ -528,8 +564,6 @@ def phase_engine(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
         auth_table=auth.table, auth_idx=auth.rule_idx,
         sys_thresholds=sys_mod.compile_system_rules([], device=dev),
     ).with_joint()
-    flags = dict(skip_auth=True, skip_sys=True, scalar_has_rl=False,
-                 skip_threads=True, scalar_flow=True, record_alt=False)
 
     rng = np.random.default_rng(42)
     batches = []
@@ -539,6 +573,10 @@ def phase_engine(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
         rows = np.concatenate([hot, cold]).astype(np.int32)
         rng.shuffle(rows)
         t = torch.from_numpy(rows).to(dev)
+        # its own generator: the rest of the fixture is the same for
+        # every share
+        prio = np.random.default_rng(44 + len(batches)).random(B) \
+            < prio_share
         batches.append(pl.EntryBatch(
             rows=t, origin_ids=torch.zeros_like(t),
             origin_rows=torch.full_like(t, spec.alt_rows),
@@ -546,19 +584,37 @@ def phase_engine(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
             chain_rows=torch.full_like(t, spec.alt_rows),
             acquire=torch.ones_like(t),
             is_in=torch.ones(B, dtype=torch.bool, device=dev),
-            prioritized=torch.zeros(B, dtype=torch.bool, device=dev),
+            prioritized=torch.from_numpy(prio).to(dev),
             valid=torch.ones(B, dtype=torch.bool, device=dev)))
     rt_ms = [torch.from_numpy(rng.integers(0, 200, B).astype(np.int32)).to(dev)
              for _ in range(4)]
     errors = [torch.from_numpy(rng.random(B) < 0.3).to(dev) for _ in range(4)]
+    init = pl.init_state(spec, NRULES, 1024, device=dev)
+    return spec, rules, batches, rt_ms, errors, init
+
+
+def _times_at(spec, step_ms: int):
+    """The engine's time scalars of step ``i``, ``step_ms`` of virtual
+    time apart."""
     t0_ms = 1_000_000_000
 
     def times(i):
-        now = t0_ms + i * 2
+        now = t0_ms + i * step_ms
         return (spec.second.index_of(now), 0, now - t0_ms,
                 now % spec.second.win_ms)
+    return times
 
-    init = pl.init_state(spec, NRULES, 1024, device=dev)
+
+def phase_engine(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
+                 steps: int = 20, profile: bool = False) -> dict:
+    from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch.engine import pipeline as pl
+
+    dev = torch.device(dev)
+    spec, rules, batches, rt_ms, errors, init = _scalar_fixture(dev, R, B)
+    flags = dict(skip_auth=True, skip_sys=True, scalar_has_rl=False,
+                 skip_threads=True, scalar_flow=True, record_alt=False)
+    times = _times_at(spec, 2)
 
     def run(state, strict=False):
         verdicts = []
@@ -634,6 +690,197 @@ def phase_engine(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
     return out
 
 
+def _state_equal(a, b, convert) -> list:
+    """Leaves of two engine states that differ."""
+    return convert.leaf_diff(convert.to_numpy(a), convert.to_numpy(b))
+
+
+def _booked_for(state, idx) -> int:
+    """Booked units in the ring for window index ``idx``."""
+    return int(torch.where(state.flow_dyn.occupied_window == idx,
+                           state.flow_dyn.occupied_count, 0.0).sum())
+
+
+def _landed_bookings(state, spec, idx_s) -> int:
+    """Bookings in the ring whose window has been reached (and is still
+    in the rolling interval) at window index ``idx_s``: what the next
+    step folds into its QPS base."""
+    age = idx_s - state.flow_dyn.occupied_window
+    live = (age >= 0) & (age < spec.second.buckets)
+    return int(torch.where(live, state.flow_dyn.occupied_count, 0.0).sum())
+
+
+def phase_prio_engine(stt, sa, mode: str, dev="cuda", R=1 << 20,
+                      B=1 << 19, steps: int = 12, step_ms: int = 125,
+                      profile: bool = False) -> dict:
+    """The reference bench's prioritized modes (``general_bench.py:503-545``)
+    at the headline geometry, ``step_ms`` of virtual time a step so that
+    windows fill, attempts are denied, and bookings are made, land and are
+    read by later steps:
+
+    * ``prio`` — every event prioritized: fused decide+exit steps on the
+      fast route's occupy-aware step (record_alt off); 7 kernel launches a
+      step (the scalar fused step's 6 and the grants);
+    * ``prio_mixed`` — 1% prioritized, as the runtime splits it while
+      occupy is live: the scalar step (occupy_base) on the bulk, the fast
+      occupy step on the prioritized slice, then the exit step; 8 launches
+      a step (1 + 2 + 5).
+
+    Kernel, plain seam and sort-free off must give identical verdicts,
+    claim overflow and state (booking ring included), with no wait on the
+    device inside a kernel-run step."""
+    from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch.core.batching import pad_pow2
+    from sentinel_tpu_torch.engine import pipeline as pl
+
+    dev = torch.device(dev)
+    share = 1.0 if mode == "prio" else 0.01
+    spec, rules, batches, rt_ms, errors, init = _scalar_fixture(
+        dev, R, B, prio_share=share)
+    times = _times_at(spec, step_ms)
+    base = dict(skip_auth=True, skip_sys=True, scalar_has_rl=False,
+                skip_threads=True, record_alt=False, enable_occupy=True)
+    fast_flags = dict(base, fast_flow=True, any_prio=True)
+    scalar_flags = dict(base, scalar_flow=True)
+    splits = []
+    if mode == "prio_mixed":
+        # the runtime's host split: prioritized events on the fast side,
+        # each side padded to a power of two (rows R, valid False)
+        for b in batches:
+            prio = b.prioritized.cpu().numpy()
+            sides = []
+            for idx in (np.nonzero(~prio)[0], np.nonzero(prio)[0]):
+                m, n = idx.shape[0], pad_pow2(idx.shape[0])
+                it = torch.from_numpy(idx).to(dev)
+
+                def take(col, fill, it=it, m=m, n=n):
+                    out = torch.full((n,), fill, dtype=col.dtype,
+                                     device=dev)
+                    out[:m] = col[it]
+                    return out
+                sides.append((it, pl.EntryBatch(
+                    rows=take(b.rows, R), origin_ids=take(b.origin_ids, 0),
+                    origin_rows=take(b.origin_rows, spec.alt_rows),
+                    context_ids=take(b.context_ids, 0),
+                    chain_rows=take(b.chain_rows, spec.alt_rows),
+                    acquire=take(b.acquire, 0), is_in=take(b.is_in, False),
+                    prioritized=take(b.prioritized, False),
+                    valid=take(b.valid, False))))
+            splits.append(sides)
+
+    def run(state, sortfree=True, strict=False, track=False):
+        out, step_s, landed = [], [], []
+        prev_rows = torch.full((B,), R, dtype=torch.int32, device=dev)
+        prev_valid = torch.zeros(B, dtype=torch.bool, device=dev)
+        for i in range(steps):
+            b = batches[i % 4]
+            xb = pl.ExitBatch(
+                rows=prev_rows, origin_rows=torch.full_like(prev_rows, 1024),
+                chain_rows=torch.full_like(prev_rows, 1024),
+                acquire=torch.ones_like(prev_rows), rt_ms=rt_ms[i % 4],
+                error=errors[i % 4], is_in=torch.ones_like(prev_valid),
+                valid=prev_valid)
+            if track:
+                landed.append(_landed_bookings(state, spec, times(i)[0]))
+            sync()
+            t = time.perf_counter()
+            with no_host_sync(strict and dev.type == "cuda"):
+                if mode == "prio":
+                    state, v = pl.decide_and_record_exits(
+                        spec, rules, state, b, xb, times(i), (0.5, 0.1),
+                        sortfree=sortfree, **fast_flags)
+                    parts = [(v, None)]
+                else:
+                    (i_s, bs), (i_g, bg) = splits[i % 4]
+                    state, v1 = pl.decide_entries(
+                        spec, rules, state, bs, times(i), (0.5, 0.1),
+                        sortfree=sortfree, **scalar_flags)
+                    state, v2 = pl.decide_entries(
+                        spec, rules, state, bg, times(i), (0.5, 0.1),
+                        sortfree=sortfree, **fast_flags)
+                    state = pl.record_exits(spec, rules, state, xb,
+                                            times(i), record_alt=False,
+                                            skip_threads=True)
+                    parts = [(v1, i_s), (v2, i_g)]
+                allow = torch.zeros(B, dtype=torch.bool, device=dev)
+                wait = torch.zeros(B, dtype=torch.int32, device=dev)
+                ovf = torch.zeros((), dtype=torch.int32, device=dev)
+                for v, idx in parts:
+                    if idx is None:
+                        allow, wait = v.allow, v.wait_ms
+                    else:
+                        allow[idx] = v.allow[:idx.shape[0]]
+                        wait[idx] = v.wait_ms[:idx.shape[0]]
+                    ovf = ovf + v.sf_overflow if sortfree else ovf
+            sync()
+            step_s.append(time.perf_counter() - t)
+            out.append((allow, wait, ovf))
+            prev_rows = torch.where(allow, b.rows, R)
+            prev_valid = allow.clone()
+        return state, out, step_s, landed
+
+    run(_clone_state(init))                             # warm-up
+    sa.LAUNCHES.clear()
+    s_kernel, v_kernel, step_s, _ = run(_clone_state(init), strict=True)
+    launches = sa.LAUNCHES["scatter_add"]
+    per_step = 7 if mode == "prio" else 8
+    if launches != per_step * steps:
+        fail(f"{mode} engine phase: {launches} kernel launches in {steps} "
+             f"steps, want {per_step} per step")
+    real = sa.scatter_add
+    sa.scatter_add = sa.scatter_add_reference     # the plain seam
+    try:
+        sa.LAUNCHES.clear()
+        s_plain, v_plain, _, _ = run(_clone_state(init))
+        if sa.LAUNCHES["scatter_add"]:
+            fail(f"{mode} engine phase: the plain run launched the kernel")
+    finally:
+        sa.scatter_add = real
+    s_sorted, v_sorted, _, landed = run(_clone_state(init), sortfree=False,
+                                        strict=True, track=True)
+    occupied = overflow = 0
+    for i, (a, b, c) in enumerate(zip(v_kernel, v_plain, v_sorted)):
+        for k, f in enumerate(("allow", "wait_ms")):
+            if not (torch.equal(a[k], b[k]) and torch.equal(a[k], c[k])):
+                fail(f"{mode} engine phase: verdict {f} differs at step {i}")
+        if int(a[2]) != int(b[2]):
+            fail(f"{mode} engine phase: sf_overflow differs at step {i}")
+        overflow += int(a[2])
+        occupied += int((a[0] & (a[1] > 0)).sum())
+    for other, tag in ((s_plain, "plain seam"), (s_sorted, "sorted order")):
+        bad = _state_equal(s_kernel, other, convert)
+        if bad:
+            fail(f"{mode} engine phase: state differs from the {tag} run: "
+                 f"{bad}")
+    if occupied == 0:
+        fail(f"{mode} engine phase: no occupied admission")
+    if not any(landed):
+        fail(f"{mode} engine phase: no booking landed in a later step")
+    med = float(np.median(step_s[1:]))
+    allowed = int(sum(int(v[0].sum()) for v in v_kernel))
+    out = {"mode": mode, "R": R, "B": B, "steps": steps,
+           "step_ms_virtual": step_ms, "launches": launches,
+           "launches_per_step": launches / steps,
+           "step_ms_median": med * 1e3,
+           "step_ms_all": [x * 1e3 for x in step_s],
+           "decisions_per_s": B / med, "allowed": allowed,
+           "occupied": occupied, "landed_per_step": landed,
+           "sf_overflow": overflow}
+    log(f"[{mode}] R={R} B={B} steps={steps} ({step_ms} ms apart): "
+        f"verdicts, sf_overflow and state equal (kernel, plain seam, sorted "
+        f"order); step median {med * 1e3:.3f} ms ({B / med:.0f} "
+        f"decisions/s); kernel launches {launches} ({launches / steps:.1f}"
+        f"/step); allowed {allowed}; occupied admissions {occupied}; landed "
+        f"bookings read per step {landed}; claim overflow {overflow}")
+    if profile:
+        out["profile"] = prof = _profile_steps(
+            lambda: run(_clone_state(init)), steps,
+            f"engine_{mode}_trace.json")
+        log(f"[{mode}] device time {prof['device_ms_per_step']:.3f} ms per "
+            f"step")
+    return out
+
+
 ORIGINS, CONTEXTS = 64, 8
 
 
@@ -681,15 +928,18 @@ def _origin_rules(flow_mod, n_rules, thread_grade: bool = False):
 
 
 def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
-                        B=1 << 19, steps: int = 8,
-                        profile: bool = False) -> dict:
+                        B=1 << 19, steps: int = 8, profile: bool = False,
+                        prio: float = 0.0, step_ms: int = 2) -> dict:
     """The fast or general route at full width: fused decide+exit steps
     run twice from one state (the kernel, then the plain seam) and once
     more without sort-free grouping; verdicts, ``sf_overflow`` and state
     must agree, and the kernel must be launched the derived number of
     times per step. The general route's rules include THREAD-grade limits,
     so its steps keep the thread gauges (main and alt) as the runtime
-    does when such a rule is loaded; the fast route's elide them."""
+    does when such a rule is loaded; the fast route's elide them. With
+    ``prio`` that share of the events is prioritized and the steps are
+    the occupy-aware ones (one more launch a step: the grants), ``step_ms``
+    of virtual time apart."""
     from sentinel_tpu_torch import convert
     from sentinel_tpu_torch.core.registry import (
         OriginRegistry, Registry, ResourceRegistry,
@@ -750,10 +1000,11 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
                            for r in flow.rules)
     flags = dict(skip_auth=True, skip_sys=True, scalar_has_rl=has_rl,
                  skip_threads=skip_threads, record_alt=True,
-                 fast_flow=route == "fast")
+                 fast_flow=route == "fast", enable_occupy=prio > 0)
+    tag = route + ("_occupy" if prio else "")
 
     rng = np.random.default_rng(43)
-    batches = []
+    batches, any_prio = [], []
     for _ in range(4):
         rows = np.where(rng.random(B) < 0.25,
                         ruled[rng.integers(0, ruled.shape[0], B)],
@@ -768,23 +1019,21 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
                else rng.integers(1, 3, B).astype(np.int32))
         cols = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
                 for a in (rows, oid, orow, cid, crow, acq)]
+        # its own generator: the rest of the fixture is the same for
+        # every share
+        pr = np.random.default_rng(45 + len(batches)).random(B) < prio
+        any_prio.append(bool(pr.any()))
         batches.append(pl.EntryBatch(
             *cols, is_in=torch.ones(B, dtype=torch.bool, device=dev),
-            prioritized=torch.zeros(B, dtype=torch.bool, device=dev),
+            prioritized=torch.from_numpy(pr).to(dev),
             valid=torch.ones(B, dtype=torch.bool, device=dev)))
     rt_ms = [torch.from_numpy(rng.integers(0, 200, B).astype(np.int32)).to(
         dev) for _ in range(4)]
     errors = [torch.from_numpy(rng.random(B) < 0.3).to(dev) for _ in range(4)]
-    t0_ms = 1_000_000_000
-
-    def times(i):
-        now = t0_ms + i * 2
-        return (spec.second.index_of(now), 0, now - t0_ms,
-                now % spec.second.win_ms)
-
+    times = _times_at(spec, step_ms)
     init = pl.init_state(spec, NRULES, NBRK, device=dev)
 
-    def run(state, n_steps, sortfree=True, strict=False):
+    def run(state, n_steps, sortfree=True, strict=False, track=None):
         out, step_s = [], []
         prev = batches[0]._replace(valid=torch.zeros(B, dtype=torch.bool,
                                                      device=dev))
@@ -795,14 +1044,19 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
                 chain_rows=prev.chain_rows, acquire=prev.acquire,
                 rt_ms=rt_ms[i % 4], error=errors[i % 4],
                 is_in=prev.is_in, valid=prev.valid)
+            nxt = times(i)[0] + 1
+            if track is not None:
+                before = _booked_for(state, nxt)
             sync()
             t = time.perf_counter()
             with no_host_sync(strict and dev.type == "cuda"):
                 state, v = pl.decide_and_record_exits(
                     spec, rules, state, b, xb, times(i), (0.5, 0.1),
-                    sortfree=sortfree, **flags)
+                    sortfree=sortfree, any_prio=any_prio[i % 4], **flags)
             sync()
             step_s.append(time.perf_counter() - t)
+            if track is not None:
+                track.append(_booked_for(state, nxt) - before)
             out.append(v)
             prev = b._replace(valid=v.allow.clone())
         return state, out, step_s
@@ -815,9 +1069,10 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
     # counting order's bucket histogram; the exit payload, rt_sum and
     # rt_hist, the alt payload and alt rt_sum; the breakers' two counts;
     # with the thread gauges, +1 and -1 on the main and the alt gauges
-    per_step = 9 + (route == "general") + 4 * (not skip_threads)
+    per_step = (9 + (route == "general") + 4 * (not skip_threads)
+                + (prio > 0))
     if launches != per_step * steps:
-        fail(f"{route} engine phase: {launches} kernel launches in {steps} "
+        fail(f"{tag} engine phase: {launches} kernel launches in {steps} "
              f"steps, want {per_step} per step")
     real = sa.scatter_add
     sa.scatter_add = sa.scatter_add_reference     # the plain seam
@@ -825,26 +1080,32 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
         sa.LAUNCHES.clear()
         s_plain, v_plain, _ = run(_clone_state(init), steps)
         if sa.LAUNCHES["scatter_add"]:
-            fail(f"{route} engine phase: the plain run launched the kernel")
+            fail(f"{tag} engine phase: the plain run launched the kernel")
     finally:
         sa.scatter_add = real
+    booked = []
     s_sorted, v_sorted, sorted_s = run(_clone_state(init), steps,
-                                       sortfree=False, strict=True)
+                                       sortfree=False, strict=True,
+                                       track=booked)
+    occupied = int(sum(booked))
     overflow = 0
     for i, (a, b, c) in enumerate(zip(v_kernel, v_plain, v_sorted)):
         for f in ("allow", "reason", "wait_ms"):
             if not (torch.equal(getattr(a, f), getattr(b, f))
                     and torch.equal(getattr(a, f), getattr(c, f))):
-                fail(f"{route} engine phase: verdict {f} differs at step {i}")
+                fail(f"{tag} engine phase: verdict {f} differs at step {i}")
         if int(a.sf_overflow) != int(b.sf_overflow):
-            fail(f"{route} engine phase: sf_overflow differs at step {i}")
+            fail(f"{tag} engine phase: sf_overflow differs at step {i}")
         overflow += int(a.sf_overflow)
     want = convert.to_numpy(s_kernel)
-    for other, tag in ((s_plain, "plain seam"), (s_sorted, "sorted order")):
+    for other, what in ((s_plain, "plain seam"),
+                        (s_sorted, "sorted order")):
         bad = convert.leaf_diff(want, convert.to_numpy(other))
         if bad:
-            fail(f"{route} engine phase: state differs from the {tag} "
+            fail(f"{tag} engine phase: state differs from the {what} "
                  f"run: {bad}")
+    if prio and occupied == 0:
+        fail(f"{tag} engine phase: no occupied admission")
     allowed = int(sum(int(v.allow.sum()) for v in v_kernel))
 
     # what computing both orders costs (the reference's lax.cond computes
@@ -867,10 +1128,11 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
         fallback = lambda: seg.sort_by_keys(rule, row)  # noqa: E731
     fallback_ms = summary(CudaTimer().warm({"fallback": fallback},
                                            rounds=3, iters=5)["fallback"]
-                          ) if dev.type == "cuda" else None
+                          ) if dev.type == "cuda" and not prio else None
     med = float(np.median(step_s[1:]))
     med_sorted = float(np.median(sorted_s[1:]))
-    out = {"route": route, "R": R, "RA": RA, "B": B, "steps": steps,
+    out = {"route": tag, "R": R, "RA": RA, "B": B, "steps": steps,
+           "prioritized_share": prio, "occupied": occupied,
            "k_used": flow.k_used, "thread_gauges": not skip_threads,
            "launches": launches,
            "launches_per_step": launches / steps,
@@ -879,7 +1141,8 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
            "sorted_step_ms_median": med_sorted * 1e3,
            "decisions_per_s": B / med, "allowed": allowed,
            "sf_overflow": overflow, "fallback_ms": fallback_ms}
-    log(f"[{route}] R={R} RA={RA} B={B} K={flow.k_used} steps={steps} "
+    log(f"[{tag}] R={R} RA={RA} B={B} K={flow.k_used} steps={steps} "
+        f"prioritized {prio}, booked units {occupied}; "
         f"thread gauges {'on' if not skip_threads else 'off'}: "
         f"verdicts, sf_overflow and state equal (kernel, plain seam, sorted "
         f"order); step median {med * 1e3:.3f} ms ({B / med:.0f} "
@@ -887,19 +1150,19 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
         f"launches {launches} ({launches / steps:.1f}/step); allowed "
         f"{allowed}; claim overflow {overflow}")
     if fallback_ms is not None:
-        log(f"[{route}]   the sorted fallback computed every step: "
+        log(f"[{tag}]   the sorted fallback computed every step: "
             f"{fallback_ms['median']:.4f} ms warm (median)")
     if profile:
         out["profile"] = prof = _profile_steps(
             lambda: run(_clone_state(init), steps), steps,
-            f"engine_{route}_trace.json")
+            f"engine_{tag}_trace.json")
         # the same steps in the sorted order alone: what sort-free
         # grouping (claim cascade, counting order and the sorted fallback
         # computed beside it) costs the step as a whole
         out["profile_sorted"] = prof_s = _profile_steps(
             lambda: run(_clone_state(init), steps, sortfree=False), steps,
-            f"engine_{route}_sorted_trace.json", keep_trace=False)
-        log(f"[{route}] device time {prof['device_ms_per_step']:.3f} ms per "
+            f"engine_{tag}_sorted_trace.json", keep_trace=False)
+        log(f"[{tag}] device time {prof['device_ms_per_step']:.3f} ms per "
             f"step; sorted order alone {prof_s['device_ms_per_step']:.3f} "
             f"ms per step")
     return out
@@ -1146,6 +1409,195 @@ def phase_runtime(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
             "decisions_per_s": B / med}
 
 
+def _drive_fast_path(stt, sph, clock, free_calls: int = 4096,
+                     leased_calls: int = 2048) -> tuple:
+    """The default configuration's per-call tier (host fast path on)
+    through ``entry``/``exit``, ``entry(prioritized=True)``,
+    ``entry_batch`` and a rule reload → (observations to compare with a
+    twin, host timings). FREE resources for several flushes of 1024
+    events; LEASED resources through renewals, a denied chunk (hot) and
+    lease expiry (its unused tokens return through ``uncount_reserved``);
+    a prioritized call on a full window, which waits into the next; an
+    8192-event batch with ~1% prioritized events, which splits; a reload
+    with a landed and a pending booking."""
+    sph._cpu.sample = lambda: (0.5, 0.25)
+    flushes, expired = [0], [0]
+    drain = sph._fast.drain
+
+    def counting_drain(now_ms):
+        got = drain(now_ms)
+        flushes[0] += any(got)
+        expired[0] += len(got[2])
+        return got
+    sph._fast.drain = counting_drain
+    rules = ([stt.FlowRule(resource=f"lease-{i}", count=1000.0)
+              for i in range(8)]
+             + [stt.FlowRule(resource="hot", count=40.0),
+                stt.FlowRule(resource="svc", count=2.0)]
+             + [stt.FlowRule(resource=f"r{i}", count=150.0)
+                for i in range(64)])
+    sph.load_flow_rules(rules)
+    obs, timing = {}, {}
+
+    def modes(run):
+        out = collections.Counter()
+        for e in run:
+            out[e] += 1
+        return dict(out)
+
+    # FREE: entry/exit pairs on 64 rule-free resources
+    got, f0 = [], flushes[0]
+    t = time.perf_counter()
+    for i in range(free_calls):
+        with sph.entry(f"free-{i % 64}") as e:
+            got.append(e.fast)
+        if i % 16 == 15:
+            clock.advance_ms(1)
+    timing["free_us_per_call"] = (time.perf_counter() - t) / free_calls * 1e6
+    timing["free_flushes_per_1k"] = (flushes[0] - f0) / free_calls * 1e3
+    obs["free_modes"] = modes(got)
+    # LEASED: 8 resources of count 1000 (chunks of 250)
+    got, f0 = [], flushes[0]
+    t = time.perf_counter()
+    for i in range(leased_calls):
+        try:
+            with sph.entry(f"lease-{i % 8}") as e:
+                got.append(e.fast)
+        except stt.BlockException:
+            got.append("blocked")
+        if i % 64 == 63:
+            clock.advance_ms(1)
+    timing["leased_us_per_call"] = (time.perf_counter() - t) \
+        / leased_calls * 1e6
+    timing["leased_flushes_per_1k"] = (flushes[0] - f0) / leased_calls * 1e3
+    obs["leased_modes"] = modes(got)
+    obs["renewals"] = sph._fast.lease_renewals
+    # a denied chunk: the batch tier spends 35 of 40, the next renewal
+    # (chunk 10) is denied and the row turns hot
+    v = sph.entry_batch(["hot"] * 35)
+    got = []
+    for _ in range(8):
+        try:
+            with sph.entry("hot") as e:
+                got.append(e.fast)
+        except stt.BlockException:
+            got.append("blocked")
+    obs["hot"] = [int(v.allow.sum()), got,
+                  sph._fast.is_hot(sph.resources.lookup("hot"),
+                                   clock.now_ms())]
+    # expiry: the bucket rotates, the next call retires the leases
+    clock.advance_ms(600)
+    with sph.entry("lease-0") as e:
+        obs["after_expiry"] = e.fast
+    sph._flush_fast()
+    obs["expired_leases"] = expired[0]
+    # a prioritized call on a full window waits into the next one
+    for _ in range(2):
+        with sph.entry("svc"):
+            pass
+    clock.advance_ms(500 - clock.now_ms() % 500 + 100)
+    t0 = clock.now_ms()
+    with sph.entry("svc", prioritized=True) as e:
+        obs["prio_wait"] = clock.now_ms() - t0
+    # ~1% prioritized in an 8192-event batch: the split
+    rng = np.random.default_rng(12)
+    names = [f"r{i}" for i in rng.integers(0, 64, 8192)]
+    prio = rng.random(8192) < 0.01
+    routes0 = dict(sph.routes)
+    v = sph.entry_batch(names, prioritized=prio)
+    obs["split"] = [v.allow.tolist(), v.wait_ms.tolist(),
+                    sph.routes["split"] - routes0.get("split", 0)]
+    # a landed booking (the prioritized call above) and a pending one
+    v = sph.entry_batch(["svc"] * 3, prioritized=[True] * 3)
+    obs["pending"] = [v.allow.tolist(), v.wait_ms.tolist()]
+    sph.load_flow_rules(rules)                    # settle + carry
+    obs["carried"] = float(sph._state.flow_dyn.occupied_count.sum())
+    clock.advance_ms(500)
+    got = []
+    for _ in range(3):
+        try:
+            with sph.entry("svc") as e:
+                got.append(e.fast)
+        except stt.BlockException:
+            got.append("blocked")
+    obs["after_reload"] = got
+    obs["totals"] = {name: sph.node_totals(name) for name in (
+        "free-0", "lease-0", "hot", "svc", "r0", "__entry_node__")}
+    obs["routes"] = dict(sph.routes)
+    obs["flushes"] = flushes[0]
+    return obs, timing
+
+
+def phase_fast_path_runtime(stt, sa, dev="cuda", R=1 << 20) -> dict:
+    """The default configuration (host fast path on) at 1M resources on
+    the card, against a CPU twin of the same geometry under a twin
+    ManualClock: the observations of :func:`_drive_fast_path`, the routes
+    and the whole engine state must be equal. One flush of buffered
+    events is also run with the sync debug mode at "error"."""
+    from sentinel_tpu_torch import convert
+    t0 = 1_800_000_000_000
+    # the default configuration at R rows, with a flow-rule capacity under
+    # which the fast path's key fits ((NF+1)·(2R+1) < 2^31), so that a
+    # batch mixing kinds splits as the runtime splits it
+    cfg = stt.load_config(max_resources=R,
+                          max_flow_rules=(2 ** 31 - 1) // (2 * R + 1) - 1)
+    if not cfg.host_fast_path:
+        fail("fast-path runtime phase: the default config has the host "
+             "fast path off")
+    engines, got = {}, {}
+    for d in (dev, "cpu"):
+        clock = stt.ManualClock(start_ms=t0)
+        sph = stt.Sentinel(config=cfg, clock=clock, device=d)
+        if d == dev:
+            sa.LAUNCHES.clear()
+        got[d] = _drive_fast_path(stt, sph, clock)
+        if d == dev:
+            launches = sa.LAUNCHES["scatter_add"]
+            # a flush of buffered FREE events reads nothing back
+            for i in range(8):
+                sph.entry(f"free-{i}").exit()
+            with no_host_sync(dev == "cuda"):
+                sph._flush_fast()
+            sync()
+        else:
+            for i in range(8):
+                sph.entry(f"free-{i}").exit()
+            sph._flush_fast()
+        engines[d] = sph
+    (obs, timing), (want, _) = got[dev], got["cpu"]
+    for key in want:
+        if obs[key] != want[key]:
+            fail(f"fast-path runtime phase: {key} differs from the CPU twin: "
+                 f"{str(obs[key])[:300]} vs {str(want[key])[:300]}")
+    bad = _state_equal(engines[dev]._state, engines["cpu"]._state, convert)
+    if bad:
+        fail(f"fast-path runtime phase: state differs from the CPU twin: "
+             f"{bad}")
+    if launches == 0:
+        fail("fast-path runtime phase: the kernel was never launched")
+    if obs["free_modes"] != {"free": 4096}:
+        fail(f"fast-path runtime phase: FREE modes {obs['free_modes']}")
+    if obs["prio_wait"] <= 0 or not obs["hot"][2] or obs["carried"] <= 0:
+        fail(f"fast-path runtime phase: prio wait {obs['prio_wait']}, hot "
+             f"{obs['hot'][2]}, carried {obs['carried']}")
+    if obs["split"][2] != 1 or obs["expired_leases"] == 0:
+        fail(f"fast-path runtime phase: splits {obs['split'][2]}, expired "
+             f"leases {obs['expired_leases']}")
+    log(f"[fast_path] Sentinel(device={dev!r}) R={R}, default config: "
+        f"verdicts, Entry.fast modes, node totals, routes and state equal "
+        f"to a CPU twin; FREE entry+exit {timing['free_us_per_call']:.1f} "
+        f"us/call ({timing['free_flushes_per_1k']:.2f} flushes per 1k "
+        f"calls), LEASED {timing['leased_us_per_call']:.1f} us/call "
+        f"({timing['leased_flushes_per_1k']:.2f} flushes per 1k, "
+        f"{obs['renewals']} renewals); prioritized wait "
+        f"{obs['prio_wait']} ms; routes {obs['routes']}; kernel launches "
+        f"{launches}")
+    return {"launches": launches, "timing": timing,
+            "routes": obs["routes"], "renewals": obs["renewals"],
+            "flushes": obs["flushes"], "prio_wait_ms": obs["prio_wait"],
+            "carried": obs["carried"]}
+
+
 def find_syncs(stt, sa) -> int:
     """``--find-syncs``: every place where a kernel-run engine step waits
     on the device, with the port's frames of its stack (the sync debug
@@ -1170,7 +1622,11 @@ def find_syncs(stt, sa) -> int:
     warnings.simplefilter("always")
     no_host_sync.mode = "warn"
     phase_engine(stt, sa, steps=3)
+    phase_prio_engine(stt, sa, "prio", steps=5)
+    phase_prio_engine(stt, sa, "prio_mixed", steps=5)
     phase_origin_engine(stt, sa, "general", steps=3)
+    phase_origin_engine(stt, sa, "general", steps=3, prio=0.125,
+                        step_ms=250)
     phase_origin_engine(stt, sa, "fast", R=1 << 17, steps=3)
     log(f"[sync] {len(sites)} place(s) wait on the device in a step")
     return 0
@@ -1213,17 +1669,25 @@ def main() -> int:
                                            timer=CudaTimer())
     profile = "--profile" in sys.argv[1:]
     report["engine"] = phase_engine(stt, sa, profile=profile)
+    report["prio"] = phase_prio_engine(stt, sa, "prio", profile=profile)
+    report["prio_mixed"] = phase_prio_engine(stt, sa, "prio_mixed",
+                                             profile=profile)
     report["general"] = phase_origin_engine(stt, sa, "general",
                                             profile=profile)
+    report["general_occupy"] = phase_origin_engine(
+        stt, sa, "general", steps=6, prio=0.125, step_ms=250,
+        profile=profile)
     report["fast"] = phase_origin_engine(stt, sa, "fast", R=1 << 17,
                                          profile=profile)
     report["runtime"] = phase_runtime(stt, sa)
+    report["fast_path"] = phase_fast_path_runtime(stt, sa)
     report["seconds"] = time.perf_counter() - t_all
 
     decide = report["kernel_cases"][0]
     # the main path's launches: each path's run, counted from 0
-    launches = sum(report[p]["launches"]
-                   for p in ("engine", "general", "fast", "runtime"))
+    launches = sum(report[p]["launches"] for p in (
+        "engine", "prio", "prio_mixed", "general", "general_occupy", "fast",
+        "runtime", "fast_path"))
     kernels = [{
         "name": "scatter_add", "route": "cuda",
         "source": "sentinel_tpu_torch/csrc/scatter_add.cu",

@@ -6,17 +6,19 @@ JAX package ``sentinel_tpu`` stays beside it as the reference that every
 module here is held to, bit for bit; this package imports neither JAX nor
 ``sentinel_tpu``.
 
-It ports admission without prioritized events end to end — the scalar,
-fast and general routes of the JAX runtime, origins and entrance contexts
-included::
+It ports admission end to end — the scalar, fast and general routes of
+the JAX runtime, origins and entrance contexts, prioritized events
+(occupy) and the host fast path of the default configuration::
 
     import sentinel_tpu_torch as stt
 
-    cfg = stt.load_config(host_fast_path=False)
-    sph = stt.Sentinel(cfg)                 # device="cuda" by default
+    sph = stt.Sentinel(stt.load_config())   # device="cuda" by default
     sph.load_flow_rules([stt.FlowRule(resource="HelloWorld", count=20)])
     try:
         with sph.entry("HelloWorld", origin="app-a"):
+            do_something()
+        # may borrow the next window's budget and wait for its edge
+        with sph.entry("HelloWorld", prioritized=True):
             do_something()
     except stt.BlockException:
         do_fallback()

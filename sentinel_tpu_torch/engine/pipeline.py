@@ -1,26 +1,32 @@
 """The decision pipeline: the slot chain as one device step.
 
-Port of ``sentinel_tpu/engine/pipeline.py`` for the admission paths
-without prioritized events: the scalar path (uniform acquire, no origins
-— the batch the serving headline sends), the fast path (origins, alt rows
-and contexts, uniform acquire) and the general path (anything else), with
-the alt table's (resource × origin / context) records. The reference
-order is kept: every entry walks
-``AuthoritySlot → SystemSlot → FlowSlot → DegradeSlot`` and
+Port of ``sentinel_tpu/engine/pipeline.py``: the scalar path (uniform
+acquire, no origins, no prioritized events — the batch the serving
+headline sends), the fast path (origins, alt rows and contexts, uniform
+acquire) and the general path (anything else), each with or without
+occupy (``enable_occupy``: prioritized events may book the next window,
+and live bookings count toward the QPS base), with the alt table's
+(resource × origin / context) records. The reference order is kept:
+every entry walks ``AuthoritySlot → SystemSlot → FlowSlot → DegradeSlot``
+and
 ``StatisticSlot`` records pass/block AFTER the decision (statistics are
 post-decision, ``StatisticSlot.java:54-131``); exits record
 RT/success/exception and feed the breakers.
 
 * :func:`decide_entries` — batch of entry events → verdicts + updated state;
 * :func:`record_exits`  — batch of completions → updated state;
-* :func:`decide_and_record_exits` — both, exits landing after decisions.
+* :func:`decide_and_record_exits` — both, exits landing after decisions;
+* :func:`uncount_reserved` — the host fast path's unused lease tokens
+  returned to their window buckets.
 
 State is updated IN PLACE where that saves a copy (the window tables, the
 thread gauges, the RT histogram) — the port's counterpart of the JAX
 package's buffer donation; the small per-rule leaves are replaced. The
 functions run eagerly on whatever device the state lives on, without a
 host sync: every branch is taken on host values (``times`` are Python
-ints computed from the clock, the static flags are Python bools).
+ints computed from the clock, the static flags are Python bools, and
+``any_prio`` — whether the batch carries a prioritized event — is read
+from the host's copy of the column).
 
 ``times`` is ``(idx_s, idx_m, rel_ms, in_win_ms)`` and ``sys_scalars``
 ``(load1, cpu_usage)`` — the JAX package's packed int32[4]/float32[2]
@@ -48,13 +54,11 @@ from sentinel_tpu_torch.stats import events as ev
 from sentinel_tpu_torch.stats.window import (
     WindowSpec, WindowState, add_one_row, add_rows_multi, add_rows_vec,
     init_window, invalidate_rows, refresh_all, refresh_rows, row_mask,
+    uncount_rows,
 )
 
 Times = Tuple[int, int, int, int]
 SysScalars = Tuple[float, float]
-
-_OCCUPY = ("prioritized events (occupy admission) are not ported yet: "
-           "ROADMAP A7b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +73,7 @@ class EngineSpec:
     # HB — per-resource RT histogram buckets (obs/resource_hist.py);
     # 0 = table disabled (state.rt_hist is None)
     hist_buckets: int = 0
+    occupy_timeout_ms: int = 500   # OccupyTimeoutProperty (0 = off)
 
 
 class SentinelState(NamedTuple):
@@ -122,6 +127,14 @@ class EntryBatch(NamedTuple):
     is_in: torch.Tensor          # bool[B]
     prioritized: torch.Tensor    # bool[B]
     valid: torch.Tensor          # bool[B]
+    # False = not counted in the thread gauges (host-leased admissions:
+    # the lease pre-charge and each leased exit both carry False). None =
+    # all True.
+    count_thread: Optional[torch.Tensor] = None    # bool[B]
+    # False = a denial records no BLOCK (a lease renewal's pre-charge is a
+    # speculative acquire=chunk request, not chunk denied callers). None =
+    # all True.
+    record_block: Optional[torch.Tensor] = None    # bool[B]
 
 
 class ExitBatch(NamedTuple):
@@ -133,6 +146,7 @@ class ExitBatch(NamedTuple):
     error: torch.Tensor          # bool[B]
     is_in: torch.Tensor          # bool[B]
     valid: torch.Tensor          # bool[B]
+    count_thread: Optional[torch.Tensor] = None    # bool[B] (see EntryBatch)
 
 
 class Verdicts(NamedTuple):
@@ -220,7 +234,10 @@ def decide_entries(
     times: Times,
     sys_scalars: SysScalars,
     *,
-    enable_occupy: bool = False,  # prioritized admission: a later slice
+    enable_occupy: bool = False,  # occupy-aware step: live bookings fold
+    # into the QPS base; the fast and general paths may book
+    any_prio: bool = False,      # HOST-KNOWN: the batch has a prioritized
+    # event (the reference's lax.cond(any(prioritized)) on the host)
     record_alt: bool = True,     # False = the batch carries no origin/chain
     # rows (host-verified all padding): the alt records are skipped
     scalar_flow: bool = False,   # HOST-VERIFIED scalar preconditions (see
@@ -238,15 +255,15 @@ def decide_entries(
     statistics. Gating masks cascade through the slots, so an event
     blocked upstream never consumes downstream quota. The flow slot takes
     the scalar path (``scalar_flow``), the fast path (``fast_flow``) or,
-    with neither, the general path."""
-    if enable_occupy:
-        raise NotImplementedError(_OCCUPY)
-    if scalar_flow and (record_alt or fast_flow):
+    with neither, the general path. With ``enable_occupy`` an event the
+    flow slot admits by booking the next window (occupied) skips the
+    degrade slot and records OCCUPIED_PASS (not on the alt rows)."""
+    if scalar_flow and (record_alt or fast_flow or any_prio):
         raise ValueError("scalar_flow implies record_alt=False and excludes "
-                         "fast_flow")
+                         "fast_flow and prioritized events")
     R = spec.rows
     RA = spec.alt_rows
-    now_idx_s, now_idx_m, rel_now_ms, _in_win_ms = times
+    now_idx_s, now_idx_m, rel_now_ms, in_win_ms = times
     load1, cpu_usage = sys_scalars
 
     live = batch.valid
@@ -277,38 +294,51 @@ def decide_entries(
         deg_bk = torch.where(in_r, joint[:, kf:], nd)
     main_minute = state.minute if spec.minute else None
     sf_ovf = torch.zeros((), dtype=torch.int32, device=live.device)
+    occupied = None      # no occupy-admitted event on this step
     if scalar_flow:
         flow_dyn, flow_ok, wait_ms = flow_mod.flow_check_scalar(
             rules.flow_table, state.flow_dyn, rules.flow_idx, spec.second,
             state.second, state.threads, batch.rows, batch.acquire, live2,
             now_idx_s, rel_now_ms, minute_spec=spec.minute,
             main_minute=main_minute, now_idx_m=now_idx_m,
-            has_rate_limiter=scalar_has_rl, rules_bk=flow_bk)
+            has_rate_limiter=scalar_has_rl, rules_bk=flow_bk,
+            occupy_base=enable_occupy)
     else:
         fview = flow_mod.FlowBatchView(
             rows=batch.rows, origin_ids=batch.origin_ids,
             origin_rows=batch.origin_rows, context_ids=batch.context_ids,
             chain_rows=batch.chain_rows, acquire=batch.acquire, valid=live2,
-            cluster_fallback=torch.zeros_like(batch.rows))
+            cluster_fallback=torch.zeros_like(batch.rows),
+            prioritized=batch.prioritized)
         args = (rules.flow_table, state.flow_dyn, rules.flow_idx,
                 spec.second, state.second, state.alt_second, state.threads,
                 state.alt_threads, fview, now_idx_s, rel_now_ms)
         common = dict(minute_spec=spec.minute, main_minute=main_minute,
                       now_idx_m=now_idx_m, has_thread_rules=not skip_threads,
-                      sortfree=sortfree)
+                      sortfree=sortfree, in_win_ms=in_win_ms,
+                      occupy_timeout_ms=spec.occupy_timeout_ms,
+                      enable_occupy=enable_occupy, any_prio=any_prio)
         if fast_flow:
-            flow_dyn, flow_ok, wait_ms, sf_ovf = flow_mod.flow_check_fast(
-                *args, has_rate_limiter=scalar_has_rl, rules_bk=flow_bk,
-                **common)
+            flow_dyn, flow_ok, wait_ms, occ, sf_ovf = \
+                flow_mod.flow_check_fast(
+                    *args, has_rate_limiter=scalar_has_rl, rules_bk=flow_bk,
+                    **common)
         else:
-            flow_dyn, flow_ok, wait_ms, sf_ovf = flow_mod.flow_check(
+            flow_dyn, flow_ok, wait_ms, occ, sf_ovf = flow_mod.flow_check(
                 *args, **common)
+        if enable_occupy:
+            occupied = occ
     live3 = live2 & flow_ok
     # the degrade slot is origin-independent: one check serves every path
-    # (deg_mod.degrade_entry_check says why it equals the sorted form)
+    # (deg_mod.degrade_entry_check says why it equals the sorted form).
+    # Occupied (PriorityWait) events bypass it: the reference's
+    # PriorityWaitException ends the slot chain before DegradeSlot.entry.
     breakers, deg_ok = deg_mod.degrade_entry_check(
         rules.deg_table, state.breakers, rules.deg_idx, batch.rows,
-        live3, rel_now_ms, rules_bk=deg_bk)
+        live3 if occupied is None else live3 & ~occupied, rel_now_ms,
+        rules_bk=deg_bk)
+    if occupied is not None:
+        deg_ok = deg_ok | occupied
 
     allow = live & auth_ok & sys_ok & flow_ok & deg_ok
     reason = torch.zeros(batch.rows.shape, dtype=torch.int8,
@@ -323,11 +353,25 @@ def decide_entries(
     # ---- StatisticSlot.entry (post-decision recording) ----
     passed = allow & batch.valid
     blocked = ~allow & batch.valid
+    # an occupied event's pass belongs to the booked window: it records
+    # OCCUPIED_PASS now, not PASS; a denial with record_block False
+    # records nothing
+    pass_now = passed
+    occ1 = None
+    if occupied is not None:
+        occ1 = occupied & passed
+        pass_now = passed & ~occupied
+    blocked_rec = (blocked if batch.record_block is None
+                   else blocked & batch.record_block)
     # each event lands in exactly ONE lane, so the per-row record is one
     # fused scatter of B indices; the global ENTRY row is a reduction plus
     # one single-row update
-    rec1 = passed | blocked
-    ev_ids1 = torch.where(passed, ev.PASS, ev.BLOCK).to(torch.int32)
+    rec1 = pass_now | blocked_rec
+    ev_ids1 = torch.where(pass_now, ev.PASS, ev.BLOCK)
+    if occ1 is not None:
+        rec1 = rec1 | occ1
+        ev_ids1 = torch.where(occ1, ev.OCCUPIED_PASS, ev_ids1)
+    ev_ids1 = ev_ids1.to(torch.int32)
     acq = batch.acquire
     rec_amt1 = torch.where(rec1, acq, 0)
     main_rec1 = torch.where(rec1, batch.rows, R)
@@ -335,8 +379,10 @@ def decide_entries(
     ein = batch.is_in
     entry_vec = torch.zeros((ev.NUM_EVENTS,), dtype=torch.int32,
                             device=acq.device)
-    entry_vec[ev.PASS] = _isum(torch.where(passed & ein, acq, 0))
-    entry_vec[ev.BLOCK] = _isum(torch.where(blocked & ein, acq, 0))
+    entry_vec[ev.PASS] = _isum(torch.where(pass_now & ein, acq, 0))
+    if occ1 is not None:
+        entry_vec[ev.OCCUPIED_PASS] = _isum(torch.where(occ1 & ein, acq, 0))
+    entry_vec[ev.BLOCK] = _isum(torch.where(blocked_rec & ein, acq, 0))
 
     second = _refresh_second(spec, state.second, main_rec1, entry_vec != 0,
                              now_idx_s)
@@ -357,8 +403,14 @@ def decide_entries(
         # same sum under its uniform acquire, and the kernel's plan takes
         # the shared-memory path for such a table by itself
         acq2 = torch.cat([acq, acq])
-        alt_amt = torch.where(alt_targets < RA, acq2, 0)
-        add_rows_multi(spec.second, alt_second, alt_targets, ev_ids2,
+        alt_rec = alt_targets
+        if occ1 is not None or batch.record_block is not None:
+            # no OCCUPIED lane on the alt rows, no unrecorded denials
+            alt_mask1 = pass_now | blocked_rec
+            alt_rec = torch.where(torch.cat([alt_mask1, alt_mask1]),
+                                  alt_targets, RA)
+        alt_amt = torch.where(alt_rec < RA, acq2, 0)
+        add_rows_multi(spec.second, alt_second, alt_rec, ev_ids2,
                        alt_amt, now_idx_s)
 
     if spec.minute:
@@ -369,16 +421,19 @@ def decide_entries(
                     now_idx_m)
 
     if not skip_threads:
-        # +1 per admitted entry (reference curThreadNum)
+        # +1 per admitted entry (reference curThreadNum); leased
+        # admissions opt out (count_thread)
+        thr1 = (passed if batch.count_thread is None
+                else passed & batch.count_thread)
         _add_threads(state.threads, torch.where(passed, batch.rows, R),
-                     passed.to(torch.int32))
+                     thr1.to(torch.int32))
         state.threads[ENTRY_NODE_ROW].add_(
-            _isum((passed & ein).to(torch.int32)))
+            _isum((thr1 & ein).to(torch.int32)))
         if record_alt:
             pass2 = torch.cat([passed, passed])
             _add_threads(state.alt_threads,
                          torch.where(pass2, alt_targets, RA),
-                         pass2.to(torch.int32))
+                         torch.cat([thr1, thr1]).to(torch.int32))
 
     new_state = state._replace(second=second, alt_second=alt_second,
                                flow_dyn=flow_dyn, breakers=breakers)
@@ -448,9 +503,12 @@ def record_exits(
                     now_idx_m, rt_add=entry_rt_add, rt_min=entry_rt_min)
 
     if not skip_threads:
-        dec1 = batch.valid.to(torch.int32)
+        ct1 = (batch.valid if batch.count_thread is None
+               else batch.valid & batch.count_thread)
+        dec1 = ct1.to(torch.int32)
         _add_threads(state.threads, main_rows, -dec1)
-        state.threads[ENTRY_NODE_ROW].sub_(_isum(ein.to(torch.int32)))
+        state.threads[ENTRY_NODE_ROW].sub_(
+            _isum((ein & ct1).to(torch.int32)))
         state.threads.clamp_(min=0)
         if record_alt:
             _add_threads(state.alt_threads, alt_targets,
@@ -482,6 +540,7 @@ def decide_and_record_exits(
     sys_scalars: SysScalars,
     *,
     enable_occupy: bool = False,
+    any_prio: bool = False,
     record_alt: bool = True,
     scalar_flow: bool = False,
     fast_flow: bool = False,
@@ -497,13 +556,30 @@ def decide_and_record_exits(
     both halves)."""
     state, verdicts = decide_entries(
         spec, rules, state, entry_batch, times, sys_scalars,
-        enable_occupy=enable_occupy, record_alt=record_alt,
+        enable_occupy=enable_occupy, any_prio=any_prio,
+        record_alt=record_alt,
         scalar_flow=scalar_flow, fast_flow=fast_flow, skip_auth=skip_auth,
         skip_sys=skip_sys, scalar_has_rl=scalar_has_rl,
         skip_threads=skip_threads, sortfree=sortfree)
     state = record_exits(spec, rules, state, exit_batch, times,
                          record_alt=record_alt, skip_threads=skip_threads)
     return state, verdicts
+
+
+def uncount_reserved(spec: EngineSpec, state: SentinelState,
+                     rows: torch.Tensor, sec_idx: torch.Tensor,
+                     min_idx: torch.Tensor,
+                     amounts: torch.Tensor) -> SentinelState:
+    """Return unused host-lease tokens to their window buckets: a lease
+    pre-charge recorded PASS for its whole chunk up front, so the
+    remainder of an expired lease is subtracted back (only from buckets
+    that still hold the stamp, :func:`stats.window.uncount_rows`), in the
+    second window and the minute window. Padding rows >= R drop."""
+    uncount_rows(spec.second, state.second, rows, sec_idx, ev.PASS, amounts)
+    if spec.minute:
+        uncount_rows(spec.minute, state.minute, rows, min_idx, ev.PASS,
+                     amounts)
+    return state
 
 
 def invalidate_resource_rows(spec: EngineSpec, state: SentinelState,

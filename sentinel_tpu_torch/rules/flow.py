@@ -1,12 +1,13 @@
 """Flow rules: FlowSlot / FlowRuleChecker / traffic-shaping controllers.
 
 Port of ``sentinel_tpu/rules/flow.py``: the rule object, the compiler and
-the three admission paths without prioritized events —
-:func:`flow_check_scalar` (no origins, uniform acquire),
+the three admission paths — :func:`flow_check_scalar` (no origins, no
+prioritized events, uniform acquire; it may read live occupy bookings),
 :func:`flow_check_fast` (origins, alt rows and CHAIN contexts live,
 uniform acquire, rank closed forms) and :func:`flow_check` (anything:
-key-grouped segments with greedy prefix admission). The occupy
-(prioritized) variants are a later slice.
+key-grouped segments with greedy prefix admission). The last two take
+``enable_occupy``: landed bookings fold into the QPS base, and a denied
+prioritized event may book the next window (``tryOccupyNext``).
 Reference semantics (``sentinel-core/.../slots/block/flow/``):
 ``DefaultController.canPass:50-76``, ``RateLimiterController:30-90``,
 ``WarmUpController:66-190`` and ``FlowRuleChecker``'s rule-set semantics.
@@ -31,6 +32,11 @@ Parity notes (the port must reproduce the JAX package bit for bit):
   both branches and a ``torch.where`` on the device (see
   :mod:`ops.sortfree`); a ``mode="drop"`` scatter sends its dropped lanes
   to spare slots (:func:`ops.segments.scatter_reduce_drop`).
+* ``lax.cond(any(prioritized), attempt, no_attempt)`` of the occupy
+  variants is a host flag, ``any_prio``: the runtime holds the
+  prioritized column in numpy, so the branch is taken on the host (exact:
+  padding lanes are never prioritized). The attempt's bookings are one
+  float32 scatter-add through the kernel seam.
 """
 
 from __future__ import annotations
@@ -41,12 +47,13 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sentinel_tpu_torch.ops import scatter_add as sa
 from sentinel_tpu_torch.ops import segments as seg
 from sentinel_tpu_torch.ops import sortfree as sfo
 from sentinel_tpu_torch.stats import events as ev
 from sentinel_tpu_torch.stats.window import (
     WindowSpec, WindowState, prev_window_sum_rows, window_sum_all,
-    window_sum_rows,
+    window_sum_rows, wrap_i32,
 )
 
 # Grades (reference RuleConstant.FLOW_GRADE_*)
@@ -127,10 +134,9 @@ class FlowRuleTable(NamedTuple):
 
 
 class FlowDynState(NamedTuple):
-    """Per-rule mutable shaping state (device). The occupy booking ring
-    (``occupied_*``, keyed by resource row) is carried for layout parity
-    with the JAX package; the scalar path reads no bookings (prioritized
-    traffic, the only writer, is a later slice)."""
+    """Per-rule mutable shaping state (device), plus the occupy booking
+    ring (``occupied_*``, keyed by resource row; slot ``w % (B+1)`` holds
+    the bookings granted for window ``w``)."""
 
     latest_passed_ms: torch.Tensor   # int32[NF+1] — rel-ms pacing clock
     stored_tokens: torch.Tensor      # float32[NF+1]
@@ -319,6 +325,8 @@ class FlowBatchView(NamedTuple):
     cluster_fallback: torch.Tensor  # int32[B] — bit k: check slot-k
     # cluster rule locally (the runtime sends zeros until cluster mode is
     # ported)
+    prioritized: Optional[torch.Tensor] = None   # bool[B]; read only by
+    # an occupy attempt (enable_occupy and any_prio)
 
 
 def flow_check(
@@ -338,20 +346,34 @@ def flow_check(
     now_idx_m: Optional[int] = None,
     has_thread_rules: bool = True,
     sortfree: bool = False,
-) -> Tuple[FlowDynState, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """General-path flow check (no prioritized events) → (dyn', allow
-    bool[B], wait_ms int32[B], sf_overflow int32 scalar). ``wait_ms`` > 0
-    with ``allow`` = a rate-limiter pass after that wait.
+    in_win_ms: Optional[int] = None,
+    occupy_timeout_ms: int = 500,
+    enable_occupy: bool = False,
+    any_prio: bool = False,
+) -> Tuple[FlowDynState, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """General-path flow check → (dyn', allow bool[B], wait_ms int32[B],
+    occupied bool[B], sf_overflow int32 scalar). ``wait_ms`` > 0 with
+    ``allow`` = a rate-limiter pass after that wait, or an occupied pass.
     ``has_thread_rules=False`` skips the thread-gauge reads (nothing loaded
     reads them). ``sortfree`` groups the segments through the claim
     cascade and counting order (:mod:`ops.sortfree`) — bit-identical
     either way; ``sf_overflow`` counts the cascade's elements that took the
     sorted order (zero without ``sortfree``).
 
-    Port of ``rules/flow._flow_check_impl`` with ``enable_occupy=False``.
-    Segments are (rule, selected stat row); each
-    is admitted greedily in batch order (:func:`ops.segments.greedy_admit`)
-    and rate limiters pace per rule by a fixed point over admitted costs."""
+    ``enable_occupy`` folds live bookings on main-row selections into the
+    QPS base; with ``any_prio`` (the host knows a prioritized lane is in
+    the batch) a denied prioritized pair of a DEFAULT QPS rule may book
+    the next window (``tryOccupyNext``) when the passes surviving into it
+    plus its live bookings leave room and the wait to its edge
+    (``win_ms - in_win_ms``) fits ``occupy_timeout_ms``. ``occupied[i]``
+    marks an event admitted that way: it waits to the window edge and
+    records OCCUPIED_PASS, not PASS.
+
+    Port of ``rules/flow._flow_check_impl``. Segments are (rule, selected
+    stat row); each is admitted greedily in batch order
+    (:func:`ops.segments.greedy_admit`) and rate limiters pace per rule by
+    a fixed point over admitted costs."""
     B = batch.rows.shape[0]
     K = rule_idx.shape[1]
     NF = table.active.shape[0] - 1
@@ -451,10 +473,32 @@ def flow_check(
     g_s = pk[rj_s.long()]
     grade_s = g_s[:, 7]
     behavior_s = g_s[:, 6]
-    base_s = torch.where(grade_s == GRADE_QPS, cur_pass[order],
-                         cur_thr[order])
-    pass_default_s = seg.greedy_admit(base_s, acq_s, eff_limit[order],
-                                      starts, leader)
+    if enable_occupy:
+        # bookings are keyed by resource row: only main-row selections
+        # see them; landed ones count toward the rolling sum, and those
+        # live in the next window are spoken for when occupying more
+        occ_cnt, occ_win = dyn.occupied_count, dyn.occupied_window
+        safe_occ = torch.clamp(sel_main_row, max=R - 1).long()
+        occ_age_bk = now_idx_s - occ_win[safe_occ]               # [BK, S]
+        occ_cnt_bk = occ_cnt[safe_occ]
+        no_book = use_alt | (sel_main_row >= R)
+        landed_bk = torch.where(
+            no_book, 0.0, torch.where(
+                (occ_age_bk >= 0) & (occ_age_bk < spec.buckets),
+                occ_cnt_bk, 0.0).sum(1))
+        nextw_bk = torch.where(
+            no_book, 0.0, torch.where(
+                (occ_age_bk >= -1) & (occ_age_bk < spec.buckets - 1),
+                occ_cnt_bk, 0.0).sum(1))
+        base_s = torch.where(grade_s == GRADE_QPS,
+                             cur_pass[order] + landed_bk[order],
+                             cur_thr[order])
+    else:
+        base_s = torch.where(grade_s == GRADE_QPS, cur_pass[order],
+                             cur_thr[order])
+    limit_s = eff_limit[order]
+    pass_default_s = seg.greedy_admit(base_s, acq_s, limit_s, starts,
+                                      leader)
 
     # --- rate limiter: cost per element round(acquire / count · 1000); a
     # rejected request never advances the pacing clock, so the admitted
@@ -479,9 +523,24 @@ def flow_check(
         pass_rl_s = (wait_s <= maxq_s) & (raw_count_s > 0)
 
     applied_s = rj_s != NF
-    pair_pass_s = torch.where(is_rl, pass_rl_s, pass_default_s) | ~applied_s
+    occ_admit_s = torch.zeros_like(pass_default_s)
+    wait_next = 0
+    if enable_occupy and in_win_ms is not None and occupy_timeout_ms > 0:
+        wait_next = spec.win_ms - in_win_ms
+        if any_prio:
+            occ_admit_s = _occupy_attempt_general(
+                dyn, spec, main_second, batch, sel_main_row, use_alt, order,
+                starts, leader, grade_s, behavior_s, is_rl, pass_rl_s,
+                pass_default_s, applied_s, acq_s, limit_s, nextw_bk,
+                now_idx_s, wait_next <= occupy_timeout_ms, K)
+    pair_pass_s = torch.where(is_rl, pass_rl_s,
+                              pass_default_s | occ_admit_s) | ~applied_s
     paced_s = is_rl & applied_s
     pair_wait_s = torch.where(paced_s & pair_pass_s, wait_s, 0)
+    if enable_occupy:
+        pair_wait_s = torch.maximum(
+            pair_wait_s, torch.where(occ_admit_s, wait_next, 0).to(
+                pair_wait_s.dtype))
     # pacing clocks: the last passing element's latest per rule
     new_latest = torch.where(paced_s & pair_pass_s, latest_s, -(2 ** 30))
     dyn = dyn._replace(latest_passed_ms=seg.scatter_reduce_drop(
@@ -491,8 +550,72 @@ def flow_check(
     # --- back to events ---
     allow = seg.unsort(order, pair_pass_s).reshape(B, K).all(dim=1)
     wait_ms = seg.unsort(order, pair_wait_s).reshape(B, K).max(dim=1).values
+    occupied = (seg.unsort(order, occ_admit_s).reshape(B, K).any(dim=1)
+                & allow & batch.valid)
     allow = allow | ~batch.valid
-    return dyn, allow, wait_ms.to(torch.int32), sf_overflow
+    return dyn, allow, wait_ms.to(torch.int32), occupied, sf_overflow
+
+
+def _occupy_attempt_general(dyn, spec, main_second, batch, sel_main_row,
+                            use_alt, order, starts, leader, grade_s,
+                            behavior_s, is_rl, pass_rl_s, pass_default_s,
+                            applied_s, acq_s, limit_s, nextw_bk, now_idx_s,
+                            can_time: bool, K: int) -> torch.Tensor:
+    """:func:`flow_check`'s ``tryOccupyNext`` attempt → the admitted
+    pairs' mask (sorted order); commits one booking per admitted event
+    into ``dyn``'s ring in place (:func:`_book_next_window`)."""
+    B = batch.rows.shape[0]
+    R = dyn.occupied_count.shape[0]
+    # passes that SURVIVE into window now+1: buckets stamped within the
+    # last B-1 windows (the oldest live bucket expires at the edge)
+    safe_main = torch.clamp(sel_main_row, max=R - 1).long()
+    sdelta = now_idx_s - main_second.stamps[safe_main]       # [BK, B]
+    survive = (sdelta >= 0) & (sdelta <= spec.buckets - 2)
+    surviving_bk = torch.where(
+        survive, main_second.counters[safe_main, :, ev.PASS], 0).sum(
+        1, dtype=torch.int32).to(torch.float32)
+    prio_s = seg.repeat_each(batch.prioritized, K)[order]
+    eligible_s = (prio_s & (grade_s == GRADE_QPS)
+                  & (behavior_s == BEHAVIOR_DEFAULT) & ~pass_default_s
+                  & applied_s & ~use_alt[order] & can_time)
+    occ_base_s = surviving_bk[order] + nextw_bk[order]
+    occ_amt_s = torch.where(eligible_s, acq_s, 0.0)
+    occ_adm = seg.greedy_admit(occ_base_s, occ_amt_s, limit_s, starts,
+                               leader) & eligible_s
+    # event-level gate BEFORE committing: every failing pair of the event
+    # must itself be occupy-admitted (PriorityWait is the admission)
+    pair_ok = torch.where(is_rl, pass_rl_s, pass_default_s | occ_adm) \
+        | ~applied_s
+    event_ok = seg.unsort(order, pair_ok).reshape(B, K).all(dim=1)
+    event_occ = (seg.unsort(order, occ_adm).reshape(B, K).any(dim=1)
+                 & event_ok & batch.valid)
+    _book_next_window(dyn, event_occ, batch.rows, batch.acquire, now_idx_s)
+    return occ_adm & seg.repeat_each(event_occ, K)[order]
+
+
+def _book_next_window(dyn: FlowDynState, event_occ: torch.Tensor,
+                      rows: torch.Tensor, acquire: torch.Tensor,
+                      now_idx_s: int) -> None:
+    """Book ONE grant per occupy-admitted event on its resource row into
+    ring slot ``(now+1) % S`` (the reference's first denying rule throws
+    PriorityWait and books on the node once), in place. The grants are a
+    float32 scatter-add of ``acquire`` through the kernel seam; lanes not
+    admitted point one past the table and drop."""
+    occ_cnt, occ_win = dyn.occupied_count, dyn.occupied_window
+    R, S = occ_cnt.shape
+    nxt = wrap_i32(now_idx_s + 1)
+    slot = nxt % S
+    grants = torch.zeros((R, 1), dtype=torch.float32, device=rows.device)
+    sa.scatter_add(grants, torch.where(event_occ, rows, R), None,
+                   torch.where(event_occ, acquire, 0)[:, None])
+    grants = grants[:, 0]
+    granted = grants > 0
+    cnt_s, win_s = occ_cnt[:, slot], occ_win[:, slot]
+    keep = win_s == nxt
+    new_cnt = torch.where(granted, torch.where(keep, cnt_s, 0.0) + grants,
+                          cnt_s)
+    win_s.copy_(torch.where(granted, nxt, win_s))
+    cnt_s.copy_(new_cnt)
 
 
 def flow_check_fast(
@@ -514,20 +637,31 @@ def flow_check_fast(
     has_thread_rules: bool = True,
     rules_bk: Optional[torch.Tensor] = None,
     sortfree: bool = False,
-) -> Tuple[FlowDynState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    in_win_ms: Optional[int] = None,
+    occupy_timeout_ms: int = 500,
+    enable_occupy: bool = False,
+    any_prio: bool = False,
+) -> Tuple[FlowDynState, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
     """Fast general-path flow check → (dyn', allow bool[B], wait_ms
-    int32[B], sf_overflow int32 scalar): per-pair applicability and
-    stat-row selection live (origins, alt rows, CHAIN contexts, RELATE),
-    admission by rank closed forms over ONE composite key ``rule · (RA + 1)
-    + (alt row + 1 | 0)``. The HOST verifies ``acquire`` uniform over valid
-    events (>= 1), no prioritized events, and that the key fits int32
-    (``(NF+1)·(RA+1) < 2^31``); under them it is bit-exact with
-    :func:`flow_check` (the JAX package's ``flow_check_fast`` docstring has
-    the argument). ``sortfree`` and ``sf_overflow`` as in
-    :func:`flow_check`.
+    int32[B], occupied bool[B], sf_overflow int32 scalar): per-pair
+    applicability and stat-row selection live (origins, alt rows, CHAIN
+    contexts, RELATE), admission by rank closed forms over ONE composite
+    key ``rule · (RA + 1) + (alt row + 1 | 0)``. The HOST verifies
+    ``acquire`` uniform over valid events (>= 1) and that the key fits
+    int32 (``(NF+1)·(RA+1) < 2^31``); under them it is bit-exact with
+    :func:`flow_check` (the JAX package's ``flow_check_fast`` and
+    ``flow_check_fast_occupy`` docstrings have the argument). ``sortfree``,
+    ``sf_overflow`` and the occupy arguments as in :func:`flow_check`.
 
-    Port of ``rules/flow._flow_check_fast_impl`` with
-    ``enable_occupy=False``."""
+    With ``enable_occupy`` landed bookings fold into the per-rule base (a
+    valid main-row pair's selected row is its rule's ``sync_row``); the
+    occupy attempt (``any_prio``) ranks the ELIGIBLE pairs alone — with a
+    uniform acquire the general path's greedy fixed point over them is
+    that rank prefix — and its claim overflow adds to ``sf_overflow``.
+
+    Port of ``rules/flow._flow_check_fast_impl`` (``flow_check_fast`` and
+    ``flow_check_fast_occupy``, each sort-free or not)."""
     B = batch.rows.shape[0]
     K = rule_idx.shape[1]
     NF = table.active.shape[0] - 1
@@ -568,6 +702,9 @@ def flow_check_fast(
     srow_sel = torch.clamp(table.sync_row, max=R - 1)
     row_pass = window_sum_rows(spec, main_second, srow_sel, ev.PASS,
                                now_idx_s).to(torch.float32)
+    if enable_occupy:
+        row_pass = row_pass + _landed_per_rule(dyn, srow_sel, spec,
+                                               now_idx_s)
 
     # ---- ONE packed per-rule gather [NF+1, C] → [B, K, C] ----
     cols = [table.active.to(torch.int32),                    # 0
@@ -586,6 +723,13 @@ def flow_check_fast(
         i_thr, i_grade = ncol, ncol + 1
         row_thr = main_threads[srow_sel.long()].to(torch.float32)
         cols += [row_thr.view(torch.int32), table.grade]
+        ncol += 2
+    if enable_occupy:
+        # only DefaultController-grade rules (QPS, DEFAULT behaviour) have
+        # a prioritized path
+        i_occ = ncol
+        cols += [((table.grade == GRADE_QPS)
+                  & (table.behavior == BEHAVIOR_DEFAULT)).to(torch.int32)]
     g = torch.stack(cols, dim=1)[rules_bk.long()]            # [B, K, C]
 
     def f32(col):
@@ -639,19 +783,45 @@ def flow_check_fast(
 
     # ---- admission (closed forms) ----
     a_f = acq_of_rule
-    pass_default = (base + rank.to(torch.float32) * a_f) + a_f <= f32(5)
+    limit_pair = f32(5)
+    pass_default = (base + rank.to(torch.float32) * a_f) + a_f <= limit_pair
+    pass_rl = None
     if has_rate_limiter:
         mk = g[..., i_mk]
+        pass_rl = rank < mk
         wait_pair = torch.clamp(
             g[..., i_bt] + (torch.minimum(rank, mk) + 1) * g[..., i_cost]
             - rel_now_ms, min=0)
-        pair_pass = torch.where(rl_p, rank < mk, pass_default) | ~valid_pair
+
+    # ---- occupy attempt (tryOccupyNext) ----
+    occ_adm_p = torch.zeros_like(pass_default)
+    wait_next = 0
+    if enable_occupy and in_win_ms is not None and occupy_timeout_ms > 0:
+        wait_next = spec.win_ms - in_win_ms
+        if any_prio:
+            occ_adm_p, ovf_occ = _occupy_attempt_fast(
+                dyn, spec, main_second, batch, srow_sel, rules_bk,
+                g[..., i_occ], pass_default, pass_rl,
+                rl_p if has_rate_limiter else None,
+                valid_pair, use_alt, key, sentinel, limit_pair, a_f,
+                now_idx_s, wait_next <= occupy_timeout_ms, sortfree)
+            sf_ovf = sf_ovf + ovf_occ
+
+    if has_rate_limiter:
+        pair_pass = (torch.where(rl_p, pass_rl, pass_default | occ_adm_p)
+                     | ~valid_pair)
         pair_wait = torch.where(rl_p & pair_pass & valid_pair, wait_pair, 0)
+        if enable_occupy:
+            pair_wait = torch.maximum(pair_wait, torch.where(
+                occ_adm_p, wait_next, 0).to(pair_wait.dtype))
         wait_ms = pair_wait.max(dim=1).values
     else:
-        pair_pass = pass_default | ~valid_pair
-        wait_ms = torch.zeros((B,), dtype=torch.int32, device=dev)
+        pair_pass = (pass_default | occ_adm_p) | ~valid_pair
+        wait_ms = (torch.where(occ_adm_p, wait_next, 0).max(dim=1).values
+                   if enable_occupy else
+                   torch.zeros((B,), dtype=torch.int32, device=dev))
     allow = pair_pass.all(dim=1)
+    occupied = occ_adm_p.any(dim=1) & allow & batch.valid
 
     # ---- pacing-clock update (per rule) ----
     if has_rate_limiter:
@@ -667,7 +837,55 @@ def flow_check_fast(
             dyn.latest_passed_ms, new_latest))
 
     allow = allow | ~batch.valid
-    return dyn, allow, wait_ms.to(torch.int32), sf_ovf
+    return dyn, allow, wait_ms.to(torch.int32), occupied, sf_ovf
+
+
+def _occupy_attempt_fast(dyn, spec, main_second, batch, srow_sel, rules_bk,
+                         occ_rule, pass_default, pass_rl, rl_p, valid_pair,
+                         use_alt, key, sentinel: int, limit_pair, a_f,
+                         now_idx_s: int, can_time: bool, sortfree: bool):
+    """:func:`flow_check_fast`'s ``tryOccupyNext`` attempt → (admitted
+    pairs bool[B, K], claim overflow int32 scalar); commits one booking
+    per admitted event into ``dyn``'s ring in place."""
+    B = batch.rows.shape[0]
+    occ_cnt, occ_win = dyn.occupied_count, dyn.occupied_window
+    # per rule: passes surviving into window now+1 over its selected row,
+    # plus bookings still live in the next window
+    srow = srow_sel.long()
+    sdelta = now_idx_s - main_second.stamps[srow]            # [NF+1, B]
+    survive = (sdelta >= 0) & (sdelta <= spec.buckets - 2)
+    surviving = torch.where(
+        survive, main_second.counters[srow, :, ev.PASS], 0).sum(
+        1, dtype=torch.int32).to(torch.float32)
+    occ_age = now_idx_s - occ_win[srow]                      # [NF+1, S]
+    nextw = torch.where((occ_age >= -1) & (occ_age < spec.buckets - 1),
+                        occ_cnt[srow], 0.0).sum(1)
+    occ_base_p = (surviving + nextw)[rules_bk.long()]        # [B, K]
+    eligible = (batch.prioritized[:, None] & (occ_rule != 0)
+                & ~pass_default & valid_pair & ~use_alt & can_time)
+    # ranks among ELIGIBLE pairs only: the general path's greedy fixed
+    # point gives the others zero amounts
+    key_occ = torch.where(eligible, key, sentinel)
+    if sortfree:
+        r_occ_h, ovf_occ = sfo.ranks2d_hashed(key_occ, sentinel,
+                                              sfo.table_bits(B))
+        rank_occ = torch.where(ovf_occ > 0, seg.ranks_per_slot(key_occ),
+                               r_occ_h)
+    else:
+        rank_occ = seg.ranks_per_slot(key_occ)
+        ovf_occ = torch.zeros((), dtype=torch.int32, device=key.device)
+    occ_adm = (((occ_base_p + rank_occ.to(torch.float32) * a_f) + a_f
+                <= limit_pair) & eligible)
+    # event-level gate before committing: every failing pair of the event
+    # must itself be occupy-admitted
+    if rl_p is not None:
+        pair_ok = (torch.where(rl_p, pass_rl, pass_default | occ_adm)
+                   | ~valid_pair)
+    else:
+        pair_ok = (pass_default | occ_adm) | ~valid_pair
+    event_occ = occ_adm.any(dim=1) & pair_ok.all(dim=1) & batch.valid
+    _book_next_window(dyn, event_occ, batch.rows, batch.acquire, now_idx_s)
+    return occ_adm & event_occ[:, None], ovf_occ
 
 
 def flow_check_scalar(

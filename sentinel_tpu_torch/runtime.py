@@ -1,19 +1,35 @@
 """Host runtime: the public facade (SphU/SphO/Tracer analog) around the
 device pipeline.
 
-Port of ``sentinel_tpu/runtime.py`` for batches without prioritized
-events. Each dispatch takes the JAX runtime's route, decided on the host
-in numpy before anything is copied to the device:
+Port of ``sentinel_tpu/runtime.py``. Each dispatch takes the JAX
+runtime's route, decided on the host in numpy before anything is copied
+to the device:
 
-* **scalar** — no origin, no origin/chain row, one ``acquire`` >= 1 (the
-  serving headline's batch);
-* **fast** — origins, alt rows or contexts present, one ``acquire`` >= 1,
-  and the fast path's composite key fits int32 (``(NF+1)·(RA+1) < 2^31``);
+* **scalar** — no origin, no origin/chain row, no prioritized event, one
+  ``acquire`` >= 1 (the serving headline's batch);
+* **fast** — origins, alt rows, contexts or prioritized events present,
+  one ``acquire`` >= 1, and the fast path's composite key fits int32
+  (``(NF+1)·(RA+1) < 2^31``);
 * **general** — anything else (non-uniform ``acquire``, or a key that does
   not fit);
 * **split** — a batch mixing kinds, with at least 4096 scalar events and
   one other (and the fast path's conditions): the scalar events take the
-  scalar step and the rest the fast step, in one lock hold.
+  scalar step and the rest (prioritized ones included) the fast step, in
+  one lock hold.
+
+Prioritized events (``entry(prioritized=True)``, ``SphU.entryWithPriority``)
+may book the next window when denied (occupy). A batch with one makes
+every route run its occupy-aware step for the next B+1 windows, while a
+booking can still be live: the scalar step then reads landed bookings
+into its QPS base, and the fast and general steps may book. Whether the
+batch holds a prioritized event is known on the host and handed to the
+engine (``any_prio``), in place of the reference's device-side branch.
+
+The host fast path (``host_fast_path``, on by default;
+:mod:`sentinel_tpu_torch.engine.fastpath`) decides :meth:`Sentinel.entry`
+on the host for resources no rule names and for resources with one
+simple QPS rule (from a token lease pre-charged through the device), and
+lands their statistics through the device steps in batches.
 
 The fast and general paths group their segments sort-free
 (``SENTINEL_SORTFREE``, on unless set to 0; read at construction and at
@@ -27,12 +43,12 @@ every rule reload, as in the JAX package). Two API tiers:
   ``*_nowait`` forms — numpy arrays in, verdict arrays out.
 
 What is not ported raises :class:`NotImplementedError` naming the ROADMAP
-item that will port it — prioritized events, param rules, cluster mode,
-the host fast path, meshes — and never quietly takes another path. A
-decide step reads nothing back from the device: the verdicts (and the
-sort-free steps' claim overflow count) come home through
-:class:`PendingVerdicts` (pinned memory, ``non_blocking`` copies, one CUDA
-event).
+item that will port it — param rules, cluster mode, meshes — and never
+quietly takes another path. A decide step reads nothing back from the
+device: the verdicts (and the sort-free steps' claim overflow count) come
+home through :class:`PendingVerdicts` (pinned memory, ``non_blocking``
+copies, one CUDA event). A lease renewal of the host fast path reads its
+one verdict back: one pre-charge serves a chunk of calls.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"`` (as
 the tests do); with no CUDA device and no ``device`` given, construction
@@ -62,12 +78,13 @@ from sentinel_tpu_torch.core.pending import (
     PendingResult, start_host_copy, wait_host_copy,
 )
 from sentinel_tpu_torch.core.registry import (
-    OriginRegistry, Registry, ResourceRegistry,
+    ENTRY_NODE_ROW, OriginRegistry, Registry, ResourceRegistry,
 )
+from sentinel_tpu_torch.engine import fastpath as fp_mod
 from sentinel_tpu_torch.engine.pipeline import (
     EngineSpec, EntryBatch, ExitBatch, RuleSet, Verdicts,
     decide_and_record_exits, decide_entries, init_state,
-    invalidate_resource_rows, record_exits,
+    invalidate_resource_rows, record_exits, uncount_reserved,
 )
 from sentinel_tpu_torch.obs.resource_hist import engine_hist_buckets
 from sentinel_tpu_torch.rules import authority as auth_mod
@@ -76,7 +93,7 @@ from sentinel_tpu_torch.rules import flow as flow_mod
 from sentinel_tpu_torch.rules import system as sys_mod
 from sentinel_tpu_torch.stats import events as ev
 from sentinel_tpu_torch.stats.window import (
-    MINUTE_SPEC, WindowSpec, rolling_totals,
+    MINUTE_SPEC, WindowSpec, rolling_totals, settle_occupied,
 )
 
 ENTRY_TYPE_OUT = 0
@@ -84,11 +101,6 @@ ENTRY_TYPE_IN = 1
 
 # what the port rejects, and where ROADMAP.md queues it
 _NOT_PORTED = {
-    "fast_path": "the host fast path (host_fast_path=True, "
-                 "engine/fastpath.py) is not ported yet: ROADMAP A6; "
-                 "construct with host_fast_path=False",
-    "prioritized": "prioritized events (occupy admission) are not ported "
-                   "yet: ROADMAP A7b",
     "param": "param flow rules are not ported yet: ROADMAP A8",
     "cluster": "cluster-mode flow rules are not ported yet: ROADMAP A12",
     "mesh": "meshes (row-sharded multi-GPU engines) are not ported yet: "
@@ -177,7 +189,7 @@ class Entry:
 
     __slots__ = ("_rt", "resource", "row", "origin_row", "chain_row",
                  "acquire", "is_in", "create_ms", "error", "_exited",
-                 "wait_ms", "_terminate_handlers")
+                 "wait_ms", "_terminate_handlers", "fast")
 
     def __init__(self, rt: "Sentinel", resource: str, row: int,
                  origin_row: int, chain_row: int, acquire: int, is_in: bool,
@@ -194,6 +206,7 @@ class Entry:
         self._exited = False
         self.wait_ms = 0   # pacing verdict; >0 only with entry(sleep=False)
         self._terminate_handlers = None
+        self.fast = None   # "free"/"leased" when the host fast path admitted
 
     def trace(self, exc: BaseException) -> None:
         """Reference ``Tracer.trace``: mark a business exception so it
@@ -239,8 +252,9 @@ class Sentinel:
     """The framework instance (Env/CtSph + rule managers, in one object).
 
     ``routes`` counts dispatches by route (``scalar``, ``fast``,
-    ``general``, ``split``; a fused decide+exit counts ``fused`` alone, as
-    the JAX runtime's ``split_route.*`` counters do);
+    ``fast_occupy`` — the fast route's occupy-aware step —, ``general``,
+    ``split``; a fused decide+exit counts ``fused`` alone, as the JAX
+    runtime's ``split_route.*`` counters do);
     ``sortfree_overflow`` sums the sort-free steps' claim overflow counts
     (elements that took the sorted order), tallied as verdicts are read."""
 
@@ -250,8 +264,6 @@ class Sentinel:
         self.cfg = cfg = config or load_config()
         if mesh is not None:
             raise NotImplementedError(_NOT_PORTED["mesh"])
-        if cfg.host_fast_path:
-            raise NotImplementedError(_NOT_PORTED["fast_path"])
         self.clock = clock or global_clock()
 
         self.resources = ResourceRegistry(cfg.max_resources)
@@ -266,6 +278,7 @@ class Sentinel:
             minute=MINUTE_SPEC if cfg.minute_enabled else None,
             statistic_max_rt=cfg.statistic_max_rt,
             hist_buckets=engine_hist_buckets(),
+            occupy_timeout_ms=cfg.occupy_timeout_ms,
         )
         # process epoch: wraparound-safe int32 relative time base
         self.epoch_ms = self.clock.now_ms()
@@ -280,6 +293,22 @@ class Sentinel:
         self._alt_rows_by_row: Dict[int, Dict[int, Tuple[int, int]]] = {}
         self.routes: "collections.Counter[str]" = collections.Counter()
         self.sortfree_overflow = 0
+        # last ms a booking can still be live: until then every step is
+        # occupy-aware (bookings last at most B+1 windows)
+        self._occupy_live_until_ms = -1
+        # highest second-window index any dispatch has stamped (a late
+        # fast-path flush older than a full ring is re-stamped to now)
+        self._seen_idx = -(2 ** 62)
+        self._fast = fp_mod.HostFastPath(
+            flush_events=cfg.fast_path_flush_events,
+            flush_ms=cfg.fast_path_flush_ms,
+            lease_fraction=cfg.fast_path_lease_fraction,
+            win_ms=self.spec.second.win_ms)
+        self._fast_enabled = bool(cfg.host_fast_path)
+        # serializes drain→dispatch of the fast path's buffers: a
+        # concurrent flush could otherwise land a buffered exit before the
+        # flush that carries its pass, skewing the thread gauge for good
+        self._flush_lock = threading.Lock()
         self._compile_empty_rules()
 
     # ------------------------------------------------------------------
@@ -376,20 +405,64 @@ class Sentinel:
             for name in old[kind] - new[kind] - still:
                 regs[kind].unpin(name)
 
+    def _rebuild_fastpath(self) -> None:
+        """Recompute the host fast path's classification after a rule
+        load (callers hold ``self._lock``): rows named by a degrade or
+        authority rule, by more than one flow rule or by any but one
+        simple QPS rule, or read by a RELATE rule, are INELIGIBLE; a row
+        with one DEFAULT QPS rule (default app, DIRECT, local) is
+        LEASED; every other row is FREE."""
+        if not self._fast_enabled:
+            return
+        row_of = self.resources.get_or_create
+        inel = {row_of(r.resource) for r in self._deg.rules}
+        inel.update(row_of(r.resource) for r in self._auth.rules)
+        flow_by_row: Dict[int, list] = {}
+        for r in self._flow.rules:
+            flow_by_row.setdefault(row_of(r.resource), []).append(r)
+            if r.strategy == flow_mod.STRATEGY_RELATE and r.ref_resource:
+                # RELATE reads the ref row's live counts: fast-path lag
+                # there would skew this rule's decisions
+                inel.add(row_of(r.ref_resource))
+        lease: Dict[int, float] = {}
+        for row, rs in flow_by_row.items():
+            r = rs[0]
+            if (len(rs) == 1 and r.grade == flow_mod.GRADE_QPS
+                    and r.control_behavior == flow_mod.BEHAVIOR_DEFAULT
+                    and r.strategy == flow_mod.STRATEGY_DIRECT
+                    and (r.limit_app or "default") == "default"
+                    and not r.cluster_mode):
+                lease[row] = float(r.count)
+            else:
+                inel.add(row)
+        lease = {row: c for row, c in lease.items() if row not in inel}
+        self._fast.set_tables(inel, lease, sys_active=bool(self._sys_rules))
+
     def load_flow_rules(self, rules: Sequence[flow_mod.FlowRule]) -> None:
         if any(r.cluster_mode for r in rules if r.is_valid()):
             raise NotImplementedError(_NOT_PORTED["cluster"])
+        # buffered fast-path passes were admitted under the OLD tables:
+        # land them before the swap, or the flush would re-decide them
+        self._flush_fast()
         compiled = self._compile_flow(rules)
         with self._lock:
             self._flow = compiled
             self._ruleset = self._build_ruleset()
             # fresh shaping state for the new tables (the reference
-            # rebuilds its raters); this route books no occupy tokens,
-            # so there are no bookings to settle into the window
-            self._state = self._state._replace(
-                flow_dyn=flow_mod.init_flow_dyn(
-                    self.cfg.max_flow_rules, self.spec.second.buckets,
-                    self.spec.rows, device=self.device))
+            # rebuilds its raters); occupy bookings are row-keyed promises
+            # already granted, so they survive: landed ones settle into
+            # the second window as PASS, pending ones carry into the ring
+            old = self._state.flow_dyn
+            _, pend_cnt, pend_win = settle_occupied(
+                self.spec.second, self._state.second, old.occupied_count,
+                old.occupied_window,
+                self.spec.second.index_of(self.clock.now_ms()), ev.PASS)
+            fresh = flow_mod.init_flow_dyn(
+                self.cfg.max_flow_rules, self.spec.second.buckets,
+                self.spec.rows, device=self.device)
+            self._state = self._state._replace(flow_dyn=fresh._replace(
+                occupied_count=pend_cnt, occupied_window=pend_win))
+            self._rebuild_fastpath()
             res: set = set()
             org: set = set()
             ctxs: set = set()
@@ -405,6 +478,7 @@ class Sentinel:
             self._update_rule_pins_locked("flow", res, org, ctxs)
 
     def load_degrade_rules(self, rules: Sequence[deg_mod.DegradeRule]) -> None:
+        self._flush_fast()          # see load_flow_rules
         compiled = self._compile_degrade(rules)
         with self._lock:
             self._deg = compiled
@@ -412,23 +486,28 @@ class Sentinel:
             self._state = self._state._replace(
                 breakers=deg_mod.init_breaker_state(
                     self.cfg.max_degrade_rules, device=self.device))
+            self._rebuild_fastpath()
             self._update_rule_pins_locked(
                 "degrade", {r.resource for r in compiled.rules}, set(),
                 set())
 
     def load_system_rules(self, rules: Sequence[sys_mod.SystemRule]) -> None:
+        self._flush_fast()          # see load_flow_rules
         with self._lock:
             self._sys_rules = list(rules)
             self._sys = sys_mod.compile_system_rules(rules,
                                                      device=self.device)
             self._ruleset = self._build_ruleset()
+            self._rebuild_fastpath()
 
     def load_authority_rules(self,
                              rules: Sequence[auth_mod.AuthorityRule]) -> None:
+        self._flush_fast()          # see load_flow_rules
         compiled = self._compile_authority(rules)
         with self._lock:
             self._auth = compiled
             self._ruleset = self._build_ruleset()
+            self._rebuild_fastpath()
             org: set = set()
             for r in compiled.rules:
                 org.update(o.strip() for o in r.limit_app.split(",")
@@ -453,6 +532,30 @@ class Sentinel:
         return (s.second.index_of(now_ms),
                 s.minute.index_of(now_ms) if s.minute else 0,
                 self._rel_ms(now_ms), now_ms % s.second.win_ms)
+
+    def _restamp_if_stale_locked(self, at_ms: Optional[int], now: int,
+                                 times):
+        """An event-time (``at_ms``) dispatch whose window index is a full
+        ring older than one already dispatched would re-own a bucket a
+        newer write holds (its refresh would zero live counts): it is
+        re-stamped to now instead → ``(now, times)``. Callers hold
+        ``self._lock``, so the check and the dispatch are atomic."""
+        if (at_ms is not None
+                and self._seen_idx - self.spec.second.index_of(now)
+                >= self.spec.second.buckets):
+            now = self.clock.now_ms()
+            times = self._time_scalars(now)
+        return now, times
+
+    def _note_dispatch_locked(self, now: int, any_prio: bool) -> bool:
+        """Record a dispatch at ``now`` → whether its step is occupy-aware:
+        this batch is prioritized, or a booking of an earlier one can
+        still be live (bookings last at most B+1 windows)."""
+        sec = self.spec.second
+        self._seen_idx = max(self._seen_idx, sec.index_of(now))
+        if any_prio:
+            self._occupy_live_until_ms = now + (sec.buckets + 1) * sec.win_ms
+        return any_prio or now < self._occupy_live_until_ms
 
     def _sys_scalars(self) -> Tuple[float, float]:
         load1, cpu = self._cpu.sample()
@@ -514,12 +617,9 @@ class Sentinel:
         return nf1 * (self.spec.alt_rows + 1) < 2 ** 31
 
     @staticmethod
-    def _batch_facts(acquire, origin_ids, prioritized,
-                     vfull) -> Tuple[bool, bool]:
+    def _batch_facts(acquire, origin_ids, vfull) -> Tuple[bool, bool]:
         """(acquire uniform >= 1 over valid lanes, no origin id on a valid
-        lane); refuses prioritized events."""
-        if np.asarray(prioritized).any():
-            raise NotImplementedError(_NOT_PORTED["prioritized"])
+        lane)."""
         acq_v = np.asarray(acquire)[vfull]
         acq_uniform = (acq_v.size > 0
                        and int(acq_v.min()) == int(acq_v.max()) >= 1)
@@ -528,20 +628,23 @@ class Sentinel:
         return acq_uniform, no_origin_ids
 
     def _route(self, acq_uniform: bool, no_origin_ids: bool,
-               no_alt: bool) -> str:
+               no_alt: bool, any_prio: bool) -> str:
         """The whole batch's route: scalar, fast or general."""
-        if no_alt and no_origin_ids and acq_uniform:
+        if no_alt and no_origin_ids and acq_uniform and not any_prio:
             return "scalar"
         if acq_uniform and self._key_fits():
             return "fast"
         return "general"
 
-    def _flags(self, route: str, record_alt: bool) -> dict:
-        """The engine step's flags for ``route``."""
+    def _flags(self, route: str, record_alt: bool, use_occ: bool,
+               any_prio: bool = False) -> dict:
+        """The engine step's flags for ``route``; ``use_occ`` runs the
+        occupy-aware step, ``any_prio`` its occupy attempt."""
         flags = dict(skip_auth=self._skip_auth, skip_sys=self._skip_sys,
                      skip_threads=self._skip_threads,
                      sortfree=self._sortfree, record_alt=record_alt,
-                     scalar_has_rl=self._scalar_has_rl)
+                     scalar_has_rl=self._scalar_has_rl,
+                     enable_occupy=use_occ, any_prio=any_prio)
         if route == "scalar":
             flags["scalar_flow"] = True
         elif route == "fast":
@@ -549,8 +652,8 @@ class Sentinel:
         return flags
 
     def _entry_batch(self, rows, origin_ids, origin_rows, context_ids,
-                     chain_rows, acquire, is_in, prioritized,
-                     vfull) -> EntryBatch:
+                     chain_rows, acquire, is_in, prioritized, vfull,
+                     count_thread=None, record_block=None) -> EntryBatch:
         """Pad the raw columns to a power of two and copy them over."""
         b = pad_pow2(rows.shape[0])
         r, ra = self.spec.rows, self.spec.alt_rows
@@ -564,10 +667,14 @@ class Sentinel:
             acquire=col(pad_to(acquire, b, 0, np.int32)),
             is_in=col(pad_to(is_in, b, False, np.bool_)),
             prioritized=col(pad_to(prioritized, b, False, np.bool_)),
-            valid=col(pad_to(vfull, b, False, np.bool_)))
+            valid=col(pad_to(vfull, b, False, np.bool_)),
+            count_thread=(None if count_thread is None else
+                          col(pad_to(count_thread, b, False, np.bool_))),
+            record_block=(None if record_block is None else
+                          col(pad_to(record_block, b, False, np.bool_))))
 
     def _exit_batch(self, rows, origin_rows, chain_rows, acquire, rt_ms,
-                    error, is_in, valid) -> ExitBatch:
+                    error, is_in, valid, count_thread=None) -> ExitBatch:
         b = pad_pow2(rows.shape[0])
         r, ra = self.spec.rows, self.spec.alt_rows
         col = self._dev
@@ -579,7 +686,9 @@ class Sentinel:
             rt_ms=col(pad_to(rt_ms, b, 0, np.int32)),
             error=col(pad_to(error, b, False, np.bool_)),
             is_in=col(pad_to(is_in, b, False, np.bool_)),
-            valid=col(pad_to(valid, b, False, np.bool_)))
+            valid=col(pad_to(valid, b, False, np.bool_)),
+            count_thread=(None if count_thread is None else
+                          col(pad_to(count_thread, b, False, np.bool_))))
 
     @staticmethod
     def _valid_full(n: int, valid) -> np.ndarray:
@@ -635,9 +744,11 @@ class Sentinel:
         ``sleep=False`` reports the wait on ``Entry.wait_ms``. The origin
         is ``origin``, else the current context's
         (:class:`~sentinel_tpu_torch.core.context.ContextScope`); the
-        context's name keys CHAIN rules."""
-        if prioritized:
-            raise NotImplementedError(_NOT_PORTED["prioritized"])
+        context's name keys CHAIN rules. ``prioritized``
+        (``SphU.entryWithPriority``): a call a DEFAULT QPS rule would deny
+        may book the next window and pass after waiting for its edge.
+        With the host fast path on, calls on rule-free and leased
+        resources are decided on the host (``Entry.fast``)."""
         if args:
             raise NotImplementedError(_NOT_PORTED["param"])
         ctx = current_context()
@@ -650,11 +761,19 @@ class Sentinel:
         context_id = (self.contexts.get_or_create(ctx.name)
                       if c_row < self.spec.alt_rows else 0)
         is_in = entry_type == ENTRY_TYPE_IN
+        if self._fast_enabled and not prioritized:
+            fe = self._fast_entry(resource, row, o_row, c_row, origin_id,
+                                  acquire, is_in)
+            if fe is not None:
+                return fe
+        if self._fast_enabled and self._fast.due(self.clock.now_ms()):
+            # buffered stats reach the device before this decide
+            self._flush_fast()
         verdict = self.decide_raw(
             np.array([row], np.int32), np.array([origin_id], np.int32),
             np.array([o_row], np.int32), np.array([context_id], np.int32),
             np.array([c_row], np.int32), np.array([acquire], np.int32),
-            np.array([is_in], np.bool_), np.zeros(1, np.bool_))
+            np.array([is_in], np.bool_), np.array([prioritized], np.bool_))
         if not bool(verdict.allow[0]):
             raise block_exception_for(int(verdict.reason[0]), resource,
                                       origin=use_origin or "")
@@ -670,8 +789,153 @@ class Sentinel:
             e.wait_ms = wait
         return e
 
+    def _fast_entry(self, resource: str, row: int, o_row: int, c_row: int,
+                    origin_id: int, acquire: int,
+                    is_in: bool) -> Optional[Entry]:
+        """Try the host fast path → an admitted :class:`Entry`, or None to
+        take the exact device path (it never decides a denial)."""
+        fast = self._fast
+        if fast.sys_active and is_in:
+            return None          # SystemSlot gates inbound traffic globally
+        kind = fast.classify(row)
+        if kind == fp_mod.INELIGIBLE:
+            return None
+        now = self.clock.now_ms()
+        if kind == fp_mod.FREE:
+            fast.buffer_pass(row, o_row, c_row, acquire, is_in, now)
+            mode = "free"
+        else:
+            # a lease pre-charges no alt rows: it serves origin-less,
+            # default-context calls only
+            if origin_id != 0 or c_row < self.spec.alt_rows:
+                return None
+            verdict = fast.lease_state(row, acquire, is_in, now)
+            if verdict == fp_mod.DEVICE:
+                return None
+            if verdict == fp_mod.RENEW:
+                if fast.is_hot(row, now):
+                    return None    # a chunk was denied this bucket
+                # one renewal in flight per row: a concurrent pre-charge
+                # would spend the window budget twice
+                if not fast.begin_renewal(row):
+                    return None
+                try:
+                    # re-check under the claim: another thread may have
+                    # installed a lease meanwhile
+                    recheck = fast.lease_state(row, acquire, is_in, now)
+                    if recheck == fp_mod.DEVICE:
+                        return None
+                    if recheck != fp_mod.ADMIT:
+                        chunk = fast.lease_chunk(row, acquire)
+                        gen0 = fast.table_gen
+                        ra = self.spec.alt_rows
+                        # at_ms=now: the chunk's PASS lands in the bucket
+                        # the lease is stamped with, which its expiry
+                        # uncount then targets
+                        v = self.decide_raw(
+                            np.array([row], np.int32), np.zeros(1, np.int32),
+                            np.array([ra], np.int32), np.zeros(1, np.int32),
+                            np.array([ra], np.int32),
+                            np.array([chunk], np.int32),
+                            np.array([is_in], np.bool_),
+                            np.zeros(1, np.bool_),
+                            count_thread=np.zeros(1, np.bool_),
+                            record_block=np.zeros(1, np.bool_),
+                            at_ms=now)
+                        if not bool(v.allow[0]):
+                            fast.mark_hot(row, now)
+                            return None
+                        fast.install_lease(row, chunk, acquire, is_in, now,
+                                           gen=gen0)
+                finally:
+                    fast.end_renewal(row)
+            mode = "leased"
+        e = Entry(self, resource, row, o_row, c_row, acquire, is_in, now)
+        e.fast = mode
+        if fast.due(now):
+            self._flush_fast(now)
+        return e
+
+    def _flush_fast(self, now_ms: Optional[int] = None) -> None:
+        """Land the fast path's buffered statistics on the device with
+        their event-time window stamps: passes and exits grouped by
+        second-window index, each group dispatched at its own time (a
+        group a full ring older than any dispatch is re-stamped to now);
+        passes through the decide step (rule-free events cannot block),
+        expired leases' unused tokens through :func:`uncount_reserved`,
+        exits through :meth:`exit_batch`."""
+        now = self.clock.now_ms() if now_ms is None else now_ms
+        with self._flush_lock:
+            self._flush_fast_locked(now)
+
+    def _flush_fast_locked(self, now: int) -> None:
+        passes, exits, expired = self._fast.drain(now)
+        if not passes and not exits and not expired:
+            return
+        sec = self.spec.second
+
+        def grouped(events, ms_pos):
+            by: Dict[int, list] = {}
+            for e in events:
+                by.setdefault(sec.index_of(e[ms_pos]), []).append(e)
+            return sorted(by.items())
+
+        def column(grp, pos, dtype):
+            return np.fromiter((x[pos] for x in grp), dtype, len(grp))
+
+        for g_idx, grp in grouped(passes, 5):
+            at = grp[0][5] if self._seen_idx - g_idx < sec.buckets else None
+            n = len(grp)
+            self.decide_raw_nowait(
+                column(grp, 0, np.int32), np.zeros(n, np.int32),
+                column(grp, 1, np.int32), np.zeros(n, np.int32),
+                column(grp, 2, np.int32), column(grp, 3, np.int32),
+                column(grp, 4, np.bool_), np.zeros(n, np.bool_),
+                at_ms=at)           # verdicts unused: all rule-free
+        if expired:
+            # unused lease tokens go back to their window buckets (the
+            # ENTRY row's too for inbound pre-charges)
+            rows, secs, mins, amts = [], [], [], []
+            minute = self.spec.minute
+            for row, created, remaining, was_in in expired:
+                for r in ((row, ENTRY_NODE_ROW) if was_in else (row,)):
+                    rows.append(r)
+                    secs.append(sec.index_of(created))
+                    mins.append(minute.index_of(created) if minute else 0)
+                    amts.append(remaining)
+            b = pad_pow2(len(rows))
+            cols = [self._dev(pad_to(np.asarray(a, np.int32), b, fill,
+                                     np.int32))
+                    for a, fill in ((rows, self.spec.rows), (secs, 0),
+                                    (mins, 0), (amts, 0))]
+            with self._lock:
+                self._state = uncount_reserved(self.spec, self._state,
+                                               *cols)
+        for g_idx, grp in grouped(exits, 8):
+            at = grp[0][8] if self._seen_idx - g_idx < sec.buckets else None
+            self.exit_batch(
+                rows=column(grp, 0, np.int32),
+                origin_rows=column(grp, 1, np.int32),
+                chain_rows=column(grp, 2, np.int32),
+                acquire=column(grp, 3, np.int32),
+                rt_ms=column(grp, 4, np.int32),
+                error=column(grp, 5, np.bool_),
+                is_in=column(grp, 6, np.bool_),
+                count_thread=column(grp, 7, np.bool_), at_ms=at)
+
     def _exit_one(self, e: Entry) -> None:
-        rt = max(0, self.clock.now_ms() - e.create_ms)
+        now = self.clock.now_ms()
+        rt = max(0, now - e.create_ms)
+        if e.fast is not None:
+            # fast-path entries exit through the host buffer (leased ones
+            # opted out of the thread gauge on entry: symmetric here)
+            self._fast.buffer_exit(
+                e.row, e.origin_row, e.chain_row, e.acquire,
+                min(rt, self.cfg.statistic_max_rt), e.error is not None,
+                e.is_in, e.fast == "free", now)
+            if self._fast.due(now):
+                self._flush_fast(now)
+            return
         self.exit_batch(
             rows=np.array([e.row], np.int32),
             origin_rows=np.array([e.origin_row], np.int32),
@@ -752,82 +1016,110 @@ class Sentinel:
 
     def decide_raw(self, rows, origin_ids, origin_rows, context_ids,
                    chain_rows, acquire, is_in, prioritized, *,
-                   valid=None) -> Verdicts:
+                   valid=None, count_thread=None, record_block=None,
+                   at_ms: Optional[int] = None) -> Verdicts:
         """Lowest-level host entry point: pre-resolved numpy arrays."""
         return self.decide_raw_nowait(
             rows, origin_ids, origin_rows, context_ids, chain_rows, acquire,
-            is_in, prioritized, valid=valid).result()
+            is_in, prioritized, valid=valid, count_thread=count_thread,
+            record_block=record_block, at_ms=at_ms).result()
 
     def decide_raw_nowait(self, rows, origin_ids, origin_rows, context_ids,
                           chain_rows, acquire, is_in, prioritized, *,
-                          valid=None) -> PendingVerdicts:
+                          valid=None, count_thread=None, record_block=None,
+                          at_ms: Optional[int] = None) -> PendingVerdicts:
         """:meth:`decide_raw` with the verdict readback deferred: the step
         is enqueued (state advanced in order under the lock) and the
         device→host verdict copy started; ``.result()`` materializes. The
-        route is the JAX runtime's (see the module docstring)."""
+        route is the JAX runtime's (see the module docstring).
+        ``count_thread`` / ``record_block`` (False = leave the event out
+        of the thread gauges / record no BLOCK for its denial) and
+        ``at_ms`` (event time, re-stamped to now when a full ring stale)
+        serve the host fast path."""
         n = rows.shape[0]
         vfull = self._valid_full(n, valid)
-        acq_uniform, no_origin_ids = self._batch_facts(
-            acquire, origin_ids, prioritized, vfull)
+        acq_uniform, no_origin_ids = self._batch_facts(acquire, origin_ids,
+                                                       vfull)
         no_alt = self._no_alt(origin_rows, chain_rows)
-        if not (no_origin_ids and no_alt) and acq_uniform \
+        prio_np = np.asarray(prioritized, np.bool_)
+        any_prio = bool(prio_np.any())
+        now = self.clock.now_ms() if at_ms is None else at_ms
+        if (not (no_origin_ids and no_alt) or any_prio) and acq_uniform \
                 and self._key_fits():
-            # per-event scalar eligibility; invalid lanes are scalar-safe
+            # per-event scalar eligibility (prioritized events only on
+            # the fast side, the one that may book); invalid lanes are
+            # scalar-safe
             pad_a = self.spec.alt_rows
             ev_scalar = (((np.asarray(origin_ids) == 0)
                           & (np.asarray(origin_rows) >= pad_a)
-                          & (np.asarray(chain_rows) >= pad_a)) | ~vfull)
+                          & (np.asarray(chain_rows) >= pad_a) & ~prio_np)
+                         | ~vfull)
             n_general = int(np.count_nonzero(~ev_scalar & vfull))
             n_scalar = int(np.count_nonzero(ev_scalar & vfull))
             if n_general > 0 and n_scalar >= SPLIT_MIN_SCALAR:
                 return self._decide_split_nowait(
                     rows, origin_ids, origin_rows, context_ids, chain_rows,
-                    acquire, is_in, ev_scalar, vfull)
-        route = self._route(acq_uniform, no_origin_ids, no_alt)
+                    acquire, is_in, ev_scalar, vfull, prio_np, any_prio,
+                    count_thread, record_block, now)
+        route = self._route(acq_uniform, no_origin_ids, no_alt, any_prio)
         batch = self._entry_batch(rows, origin_ids, origin_rows, context_ids,
-                                  chain_rows, acquire, is_in, prioritized,
-                                  vfull)
-        times = self._time_scalars(self.clock.now_ms())
+                                  chain_rows, acquire, is_in, prio_np,
+                                  vfull, count_thread, record_block)
+        times = self._time_scalars(now)
         sys_scalars = self._sys_scalars()
         with self._lock:
+            now, times = self._restamp_if_stale_locked(at_ms, now, times)
             self._drain_evictions_locked()
+            use_occ = self._note_dispatch_locked(now, any_prio)
             self._state, verdicts = decide_entries(
                 self.spec, self._ruleset, self._state, batch, times,
-                sys_scalars, **self._flags(route, not no_alt))
-            self.routes[route] += 1
+                sys_scalars, **self._flags(route, not no_alt, use_occ,
+                                           any_prio))
+            self.routes["fast_occupy" if route == "fast" and use_occ
+                        else route] += 1
             return self._pending([(verdicts, None)], n)
 
     def _decide_split_nowait(self, rows, origin_ids, origin_rows,
                              context_ids, chain_rows, acquire, is_in,
-                             ev_scalar, vfull) -> PendingVerdicts:
+                             ev_scalar, vfull, prio_np, any_prio,
+                             count_thread, record_block,
+                             now: int) -> PendingVerdicts:
         """Mixed batch: the scalar-eligible events take the scalar step,
-        the others the fast step, scalar first, under one lock hold (a
-        legitimate serialization of the batch: each sub-step is exact over
-        its own events, as the JAX package's split dispatch)."""
+        the others (prioritized ones included) the fast step, scalar
+        first, under one lock hold (a legitimate serialization of the
+        batch: each sub-step is exact over its own events, as the JAX
+        package's split dispatch). While occupy is live both take their
+        occupy-aware steps: the scalar side reads bookings, the fast side
+        may book."""
         n = rows.shape[0]
         idx_s = np.nonzero(ev_scalar)[0]
         idx_g = np.nonzero(~ev_scalar)[0]
 
-        def batch_of(idx):
+        def batch_of(idx, prio):
             cols = [np.asarray(a)[idx] for a in (
                 rows, origin_ids, origin_rows, context_ids, chain_rows,
                 acquire, is_in)]
-            return self._entry_batch(*cols, np.zeros(idx.shape[0], np.bool_),
-                                     vfull[idx])
+            opt = [None if a is None else np.asarray(a)[idx]
+                   for a in (count_thread, record_block)]
+            return self._entry_batch(*cols, prio, vfull[idx], *opt)
 
-        bs, bg = batch_of(idx_s), batch_of(idx_g)
+        prio_g = prio_np[idx_g]
+        bs = batch_of(idx_s, np.zeros(idx_s.shape[0], np.bool_))
+        bg = batch_of(idx_g, prio_g)
         no_alt_g = self._no_alt(np.asarray(origin_rows)[idx_g],
                                 np.asarray(chain_rows)[idx_g])
-        times = self._time_scalars(self.clock.now_ms())
+        times = self._time_scalars(now)
         sys_scalars = self._sys_scalars()
         with self._lock:
             self._drain_evictions_locked()
+            use_occ = self._note_dispatch_locked(now, any_prio)
             state, v1 = decide_entries(
                 self.spec, self._ruleset, self._state, bs, times,
-                sys_scalars, **self._flags("scalar", False))
+                sys_scalars, **self._flags("scalar", False, use_occ))
             self._state, v2 = decide_entries(
                 self.spec, self._ruleset, state, bg, times, sys_scalars,
-                **self._flags("fast", not no_alt_g))
+                **self._flags("fast", not no_alt_g, use_occ,
+                              bool(prio_g.any())))
             self.routes["split"] += 1
             return self._pending([(v1, idx_s), (v2, idx_g)], n)
 
@@ -836,7 +1128,8 @@ class Sentinel:
             acquire, is_in, prioritized, *, exit_rows,
             exit_origin_rows=None, exit_chain_rows=None, exit_acquire=None,
             exit_rt_ms=None, exit_error=None, exit_is_in=None,
-            exit_valid=None, valid=None) -> PendingVerdicts:
+            exit_valid=None, valid=None,
+            at_ms: Optional[int] = None) -> PendingVerdicts:
         """Fused decide+exit: this step's entry decisions and the previous
         step's completions in one engine step (exits land after decides,
         identical to the decide-then-exit pair). Exit columns default to
@@ -847,17 +1140,20 @@ class Sentinel:
         n_x = exit_rows.shape[0]
         ra = self.spec.alt_rows
         vfull = self._valid_full(n, valid)
-        acq_uniform, no_origin_ids = self._batch_facts(
-            acquire, origin_ids, prioritized, vfull)
+        acq_uniform, no_origin_ids = self._batch_facts(acquire, origin_ids,
+                                                       vfull)
+        prio_np = np.asarray(prioritized, np.bool_)
+        any_prio = bool(prio_np.any())
+        now = self.clock.now_ms() if at_ms is None else at_ms
         x_orows = (exit_origin_rows if exit_origin_rows is not None
                    else np.full(n_x, ra, np.int32))
         x_crows = (exit_chain_rows if exit_chain_rows is not None
                    else np.full(n_x, ra, np.int32))
         no_alt = (self._no_alt(origin_rows, chain_rows)
                   and self._no_alt(x_orows, x_crows))
-        route = self._route(acq_uniform, no_origin_ids, no_alt)
+        route = self._route(acq_uniform, no_origin_ids, no_alt, any_prio)
         batch = self._entry_batch(rows, origin_ids, origin_rows, context_ids,
-                                  chain_rows, acquire, is_in, prioritized,
+                                  chain_rows, acquire, is_in, prio_np,
                                   vfull)
         xbatch = self._exit_batch(
             exit_rows, x_orows, x_crows,
@@ -870,27 +1166,38 @@ class Sentinel:
             else np.ones(n_x, np.bool_),
             exit_valid if exit_valid is not None
             else np.ones(n_x, np.bool_))
-        times = self._time_scalars(self.clock.now_ms())
+        times = self._time_scalars(now)
         sys_scalars = self._sys_scalars()
         with self._lock:
+            now, times = self._restamp_if_stale_locked(at_ms, now, times)
             self._drain_evictions_locked()
+            use_occ = self._note_dispatch_locked(now, any_prio)
             self._state, verdicts = decide_and_record_exits(
                 self.spec, self._ruleset, self._state, batch, xbatch, times,
-                sys_scalars, **self._flags(route, not no_alt))
+                sys_scalars, **self._flags(route, not no_alt, use_occ,
+                                           any_prio))
             self.routes["fused"] += 1
             return self._pending([(verdicts, None)], n)
 
     def exit_batch(self, *, rows, origin_rows, chain_rows, acquire, rt_ms,
-                   error, is_in) -> None:
+                   error, is_in, count_thread=None,
+                   at_ms: Optional[int] = None) -> None:
         """Record a batch of completions (``StatisticSlot.exit`` +
         ``DegradeSlot.exit``), on the origin and chain rows too where the
-        batch has any."""
+        batch has any. ``count_thread`` False leaves an exit out of the
+        thread gauges; ``at_ms`` is its event time (see
+        :meth:`decide_raw_nowait`)."""
         n = rows.shape[0]
         batch = self._exit_batch(rows, origin_rows, chain_rows, acquire,
-                                 rt_ms, error, is_in, np.ones(n, np.bool_))
-        times = self._time_scalars(self.clock.now_ms())
+                                 rt_ms, error, is_in, np.ones(n, np.bool_),
+                                 count_thread)
+        now = self.clock.now_ms() if at_ms is None else at_ms
+        times = self._time_scalars(now)
         with self._lock:
+            now, times = self._restamp_if_stale_locked(at_ms, now, times)
             self._drain_evictions_locked()
+            self._seen_idx = max(self._seen_idx,
+                                 self.spec.second.index_of(now))
             self._state = record_exits(
                 self.spec, self._ruleset, self._state, batch, times,
                 record_alt=not self._no_alt(origin_rows, chain_rows),
@@ -906,6 +1213,7 @@ class Sentinel:
         row = self.resources.lookup(resource)
         if row is None:
             return {}
+        self._flush_fast()      # buffered fast-path stats land first
         idx_s = self.spec.second.index_of(self.clock.now_ms())
         with self._lock:
             tot = rolling_totals(self.spec.second, self._state.second,

@@ -290,6 +290,74 @@ def add_rows_multi(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
     return state
 
 
+def uncount_rows(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
+                 idxs: torch.Tensor, event: int,
+                 amounts: torch.Tensor) -> WindowState:
+    """Subtract ``amounts`` of ``event`` from the bucket at window index
+    ``idxs`` of each row, only where that bucket still holds the stamp
+    ``idxs`` (a rotated bucket already reads zero). Reverses a
+    reservation recorded earlier in the same ring lap: the unused tokens
+    of an expired host lease. Padding rows >= R drop.
+
+    One kernel launch: the per-lane bucket indexes the ``[R·B, E]`` view
+    of the counters (key ``row·B + k``), so a padding row lands past the
+    table's end and a negative row wraps once, as the reference's
+    ``.at[rows, k, event]`` does."""
+    r_dim, b_dim, e_dim = state.counters.shape
+    k = torch.remainder(idxs, b_dim)
+    live = state.stamps[torch.clamp(rows, 0, r_dim - 1).long(),
+                        k.long()] == idxs
+    amt = torch.where(live, amounts, 0)
+    sa.scatter_add(state.counters.view(r_dim * b_dim, e_dim),
+                   rows * b_dim + k, torch.full_like(rows, event), -amt)
+    return state
+
+
+def settle_occupied(spec: WindowSpec, state: WindowState,
+                    occ_cnt: torch.Tensor, occ_win: torch.Tensor,
+                    now_idx: int, event: int):
+    """Materialize occupy bookings into the window so the booking ring can
+    be reset (a rule reload rebuilds the flow state) without forgetting
+    admissions already granted → ``(state, pend_cnt, pend_win)``.
+
+    A LANDED booking (``0 <= now - w < B``, count > 0) is credited as
+    ``event`` counts into its target bucket ``w % B``, which is first
+    reset (every lane and the rt columns) and restamped to ``w`` where it
+    is dead or rotated. A PENDING booking (``now - w == -1``) is returned
+    in ``pend_cnt``/``pend_win`` (zero / NEVER elsewhere) for the fresh
+    ring; anything older is dropped. Dense over the table, one pass per
+    ring slot; ``state`` is updated in place. Runs at a rule reload only,
+    and reads nothing back."""
+    r_dim = state.stamps.shape[0]
+    b_dim = spec.buckets
+    rr = torch.arange(r_dim, device=occ_cnt.device)
+    bsel_cols = torch.arange(b_dim, device=occ_cnt.device)[None, :]
+    counters, stamps = state.counters, state.stamps
+    pend_cnt = torch.zeros_like(occ_cnt)
+    pend_win = torch.full_like(occ_win, NEVER)
+    for s in range(occ_cnt.shape[1]):
+        w = occ_win[:, s]
+        c = occ_cnt[:, s]
+        age = now_idx - w
+        landed = (age >= 0) & (age < b_dim) & (c > 0)
+        pending = (age == -1) & (c > 0)
+        k = torch.where(landed, torch.remainder(w, b_dim), 0)
+        live = stamps[rr, k.long()] == w
+        bsel = bsel_cols == k[:, None]                        # [R, B]
+        reset_rb = (landed & ~live)[:, None] & bsel
+        counters.masked_fill_(reset_rb[:, :, None], 0)
+        if spec.track_rt:
+            state.rt_sum.masked_fill_(reset_rb, 0.0)
+            state.min_rt.masked_fill_(reset_rb, INT32_MAX)
+        hit = landed[:, None] & bsel
+        stamps.copy_(torch.where(hit, w[:, None], stamps))
+        counters[:, :, event].add_(
+            torch.where(hit, c.to(torch.int32)[:, None], 0))
+        pend_cnt[:, s] = torch.where(pending, c, 0.0)
+        pend_win[:, s] = torch.where(pending, w, NEVER)
+    return state, pend_cnt, pend_win
+
+
 def invalidate_rows(spec: WindowSpec, state: WindowState,
                     rows: torch.Tensor) -> WindowState:
     """Forget all history of ``rows`` (registry eviction → row reuse):

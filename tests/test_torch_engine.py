@@ -60,7 +60,8 @@ def _port_spec(spec):
     return tp.EngineSpec(rows=spec.rows, alt_rows=spec.alt_rows,
                          second=ws(spec.second), minute=ws(spec.minute),
                          statistic_max_rt=spec.statistic_max_rt,
-                         hist_buckets=spec.hist_buckets)
+                         hist_buckets=spec.hist_buckets,
+                         occupy_timeout_ms=spec.occupy_timeout_ms)
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
@@ -158,13 +159,52 @@ def test_convert_round_trip_and_ignored_leaves():
 
 
 def test_off_route_steps_raise():
+    """A scalar step refuses a prioritized batch (only the fast and
+    general steps may book); an occupy step with one runs as the
+    reference's does."""
+    clk = ManualClock(start_ms=1_785_000_000_250)
     cfg = stpu.load_config(max_resources=32, max_flow_rules=4,
                            max_degrade_rules=4, host_fast_path=False)
-    sph = stpu.Sentinel(config=cfg, clock=ManualClock())
+    sph = stpu.Sentinel(config=cfg, clock=clk)
+    sph.load_flow_rules([stpu.FlowRule(resource="svc", count=2.0)])
     spec = _port_spec(sph.spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(ValueError, match="prioritized"):
         tp.decide_entries(spec, None, None, None, (0, 0, 0, 0), (0.0, 0.0),
-                          enable_occupy=True)
+                          scalar_flow=True, record_alt=False,
+                          enable_occupy=True, any_prio=True)
+    row = sph.resources.lookup("svc")
+    n, ra = 8, sph.spec.alt_rows
+    eb = dict(rows=np.full(n, row, np.int32),
+              origin_ids=np.zeros(n, np.int32),
+              origin_rows=np.full(n, ra, np.int32),
+              context_ids=np.zeros(n, np.int32),
+              chain_rows=np.full(n, ra, np.int32),
+              acquire=np.ones(n, np.int32), is_in=np.ones(n, bool),
+              prioritized=np.arange(n) >= 4, valid=np.ones(n, bool))
+    times = np.asarray(sph._time_scalars(clk.now_ms()))
+    sysv = np.array([0.25, 0.1], np.float32)
+    flags = dict(skip_auth=True, skip_sys=True, skip_threads=True,
+                 scalar_has_rl=False, record_alt=False, fast_flow=True,
+                 sortfree=True)
+    js, jv = jax.jit(functools.partial(
+        jp.decide_entries, sph.spec, enable_occupy=True, **flags))(
+        sph._ruleset, sph._state,
+        jp.EntryBatch(**{k: jnp.asarray(a) for k, a in eb.items()}),
+        jnp.asarray(times), jnp.asarray(sysv))
+    ts, tv = tp.decide_entries(
+        spec, convert.ruleset_from_numpy(convert.to_numpy(sph._ruleset)),
+        convert.state_from_numpy(convert.to_numpy(sph._state)),
+        tp.EntryBatch(**{k: torch.from_numpy(a) for k, a in eb.items()}),
+        tuple(int(x) for x in times), tuple(float(x) for x in sysv),
+        enable_occupy=True, any_prio=True, **flags)
+    for f in ("allow", "reason", "wait_ms"):
+        np.testing.assert_array_equal(getattr(tv, f).numpy(),
+                                      np.asarray(getattr(jv, f)))
+    # 2 pass, 2 denied, then the prioritized 4 book window now+1 (count 2)
+    assert tv.allow.tolist() == [True] * 2 + [False] * 2 + [True] * 2 \
+        + [False] * 2
+    assert convert.leaf_diff(convert.to_numpy(js),
+                             convert.to_numpy(ts)) == []
 
 
 def test_init_state_matches_reference():

@@ -297,3 +297,81 @@ def test_add_rows_hist_on_the_shared_memory_path():
         states.append(st.counters.cpu())
     torch.cuda.synchronize()
     assert torch.equal(states[0], states[1])
+
+
+@pytest.mark.gpu
+def test_occupy_grants_shape_on_the_card():
+    """The occupy grants: a float32 ``[2^20, 1]`` table, 2^19 lanes (one a
+    batch event), 1% admitted with acquire 1-3 and the rest at the padding
+    key R (dropped, never wrapped); then the whole booking commit of
+    ``rules/flow._book_next_window`` on the card against the CPU."""
+    from sentinel_tpu_torch.rules import flow as tflow
+    dev = _card()
+    r, n = 1 << 20, 1 << 19
+    rng = np.random.default_rng(8)
+    occ = rng.random(n) < 0.01
+    rows = rng.integers(0, r, n).astype(np.int32)
+    acq = rng.integers(1, 4, n).astype(np.int32)
+    keys = torch.from_numpy(np.where(occ, rows, r).astype(np.int32)).to(dev)
+    amounts = torch.from_numpy(np.where(occ, acq, 0)[:, None].astype(
+        np.int32)).to(dev)
+    table = torch.zeros((r, 1), dtype=torch.float32, device=dev)
+    plan = _seam_equals_plain(table, lambda t: t, keys, None, amounts)
+    assert plan.path == sa.PATH_GLOBAL and plan.e_inst == 1
+    ring = (rng.integers(0, 3, (r, 3)).astype(np.float32),
+            (1000 + rng.integers(-2, 2, (r, 3))).astype(np.int32))
+    out = []
+    for d in ("cpu", dev):
+        # fresh copies: the commit writes the ring in place
+        dyn = tflow.init_flow_dyn(4, 2, r, device=d)._replace(
+            occupied_count=torch.tensor(ring[0], device=d),
+            occupied_window=torch.tensor(ring[1], device=d))
+        before = sa.LAUNCHES["scatter_add"]
+        tflow._book_next_window(
+            dyn, torch.from_numpy(occ).to(d), torch.from_numpy(rows).to(d),
+            torch.from_numpy(acq).to(d), 1000)
+        if d != "cpu":
+            assert sa.LAUNCHES["scatter_add"] == before + 1
+        out.append((dyn.occupied_count.cpu(), dyn.occupied_window.cpu()))
+    torch.cuda.synchronize()
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("buckets", [2, 60])
+def test_uncount_rows_shape_on_the_card(buckets):
+    """``uncount_rows`` on the card against the CPU: negative int32
+    amounts into the ``[R·B, 8]`` view of the counters (R = 2^20 for the
+    second window, 2^16 for the minute window), one bucket per lane, live
+    and dead buckets, padding rows."""
+    from sentinel_tpu_torch.stats import window as tw
+    dev = _card()
+    r = (1 << 20) if buckets == 2 else (1 << 16)
+    n, now = 1 << 12, 5_000_000
+    spec = tw.WindowSpec(buckets, 500)
+    rng = np.random.default_rng(9)
+    counters = rng.integers(0, 50, (r, buckets, 8)).astype(np.int32)
+    k = np.arange(buckets)
+    stamps = ((now - (now - k) % buckets)[None, :] - buckets * (
+        rng.random((r, buckets)) < 0.3)).astype(np.int32)
+    rows = rng.integers(0, r, n).astype(np.int32)
+    rows[::7] = r
+    idxs = (now - rng.integers(0, buckets + 1, n)).astype(np.int32)
+    amounts = rng.integers(1, 9, n).astype(np.int32)
+    got = []
+    for d in ("cpu", dev):
+        st = tw.init_window(spec, r, device=d)
+        st.counters.copy_(torch.from_numpy(counters))
+        st.stamps.copy_(torch.from_numpy(stamps))
+        if d != "cpu":
+            view = st.counters.view(r * buckets, 8)
+            keys = torch.from_numpy(rows).to(d) * buckets
+            assert sa.plan_for(view, keys, keys).path == sa.PATH_GLOBAL
+        tw.uncount_rows(spec, st, *(torch.from_numpy(a).to(d)
+                                    for a in (rows, idxs)), 0,
+                        torch.from_numpy(amounts).to(d))
+        got.append(st.counters.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
+    assert not torch.equal(got[0], torch.from_numpy(counters))

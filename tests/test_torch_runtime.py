@@ -205,11 +205,10 @@ def test_sentinel_without_cuda_needs_an_explicit_device(monkeypatch):
 
 
 def test_off_route_calls_raise_not_implemented():
+    """Param rules (A8), meshes (A11) and cluster rules (A12) still raise
+    and leave no trace; the host fast path (A6, the default config) and
+    prioritized events (A7b) run, as the reference does."""
     cfg = stt.load_config(**CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        stt.Sentinel(config=stt.load_config(**{**CFG,
-                                               "host_fast_path": True}),
-                     device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         stt.Sentinel(config=cfg, device="cpu", mesh=object())
     sph = stt.Sentinel(config=cfg, clock=stt.ManualClock(start_ms=T0),
@@ -219,26 +218,52 @@ def test_off_route_calls_raise_not_implemented():
                                           cluster_mode=True)])
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         sph.load_param_flow_rules([])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        sph.entry("x", prioritized=True)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         sph.entry("x", args=(1,))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        sph.entry_batch(["a", "b"], prioritized=[False, True])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        sph.entry_batch(["a", "b"], origins=["", "app"],
-                        prioritized=[True, False])
-    ra = sph.spec.alt_rows
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        sph.decide_and_exit_raw_nowait(
-            np.array([1], np.int32), np.zeros(1, np.int32),
-            np.array([ra], np.int32), np.zeros(1, np.int32),
-            np.array([ra], np.int32), np.ones(1, np.int32),
-            np.ones(1, np.bool_), np.ones(1, np.bool_),
-            exit_rows=np.zeros(0, np.int32))
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        sph.entry_batch(["a"], args_list=[(1,)])
     # nothing off-route reached the engine
-    assert sph.node_totals("a") == {"pass": 0, "block": 0, "success": 0,
-                                    "exception": 0, "threads": 0}
+    assert not sph.routes and sph.resources.lookup("x") is None
+
+    # the default config (host fast path on) and prioritized events
+    dflt = {k: v for k, v in CFG.items() if k != "host_fast_path"}
+    jc, tc = stpu.ManualClock(start_ms=T0), stt.ManualClock(start_ms=T0)
+    js = stpu.Sentinel(config=stpu.load_config(**dflt), clock=jc)
+    ts = stt.Sentinel(config=stt.load_config(**dflt), clock=tc, device="cpu")
+    assert ts.cfg.host_fast_path and ts._fast_enabled
+    got = {}
+    for name, sph, pkg, clk in (("jax", js, stpu, jc), ("torch", ts, stt, tc)):
+        sph._cpu.sample = lambda: (0.5, 0.25)
+        sph.load_flow_rules([pkg.FlowRule(resource="x", count=1.0)])
+        out = []
+        with sph.entry("free") as e:
+            out.append(e.fast)
+        with sph.entry("x", prioritized=True) as e:
+            out.append(e.wait_ms)
+        clk.advance_ms(700)
+        e = sph.entry("x", prioritized=True, sleep=False)
+        out.append(e.wait_ms)
+        e.exit()
+        v = sph.entry_batch(["a", "b", "x"], prioritized=[False, True, True])
+        out.append((v.allow.tolist(), v.wait_ms.tolist()))
+        v = sph.entry_batch(["a", "x"], origins=["", "app"],
+                            prioritized=[True, False])
+        out.append((v.allow.tolist(), v.wait_ms.tolist()))
+        ra = sph.spec.alt_rows
+        row = sph.intern_resources(["x"])
+        v = sph.decide_and_exit_raw_nowait(
+            row, np.zeros(1, np.int32), np.array([ra], np.int32),
+            np.zeros(1, np.int32), np.array([ra], np.int32),
+            np.ones(1, np.int32), np.ones(1, np.bool_),
+            np.ones(1, np.bool_), exit_rows=np.zeros(0, np.int32)).result()
+        out.append((v.allow.tolist(), v.wait_ms.tolist()))
+        t = sph.node_totals("x")
+        t.pop("avg_rt", None)
+        out.append(t)
+        got[name] = out
+    assert got["torch"] == got["jax"]
+    assert got["torch"][0] == "free" and got["torch"][2] == 300
+    _same_state(js, ts, "default config, prioritized")
 
 
 def test_registry_eviction_invalidates_recycled_rows():

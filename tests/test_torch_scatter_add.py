@@ -237,6 +237,9 @@ PLAN_SHAPES = [
     (1 << 20, 32, 32, 1 << 19, False, torch.int32),     # rt_hist
     (1 << 20, 1, 2, 1 << 19, True, torch.float32),      # rt_sum column
     (1025, 1, 1, 1 << 19, True, torch.int32),           # breaker counts
+    (1 << 20, 1, 1, 1 << 19, True, torch.float32),      # occupy grants
+    (1 << 21, 8, 8, 1 << 12, False, torch.int32),       # uncount, second
+    (60 << 20, 8, 8, 1 << 12, False, torch.int32),      # uncount, minute
     (4096, 8, 8, 1 << 19, False, torch.float32),
     (7264, 8, 8, 1 << 19, False, torch.int32),          # 232,448 bytes
     (7265, 8, 8, 1 << 19, False, torch.int32),
@@ -341,3 +344,49 @@ def test_plan_grid_covers_the_stream_in_one_pass_when_it_can():
 def test_plan_rejects_empty_tables():
     with pytest.raises(ValueError):
         sa.plan(0, 8, 8, 10, False, torch.int32, sms=132)
+
+
+def test_plan_takes_the_occupy_grants_and_uncount_shapes():
+    """The occupy grants (float32 ``[R, 1]``, one lane a batch event, the
+    lanes not admitted at key R) and ``uncount_rows`` (the contiguous
+    ``[R·B, E]`` view of the window counters, key ``row·B + bucket``) are
+    planned on the global path with 32-bit index math at R = 2^20, for
+    the second window (B = 2) and the minute window (B = 60); a padding
+    row's keys lie past the table's end, where the kernel drops them."""
+    r, e = 1 << 20, 8
+    p = sa.plan(r, 1, 1, 1 << 19, True, torch.float32, sms=132)
+    assert (p.path, p.index_bits, p.e_inst) == (sa.PATH_GLOBAL, 32, 1)
+    for buckets in (2, 60):
+        k = r * buckets
+        p = sa.plan(k, e, e, 1 << 12, False, torch.int32, sms=132)
+        assert (p.path, p.index_bits, p.e_inst) == (sa.PATH_GLOBAL, 32, 0)
+        pad_keys = [r * buckets + b for b in range(buckets)]
+        assert min(pad_keys) >= k and max(pad_keys) < 2 ** 31
+
+
+def test_uncount_rows_keys_go_through_the_seam(monkeypatch):
+    """``uncount_rows`` is one event-mode scatter into the ``[R·B, E]``
+    view of the counters: the bucket of each lane picks the key, the
+    padding row drops, a dead bucket gets a zero amount (skipped)."""
+    from sentinel_tpu_torch.stats import window as tw
+    calls = []
+    real = sa.scatter_add
+
+    def spy(counters, keys, events, amounts):
+        calls.append((tuple(counters.shape), keys.clone(), events.clone(),
+                      amounts.clone()))
+        return real(counters, keys, events, amounts)
+
+    monkeypatch.setattr(sa, "scatter_add", spy)
+    spec = tw.WindowSpec(2, 500)
+    st = tw.init_window(spec, 4)
+    st.stamps[:] = torch.tensor([[10, 11]] * 4, dtype=torch.int32)
+    st.counters[:, :, 0] = 5
+    tw.uncount_rows(spec, st, torch.tensor([1, 2, 4, 3], dtype=torch.int32),
+                    torch.tensor([10, 11, 11, 9], dtype=torch.int32), 0,
+                    torch.tensor([2, 3, 7, 1], dtype=torch.int32))
+    (shape, keys, events, amounts), = calls
+    assert shape == (8, 8)
+    assert keys.tolist() == [2, 5, 9, 7] and events.tolist() == [0] * 4
+    assert amounts.tolist() == [-2, -3, -7, 0]
+    assert st.counters[:, :, 0].tolist() == [[5, 5], [3, 5], [5, 2], [5, 5]]
