@@ -55,8 +55,17 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    chunk, lease expiry), ``entry(prioritized=True)`` on a full window, an
    8k batch with 1% prioritized that splits and a rule reload with live
    bookings, all equal to a CPU twin of the same geometry, state included;
-7. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-   line (``launches`` summed over the runs of phases 3-6), and as the last
+7. drives hot-parameter rules: the scalar fixture and the general one with
+   512 param rules on 256 of their resources (QPS with bursts, durations
+   and per-item overrides, RATE_LIMITER, THREAD; PK = 2^16 key rows, 4
+   pairs an event, Zipf user ids), kernel == plain seam == sort-free off,
+   11 and 16 launches a step, every grade admitting and denying in every
+   step; then ``Sentinel(device="cuda")`` through ``entry(args=)``, a
+   reload, vector and general batches, a host gate and a device slot
+   against a CPU twin, and one 2^19-event batch at 1M resources (the host
+   cost of pair resolution);
+8. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
+   line (``launches`` summed over the runs of phases 3-7), and as the last
    line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --find-syncs`` runs 3-5 steps of each engine phase
@@ -447,6 +456,26 @@ def phase_kernels(sa, hist_buckets: int, dev="cuda", R=1 << 20,
          rint(0, 50, (R, 2, 8)), lambda t: t.view(2 * R, 8), unc_keys,
          torch.zeros(n_unc, dtype=torch.int32, device=dev),
          -rint(1, 250, (n_unc,)))
+    # the param rules' two scatters at the config's PK = 2^16 key rows, one
+    # lane a (event, pair), N = B·PV: the rank-form check's token
+    # consumption (float32, -acquire a consuming lane; the ~98% of lanes
+    # that are no param pair, or consume nothing, at PK+1, dropped) and
+    # the THREAD update (int32, ±1; a lane that does not count at the
+    # sentinel row PK with amount 0). Live keys Zipf-skewed over 61,440
+    n_pair = B * PARAM_PAIRS
+    zipf = torch.from_numpy((np.random.default_rng(13).zipf(1.1, n_pair)
+                             % 61_440).astype(np.int32)).to(dev)
+    paired = torch.rand(n_pair, device=dev, generator=g) < 0.02
+    consume = paired & (torch.rand(n_pair, device=dev, generator=g) < 0.6)
+    case("param tokens f32 [PK+1,1], payload E=1, N=B*PV", 1,
+         torch.randint(0, 8, (PARAM_KEYS + 1, 1), device=dev,
+                       generator=g).float(), whole,
+         torch.where(paired, zipf, PARAM_KEYS + 1).contiguous(), None,
+         torch.where(consume, -1, 0).int()[:, None].contiguous())
+    case("param threads int32 [PK+1,1], payload E=1, N=B*PV", 2,
+         rint(0, 3, (PARAM_KEYS + 1, 1)), whole,
+         torch.where(paired, zipf, PARAM_KEYS).contiguous(), None,
+         torch.where(consume, 1, 0).int()[:, None].contiguous())
 
     results = []
     for c in cases:
@@ -518,12 +547,15 @@ def _clone_state(state):
     return clone(state)
 
 
-def _scalar_fixture(dev, R: int, B: int, prio_share: float = 0.0):
+def _scalar_fixture(dev, R: int, B: int, prio_share: float = 0.0,
+                    param: bool = False):
     """The serving headline's engine fixture (``bench.py:270-376``): 4096
     QPS rules (count 50) on rows 1..4095, 1024 exception-ratio breakers,
     four batches of B origin-free events (1/4 on ruled rows) with
     ``prio_share`` of them prioritized, RT samples and errors → (spec,
-    rules, batches, rt_ms, errors, init state)."""
+    rules, batches, rt_ms, errors, init state, param grades). With
+    ``param`` the 512 param rules of :func:`_with_param` ride on it (the
+    grades of its rows, else None)."""
     from sentinel_tpu_torch.core.registry import (
         OriginRegistry, Registry, ResourceRegistry,
     )
@@ -589,8 +621,13 @@ def _scalar_fixture(dev, R: int, B: int, prio_share: float = 0.0):
     rt_ms = [torch.from_numpy(rng.integers(0, 200, B).astype(np.int32)).to(dev)
              for _ in range(4)]
     errors = [torch.from_numpy(rng.random(B) < 0.3).to(dev) for _ in range(4)]
+    grades = None
+    if param:
+        spec, rules, batches, grades = _with_param(
+            dev, spec, rules, resources, batches,
+            [f"r{i}" for i in range(PARAM_RESOURCES)], 46)
     init = pl.init_state(spec, NRULES, 1024, device=dev)
-    return spec, rules, batches, rt_ms, errors, init
+    return spec, rules, batches, rt_ms, errors, init, grades
 
 
 def _times_at(spec, step_ms: int):
@@ -611,7 +648,7 @@ def phase_engine(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
     from sentinel_tpu_torch.engine import pipeline as pl
 
     dev = torch.device(dev)
-    spec, rules, batches, rt_ms, errors, init = _scalar_fixture(dev, R, B)
+    spec, rules, batches, rt_ms, errors, init, _ = _scalar_fixture(dev, R, B)
     flags = dict(skip_auth=True, skip_sys=True, scalar_has_rl=False,
                  skip_threads=True, scalar_flow=True, record_alt=False)
     times = _times_at(spec, 2)
@@ -735,7 +772,7 @@ def phase_prio_engine(stt, sa, mode: str, dev="cuda", R=1 << 20,
 
     dev = torch.device(dev)
     share = 1.0 if mode == "prio" else 0.01
-    spec, rules, batches, rt_ms, errors, init = _scalar_fixture(
+    spec, rules, batches, rt_ms, errors, init, _ = _scalar_fixture(
         dev, R, B, prio_share=share)
     times = _times_at(spec, step_ms)
     base = dict(skip_auth=True, skip_sys=True, scalar_has_rl=False,
@@ -880,6 +917,222 @@ def phase_prio_engine(stt, sa, mode: str, dev="cuda", R=1 << 20,
             f"step")
     return out
 
+# ---------------------------------------------------------------------------
+# Hot-parameter rules at full width
+# ---------------------------------------------------------------------------
+
+PARAM_RESOURCES = 256        # ruled resources, two param rules each
+PARAM_KEYS, PARAM_PAIRS = 1 << 16, 4   # the config's defaults (PK, PV)
+PARAM_VALUES = 120           # user ids per rule, Zipf s = 1.1
+PARAM_CAPACITY = 512
+GRADES = ("qps", "rate_limiter", "thread")
+
+
+def _param_rules(tpf, names):
+    """Two rules on each resource, one on ``paramIdx`` 0 and one on 1, of
+    one grade by resource: 3/4 QPS DEFAULT (some with a burst, some with
+    ``durationInSec`` 2, some with a per-item override), 1/8 RATE_LIMITER
+    (``maxQueueingTimeMs`` 0 or 20), 1/8 THREAD → (rules, grade code of
+    each name: 1 QPS, 2 RATE_LIMITER, 3 THREAD)."""
+    rules, grade = [], {}
+    for i, name in enumerate(names):
+        for idx in (0, 1):
+            if i % 8 == 6:
+                grade[name] = 2
+                rules.append(tpf.ParamFlowRule(
+                    resource=name, param_idx=idx, count=100.0,
+                    control_behavior=tpf.BEHAVIOR_RATE_LIMITER,
+                    max_queueing_time_ms=0 if i % 16 == 6 else 20))
+            elif i % 8 == 7:
+                grade[name] = 3
+                rules.append(tpf.ParamFlowRule(
+                    resource=name, param_idx=idx, count=2.0,
+                    grade=tpf.GRADE_THREAD))
+            else:
+                grade[name] = 1
+                items = ([tpf.ParamFlowItem(object=1, count=9)]
+                         if i % 5 == 0 else [])
+                rules.append(tpf.ParamFlowRule(
+                    resource=name, param_idx=idx, count=3.0,
+                    burst_count=2 if i % 3 == 1 else 0,
+                    duration_in_sec=2 if i % 3 == 2 else 1,
+                    param_flow_item_list=items))
+    return rules, grade
+
+
+def _with_param(dev, spec, rules, resources, batches, names, seed):
+    """The param rules of :func:`_param_rules` on ``names`` (rows of
+    ``resources``), the engine's key table at the config's defaults, and
+    each batch's events on those rows given one Zipf-distributed user id
+    per rule (1/16 of them a 3-element collection in the second argument:
+    four pairs), resolved on the host → (spec, rules, batches, grade code
+    of every row int8[R] on ``dev``)."""
+    from sentinel_tpu_torch.rules import param_flow as tpf
+    prules, grade = _param_rules(tpf, names)
+    comp = tpf.compile_param_rules(
+        prules, resource_registry=resources, capacity=PARAM_CAPACITY,
+        k_per_resource=2, device=dev)
+    registry = tpf.ParamKeyRegistry(PARAM_KEYS)
+    spec = dataclasses.replace(spec, param_keys=PARAM_KEYS,
+                               param_pairs=PARAM_PAIRS)
+    rules = rules._replace(param_table=comp.table)
+    grades = np.zeros(spec.rows, np.int8)
+    for name, g in grade.items():
+        grades[resources.lookup(name)] = g
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, PARAM_VALUES + 1) ** 1.1
+    p /= p.sum()
+    out = []
+    for b in batches:
+        rows = b.rows.cpu().numpy()
+        idx = np.nonzero(grades[np.minimum(rows, spec.rows - 1)] > 0)[0]
+        m = idx.shape[0]
+        v = rng.choice(PARAM_VALUES, (m, 4), p=p)
+        many = rng.random(m) < 1 / 16
+        args = [(int(a[0]), [int(x) for x in a[1:]] if many[j]
+                 else int(a[1])) for j, a in enumerate(v)]
+        pr_sub, pk_sub = tpf.resolve_pairs_many(comp, registry, rows[idx],
+                                                args, PARAM_PAIRS)
+        n = rows.shape[0]
+        pr = np.full((n, PARAM_PAIRS), PARAM_CAPACITY, np.int32)
+        pk = np.full((n, PARAM_PAIRS), PARAM_KEYS, np.int32)
+        pr[idx], pk[idx] = pr_sub, pk_sub
+        out.append(b._replace(param_rules=torch.from_numpy(pr).to(dev),
+                              param_keys=torch.from_numpy(pk).to(dev)))
+    evicted, _ = registry.drain_updates()
+    if evicted or len(registry) > 2 * PARAM_RESOURCES * PARAM_VALUES:
+        fail(f"param fixture: {len(registry)} key rows, {len(evicted)} "
+             f"evicted")
+    return spec, rules, out, torch.from_numpy(grades).to(dev)
+
+
+def _grade_counts(grades, batch, verdicts) -> torch.Tensor:
+    """int32[3, 2] on the device: per grade, the valid events its param
+    slot admitted and those it denied (``PARAM_FLOW``)."""
+    from sentinel_tpu_torch.core.errors import BlockReason
+    g = grades[torch.clamp(batch.rows, max=grades.shape[0] - 1).long()]
+    denied = verdicts.reason == BlockReason.PARAM_FLOW
+    rows = []
+    for code in (1, 2, 3):
+        on = batch.valid & (g == code)
+        rows.append(torch.stack([(on & ~denied).sum(dtype=torch.int32),
+                                 (on & denied).sum(dtype=torch.int32)]))
+    return torch.stack(rows)
+
+
+def _check_grades(tag: str, counts) -> list:
+    """Every grade admitted and denied in every step → the counts."""
+    table = torch.stack(counts).cpu().numpy()         # [steps, 3, 2]
+    for i, step in enumerate(table):
+        for g, (adm, den) in enumerate(step):
+            if adm == 0 or den == 0:
+                fail(f"{tag}: step {i}: grade {GRADES[g]} admitted {adm}, "
+                     f"denied {den}")
+    return table.tolist()
+
+
+def phase_param_engine(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
+                       steps: int = 12, profile: bool = False) -> dict:
+    """The scalar route with hot-parameter rules: the headline fixture
+    plus 512 param rules on 256 of its ruled resources (THREAD grade among
+    them, so the thread gauges and the param THREAD update are on), fused
+    decide+exit steps whose exits are the previous step's admissions with
+    their pairs. Kernel, plain seam and sort-free off must give identical
+    verdicts and state (``param_dyn`` included), 11 kernel launches a
+    step, no wait on the device, and every grade admitting and denying in
+    every step."""
+    from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch.engine import pipeline as pl
+
+    dev = torch.device(dev)
+    spec, rules, batches, rt_ms, errors, init, grades = _scalar_fixture(
+        dev, R, B, param=True)
+    flags = dict(skip_auth=True, skip_sys=True, scalar_has_rl=False,
+                 skip_threads=False, scalar_flow=True, record_alt=False)
+    times = _times_at(spec, 2)
+
+    def run(state, n_steps, sortfree=True, strict=False, counts=None):
+        verdicts, step_s = [], []
+        prev = batches[0]._replace(valid=torch.zeros(B, dtype=torch.bool,
+                                                     device=dev))
+        for i in range(n_steps):
+            b = batches[i % 4]
+            xb = pl.ExitBatch(
+                rows=prev.rows, origin_rows=prev.origin_rows,
+                chain_rows=prev.chain_rows, acquire=prev.acquire,
+                rt_ms=rt_ms[i % 4], error=errors[i % 4], is_in=prev.is_in,
+                valid=prev.valid, param_rules=prev.param_rules,
+                param_keys=prev.param_keys)
+            sync()
+            t = time.perf_counter()
+            with no_host_sync(strict and dev.type == "cuda"):
+                state, v = pl.decide_and_record_exits(
+                    spec, rules, state, b, xb, times(i), (0.5, 0.1),
+                    sortfree=sortfree, **flags)
+            sync()
+            step_s.append(time.perf_counter() - t)
+            verdicts.append(v)
+            if counts is not None:
+                counts.append(_grade_counts(grades, b, v))
+            prev = b._replace(valid=v.allow & b.valid)
+        return state, verdicts, step_s
+
+    run(_clone_state(init), 2)                       # warm-up
+    sa.LAUNCHES.clear()
+    s_kernel, v_kernel, step_s = run(_clone_state(init), steps, strict=True)
+    launches = sa.LAUNCHES["scatter_add"]
+    # per fused step: the decide record, the main gauge +1, the param
+    # token consumption, the param THREAD +1; the exit payload, rt_sum,
+    # rt_hist, the breakers' two counts, the main gauge -1, param THREAD -1
+    if launches != 11 * steps:
+        fail(f"param engine phase: {launches} kernel launches in {steps} "
+             f"steps, want 11 per step")
+    real = sa.scatter_add
+    sa.scatter_add = sa.scatter_add_reference     # the plain seam
+    try:
+        sa.LAUNCHES.clear()
+        s_plain, v_plain, _ = run(_clone_state(init), steps)
+        if sa.LAUNCHES["scatter_add"]:
+            fail("param engine phase: the plain run launched the kernel")
+    finally:
+        sa.scatter_add = real
+    counts = []
+    s_sorted, v_sorted, _ = run(_clone_state(init), steps, sortfree=False,
+                                strict=True, counts=counts)
+    for i, (a, b, c) in enumerate(zip(v_kernel, v_plain, v_sorted)):
+        for f in ("allow", "reason", "wait_ms"):
+            if not (torch.equal(getattr(a, f), getattr(b, f))
+                    and torch.equal(getattr(a, f), getattr(c, f))):
+                fail(f"param engine phase: verdict {f} differs at step {i}")
+    for other, what in ((s_plain, "plain seam"), (s_sorted, "sort-free off")):
+        bad = _state_equal(s_kernel, other, convert)
+        if bad:
+            fail(f"param engine phase: state differs from the {what} run: "
+                 f"{bad}")
+    per_grade = _check_grades("param engine phase", counts)
+    med = float(np.median(step_s[1:]))
+    out = {"route": "scalar_param", "R": R, "B": B, "steps": steps,
+           "param_keys": PARAM_KEYS, "param_rules": 2 * PARAM_RESOURCES,
+           "launches": launches, "launches_per_step": launches / steps,
+           "step_ms_median": med * 1e3,
+           "step_ms_all": [x * 1e3 for x in step_s],
+           "grade_admitted_denied_per_step": per_grade,
+           "decisions_per_s": B / med}
+    log(f"[scalar_param] R={R} B={B} steps={steps}, 512 param rules on "
+        f"{PARAM_RESOURCES} resources, PK={PARAM_KEYS}: verdicts and state "
+        f"equal (kernel, plain seam, sort-free off); step median "
+        f"{med * 1e3:.3f} ms ({B / med:.0f} decisions/s); kernel launches "
+        f"{launches} ({launches / steps:.1f}/step); every grade admitted "
+        f"and denied in every step (step 0 [admitted, denied] by grade: "
+        f"{per_grade[0]})")
+    if profile:
+        out["profile"] = prof = _profile_steps(
+            lambda: run(_clone_state(init), steps), steps,
+            "engine_scalar_param_trace.json")
+        log(f"[scalar_param] device time {prof['device_ms_per_step']:.3f} "
+            f"ms per step")
+    return out
+
 
 ORIGINS, CONTEXTS = 64, 8
 
@@ -929,7 +1182,8 @@ def _origin_rules(flow_mod, n_rules, thread_grade: bool = False):
 
 def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
                         B=1 << 19, steps: int = 8, profile: bool = False,
-                        prio: float = 0.0, step_ms: int = 2) -> dict:
+                        prio: float = 0.0, step_ms: int = 2,
+                        param: bool = False) -> dict:
     """The fast or general route at full width: fused decide+exit steps
     run twice from one state (the kernel, then the plain seam) and once
     more without sort-free grouping; verdicts, ``sf_overflow`` and state
@@ -939,7 +1193,12 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
     does when such a rule is loaded; the fast route's elide them. With
     ``prio`` that share of the events is prioritized and the steps are
     the occupy-aware ones (one more launch a step: the grants), ``step_ms``
-    of virtual time apart."""
+    of virtual time apart. With ``param`` the 512 param rules of
+    :func:`_with_param` ride on 256 of the ruled resources (the sorted
+    param check on the general route, the rank form on the fast one; two
+    more launches a step, the param THREAD update on entry and exit, and
+    on the fast route the token consumption), and every grade must admit
+    and deny in every step."""
     from sentinel_tpu_torch import convert
     from sentinel_tpu_torch.core.registry import (
         OriginRegistry, Registry, ResourceRegistry,
@@ -996,12 +1255,13 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
     has_rl = any(r.control_behavior == flow_mod.BEHAVIOR_RATE_LIMITER
                  for r in flow.rules)
     # the runtime's rule: the gauges are kept when anything reads them
-    skip_threads = not any(r.grade == flow_mod.GRADE_THREAD
-                           for r in flow.rules)
+    # (a THREAD-grade param rule among them)
+    skip_threads = not param and not any(r.grade == flow_mod.GRADE_THREAD
+                                         for r in flow.rules)
     flags = dict(skip_auth=True, skip_sys=True, scalar_has_rl=has_rl,
                  skip_threads=skip_threads, record_alt=True,
                  fast_flow=route == "fast", enable_occupy=prio > 0)
-    tag = route + ("_occupy" if prio else "")
+    tag = route + ("_occupy" if prio else "") + ("_param" if param else "")
 
     rng = np.random.default_rng(43)
     batches, any_prio = [], []
@@ -1030,10 +1290,16 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
     rt_ms = [torch.from_numpy(rng.integers(0, 200, B).astype(np.int32)).to(
         dev) for _ in range(4)]
     errors = [torch.from_numpy(rng.random(B) < 0.3).to(dev) for _ in range(4)]
+    grades = None
+    if param:
+        spec, rules, batches, grades = _with_param(
+            dev, spec, rules, resources, batches,
+            [f"r{i}" for i in range(PARAM_RESOURCES)], 47)
     times = _times_at(spec, step_ms)
     init = pl.init_state(spec, NRULES, NBRK, device=dev)
 
-    def run(state, n_steps, sortfree=True, strict=False, track=None):
+    def run(state, n_steps, sortfree=True, strict=False, track=None,
+            counts=None):
         out, step_s = [], []
         prev = batches[0]._replace(valid=torch.zeros(B, dtype=torch.bool,
                                                      device=dev))
@@ -1043,7 +1309,8 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
                 rows=prev.rows, origin_rows=prev.origin_rows,
                 chain_rows=prev.chain_rows, acquire=prev.acquire,
                 rt_ms=rt_ms[i % 4], error=errors[i % 4],
-                is_in=prev.is_in, valid=prev.valid)
+                is_in=prev.is_in, valid=prev.valid,
+                param_rules=prev.param_rules, param_keys=prev.param_keys)
             nxt = times(i)[0] + 1
             if track is not None:
                 before = _booked_for(state, nxt)
@@ -1057,6 +1324,8 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
             step_s.append(time.perf_counter() - t)
             if track is not None:
                 track.append(_booked_for(state, nxt) - before)
+            if counts is not None:
+                counts.append(_grade_counts(grades, b, v))
             out.append(v)
             prev = b._replace(valid=v.allow.clone())
         return state, out, step_s
@@ -1069,8 +1338,10 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
     # counting order's bucket histogram; the exit payload, rt_sum and
     # rt_hist, the alt payload and alt rt_sum; the breakers' two counts;
     # with the thread gauges, +1 and -1 on the main and the alt gauges
+    # with param rules: the param THREAD update on entry and exit, and on
+    # the fast route (the rank form) the token consumption
     per_step = (9 + (route == "general") + 4 * (not skip_threads)
-                + (prio > 0))
+                + (prio > 0) + param * (2 + (route == "fast")))
     if launches != per_step * steps:
         fail(f"{tag} engine phase: {launches} kernel launches in {steps} "
              f"steps, want {per_step} per step")
@@ -1083,10 +1354,11 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
             fail(f"{tag} engine phase: the plain run launched the kernel")
     finally:
         sa.scatter_add = real
-    booked = []
+    booked, counts = [], []
     s_sorted, v_sorted, sorted_s = run(_clone_state(init), steps,
                                        sortfree=False, strict=True,
-                                       track=booked)
+                                       track=booked,
+                                       counts=counts if param else None)
     occupied = int(sum(booked))
     overflow = 0
     for i, (a, b, c) in enumerate(zip(v_kernel, v_plain, v_sorted)):
@@ -1106,6 +1378,8 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
                  f"run: {bad}")
     if prio and occupied == 0:
         fail(f"{tag} engine phase: no occupied admission")
+    per_grade = _check_grades(f"{tag} engine phase", counts) if param \
+        else None
     allowed = int(sum(int(v.allow.sum()) for v in v_kernel))
 
     # what computing both orders costs (the reference's lax.cond computes
@@ -1128,7 +1402,8 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
         fallback = lambda: seg.sort_by_keys(rule, row)  # noqa: E731
     fallback_ms = summary(CudaTimer().warm({"fallback": fallback},
                                            rounds=3, iters=5)["fallback"]
-                          ) if dev.type == "cuda" and not prio else None
+                          ) if dev.type == "cuda" and not (prio or param) \
+        else None
     med = float(np.median(step_s[1:]))
     med_sorted = float(np.median(sorted_s[1:]))
     out = {"route": tag, "R": R, "RA": RA, "B": B, "steps": steps,
@@ -1140,7 +1415,8 @@ def phase_origin_engine(stt, sa, route: str, dev="cuda", R=1 << 20,
            "step_ms_all": [x * 1e3 for x in step_s],
            "sorted_step_ms_median": med_sorted * 1e3,
            "decisions_per_s": B / med, "allowed": allowed,
-           "sf_overflow": overflow, "fallback_ms": fallback_ms}
+           "sf_overflow": overflow, "fallback_ms": fallback_ms,
+           "grade_admitted_denied_per_step": per_grade}
     log(f"[{tag}] R={R} RA={RA} B={B} K={flow.k_used} steps={steps} "
         f"prioritized {prio}, booked units {occupied}; "
         f"thread gauges {'on' if not skip_threads else 'off'}: "
@@ -1598,6 +1874,256 @@ def phase_fast_path_runtime(stt, sa, dev="cuda", R=1 << 20) -> dict:
             "carried": obs["carried"]}
 
 
+def _param_slots(stt):
+    """A host gate that denies resources named ``blocked-*`` and calls whose
+    first argument is ``"evil"``, and a device slot with a tuple state that
+    denies an event whose row already passed 12 in the rolling second
+    (torch only, no wait on the device)."""
+    class Gate(stt.HostGate):
+        name = "deny-gate"
+
+        def check(self, resource, origin, acquire, args):
+            return not (resource.startswith("blocked-")
+                        or (len(args) > 0 and args[0] == "evil"))
+
+    class PassCap(stt.DeviceSlot):
+        name = "pass-cap"
+
+        def init_state(self, spec):
+            return (torch.zeros((), dtype=torch.int32),
+                    torch.zeros((), dtype=torch.float32))
+
+        def check(self, state, view):
+            ok = view.pass_counts < 12.0
+            denied = (view.live & ~ok).sum(dtype=torch.int32)
+            top = torch.where(view.live, view.pass_counts, 0.0).amax()
+            return (state[0] + denied, torch.maximum(state[1], top)), ok
+    return Gate(), PassCap()
+
+
+def _drive_param(stt, sph, clock, calls: int = 900) -> tuple:
+    """Hot-parameter rules and the slot SPI through the user's entry
+    points → (observations to compare with a twin, host timings):
+    ``entry(res, args=(uid,))`` with exits on QPS (with per-item
+    overrides), RATE_LIMITER and THREAD rules; a reload while THREAD
+    entries are held, exited after it; an 8192-event ``entry_batch`` with
+    2-D int64 args (the vector resolution) over more distinct keys than
+    the table's slots (eviction); a list-of-tuples batch with str and
+    collection values; a host gate on both tiers; a device slot
+    registered (the fast path goes off) and unregistered (it comes
+    back)."""
+    sph._cpu.sample = lambda: (0.5, 0.25)
+    rl = stt.PARAM_BEHAVIOR_RATE_LIMITER
+    obs, timing = {}, {}
+    sph.load_flow_rules([stt.FlowRule(resource="api", count=300.0)])
+    sph.load_param_flow_rules([
+        stt.ParamFlowRule(resource="api", param_idx=0, count=5,
+                          param_flow_item_list=[
+                              stt.ParamFlowItem(object="vip", count=12),
+                              stt.ParamFlowItem(object="u0", count=0)]),
+        stt.ParamFlowRule(resource="paced", param_idx=0, count=20,
+                          control_behavior=rl, max_queueing_time_ms=120),
+        stt.ParamFlowRule(resource="conc", param_idx=0,
+                          grade=stt.GRADE_THREAD, count=2)])
+    rng = np.random.default_rng(21)
+    p = 1.0 / np.arange(1, 41) ** 1.1
+    uids = rng.choice(40, calls, p=p / p.sum())
+    out, held = [], []
+    t = time.perf_counter()
+    for i in range(calls):
+        res = ("api", "paced", "conc")[i % 3]
+        uid = "vip" if uids[i] == 39 else f"u{uids[i]}"
+        try:
+            e = sph.entry(res, args=(uid,), sleep=False)
+            out.append(e.wait_ms)
+            if res == "conc" and i % 2:
+                held.append(e)
+            else:
+                e.exit()
+        except stt.BlockException as exc:
+            out.append(type(exc).__name__)
+        if len(held) > 6:
+            held.pop(0).exit()
+        if i % 10 == 9:
+            clock.advance_ms(7)
+    timing["entry_args_us_per_call"] = (time.perf_counter() - t) \
+        / calls * 1e6
+    obs["entries"] = out
+    # a reload while THREAD entries are held: their exits neither
+    # decrement nor unpin
+    sph.load_param_flow_rules([
+        stt.ParamFlowRule(resource="api", param_idx=0, count=8),
+        stt.ParamFlowRule(resource="conc", param_idx=0,
+                          grade=stt.GRADE_THREAD, count=3),
+        stt.ParamFlowRule(resource="bulk", param_idx=1, count=2)])
+    for e in held:
+        e.exit()
+    obs["pins_after_reload"] = sph.param_key_registry.live_pin_count()
+    # 8192 events, 2-D int64 args: one rule per resource, so the vector
+    # resolution; ~5,000 distinct keys on a 4096-row table
+    n = 8192
+    names = [("bulk", "api", "conc", "free")[i] for i in
+             rng.integers(0, 4, n)]
+    args = rng.integers(0, 4000, (n, 2)).astype(np.int64)
+    v = sph.entry_batch(names, args_list=args)
+    obs["vector_batch"] = [v.allow.tolist(), v.reason.tolist()]
+    obs["pins_after_vector"] = sph.param_key_registry.live_pin_count()
+    clock.advance_ms(40)
+    # the general resolution: str and collection values, a host gate
+    gate, slot = _param_slots(stt)
+    sph.register_slot(gate)
+    m = 600
+    names = [("api", "conc", "blocked-a", "free")[i] for i in
+             rng.integers(0, 4, m)]
+    vals = [f"u{x}" for x in rng.integers(0, 30, m)]
+    args_list = [(["u1", vals[i]],) if i % 7 == 0 else
+                 ("evil",) if i % 11 == 0 else (vals[i],)
+                 for i in range(m)]
+    v = sph.entry_batch(names, args_list=args_list)
+    obs["general_batch"] = [v.allow.tolist(), v.reason.tolist(),
+                            v.wait_ms.tolist()]
+    got = []
+    for res, a in (("api", ("u5",)), ("blocked-b", ("u5",)),
+                   ("api", ("evil",)), ("free", ("x",))):
+        try:
+            with sph.entry(res, args=a) as e:
+                got.append(("pass", e.fast))
+        except stt.BlockException as exc:
+            got.append((type(exc).__name__, getattr(exc, "slot_name", "")))
+    obs["gate_entries"] = got
+    # a device slot: the fast path goes off while it is registered
+    obs["fast_before"] = sph._fast_enabled
+    sph.register_slot(slot)
+    obs["fast_with_slot"] = sph._fast_enabled
+    got = []
+    for i in range(30):
+        try:
+            with sph.entry("free", args=(i,)) as e:
+                got.append(("pass", e.fast))
+        except stt.BlockException as exc:
+            got.append((type(exc).__name__, getattr(exc, "slot_name", "")))
+    v = sph.entry_batch(["free", "api"] * 16,
+                        args_list=[(f"u{i}",) for i in range(32)])
+    obs["slot_calls"] = [got, v.allow.tolist(), v.reason.tolist(),
+                         sph.slot_name_for_code(int(v.reason.max()))]
+    obs["slot_state"] = [float(x) for x in sph._state.custom[0]]
+    sph.unregister_slot(slot)
+    sph.unregister_slot(gate)
+    obs["fast_after"] = sph._fast_enabled
+    with sph.entry("free") as e:
+        obs["free_after"] = e.fast
+    obs["totals"] = {name: sph.node_totals(name) for name in (
+        "api", "paced", "conc", "bulk", "free", "blocked-a",
+        "__entry_node__")}
+    obs["routes"] = dict(sph.routes)
+    return obs, timing
+
+
+def phase_param_runtime(stt, sa, dev="cuda", R=1 << 20,
+                        B=1 << 19) -> dict:
+    """:func:`_drive_param` on ``Sentinel(device="cuda")`` with the default
+    configuration (host fast path on) and 4096 param key rows, against a
+    CPU twin under a twin ManualClock: observations, routes and the whole
+    engine state must be equal. Then at 1M resources, on the card alone,
+    one ``entry_batch`` of ``B`` events with 2-D int args (one rule per
+    resource: the vector resolution), timing the pair resolution and the
+    whole call on the host."""
+    from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch import runtime as trt
+    t0 = 1_800_000_000_000
+    cfg = stt.load_config(max_resources=1 << 14, param_table_slots=4096)
+    engines, got = {}, {}
+    for d in (dev, "cpu"):
+        clock = stt.ManualClock(start_ms=t0)
+        sph = stt.Sentinel(config=cfg, clock=clock, device=d)
+        if d == dev:
+            sa.LAUNCHES.clear()
+        got[d] = _drive_param(stt, sph, clock)
+        if d == dev:
+            launches = sa.LAUNCHES["scatter_add"]
+        engines[d] = sph
+    (obs, timing), (want, _) = got[dev], got["cpu"]
+    for key in want:
+        if obs[key] != want[key]:
+            fail(f"param runtime phase: {key} differs from the CPU twin: "
+                 f"{str(obs[key])[:300]} vs {str(want[key])[:300]}")
+    bad = _state_equal(engines[dev]._state, engines["cpu"]._state, convert)
+    if bad:
+        fail(f"param runtime phase: state differs from the CPU twin: {bad}")
+    if launches == 0:
+        fail("param runtime phase: the kernel was never launched")
+    if not (obs["fast_before"] and not obs["fast_with_slot"]
+            and obs["fast_after"] and obs["free_after"] == "free"):
+        fail(f"param runtime phase: the fast path did not go off and come "
+             f"back: {obs['fast_before']}, {obs['fast_with_slot']}, "
+             f"{obs['fast_after']}, {obs['free_after']}")
+    outcomes = set(x if isinstance(x, str) else "wait" if x else "pass"
+                   for x in obs["entries"])
+    if not {"pass", "wait", "ParamFlowException"} <= outcomes:
+        fail(f"param runtime phase: entry outcomes {outcomes}")
+    codes = set(obs["general_batch"][1])
+    if not {5, 96} <= codes:
+        fail(f"param runtime phase: general batch reasons {codes}")
+    if 16 not in obs["slot_calls"][2] or obs["pins_after_reload"] != 0:
+        fail(f"param runtime phase: slot reasons {obs['slot_calls'][2]}, "
+             f"pins after the reload {obs['pins_after_reload']}")
+
+    # 1M resources on the card: one 2^19-event batch, vector resolution
+    big = stt.Sentinel(config=stt.load_config(max_resources=R),
+                       clock=stt.ManualClock(start_ms=t0), device=dev)
+    ruled = [f"p{i}" for i in range(PARAM_RESOURCES)]
+    big.load_param_flow_rules([stt.ParamFlowRule(resource=r, param_idx=0,
+                                                 count=3.0) for r in ruled])
+    pool = big.intern_resources(ruled + [f"u{i}" for i in range(60_000)])
+    rng = np.random.default_rng(22)
+    p = 1.0 / np.arange(1, PARAM_VALUES + 1) ** 1.1
+    spent = []
+    real = trt.pf_mod.resolve_pairs_many
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            spent.append(time.perf_counter() - t)
+    trt.pf_mod.resolve_pairs_many = timed
+    call_s = []
+    sa.LAUNCHES.clear()
+    try:
+        for _ in range(3):
+            rows = np.where(rng.random(B) < 0.125,
+                            pool[rng.integers(0, PARAM_RESOURCES, B)],
+                            pool[rng.integers(0, pool.shape[0], B)])
+            args = rng.choice(PARAM_VALUES, (B, 1),
+                              p=p / p.sum()).astype(np.int64)
+            sync()
+            t = time.perf_counter()
+            v = big.entry_batch(rows, args_list=args)
+            call_s.append(time.perf_counter() - t)
+            big.clock.advance_ms(3)
+    finally:
+        trt.pf_mod.resolve_pairs_many = real
+    launches += sa.LAUNCHES["scatter_add"]
+    denied = int((v.reason == 5).sum())
+    if denied == 0 or int(v.allow.sum()) == 0:
+        fail(f"param runtime phase: 1M batch allowed {int(v.allow.sum())}, "
+             f"param-denied {denied}")
+    timing["resolve_ms_2e19"] = [x * 1e3 for x in spent]
+    timing["entry_batch_ms_2e19"] = [x * 1e3 for x in call_s]
+    log(f"[param_runtime] Sentinel(device={dev!r}), default config, 4096 "
+        f"key rows: entries, reload, vector and general batches, host gate, "
+        f"device slot: observations, routes and state equal to a CPU twin; "
+        f"entry(args=) {timing['entry_args_us_per_call']:.1f} us/call "
+        f"(with its exit); routes {obs['routes']}; kernel launches "
+        f"{launches}")
+    log(f"[param_runtime] R={R}: entry_batch of {B} events, 2-D int args, "
+        f"{PARAM_RESOURCES} one-rule resources: pair resolution "
+        f"{', '.join(f'{x:.1f}' for x in timing['resolve_ms_2e19'])} ms, "
+        f"whole call {', '.join(f'{x:.1f}' for x in timing['entry_batch_ms_2e19'])}"
+        f" ms (host clock; the first call warms up)")
+    return {"launches": launches, "timing": timing, "routes": obs["routes"]}
+
+
 def find_syncs(stt, sa) -> int:
     """``--find-syncs``: every place where a kernel-run engine step waits
     on the device, with the port's frames of its stack (the sync debug
@@ -1628,6 +2154,8 @@ def find_syncs(stt, sa) -> int:
     phase_origin_engine(stt, sa, "general", steps=3, prio=0.125,
                         step_ms=250)
     phase_origin_engine(stt, sa, "fast", R=1 << 17, steps=3)
+    phase_param_engine(stt, sa, steps=3)
+    phase_origin_engine(stt, sa, "general", steps=3, param=True)
     log(f"[sync] {len(sites)} place(s) wait on the device in a step")
     return 0
 
@@ -1679,15 +2207,20 @@ def main() -> int:
         profile=profile)
     report["fast"] = phase_origin_engine(stt, sa, "fast", R=1 << 17,
                                          profile=profile)
+    report["scalar_param"] = phase_param_engine(stt, sa, profile=profile)
+    report["general_param"] = phase_origin_engine(
+        stt, sa, "general", param=True, profile=profile)
     report["runtime"] = phase_runtime(stt, sa)
     report["fast_path"] = phase_fast_path_runtime(stt, sa)
+    report["param_runtime"] = phase_param_runtime(stt, sa)
     report["seconds"] = time.perf_counter() - t_all
 
     decide = report["kernel_cases"][0]
     # the main path's launches: each path's run, counted from 0
     launches = sum(report[p]["launches"] for p in (
         "engine", "prio", "prio_mixed", "general", "general_occupy", "fast",
-        "runtime", "fast_path"))
+        "scalar_param", "general_param", "runtime", "fast_path",
+        "param_runtime"))
     kernels = [{
         "name": "scatter_add", "route": "cuda",
         "source": "sentinel_tpu_torch/csrc/scatter_add.cu",

@@ -3,10 +3,11 @@
 Both packages keep their device state as nested ``NamedTuple``\\ s with the
 same field names. :func:`to_numpy` flattens either package's tree into a
 dict of numpy arrays keyed by leaf path (``"second.counters"``,
-``"flow_table.count"``, ...); :func:`state_from_numpy` and
-:func:`ruleset_from_numpy` build the port's tensors from such a dict. The
-JAX package's param-flow and custom-slot leaves (``param_dyn.*``,
-``param_table.*``) have no counterpart in this slice and are ignored.
+``"flow_table.count"``, ``"param_dyn.tokens"``, ...);
+:func:`state_from_numpy` and :func:`ruleset_from_numpy` build the port's
+tensors from such a dict. The device slots' states (``custom``) are
+tuples whose items are arrays or tuples again: they flatten by position
+(``"custom.0"``, ``"custom.1.0"``, ...) and come back as nested tuples.
 Nothing here imports JAX: a JAX array converts through ``np.asarray``.
 """
 
@@ -21,6 +22,7 @@ from sentinel_tpu_torch.engine.pipeline import RuleSet, SentinelState
 from sentinel_tpu_torch.rules.authority import AuthorityRuleTable
 from sentinel_tpu_torch.rules.degrade import BreakerState, DegradeRuleTable
 from sentinel_tpu_torch.rules.flow import FlowDynState, FlowRuleTable
+from sentinel_tpu_torch.rules.param_flow import ParamDynState, ParamRuleTable
 from sentinel_tpu_torch.rules.system import SystemThresholds
 from sentinel_tpu_torch.stats.window import WindowState
 
@@ -28,10 +30,11 @@ from sentinel_tpu_torch.stats.window import WindowState
 _NESTED = {
     SentinelState: {"second": WindowState, "minute": WindowState,
                     "alt_second": WindowState, "flow_dyn": FlowDynState,
-                    "breakers": BreakerState},
+                    "breakers": BreakerState, "param_dyn": ParamDynState},
     RuleSet: {"flow_table": FlowRuleTable, "deg_table": DegradeRuleTable,
               "auth_table": AuthorityRuleTable,
-              "sys_thresholds": SystemThresholds},
+              "sys_thresholds": SystemThresholds,
+              "param_table": ParamRuleTable},
 }
 
 
@@ -45,7 +48,9 @@ def to_numpy(tree, prefix: str = "") -> Dict[str, np.ndarray]:
         for name in tree._fields:
             out.update(to_numpy(getattr(tree, name), prefix + name + "."))
         return out
-    if isinstance(tree, tuple) and not tree:
+    if isinstance(tree, tuple):
+        for i, item in enumerate(tree):
+            out.update(to_numpy(item, f"{prefix}{i}."))
         return out
     if isinstance(tree, torch.Tensor):
         out[prefix[:-1]] = tree.detach().cpu().numpy()
@@ -67,13 +72,25 @@ def from_numpy(cls, d: Dict[str, np.ndarray], device="cpu",
     fields = {}
     for name in cls._fields:
         key = prefix + name
-        if name in nested:
+        if cls is SentinelState and name == "custom":
+            fields[name] = _positional(d, device, key + ".")
+        elif name in nested:
             fields[name] = from_numpy(nested[name], d, device, key + ".")
         elif key in d:
             fields[name] = _tensor(d[key], device)
         elif name not in cls._field_defaults:
             raise KeyError(f"missing leaf {key!r}")
     return cls(**fields)
+
+
+def _positional(d: Dict[str, np.ndarray], device, prefix: str):
+    """The nested tuple whose leaves sit under ``prefix`` by position
+    (``prefix + "0"``, ``prefix + "1.0"``, ...)."""
+    if prefix[:-1] in d:
+        return _tensor(d[prefix[:-1]], device)
+    heads = sorted({int(k[len(prefix):].split(".")[0]) for k in d
+                    if k.startswith(prefix)})
+    return tuple(_positional(d, device, f"{prefix}{i}.") for i in heads)
 
 
 def state_from_numpy(d: Dict[str, np.ndarray],

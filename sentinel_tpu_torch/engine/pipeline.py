@@ -7,17 +7,20 @@ acquire) and the general path (anything else), each with or without
 occupy (``enable_occupy``: prioritized events may book the next window,
 and live bookings count toward the QPS base), with the alt table's
 (resource × origin / context) records. The reference order is kept:
-every entry walks ``AuthoritySlot → SystemSlot → FlowSlot → DegradeSlot``
-and
-``StatisticSlot`` records pass/block AFTER the decision (statistics are
-post-decision, ``StatisticSlot.java:54-131``); exits record
-RT/success/exception and feed the breakers.
+every entry walks ``AuthoritySlot → SystemSlot → ParamFlowSlot → FlowSlot
+→ DegradeSlot`` and then the user's device slots (``custom_slots``,
+:mod:`sentinel_tpu_torch.engine.slots`), and ``StatisticSlot`` records
+pass/block AFTER the decision (statistics are post-decision,
+``StatisticSlot.java:54-131``); exits record RT/success/exception, feed
+the breakers and release the THREAD-grade param keys.
 
 * :func:`decide_entries` — batch of entry events → verdicts + updated state;
 * :func:`record_exits`  — batch of completions → updated state;
 * :func:`decide_and_record_exits` — both, exits landing after decisions;
 * :func:`uncount_reserved` — the host fast path's unused lease tokens
-  returned to their window buckets.
+  returned to their window buckets;
+* :func:`record_blocks` — BLOCK records of denials decided off the device
+  (the host gates').
 
 State is updated IN PLACE where that saves a copy (the window tables, the
 thread gauges, the RT histogram) — the port's counterpart of the JAX
@@ -43,18 +46,20 @@ import torch
 
 from sentinel_tpu_torch.core.errors import BlockReason
 from sentinel_tpu_torch.core.registry import ENTRY_NODE_ROW
+from sentinel_tpu_torch.engine.slots import DeviceSlotView, run_device_slots
 from sentinel_tpu_torch.obs import resource_hist
 from sentinel_tpu_torch.ops import scatter_add as sa
 from sentinel_tpu_torch.ops.segments import padded_table_gather
 from sentinel_tpu_torch.rules import authority as auth_mod
 from sentinel_tpu_torch.rules import degrade as deg_mod
 from sentinel_tpu_torch.rules import flow as flow_mod
+from sentinel_tpu_torch.rules import param_flow as pf_mod
 from sentinel_tpu_torch.rules import system as sys_mod
 from sentinel_tpu_torch.stats import events as ev
 from sentinel_tpu_torch.stats.window import (
-    WindowSpec, WindowState, add_one_row, add_rows_multi, add_rows_vec,
-    init_window, invalidate_rows, refresh_all, refresh_rows, row_mask,
-    uncount_rows,
+    WindowSpec, WindowState, add_one_row, add_rows, add_rows_multi,
+    add_rows_vec, init_window, invalidate_rows, refresh_all, refresh_rows,
+    row_mask, uncount_rows, window_sum_rows,
 )
 
 Times = Tuple[int, int, int, int]
@@ -74,11 +79,12 @@ class EngineSpec:
     # 0 = table disabled (state.rt_hist is None)
     hist_buckets: int = 0
     occupy_timeout_ms: int = 500   # OccupyTimeoutProperty (0 = off)
+    param_keys: int = 0       # PK — hot-key rows (0 = param flow disabled)
+    param_pairs: int = 0      # PV — (rule, value) checks per event
 
 
 class SentinelState(NamedTuple):
-    """All mutable device state (the JAX package's pytree without the
-    param-flow and custom-slot leaves, which later slices add)."""
+    """All mutable device state (the JAX package's pytree)."""
 
     second: WindowState           # [R]
     minute: WindowState           # [R] (rows=1 when minute disabled)
@@ -87,6 +93,9 @@ class SentinelState(NamedTuple):
     alt_threads: torch.Tensor     # int32[RA]
     flow_dyn: flow_mod.FlowDynState
     breakers: deg_mod.BreakerState
+    param_dyn: Optional[pf_mod.ParamDynState] = None   # [PK+1] per key row
+    # the registered DeviceSlots' states, in registration order
+    custom: Tuple = ()
     rt_hist: Optional[torch.Tensor] = None   # int32[R, HB] cumulative
 
 
@@ -100,6 +109,7 @@ class RuleSet(NamedTuple):
     auth_table: auth_mod.AuthorityRuleTable
     auth_idx: torch.Tensor
     sys_thresholds: sys_mod.SystemThresholds
+    param_table: Optional[pf_mod.ParamRuleTable] = None
     # concat(flow_idx, deg_idx) [R, Kf+Kd]: both slots' rule ids in ONE
     # gather over the big row table. Build it with with_joint() (or
     # build_joint_np on the same arrays), never by hand: the consumer
@@ -127,6 +137,9 @@ class EntryBatch(NamedTuple):
     is_in: torch.Tensor          # bool[B]
     prioritized: torch.Tensor    # bool[B]
     valid: torch.Tensor          # bool[B]
+    param_rules: Optional[torch.Tensor] = None   # int32[B, PV] (None: no
+    # param slot)
+    param_keys: Optional[torch.Tensor] = None    # int32[B, PV]
     # False = not counted in the thread gauges (host-leased admissions:
     # the lease pre-charge and each leased exit both carry False). None =
     # all True.
@@ -146,6 +159,8 @@ class ExitBatch(NamedTuple):
     error: torch.Tensor          # bool[B]
     is_in: torch.Tensor          # bool[B]
     valid: torch.Tensor          # bool[B]
+    param_rules: Optional[torch.Tensor] = None   # int32[B, PV]
+    param_keys: Optional[torch.Tensor] = None    # int32[B, PV]
     count_thread: Optional[torch.Tensor] = None    # bool[B] (see EntryBatch)
 
 
@@ -173,6 +188,7 @@ def init_state(spec: EngineSpec, nf: int, nd: int,
         flow_dyn=flow_mod.init_flow_dyn(nf, spec.second.buckets, spec.rows,
                                         device=device),
         breakers=deg_mod.init_breaker_state(nd, device=device),
+        param_dyn=pf_mod.init_param_dyn(spec.param_keys, device=device),
         rt_hist=(torch.zeros((spec.rows, spec.hist_buckets),
                              dtype=torch.int32, device=device)
                  if spec.hist_buckets else None),
@@ -250,14 +266,18 @@ def decide_entries(
     skip_threads: bool = False,  # nothing loaded reads the thread gauges
     sortfree: bool = False,      # fast/general paths group through the
     # claim cascade (ops/sortfree.py); the verdicts carry sf_overflow
+    custom_slots: Tuple = (),    # the registered DeviceSlots, in order
 ) -> Tuple[SentinelState, Verdicts]:
     """One device step: decide a batch, then record post-decision
     statistics. Gating masks cascade through the slots, so an event
-    blocked upstream never consumes downstream quota. The flow slot takes
-    the scalar path (``scalar_flow``), the fast path (``fast_flow``) or,
-    with neither, the general path. With ``enable_occupy`` an event the
-    flow slot admits by booking the next window (occupied) skips the
-    degrade slot and records OCCUPIED_PASS (not on the alt rows)."""
+    blocked upstream never consumes downstream quota. The param slot runs
+    when the engine has key rows and the batch carries pairs: its rank
+    form on the scalar and fast routes (a uniform acquire), its sorted
+    form on the general route. The flow slot takes the scalar path
+    (``scalar_flow``), the fast path (``fast_flow``) or, with neither, the
+    general path. With ``enable_occupy`` an event the flow slot admits by
+    booking the next window (occupied) skips the degrade slot and records
+    OCCUPIED_PASS (not on the alt rows). The device slots run last."""
     if scalar_flow and (record_alt or fast_flow or any_prio):
         raise ValueError("scalar_flow implies record_alt=False and excludes "
                          "fast_flow and prioritized events")
@@ -282,6 +302,19 @@ def decide_entries(
             batch.is_in, batch.acquire, live1, now_idx_s, load1, cpu_usage,
             spec.statistic_max_rt)
     live2 = live1 & sys_ok
+
+    # ParamFlowSlot sits between SystemSlot and FlowSlot
+    param_dyn = state.param_dyn
+    use_param = spec.param_keys and batch.param_rules is not None
+    if use_param:
+        pcheck = (pf_mod.param_check_scalar if (scalar_flow or fast_flow)
+                  else pf_mod.param_check)
+        param_dyn, param_ok, param_wait = pcheck(
+            rules.param_table, param_dyn, batch.param_rules,
+            batch.param_keys, batch.acquire, live2, rel_now_ms)
+        live2 = live2 & param_ok
+    else:
+        param_ok = torch.ones_like(live2)
 
     flow_bk = deg_bk = None
     if (scalar_flow or fast_flow) and rules.joint_idx is not None:
@@ -340,15 +373,38 @@ def decide_entries(
     if occupied is not None:
         deg_ok = deg_ok | occupied
 
-    allow = live & auth_ok & sys_ok & flow_ok & deg_ok
+    # the user's DeviceSlots, after the built-in cascade; the window is
+    # read before this step records into it
+    custom_states = state.custom
+    if custom_slots:
+        pass_counts = window_sum_rows(
+            spec.second, state.second, torch.clamp(batch.rows, max=R - 1),
+            ev.PASS, now_idx_s).float()
+        view = DeviceSlotView(
+            rows=batch.rows, origin_ids=batch.origin_ids,
+            acquire=batch.acquire, is_in=batch.is_in,
+            prioritized=batch.prioritized, live=live3 & deg_ok,
+            now_idx_s=now_idx_s, rel_now_ms=rel_now_ms,
+            pass_counts=pass_counts)
+        custom_states, custom_ok, custom_reason = run_device_slots(
+            custom_slots, state.custom, view)
+    else:
+        custom_ok = torch.ones_like(live)
+
+    allow = live & auth_ok & sys_ok & param_ok & flow_ok & deg_ok & custom_ok
     reason = torch.zeros(batch.rows.shape, dtype=torch.int8,
                          device=batch.rows.device)
+    if custom_slots:
+        reason = torch.where(~custom_ok, custom_reason, reason)
     reason = torch.where(~deg_ok, BlockReason.DEGRADE, reason)
     reason = torch.where(~flow_ok, BlockReason.FLOW, reason)
+    reason = torch.where(~param_ok, BlockReason.PARAM_FLOW, reason)
     reason = torch.where(~sys_ok, BlockReason.SYSTEM, reason)
     reason = torch.where(~auth_ok, BlockReason.AUTHORITY, reason)
     reason = torch.where(~batch.valid, BlockReason.NONE, reason)
-    wait_ms = torch.where(allow, torch.clamp(wait_ms, min=0), 0)
+    wait_ms = (torch.maximum(wait_ms, param_wait) if use_param
+               else torch.clamp(wait_ms, min=0))
+    wait_ms = torch.where(allow, wait_ms, 0)
 
     # ---- StatisticSlot.entry (post-decision recording) ----
     passed = allow & batch.valid
@@ -434,9 +490,14 @@ def decide_entries(
             _add_threads(state.alt_threads,
                          torch.where(pass2, alt_targets, RA),
                          torch.cat([thr1, thr1]).to(torch.int32))
+        if use_param:
+            param_dyn = pf_mod.param_thread_update(
+                rules.param_table, param_dyn, batch.param_rules,
+                batch.param_keys, passed, +1)
 
     new_state = state._replace(second=second, alt_second=alt_second,
-                               flow_dyn=flow_dyn, breakers=breakers)
+                               flow_dyn=flow_dyn, breakers=breakers,
+                               param_dyn=param_dyn, custom=custom_states)
     return new_state, Verdicts(allow=allow, reason=reason,
                                wait_ms=wait_ms.to(torch.int32),
                                sf_overflow=sf_ovf if sortfree else None)
@@ -514,6 +575,10 @@ def record_exits(
             _add_threads(state.alt_threads, alt_targets,
                          -torch.cat([dec1, dec1]))
             state.alt_threads.clamp_(min=0)
+        if spec.param_keys and batch.param_rules is not None:
+            pf_mod.param_thread_update(
+                rules.param_table, state.param_dyn, batch.param_rules,
+                batch.param_keys, batch.valid, -1)
 
     breakers = deg_mod.degrade_exit_feed(
         rules.deg_table, state.breakers, rules.deg_idx, batch.rows,
@@ -549,6 +614,7 @@ def decide_and_record_exits(
     scalar_has_rl: bool = True,
     skip_threads: bool = False,
     sortfree: bool = False,
+    custom_slots: Tuple = (),
 ) -> Tuple[SentinelState, Verdicts]:
     """Fused entry+exit step: this step's decisions, then the previous
     step's completions — identical to :func:`decide_entries` followed by
@@ -560,10 +626,45 @@ def decide_and_record_exits(
         record_alt=record_alt,
         scalar_flow=scalar_flow, fast_flow=fast_flow, skip_auth=skip_auth,
         skip_sys=skip_sys, scalar_has_rl=scalar_has_rl,
-        skip_threads=skip_threads, sortfree=sortfree)
+        skip_threads=skip_threads, sortfree=sortfree,
+        custom_slots=custom_slots)
     state = record_exits(spec, rules, state, exit_batch, times,
                          record_alt=record_alt, skip_threads=skip_threads)
     return state, verdicts
+
+
+def record_blocks(spec: EngineSpec, state: SentinelState, rows: torch.Tensor,
+                  origin_rows: torch.Tensor, chain_rows: torch.Tensor,
+                  acquire: torch.Tensor, is_in: torch.Tensor,
+                  valid: torch.Tensor, times: Times) -> SentinelState:
+    """Record BLOCK events decided OFF the device (the host gates'
+    denials; the reference's StatisticSlot counts them like any other
+    BlockException): the event's row and, for inbound events, the ENTRY
+    row in the second and minute windows, and its origin and chain rows
+    in the alt window. Padding rows (>= R, alt >= RA) drop."""
+    now_idx_s, now_idx_m = times[0], times[1]
+    R, RA = spec.rows, spec.alt_rows
+    main_targets = torch.cat([torch.where(valid, rows, R),
+                              torch.where(valid & is_in, ENTRY_NODE_ROW, R)
+                              .to(torch.int32)])
+    alt_targets = _stat_targets(spec, origin_rows, chain_rows, valid)
+    amt = torch.where(valid, acquire, 0)
+    amt2 = torch.cat([amt, amt])
+    if spec.second.buckets >= 2:
+        second = refresh_all(spec.second, state.second, now_idx_s)
+        alt_second = refresh_all(spec.second, state.alt_second, now_idx_s)
+    else:
+        second = refresh_rows(spec.second, state.second, main_targets,
+                              now_idx_s)
+        alt_second = refresh_rows(spec.second, state.alt_second, alt_targets,
+                                  now_idx_s)
+    add_rows(spec.second, second, main_targets, ev.BLOCK, amt2, now_idx_s)
+    add_rows(spec.second, alt_second, alt_targets, ev.BLOCK, amt2, now_idx_s)
+    if spec.minute:
+        refresh_all(spec.minute, state.minute, now_idx_m)
+        add_rows(spec.minute, state.minute, main_targets, ev.BLOCK, amt2,
+                 now_idx_m)
+    return state._replace(second=second, alt_second=alt_second)
 
 
 def uncount_reserved(spec: EngineSpec, state: SentinelState,

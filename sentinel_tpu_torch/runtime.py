@@ -31,6 +31,14 @@ on the host for resources no rule names and for resources with one
 simple QPS rule (from a token lease pre-charged through the device), and
 lands their statistics through the device steps in batches.
 
+Hot-parameter rules (:meth:`Sentinel.load_param_flow_rules`) take each
+call's arguments (``entry(..., args=...)``, ``entry_batch(...,
+args_list=...)``): the values are interned on the host into key rows
+(:class:`~sentinel_tpu_torch.rules.param_flow.ParamKeyRegistry`) and the
+param slot checks them on the device. User processor slots
+(:meth:`Sentinel.register_slot`) are host gates, checked before the
+dispatch, and device slots, run inside the engine step.
+
 The fast and general paths group their segments sort-free
 (``SENTINEL_SORTFREE``, on unless set to 0; read at construction and at
 every rule reload, as in the JAX package). Two API tiers:
@@ -43,7 +51,7 @@ every rule reload, as in the JAX package). Two API tiers:
   ``*_nowait`` forms — numpy arrays in, verdict arrays out.
 
 What is not ported raises :class:`NotImplementedError` naming the ROADMAP
-item that will port it — param rules, cluster mode, meshes — and never
+item that will port it — cluster mode (param rules' too), meshes — and never
 quietly takes another path. A decide step reads nothing back from the
 device: the verdicts (and the sort-free steps' claim overflow count) come
 home through :class:`PendingVerdicts` (pinned memory, ``non_blocking``
@@ -72,7 +80,8 @@ from sentinel_tpu_torch.core.context import (
     DEFAULT_CONTEXT_NAME, current_context,
 )
 from sentinel_tpu_torch.core.errors import (
-    ErrorEntryFreeError, block_exception_for, is_block_exception,
+    BlockException, BlockReason, ErrorEntryFreeError, block_exception_for,
+    is_block_exception,
 )
 from sentinel_tpu_torch.core.pending import (
     PendingResult, start_host_copy, wait_host_copy,
@@ -81,15 +90,17 @@ from sentinel_tpu_torch.core.registry import (
     ENTRY_NODE_ROW, OriginRegistry, Registry, ResourceRegistry,
 )
 from sentinel_tpu_torch.engine import fastpath as fp_mod
+from sentinel_tpu_torch.engine import slots as slots_mod
 from sentinel_tpu_torch.engine.pipeline import (
     EngineSpec, EntryBatch, ExitBatch, RuleSet, Verdicts,
     decide_and_record_exits, decide_entries, init_state,
-    invalidate_resource_rows, record_exits, uncount_reserved,
+    invalidate_resource_rows, record_blocks, record_exits, uncount_reserved,
 )
 from sentinel_tpu_torch.obs.resource_hist import engine_hist_buckets
 from sentinel_tpu_torch.rules import authority as auth_mod
 from sentinel_tpu_torch.rules import degrade as deg_mod
 from sentinel_tpu_torch.rules import flow as flow_mod
+from sentinel_tpu_torch.rules import param_flow as pf_mod
 from sentinel_tpu_torch.rules import system as sys_mod
 from sentinel_tpu_torch.stats import events as ev
 from sentinel_tpu_torch.stats.window import (
@@ -101,8 +112,8 @@ ENTRY_TYPE_IN = 1
 
 # what the port rejects, and where ROADMAP.md queues it
 _NOT_PORTED = {
-    "param": "param flow rules are not ported yet: ROADMAP A8",
-    "cluster": "cluster-mode flow rules are not ported yet: ROADMAP A12",
+    "cluster": "cluster-mode flow and param rules are not ported yet: "
+               "ROADMAP A12",
     "mesh": "meshes (row-sharded multi-GPU engines) are not ported yet: "
             "ROADMAP A11",
 }
@@ -189,11 +200,11 @@ class Entry:
 
     __slots__ = ("_rt", "resource", "row", "origin_row", "chain_row",
                  "acquire", "is_in", "create_ms", "error", "_exited",
-                 "wait_ms", "_terminate_handlers", "fast")
+                 "wait_ms", "_terminate_handlers", "fast", "param_pairs")
 
     def __init__(self, rt: "Sentinel", resource: str, row: int,
                  origin_row: int, chain_row: int, acquire: int, is_in: bool,
-                 create_ms: int):
+                 create_ms: int, param_pairs=None):
         self._rt = rt
         self.resource = resource
         self.row = row
@@ -207,6 +218,9 @@ class Entry:
         self.wait_ms = 0   # pacing verdict; >0 only with entry(sleep=False)
         self._terminate_handlers = None
         self.fast = None   # "free"/"leased" when the host fast path admitted
+        # (rules [PV], keys [PV], generation, registry, pinned rows) of a
+        # call with param pairs, else None
+        self.param_pairs = param_pairs
 
     def trace(self, exc: BaseException) -> None:
         """Reference ``Tracer.trace``: mark a business exception so it
@@ -279,7 +293,18 @@ class Sentinel:
             statistic_max_rt=cfg.statistic_max_rt,
             hist_buckets=engine_hist_buckets(),
             occupy_timeout_ms=cfg.occupy_timeout_ms,
+            param_keys=cfg.param_table_slots,
+            param_pairs=cfg.param_pairs_per_event,
         )
+        self.param_key_registry = pf_mod.ParamKeyRegistry(
+            cfg.param_table_slots)
+        self._user_param_rules: List[pf_mod.ParamFlowRule] = []
+        self._gateway_param_rules: List[pf_mod.ParamFlowRule] = []
+        # bumped at every param-rule reload: pairs resolved against an
+        # older (table, registry) carry their generation and are dropped
+        self._param_gen = 0
+        self._host_gates: Tuple[slots_mod.HostGate, ...] = ()
+        self._device_slots: Tuple[slots_mod.DeviceSlot, ...] = ()
         # process epoch: wraparound-safe int32 relative time base
         self.epoch_ms = self.clock.now_ms()
         self._lock = threading.RLock()
@@ -340,11 +365,19 @@ class Sentinel:
             capacity=cfg.max_authority_rules, k_per_resource=2,
             num_rows=cfg.max_resources, device=self.device)
 
+    def _compile_param(self, rules):
+        cfg = self.cfg
+        return pf_mod.compile_param_rules(
+            rules, resource_registry=self.resources,
+            capacity=cfg.max_param_rules,
+            k_per_resource=cfg.max_rules_per_resource, device=self.device)
+
     def _compile_empty_rules(self) -> None:
         self._flow = self._compile_flow([])
         self._deg = self._compile_degrade([])
         self._auth = self._compile_authority([])
         self._sys = sys_mod.compile_system_rules([], device=self.device)
+        self._param = self._compile_param([])
         self._ruleset = self._build_ruleset()
 
     def _build_ruleset(self) -> RuleSet:
@@ -365,17 +398,20 @@ class Sentinel:
         self._sortfree = sortfree_enabled()
         prev_skip = getattr(self, "_skip_threads", None)
         # nothing loaded READS live concurrency → the gauge scatters are
-        # elided (readers: THREAD-grade flow rules, system rules)
+        # elided (readers: THREAD-grade flow and param rules, system rules)
         self._skip_threads = (
             not self.cfg.thread_gauge_always
             and self._skip_sys
             and not any(r.grade == flow_mod.GRADE_THREAD
-                        for r in self._flow.rules))
+                        for r in self._flow.rules)
+            and not any(r.grade == pf_mod.GRADE_THREAD
+                        for r in self._param.rules))
         if prev_skip is not None and prev_skip != self._skip_threads:
             # a flip invalidates the gauges: zero them (transient
             # under-count only; decrements clamp at 0)
             self._state.threads.zero_()
             self._state.alt_threads.zero_()
+            self._state.param_dyn.threads.zero_()
         fi_np = self._flow.rule_idx_np[:, :kf]
         di_np = self._deg.rule_idx_np[:, :kd]
         joint_np = RuleSet.build_joint_np(fi_np, di_np)
@@ -386,7 +422,8 @@ class Sentinel:
             flow_table=self._flow.table, flow_idx=flow_idx,
             deg_table=self._deg.table, deg_idx=deg_idx,
             auth_table=self._auth.table, auth_idx=self._auth.rule_idx,
-            sys_thresholds=self._sys, joint_idx=joint)
+            sys_thresholds=self._sys, param_table=self._param.table,
+            joint_idx=joint)
 
     def _update_rule_pins_locked(self, family: str, res: set, org: set,
                                  ctx: set) -> None:
@@ -407,9 +444,9 @@ class Sentinel:
 
     def _rebuild_fastpath(self) -> None:
         """Recompute the host fast path's classification after a rule
-        load (callers hold ``self._lock``): rows named by a degrade or
-        authority rule, by more than one flow rule or by any but one
-        simple QPS rule, or read by a RELATE rule, are INELIGIBLE; a row
+        load (callers hold ``self._lock``): rows named by a degrade,
+        authority or param rule, by more than one flow rule or by any but
+        one simple QPS rule, or read by a RELATE rule, are INELIGIBLE; a row
         with one DEFAULT QPS rule (default app, DIRECT, local) is
         LEASED; every other row is FREE."""
         if not self._fast_enabled:
@@ -417,6 +454,7 @@ class Sentinel:
         row_of = self.resources.get_or_create
         inel = {row_of(r.resource) for r in self._deg.rules}
         inel.update(row_of(r.resource) for r in self._auth.rules)
+        inel.update(self._param.by_row.keys())
         flow_by_row: Dict[int, list] = {}
         for r in self._flow.rules:
             flow_by_row.setdefault(row_of(r.resource), []).append(r)
@@ -516,8 +554,205 @@ class Sentinel:
                 "authority", {r.resource for r in compiled.rules}, org,
                 set())
 
-    def load_param_flow_rules(self, rules) -> None:
-        raise NotImplementedError(_NOT_PORTED["param"])
+    def load_param_flow_rules(self,
+                              rules: Sequence[pf_mod.ParamFlowRule]) -> None:
+        """Load the hot-parameter rules (``ParamFlowRuleManager``)."""
+        self._reload_param_rules(user=list(rules))
+
+    def set_gateway_param_rules(
+            self, rules: Sequence[pf_mod.ParamFlowRule]) -> None:
+        """Install param rules converted from gateway rules: they merge
+        with the user's into the one param slot."""
+        self._reload_param_rules(gateway=list(rules))
+
+    def _reload_param_rules(self, user=None, gateway=None) -> None:
+        """Compile the user's and the gateway's param rules together. A
+        reload gets a fresh key registry, a new generation (pairs resolved
+        before it are dropped, and their exits neither decrement nor
+        unpin), fresh key state and its rule pins."""
+        all_rules = ((self._user_param_rules if user is None else user)
+                     + (self._gateway_param_rules if gateway is None
+                        else gateway))
+        if any(r.cluster_mode for r in all_rules if r.is_valid()):
+            raise NotImplementedError(_NOT_PORTED["cluster"])
+        self._flush_fast()          # see load_flow_rules
+        compiled = self._compile_param(all_rules)
+        with self._lock:
+            if user is not None:
+                self._user_param_rules = user
+            if gateway is not None:
+                self._gateway_param_rules = gateway
+            self._param = compiled
+            self._ruleset = self._build_ruleset()
+            # rule slots changed meaning: fresh interning, cold key state
+            self.param_key_registry = pf_mod.ParamKeyRegistry(
+                self.cfg.param_table_slots)
+            self._param_gen += 1
+            self._state = self._state._replace(
+                param_dyn=pf_mod.init_param_dyn(self.spec.param_keys,
+                                                device=self.device))
+            self._rebuild_fastpath()
+            self._update_rule_pins_locked(
+                "param", {r.resource for r in compiled.rules}, set(), set())
+
+    # ------------------------------------------------------------------
+    # Pluggable processor slots (the SlotChainBuilder SPI;
+    # engine/slots.py)
+    # ------------------------------------------------------------------
+
+    def register_slot(self, slot) -> None:
+        """Register a user processor slot without editing the engine: a
+        :class:`~sentinel_tpu_torch.engine.slots.HostGate` runs on the
+        host before every dispatch (both tiers); a
+        :class:`~sentinel_tpu_torch.engine.slots.DeviceSlot` runs inside
+        the engine step, its state carried in the engine state, and turns
+        the host fast path off while it is registered (it must see every
+        event). Denials surface as :class:`CustomSlotException` with the
+        slot's name and are recorded like every other block."""
+        # reason codes are int8: DeviceSlot i is CUSTOM_BASE + i (below
+        # CUSTOM_GATE_BASE), HostGate i is CUSTOM_GATE_BASE + i (below 128)
+        max_dev = int(BlockReason.CUSTOM_GATE_BASE) - int(
+            BlockReason.CUSTOM_BASE)
+        max_gate = 128 - int(BlockReason.CUSTOM_GATE_BASE)
+        if isinstance(slot, slots_mod.DeviceSlot):
+            if len(self._device_slots) >= max_dev:
+                raise ValueError(f"at most {max_dev} device slots")
+            self._flush_fast()      # land buffered stats before the switch
+            with self._lock:
+                self._device_slots = self._device_slots + (slot,)
+                self._fast_enabled = False
+                self._reset_custom_states_locked()
+        elif isinstance(slot, slots_mod.HostGate):
+            if len(self._host_gates) >= max_gate:
+                raise ValueError(f"at most {max_gate} host gates")
+            with self._lock:
+                self._host_gates = self._host_gates + (slot,)
+        else:
+            raise TypeError(
+                "slot must subclass HostGate or DeviceSlot (engine/slots.py)")
+
+    def unregister_slot(self, slot) -> None:
+        if isinstance(slot, slots_mod.DeviceSlot):
+            with self._lock:
+                self._device_slots = tuple(
+                    s for s in self._device_slots if s is not slot)
+                self._fast_enabled = (bool(self.cfg.host_fast_path)
+                                      and not self._device_slots)
+                self._reset_custom_states_locked()
+        else:
+            with self._lock:
+                self._host_gates = tuple(
+                    g for g in self._host_gates if g is not slot)
+
+    def _reset_custom_states_locked(self) -> None:
+        """Every registered device slot's initial state, on the engine's
+        device (a (un)registration resets them all, as the reference's
+        re-jit does)."""
+        def place(x):
+            if isinstance(x, tuple):
+                return tuple(place(v) for v in x)
+            return torch.as_tensor(x).to(self.device)
+        self._state = self._state._replace(custom=tuple(
+            place(s.init_state(self.spec)) for s in self._device_slots))
+
+    @staticmethod
+    def _slot_code(kind: str, index: int) -> int:
+        """Reason code of a custom slot's denial: CUSTOM_BASE + i for
+        device slot i, CUSTOM_GATE_BASE + i for host gate i."""
+        return (int(BlockReason.CUSTOM_GATE_BASE) + index if kind == "gate"
+                else int(BlockReason.CUSTOM_BASE) + index)
+
+    def slot_name_for_code(self, code: int) -> str:
+        """The registered slot's name for a custom reason code."""
+        code = int(code)
+        if code >= BlockReason.CUSTOM_GATE_BASE:
+            i = code - int(BlockReason.CUSTOM_GATE_BASE)
+            return (self._host_gates[i].name if i < len(self._host_gates)
+                    else "unknown-slot")
+        i = code - int(BlockReason.CUSTOM_BASE)
+        return (self._device_slots[i].name if i < len(self._device_slots)
+                else "unknown-slot")
+
+    def _exception_for(self, code: int, resource: str,
+                       origin: str) -> BlockException:
+        return block_exception_for(
+            code, resource, origin=origin,
+            slot_name=(self.slot_name_for_code(code)
+                       if code >= BlockReason.CUSTOM_BASE else ""))
+
+    def _run_host_gates_one(self, resource: str, origin: str, acquire: int,
+                            args: Sequence, row: int, o_row: int, c_row: int,
+                            is_in: bool) -> None:
+        """The registered gates for one entry; a denial is recorded on the
+        device and raised (a gate's own BlockException propagates)."""
+        for gi, gate in enumerate(self._host_gates):
+            exc = None
+            try:
+                ok = gate.check(resource, origin, acquire, args)
+            except BlockException as e:
+                ok, exc = False, e
+            if not ok:
+                raise self._record_cluster_block(
+                    self._slot_code("gate", gi), resource, origin, row,
+                    o_row, c_row, acquire, is_in, exc=exc,
+                    slot_name=gate.name)
+
+    def _run_host_gates_batch(self, resources, origins, acq, args_list,
+                              n: int):
+        """→ (blocked bool[n], reasons int32[n]); the caller records the
+        denials on the device in one batch."""
+        blocked = np.zeros(n, np.bool_)
+        reasons = np.zeros(n, np.int32)
+        for gi, gate in enumerate(self._host_gates):
+            oks = np.asarray(gate.check_batch(resources, origins, acq,
+                                              args_list), np.bool_)
+            newly = ~oks & ~blocked
+            if newly.any():
+                reasons[newly] = self._slot_code("gate", gi)
+                blocked |= newly
+        return blocked, reasons
+
+    def _record_blocks_locked(self, rows, origin_rows, chain_rows, acquire,
+                              is_in, times) -> None:
+        """BLOCK records of denials decided on the host (one batch)."""
+        m = rows.shape[0]
+        b = pad_pow2(m)
+        r, ra = self.spec.rows, self.spec.alt_rows
+        col = self._dev
+        self._state = record_blocks(
+            self.spec, self._state, col(pad_to(rows, b, r, np.int32)),
+            col(pad_to(origin_rows, b, ra, np.int32)),
+            col(pad_to(chain_rows, b, ra, np.int32)),
+            col(pad_to(acquire, b, 0, np.int32)),
+            col(pad_to(is_in, b, False, np.bool_)),
+            col(pad_to(np.ones(m, np.bool_), b, False, np.bool_)), times)
+
+    def _record_cluster_block(self, reason: int, resource: str, origin: str,
+                              row: int, o_row: int, c_row: int,
+                              acquire: int, is_in: bool, exc=None,
+                              slot_name: str = "") -> BlockException:
+        """Record a denial decided off the device (a host gate's) → the
+        exception for the caller to raise (``exc`` when the gate raised
+        its own)."""
+        times = self._time_scalars(self.clock.now_ms())
+        with self._lock:
+            self._record_blocks_locked(
+                np.array([row], np.int32), np.array([o_row], np.int32),
+                np.array([c_row], np.int32), np.array([acquire], np.int32),
+                np.array([is_in], np.bool_), times)
+        return self._log_cluster_block(reason, resource, origin, exc=exc,
+                                       slot_name=slot_name)
+
+    @staticmethod
+    def _log_cluster_block(reason: int, resource: str, origin: str,
+                           exc=None, slot_name: str = "") -> BlockException:
+        """The exception of a denial decided off the device (``exc`` when
+        the gate raised its own). The block log and the callbacks are not
+        ported yet (ROADMAP A5)."""
+        if exc is not None:
+            return exc
+        return block_exception_for(reason, resource, origin=origin,
+                                   slot_name=slot_name)
 
     # ------------------------------------------------------------------
     # Time and device helpers
@@ -570,9 +805,29 @@ class Sentinel:
         return t.to(self.device)
 
     def _drain_evictions_locked(self) -> None:
-        """Rows recycled by registry pressure lose their history (and that
-        of the alt rows they hashed to) before they serve a new
+        """Recycled param key rows are reset and pending per-item
+        overrides written (both padded with PK, as the reference pads
+        them); rows recycled by registry pressure lose their history (and
+        that of the alt rows they hashed to) before they serve a new
         resource."""
+        ev_keys, overrides = self.param_key_registry.drain_updates()
+        pk = self.spec.param_keys
+        if ev_keys:
+            rows = pad_to(np.asarray(ev_keys, np.int32),
+                          pad_pow2(len(ev_keys)), pk, np.int32)
+            self._state = self._state._replace(
+                param_dyn=pf_mod.invalidate_param_keys(
+                    self._state.param_dyn, self._dev(rows)))
+        if overrides:
+            m = pad_pow2(len(overrides))
+            rows = pad_to(np.asarray([r for r, _ in overrides], np.int32), m,
+                          pk, np.int32)
+            vals = pad_to(np.asarray([v for _, v in overrides], np.float32),
+                          m, -1.0, np.float32)
+            self._state = self._state._replace(
+                param_dyn=pf_mod.apply_overrides(
+                    self._state.param_dyn, self._dev(rows),
+                    self._dev(vals)))
         evicted = self.resources.drain_evicted()
         if evicted:
             alt: List[int] = []
@@ -644,17 +899,29 @@ class Sentinel:
                      skip_threads=self._skip_threads,
                      sortfree=self._sortfree, record_alt=record_alt,
                      scalar_has_rl=self._scalar_has_rl,
-                     enable_occupy=use_occ, any_prio=any_prio)
+                     enable_occupy=use_occ, any_prio=any_prio,
+                     custom_slots=self._device_slots)
         if route == "scalar":
             flags["scalar_flow"] = True
         elif route == "fast":
             flags["fast_flow"] = True
         return flags
 
+    def _pairs(self, arr, b: int, fill: int):
+        """An [n, PV] pair column padded to [b, PV] with ``fill`` and copied
+        over (None passes through)."""
+        if arr is None:
+            return None
+        out = np.full((b, self.spec.param_pairs), fill, np.int32)
+        out[:arr.shape[0]] = arr
+        return self._dev(out)
+
     def _entry_batch(self, rows, origin_ids, origin_rows, context_ids,
                      chain_rows, acquire, is_in, prioritized, vfull,
-                     count_thread=None, record_block=None) -> EntryBatch:
-        """Pad the raw columns to a power of two and copy them over."""
+                     count_thread=None, record_block=None, param_rules=None,
+                     param_keys=None) -> EntryBatch:
+        """Pad the raw columns to a power of two and copy them over (the
+        pairs padded with the NP and PK sentinels)."""
         b = pad_pow2(rows.shape[0])
         r, ra = self.spec.rows, self.spec.alt_rows
         col = self._dev
@@ -668,13 +935,16 @@ class Sentinel:
             is_in=col(pad_to(is_in, b, False, np.bool_)),
             prioritized=col(pad_to(prioritized, b, False, np.bool_)),
             valid=col(pad_to(vfull, b, False, np.bool_)),
+            param_rules=self._pairs(param_rules, b, self.cfg.max_param_rules),
+            param_keys=self._pairs(param_keys, b, self.spec.param_keys),
             count_thread=(None if count_thread is None else
                           col(pad_to(count_thread, b, False, np.bool_))),
             record_block=(None if record_block is None else
                           col(pad_to(record_block, b, False, np.bool_))))
 
     def _exit_batch(self, rows, origin_rows, chain_rows, acquire, rt_ms,
-                    error, is_in, valid, count_thread=None) -> ExitBatch:
+                    error, is_in, valid, count_thread=None, param_rules=None,
+                    param_keys=None) -> ExitBatch:
         b = pad_pow2(rows.shape[0])
         r, ra = self.spec.rows, self.spec.alt_rows
         col = self._dev
@@ -687,6 +957,8 @@ class Sentinel:
             error=col(pad_to(error, b, False, np.bool_)),
             is_in=col(pad_to(is_in, b, False, np.bool_)),
             valid=col(pad_to(valid, b, False, np.bool_)),
+            param_rules=self._pairs(param_rules, b, self.cfg.max_param_rules),
+            param_keys=self._pairs(param_keys, b, self.spec.param_keys),
             count_thread=(None if count_thread is None else
                           col(pad_to(count_thread, b, False, np.bool_))))
 
@@ -747,10 +1019,10 @@ class Sentinel:
         context's name keys CHAIN rules. ``prioritized``
         (``SphU.entryWithPriority``): a call a DEFAULT QPS rule would deny
         may book the next window and pass after waiting for its edge.
-        With the host fast path on, calls on rule-free and leased
-        resources are decided on the host (``Entry.fast``)."""
-        if args:
-            raise NotImplementedError(_NOT_PORTED["param"])
+        ``args`` are the call's parameters for hot-param rules
+        (``SphU.entry(name, args)``). The host gates run first. With the
+        host fast path on, calls on rule-free and leased resources are
+        decided on the host (``Entry.fast``)."""
         ctx = current_context()
         use_origin = ctx.origin if origin is None else origin
         # rows resolved ONCE: the same rows feed the verdict and the Entry
@@ -761,6 +1033,9 @@ class Sentinel:
         context_id = (self.contexts.get_or_create(ctx.name)
                       if c_row < self.spec.alt_rows else 0)
         is_in = entry_type == ENTRY_TYPE_IN
+        if self._host_gates:
+            self._run_host_gates_one(resource, use_origin or "", acquire,
+                                     args, row, o_row, c_row, is_in)
         if self._fast_enabled and not prioritized:
             fe = self._fast_entry(resource, row, o_row, c_row, origin_id,
                                   acquire, is_in)
@@ -769,14 +1044,25 @@ class Sentinel:
         if self._fast_enabled and self._fast.due(self.clock.now_ms()):
             # buffered stats reach the device before this decide
             self._flush_fast()
-        verdict = self.decide_raw(
-            np.array([row], np.int32), np.array([origin_id], np.int32),
-            np.array([o_row], np.int32), np.array([context_id], np.int32),
-            np.array([c_row], np.int32), np.array([acquire], np.int32),
-            np.array([is_in], np.bool_), np.array([prioritized], np.bool_))
-        if not bool(verdict.allow[0]):
-            raise block_exception_for(int(verdict.reason[0]), resource,
-                                      origin=use_origin or "")
+        pairs = self._resolve_param_pairs_one(row, args)
+        try:
+            verdict = self.decide_raw(
+                np.array([row], np.int32), np.array([origin_id], np.int32),
+                np.array([o_row], np.int32),
+                np.array([context_id], np.int32),
+                np.array([c_row], np.int32), np.array([acquire], np.int32),
+                np.array([is_in], np.bool_),
+                np.array([prioritized], np.bool_),
+                param_rules=None if pairs is None else pairs[0][None, :],
+                param_keys=None if pairs is None else pairs[1][None, :],
+                param_gen=-1 if pairs is None else pairs[2])
+            if not bool(verdict.allow[0]):
+                raise self._exception_for(int(verdict.reason[0]), resource,
+                                          use_origin or "")
+        except BaseException:
+            if pairs is not None:   # a blocked entry never exits: unpin
+                pairs[3].unpin_rows(pairs[4])
+            raise
         wait = int(verdict.wait_ms[0])
         if wait > 0 and sleep:
             self.clock.sleep_ms(wait)
@@ -784,10 +1070,29 @@ class Sentinel:
         # sleep=False: project create_ms past the wait the caller will
         # await, so rt excludes the pacing delay as with sleep=True
         e = Entry(self, resource, row, o_row, c_row, acquire, is_in,
-                  now if sleep else now + wait)
+                  now if sleep else now + wait, param_pairs=pairs)
         if not sleep:
             e.wait_ms = wait
         return e
+
+    def _resolve_param_pairs_one(self, row: int, args: Sequence):
+        """→ (rules [PV], keys [PV], generation, registry, pinned rows), or
+        None when the resource has no param rule or the call no args.
+        Table, registry and generation are read together under the lock;
+        the THREAD-grade key rows come back pinned against recycling, and
+        the caller unpins them (on a denial, or after the exit's
+        decrement)."""
+        with self._lock:
+            compiled = self._param
+            registry = self.param_key_registry
+            gen = self._param_gen
+        if not compiled.num_active or not args or row not in compiled.by_row:
+            return None
+        pr, pk = pf_mod.resolve_pairs(compiled, registry, row, args,
+                                      self.spec.param_pairs)
+        pins = pf_mod.thread_key_rows(compiled, pr, pk)
+        registry.pin_rows(pins)
+        return (pr, pk, gen, registry, pins)
 
     def _fast_entry(self, resource: str, row: int, o_row: int, c_row: int,
                     origin_id: int, acquire: int,
@@ -936,6 +1241,7 @@ class Sentinel:
             if self._fast.due(now):
                 self._flush_fast(now)
             return
+        pairs = e.param_pairs
         self.exit_batch(
             rows=np.array([e.row], np.int32),
             origin_rows=np.array([e.origin_row], np.int32),
@@ -943,7 +1249,10 @@ class Sentinel:
             acquire=np.array([e.acquire], np.int32),
             rt_ms=np.array([min(rt, self.cfg.statistic_max_rt)], np.int32),
             error=np.array([e.error is not None], np.bool_),
-            is_in=np.array([e.is_in], np.bool_))
+            is_in=np.array([e.is_in], np.bool_),
+            param_rules=None if pairs is None else pairs[0][None, :],
+            param_keys=None if pairs is None else pairs[1][None, :],
+            param_gen=-1 if pairs is None else pairs[2])
 
     # ------------------------------------------------------------------
     # Batch API (throughput tier)
@@ -974,19 +1283,31 @@ class Sentinel:
             prioritized: Optional[Sequence[bool]] = None,
             args_list=None) -> PendingVerdicts:
         """Dispatch-only batch tier: the decide is enqueued and the
-        verdict copy started; ``.result()`` materializes. ``resources``
-        may be names or a numpy INTEGER array of pre-interned rows
-        (:meth:`intern_resources`); ``origins`` and ``contexts`` name each
-        event's caller and entrance context (empty = none)."""
-        if args_list is not None:
-            raise NotImplementedError(_NOT_PORTED["param"])
+        verdict copy started; ``.result()`` materializes (and releases the
+        param-key pins of the denied events: call it for every handle).
+        ``resources`` may be names or a numpy INTEGER array of pre-interned
+        rows (:meth:`intern_resources`); ``origins`` and ``contexts`` name
+        each event's caller and entrance context (empty = none);
+        ``args_list`` holds each event's parameters for hot-param rules —
+        a 2-D numpy integer array is the fastest form (one rule per
+        resource then resolves vectorized). The host gates run first; the
+        events they deny are recorded in one batch and left out of the
+        decide."""
         n = len(resources)
         if isinstance(resources, np.ndarray) and resources.dtype.kind in "iu":
             rows = np.ascontiguousarray(resources, np.int32)
+            if self._host_gates:
+                # the gates are keyed by name
+                resources = [self.resources.name_of(int(r)) or ""
+                             for r in rows]
         else:
             rows = np.fromiter(
                 (self.resources.get_or_create(r) for r in resources),
                 np.int32, count=n)
+        with self._lock:
+            compiled = self._param
+            registry = self.param_key_registry
+            gen = self._param_gen
         ra = self.spec.alt_rows
         origin_ids = np.zeros(n, np.int32)
         origin_rows = np.full(n, ra, np.int32)
@@ -1010,23 +1331,72 @@ class Sentinel:
                  if entry_types is not None else np.ones(n, np.bool_))
         prio = (np.asarray(prioritized, np.bool_) if prioritized is not None
                 else np.zeros(n, np.bool_))
-        return self.decide_raw_nowait(
+        # the gates run before any key is pinned: a gate that raises
+        # leaks no pin
+        gate_blocked = gate_reasons = None
+        if self._host_gates:
+            gate_blocked, gate_reasons = self._run_host_gates_batch(
+                resources, origins, acq, args_list, n)
+            if not gate_blocked.any():
+                gate_blocked = gate_reasons = None
+        param_rules = param_keys = pin_arr = None
+        if args_list is not None and compiled.num_active:
+            param_rules, param_keys = pf_mod.resolve_pairs_many(
+                compiled, registry, rows, args_list, self.spec.param_pairs)
+            # THREAD-grade pairs stay pinned while in flight (the denied
+            # events' pins are released at readback)
+            pin_arr = pf_mod.thread_key_rows(
+                compiled, param_rules, param_keys).reshape(param_keys.shape)
+            registry.pin_rows(pin_arr)
+        valid = None
+        if gate_blocked is not None:
+            idxs = np.nonzero(gate_blocked)[0]
+            times = self._time_scalars(self.clock.now_ms())
+            with self._lock:
+                self._record_blocks_locked(
+                    rows[idxs], origin_rows[idxs], chain_rows[idxs],
+                    acq[idxs], is_in[idxs], times)
+            valid = ~gate_blocked
+        pending = self.decide_raw_nowait(
             rows, origin_ids, origin_rows, context_ids, chain_rows, acq,
-            is_in, prio)
+            is_in, prio, valid=valid, param_rules=param_rules,
+            param_keys=param_keys, param_gen=gen)
+
+        def _finalize() -> Verdicts:
+            verdicts = pending.result()
+            if gate_blocked is not None:
+                verdicts = verdicts._replace(
+                    allow=np.where(gate_blocked, False, verdicts.allow),
+                    reason=np.where(gate_blocked, gate_reasons,
+                                    verdicts.reason).astype(np.int8))
+            if pin_arr is not None:
+                # denied events never exit: release their pins now
+                denied = ~np.asarray(verdicts.allow)
+                if denied.any():
+                    registry.unpin_rows(pin_arr[denied])
+            return verdicts
+
+        return PendingVerdicts(_finalize)
 
     def decide_raw(self, rows, origin_ids, origin_rows, context_ids,
                    chain_rows, acquire, is_in, prioritized, *,
                    valid=None, count_thread=None, record_block=None,
+                   param_rules=None, param_keys=None, param_gen: int = -1,
                    at_ms: Optional[int] = None) -> Verdicts:
-        """Lowest-level host entry point: pre-resolved numpy arrays."""
+        """Lowest-level host entry point: pre-resolved numpy arrays.
+        ``param_gen`` is the generation the pairs were resolved against:
+        pairs of an older one (a reload came in between) are dropped."""
         return self.decide_raw_nowait(
             rows, origin_ids, origin_rows, context_ids, chain_rows, acquire,
             is_in, prioritized, valid=valid, count_thread=count_thread,
-            record_block=record_block, at_ms=at_ms).result()
+            record_block=record_block, param_rules=param_rules,
+            param_keys=param_keys, param_gen=param_gen, at_ms=at_ms).result()
 
     def decide_raw_nowait(self, rows, origin_ids, origin_rows, context_ids,
                           chain_rows, acquire, is_in, prioritized, *,
                           valid=None, count_thread=None, record_block=None,
+                          param_rules=None, param_keys=None,
+                          param_gen: int = -1,
                           at_ms: Optional[int] = None) -> PendingVerdicts:
         """:meth:`decide_raw` with the verdict readback deferred: the step
         is enqueued (state advanced in order under the lock) and the
@@ -1060,14 +1430,20 @@ class Sentinel:
                 return self._decide_split_nowait(
                     rows, origin_ids, origin_rows, context_ids, chain_rows,
                     acquire, is_in, ev_scalar, vfull, prio_np, any_prio,
-                    count_thread, record_block, now)
+                    count_thread, record_block, param_rules, param_keys,
+                    param_gen, now)
         route = self._route(acq_uniform, no_origin_ids, no_alt, any_prio)
         batch = self._entry_batch(rows, origin_ids, origin_rows, context_ids,
                                   chain_rows, acquire, is_in, prio_np,
-                                  vfull, count_thread, record_block)
+                                  vfull, count_thread, record_block,
+                                  param_rules, param_keys)
         times = self._time_scalars(now)
         sys_scalars = self._sys_scalars()
         with self._lock:
+            # under the lock that guards reloads: stale pairs never meet
+            # the new table
+            if batch.param_rules is not None and param_gen != self._param_gen:
+                batch = batch._replace(param_rules=None, param_keys=None)
             now, times = self._restamp_if_stale_locked(at_ms, now, times)
             self._drain_evictions_locked()
             use_occ = self._note_dispatch_locked(now, any_prio)
@@ -1082,7 +1458,8 @@ class Sentinel:
     def _decide_split_nowait(self, rows, origin_ids, origin_rows,
                              context_ids, chain_rows, acquire, is_in,
                              ev_scalar, vfull, prio_np, any_prio,
-                             count_thread, record_block,
+                             count_thread, record_block, param_rules,
+                             param_keys, param_gen,
                              now: int) -> PendingVerdicts:
         """Mixed batch: the scalar-eligible events take the scalar step,
         the others (prioritized ones included) the fast step, scalar
@@ -1100,7 +1477,8 @@ class Sentinel:
                 rows, origin_ids, origin_rows, context_ids, chain_rows,
                 acquire, is_in)]
             opt = [None if a is None else np.asarray(a)[idx]
-                   for a in (count_thread, record_block)]
+                   for a in (count_thread, record_block, param_rules,
+                             param_keys)]
             return self._entry_batch(*cols, prio, vfull[idx], *opt)
 
         prio_g = prio_np[idx_g]
@@ -1111,6 +1489,9 @@ class Sentinel:
         times = self._time_scalars(now)
         sys_scalars = self._sys_scalars()
         with self._lock:
+            if bs.param_rules is not None and param_gen != self._param_gen:
+                bs = bs._replace(param_rules=None, param_keys=None)
+                bg = bg._replace(param_rules=None, param_keys=None)
             self._drain_evictions_locked()
             use_occ = self._note_dispatch_locked(now, any_prio)
             state, v1 = decide_entries(
@@ -1180,28 +1561,44 @@ class Sentinel:
             return self._pending([(verdicts, None)], n)
 
     def exit_batch(self, *, rows, origin_rows, chain_rows, acquire, rt_ms,
-                   error, is_in, count_thread=None,
+                   error, is_in, param_rules=None, param_keys=None,
+                   param_gen: int = -1, count_thread=None,
                    at_ms: Optional[int] = None) -> None:
         """Record a batch of completions (``StatisticSlot.exit`` +
         ``DegradeSlot.exit``), on the origin and chain rows too where the
-        batch has any. ``count_thread`` False leaves an exit out of the
+        batch has any. ``param_rules``/``param_keys`` are the entries'
+        pairs (resolved at generation ``param_gen``): their THREAD-grade
+        keys are decremented and then unpinned — unless a reload came in
+        between, when neither happens (the pins lived on the discarded
+        registry). ``count_thread`` False leaves an exit out of the
         thread gauges; ``at_ms`` is its event time (see
         :meth:`decide_raw_nowait`)."""
         n = rows.shape[0]
         batch = self._exit_batch(rows, origin_rows, chain_rows, acquire,
                                  rt_ms, error, is_in, np.ones(n, np.bool_),
-                                 count_thread)
+                                 count_thread, param_rules, param_keys)
         now = self.clock.now_ms() if at_ms is None else at_ms
         times = self._time_scalars(now)
+        unpin = None
         with self._lock:
             now, times = self._restamp_if_stale_locked(at_ms, now, times)
             self._drain_evictions_locked()
             self._seen_idx = max(self._seen_idx,
                                  self.spec.second.index_of(now))
+            if batch.param_rules is not None:
+                if param_gen != self._param_gen:
+                    batch = batch._replace(param_rules=None, param_keys=None)
+                else:
+                    unpin = (self.param_key_registry,
+                             pf_mod.thread_key_rows(self._param, param_rules,
+                                                    param_keys))
             self._state = record_exits(
                 self.spec, self._ruleset, self._state, batch, times,
                 record_alt=not self._no_alt(origin_rows, chain_rows),
                 skip_threads=self._skip_threads)
+        # unpin only after the decrement is enqueued
+        if unpin is not None:
+            unpin[0].unpin_rows(unpin[1])
 
     # ------------------------------------------------------------------
     # Introspection

@@ -61,7 +61,9 @@ def _port_spec(spec):
                          second=ws(spec.second), minute=ws(spec.minute),
                          statistic_max_rt=spec.statistic_max_rt,
                          hist_buckets=spec.hist_buckets,
-                         occupy_timeout_ms=spec.occupy_timeout_ms)
+                         occupy_timeout_ms=spec.occupy_timeout_ms,
+                         param_keys=spec.param_keys,
+                         param_pairs=spec.param_pairs)
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
@@ -148,8 +150,9 @@ def test_convert_round_trip_and_ignored_leaves():
     d = convert.to_numpy(sph._state)
     ts = convert.state_from_numpy(d)
     back = convert.to_numpy(ts)
-    # the port carries every leaf but the param-flow ones (a later slice)
-    assert set(d) - set(back) == {k for k in d if k.startswith("param_dyn.")}
+    # the port carries every leaf, the param-flow ones included
+    assert set(d) == set(back)
+    assert any(k.startswith("param_dyn.") for k in back)
     assert convert.leaf_diff(d, back) == []
     rules = convert.ruleset_from_numpy(convert.to_numpy(sph._ruleset))
     assert rules.flow_idx.dtype == torch.int32

@@ -375,3 +375,148 @@ def test_uncount_rows_shape_on_the_card(buckets):
     torch.cuda.synchronize()
     assert torch.equal(got[0], got[1])
     assert not torch.equal(got[0], torch.from_numpy(counters))
+
+
+def _param_lanes(rng, pk, n):
+    """Key rows of n = B·PV pair lanes: Zipf-skewed over 61,440 rows, a
+    quarter of the lanes inapplicable (the sentinel row PK)."""
+    keys = (rng.zipf(1.1, n) % 61_440).astype(np.int32)
+    keys[rng.random(n) < 0.25] = pk
+    return keys
+
+
+@pytest.mark.gpu
+def test_param_token_consumption_shape_on_the_card():
+    """The param check's token consumption: a float32 ``[PK+1, 1]`` table
+    (PK = 2^16), N = 2^21 lanes of -acquire, a lane that consumes nothing
+    at PK+1 (dropped); then the whole rank-form check on the card against
+    the CPU, with exactly one kernel launch."""
+    from sentinel_tpu_torch.rules import param_flow as tpf
+    dev = _card()
+    pk, b, pv = 1 << 16, 1 << 19, 4
+    n = b * pv
+    rng = np.random.default_rng(10)
+    keys = _param_lanes(rng, pk, n)
+    live = keys < pk
+    drop = live & (rng.random(n) < 0.4)
+    table = torch.from_numpy(rng.integers(0, 60, (pk + 1, 1)).astype(
+        np.float32)).to(dev)
+    plan = _seam_equals_plain(
+        table, lambda t: t,
+        torch.from_numpy(np.where(live, keys, pk + 1).astype(np.int32)).to(
+            dev), None,
+        torch.from_numpy(np.where(live & ~drop, -2, 0)[:, None].astype(
+            np.int32)).to(dev))
+    assert plan.path == sa.PATH_GLOBAL and plan.e_inst == 1
+    rules = [tpf.ParamFlowRule(resource=f"r{i}", param_idx=0, count=40,
+                               grade=(tpf.GRADE_THREAD if i % 8 == 7
+                                      else tpf.GRADE_QPS))
+             for i in range(64)]
+
+    class Reg:
+        def pin(self, name):
+            return int(name[1:]) + 1
+    out = []
+    # a key row belongs to one rule (the registry interns per rule slot)
+    k2 = keys.reshape(b, pv)
+    pairs = np.where(k2 < pk, k2 % 64, 512).astype(np.int32)
+    for d in ("cpu", dev):
+        comp = tpf.compile_param_rules(rules, resource_registry=Reg(),
+                                       capacity=512, k_per_resource=4,
+                                       device=d)
+        dyn = tpf.init_param_dyn(pk, device=d)
+        before = sa.LAUNCHES["scatter_add"]
+        dyn, ok, wait = tpf.param_check_scalar(
+            comp.table, dyn, torch.from_numpy(pairs).to(d),
+            torch.from_numpy(keys.reshape(b, pv)).to(d),
+            torch.ones(b, dtype=torch.int32, device=d),
+            torch.ones(b, dtype=torch.bool, device=d), 12_345)
+        if d != "cpu":
+            assert sa.LAUNCHES["scatter_add"] == before + 1
+        out.append([t.cpu() for t in (ok, wait) + tuple(dyn)])
+    torch.cuda.synchronize()
+    for a, c in zip(*out):
+        assert torch.equal(a, c)
+    assert 0 < int(out[0][0].sum()) < b
+
+
+@pytest.mark.gpu
+def test_param_thread_update_shape_on_the_card():
+    """The param THREAD gauges: int32 ``[PK+1, 1]``, N = 2^21 lanes of +1
+    then -1, the lanes that do not count at the sentinel row PK with
+    amount 0; on the card against the CPU, one launch each."""
+    from sentinel_tpu_torch.rules import param_flow as tpf
+    dev = _card()
+    pk, b, pv = 1 << 16, 1 << 19, 4
+    rng = np.random.default_rng(11)
+    keys = _param_lanes(rng, pk, b * pv).reshape(b, pv)
+    rules = [tpf.ParamFlowRule(resource=f"r{i}", count=5,
+                               grade=tpf.GRADE_THREAD if i % 2 else
+                               tpf.GRADE_QPS) for i in range(8)]
+
+    class Reg:
+        def pin(self, name):
+            return int(name[1:])
+    pairs = np.where(keys < pk, rng.integers(0, 8, (b, pv)), 8).astype(
+        np.int32)
+    counted = rng.random(b) < 0.7
+    got = []
+    for d in ("cpu", dev):
+        comp = tpf.compile_param_rules(rules, resource_registry=Reg(),
+                                       capacity=8, k_per_resource=8,
+                                       device=d)
+        dyn = tpf.init_param_dyn(pk, device=d)
+        args = (torch.from_numpy(pairs).to(d), torch.from_numpy(keys).to(d))
+        before = sa.LAUNCHES["scatter_add"]
+        tpf.param_thread_update(comp.table, dyn, *args,
+                                torch.from_numpy(counted).to(d), +1)
+        up = dyn.threads.cpu().clone()       # updated in place below
+        tpf.param_thread_update(comp.table, dyn, *args,
+                                torch.from_numpy(counted[::-1].copy()).to(d),
+                                -1)
+        if d != "cpu":
+            assert sa.LAUNCHES["scatter_add"] == before + 2
+        got.append((up, dyn.threads.cpu()))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0][0], got[1][0])
+    assert torch.equal(got[0][1], got[1][1])
+    assert int(got[0][0].sum()) > 0 and int(got[0][0][pk]) == 0
+
+
+@pytest.mark.gpu
+def test_param_check_scalar_with_shared_key_rows_on_the_card():
+    """Key rows shared by two rules within one batch (a batch that interns
+    more distinct keys than rows): the bucket refresh's writers carry
+    different values, and the last lane wins on the card as on the CPU."""
+    from sentinel_tpu_torch.rules import param_flow as tpf
+    dev = _card()
+    pk, b, pv = 64, 1 << 15, 2
+    rng = np.random.default_rng(12)
+    rules = [tpf.ParamFlowRule(resource=f"r{i}", param_idx=0,
+                               count=float(5 + 3 * i),
+                               burst_count=i % 3) for i in range(8)]
+
+    class Reg:
+        def pin(self, name):
+            return int(name[1:])
+    pairs = rng.integers(0, 8, (b, pv)).astype(np.int32)
+    keys = rng.integers(0, pk, (b, pv)).astype(np.int32)
+    tokens = rng.uniform(0, 9, pk + 1).astype(np.float32)
+    out = []
+    for d in ("cpu", dev):
+        comp = tpf.compile_param_rules(rules, resource_registry=Reg(),
+                                       capacity=8, k_per_resource=8,
+                                       device=d)
+        dyn = tpf.init_param_dyn(pk, device=d)._replace(
+            tokens=torch.from_numpy(tokens).to(d),
+            last_fill_ms=torch.full((pk + 1,), 0, dtype=torch.int32,
+                                    device=d))
+        dyn, ok, wait = tpf.param_check_scalar(
+            comp.table, dyn, torch.from_numpy(pairs).to(d),
+            torch.from_numpy(keys).to(d),
+            torch.ones(b, dtype=torch.int32, device=d),
+            torch.ones(b, dtype=torch.bool, device=d), 2_500)
+        out.append([t.cpu() for t in (ok, wait) + tuple(dyn)])
+    torch.cuda.synchronize()
+    for a, c in zip(*out):
+        assert torch.equal(a, c)

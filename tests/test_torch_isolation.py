@@ -27,6 +27,8 @@ import sentinel_tpu_torch.ops.segments
 import sentinel_tpu_torch.core.context
 import sentinel_tpu_torch.engine.pipeline
 import sentinel_tpu_torch.engine.fastpath
+import sentinel_tpu_torch.engine.slots
+import sentinel_tpu_torch.rules.param_flow
 import sentinel_tpu_torch.rules.flow
 import sentinel_tpu_torch.rules.degrade
 import sentinel_tpu_torch.stats.window

@@ -205,9 +205,10 @@ def test_sentinel_without_cuda_needs_an_explicit_device(monkeypatch):
 
 
 def test_off_route_calls_raise_not_implemented():
-    """Param rules (A8), meshes (A11) and cluster rules (A12) still raise
-    and leave no trace; the host fast path (A6, the default config) and
-    prioritized events (A7b) run, as the reference does."""
+    """Meshes (A11) and cluster rules (A12), param ones included, still
+    raise and leave no trace; param rules and call args (A8), the host
+    fast path (A6, the default config) and prioritized events (A7b) run,
+    as the reference does."""
     cfg = stt.load_config(**CFG)
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         stt.Sentinel(config=cfg, device="cpu", mesh=object())
@@ -216,14 +217,33 @@ def test_off_route_calls_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         sph.load_flow_rules([stt.FlowRule(resource="c", count=1.0,
                                           cluster_mode=True)])
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        sph.load_param_flow_rules([])
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        sph.entry("x", args=(1,))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        sph.entry_batch(["a"], args_list=[(1,)])
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        sph.load_param_flow_rules([stt.ParamFlowRule(
+            resource="c", count=1.0, cluster_mode=True)])
     # nothing off-route reached the engine
-    assert not sph.routes and sph.resources.lookup("x") is None
+    assert not sph.routes and sph.resources.lookup("c") is None
+    assert sph._param.num_active == 0
+
+    # param rules and args (A8) run, as in the JAX package
+    got = {}
+    for name, pkg in (("jax", stpu), ("torch", stt)):
+        extra = {"device": "cpu"} if pkg is stt else {}
+        twin = pkg.Sentinel(config=pkg.load_config(**CFG),
+                            clock=pkg.ManualClock(start_ms=T0), **extra)
+        twin._cpu.sample = lambda: (0.5, 0.25)
+        twin.load_param_flow_rules([])
+        out = []
+        with twin.entry("x", args=(1,)):
+            out.append("pass")
+        twin.load_param_flow_rules([pkg.ParamFlowRule(resource="a",
+                                                      count=1.0)])
+        out.append(twin.entry_batch(["a"] * 2,
+                                    args_list=[(1,), (1,)]).allow.tolist())
+        out.append(twin.entry_batch(["a"], args_list=[(2,)]).allow.tolist())
+        got[name] = (out, twin)
+    assert got["torch"][0] == got["jax"][0] == [
+        "pass", [True, False], [True]]
+    _same_state(got["jax"][1], got["torch"][1], "param rules and args")
 
     # the default config (host fast path on) and prioritized events
     dflt = {k: v for k, v in CFG.items() if k != "host_fast_path"}
