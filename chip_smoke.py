@@ -64,8 +64,20 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    reload, vector and general batches, a host gate and a device slot
    against a CPU twin, and one 2^19-event batch at 1M resources (the host
    cost of pair resolution);
-8. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-   line (``launches`` summed over the runs of phases 3-7), and as the last
+8. drives the runtime with its self-telemetry (obs on, the default):
+   full-width fused scalar steps on ``Sentinel(device="cuda")`` at 1M
+   resources (default configuration, minute ring, 4096 QPS rules, 1024
+   breakers with a breaker observer) in turns with a twin built with obs
+   off and one with host staging off (host ms a step, equal verdicts and
+   launches, the obs counters); a stream of nowait dispatches in flight
+   with the staging ring at depth 1 and 8 (equal verdicts, the ring
+   grows); ``metrics_snapshot`` and ``all_node_totals`` at 1M rows; and at
+   16k rows ``entry`` calls, batches with origins and a split, host-gate
+   denials, a forced breaker and a geometry change against a CPU twin:
+   counters, spans, histograms, callbacks, block-log and block-event
+   files, metric nodes and breaker transitions equal;
+9. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
+   line (``launches`` summed over the runs of phases 3-8), and as the last
    line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --find-syncs`` runs 3-5 steps of each engine phase
@@ -75,8 +87,9 @@ the device, instead of the phases above.
 ``python3 chip_smoke.py --profile`` also records the engine steps with
 ``torch.profiler`` (device time by operator and per step, and a Chrome
 trace per engine phase in ``chiprun_out/engine*_trace.json``; the origin
-routes also in the sorted order alone) and fails if ``index_add_`` still
-runs in the scalar step.
+routes also in the sorted order alone; the obs phase's runtime steps,
+trace deleted once read) and fails if ``index_add_`` still runs in the
+scalar step.
 
 Any failed phase exits non-zero before the last line is printed. Without
 a CUDA device, or outside a checkout of the repository, it fails at once.
@@ -2124,6 +2137,372 @@ def phase_param_runtime(stt, sa, dev="cuda", R=1 << 20,
     return {"launches": launches, "timing": timing, "routes": obs["routes"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the runtime's observability, block log, callbacks and staging
+# ---------------------------------------------------------------------------
+
+OBS_RULED = 4096                 # QPS-ruled resources (1024 with breakers)
+
+
+def _evil_gate(stt):
+    """A host gate that denies resources named ``evil-*``."""
+    class EvilGate(stt.HostGate):
+        name = "no-evil"
+
+        def check(self, resource, origin, acquire, args):
+            return not resource.startswith("evil-")
+    return EvilGate()
+
+
+def _obs_runtime(stt, R: int, clock, dev, obs_on: bool = True,
+                 staging: bool = True):
+    """``Sentinel(device=dev)`` with the default configuration at ``R``
+    rows and the scalar fixture's rules: 4096 QPS rules (count 50) and
+    1024 exception-ratio breakers; ``obs_on``/``staging`` set the
+    ``SENTINEL_OBS_DISABLE``/``SENTINEL_HOST_STAGING`` knobs for its
+    construction."""
+    env = {"SENTINEL_OBS_DISABLE": "0" if obs_on else "1",
+           "SENTINEL_HOST_STAGING": "1" if staging else "0"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        sph = stt.Sentinel(config=stt.load_config(max_resources=R),
+                           clock=clock, device=dev)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    sph.load_flow_rules([stt.FlowRule(resource=f"r{i}", count=50.0)
+                         for i in range(OBS_RULED)])
+    sph.load_degrade_rules([stt.DegradeRule(
+        resource=f"r{i}", grade=stt.GRADE_EXCEPTION_RATIO, count=0.5,
+        time_window=10, min_request_amount=5) for i in range(1024)])
+    return sph
+
+
+def _scalar_stream(sph, B: int, steps: int, seed: int = 41):
+    """``steps`` batches of the headline's scalar traffic as pre-interned
+    rows (1/4 of the events on the ruled resources) and each step's exit
+    error column generator: the exits of ``r0``..``r31`` always fail, so
+    their breakers trip."""
+    ruled = sph.intern_resources([f"r{i}" for i in range(OBS_RULED)])
+    pool = sph.intern_resources([f"u{i}" for i in range(60_000)])
+    rng = np.random.default_rng(seed)
+    batches = [np.where(rng.random(B) < 0.25,
+                        ruled[rng.integers(0, OBS_RULED, B)],
+                        pool[rng.integers(0, pool.shape[0], B)]
+                        ).astype(np.int32) for _ in range(steps)]
+    return batches, set(ruled[:32].tolist())
+
+
+def _fused_step(sph, rows, prev, failing):
+    n = rows.shape[0]
+    ra = sph.spec.alt_rows
+    err = np.isin(prev, list(failing))
+    return sph.decide_and_exit_raw_nowait(
+        rows, np.zeros(n, np.int32), np.full(n, ra, np.int32),
+        np.zeros(n, np.int32), np.full(n, ra, np.int32),
+        np.ones(n, np.int32), np.ones(n, np.bool_), np.zeros(n, np.bool_),
+        exit_rows=prev, exit_error=err,
+        exit_rt_ms=(prev % 97).astype(np.int32))
+
+
+def _drive_obs(stt, sph, clock, log_dir: str) -> dict:
+    """The twin drive of (e): ``entry()`` calls that pass, block and raise
+    business errors, batches with origins, one that splits, host-gate
+    denials in both tiers, a forced breaker, breaker transitions and a
+    geometry change; callbacks, the block log and the block-event log on.
+    → the observations the GPU and CPU twins must agree on."""
+    from sentinel_tpu_torch.core.logs import BlockStatLogger
+    from sentinel_tpu_torch.rules.degrade import STATE_OPEN
+    sph.block_log.close()
+    sph.block_log = BlockStatLogger(clock, base_dir=log_dir)
+    sph.obs.block_events.configure(log_dir, "obsapp")
+    sph._cpu.sample = lambda: (0.5, 0.25)
+    seq, arcs = [], []
+    cb = sph.callbacks
+    cb.add_pass_handler(lambda r, o, a, args: seq.append(("pass", r, o, a)))
+    cb.add_blocked_handler(lambda r, o, a, exc: seq.append(
+        ("block", r, o, a, type(exc).__name__)))
+    cb.add_exit_handler(lambda r, rt, err, a: seq.append(
+        ("exit", r, rt, err, a)))
+    sph.add_breaker_observer(lambda r, old, new: arcs.append((r, old, new)))
+    sph.register_slot(_evil_gate(stt))
+    sph.load_flow_rules([stt.FlowRule(resource="hello", count=20),
+                         stt.FlowRule(resource="api", count=100),
+                         stt.FlowRule(resource="api", count=3,
+                                      limit_app="app-a")])
+    sph.load_degrade_rules([stt.DegradeRule(
+        resource=r, grade=stt.GRADE_EXCEPTION_COUNT, count=1,
+        time_window=1, min_request_amount=1) for r in ("osc", "ctl")])
+    sph.check_breaker_transitions()
+    out = {"entries": []}
+    for i in range(30):
+        res = ("hello", "free", "osc", "evil-1")[i % 4]
+        try:
+            with sph.entry(res, origin="app-a" if i % 3 else "") as e:
+                if res == "osc" and i % 8 == 2:
+                    e.trace(RuntimeError("business"))
+                clock.advance_ms(3)
+            out["entries"].append("pass")
+        except stt.BlockException as exc:
+            out["entries"].append(type(exc).__name__)
+        if i % 10 == 9:
+            clock.advance_ms(1100)
+    rng = np.random.default_rng(7)
+    n = 9000
+    names = [("api", "free", "evil-2")[k] for k in rng.integers(0, 3, n)]
+    origins = ["app-a" if x < 0.02 else "" for x in rng.random(n)]
+    out["split"] = sph.entry_batch(names, origins=origins).allow.tolist()
+    out["origins"] = sph.entry_batch(
+        ["api"] * 64, origins=["app-a"] * 32 + ["app-b"] * 32,
+        contexts=["c1"] * 64).reason.tolist()
+    out["forced"] = sph.force_breaker("ctl", STATE_OPEN)
+    try:
+        sph.entry("ctl").exit()
+        out["after_force"] = "pass"
+    except stt.BlockException as exc:
+        out["after_force"] = type(exc).__name__
+    sph.update_window_geometry(sample_count=4)
+    out["after_geometry"] = sph.entry_batch(["hello"] * 40).allow.tolist()
+    clock.advance_ms(1500)
+    out["metrics"] = [dataclasses.asdict(m)
+                      for m in sph.metrics_snapshot(clock.now_ms() - 1500)]
+    out["totals"] = sph.all_node_totals()
+    out["origin_totals"] = sph.origin_totals("api")
+    out["breakers"] = sph.breaker_resources()
+    out["routes"] = dict(sph.routes)
+    sph.obs.flush()
+    sph.block_log.flush()
+    out["counters"] = sph.obs.counters.snapshot()
+    out["spans"] = [{k: v for k, v in s.items() if k != "thread"}
+                    for s in sph.obs.spans.snapshot()]
+    out["hist"] = [sph.obs.hist_entry.snapshot(),
+                   sph.obs.hist_dispatch.snapshot()]
+    out["callbacks"] = seq
+    out["arcs"] = arcs
+    files = {}
+    for f in sorted(os.listdir(log_dir)):
+        with open(os.path.join(log_dir, f), "rb") as fh:
+            files[f] = fh.read()
+    out["log_files"] = files
+    return out
+
+
+def phase_obs_runtime(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
+                      steps: int = 32, twin_rows: int = 1 << 14,
+                      profile: bool = False) -> dict:
+    """The runtime with its self-telemetry, callbacks, block log, breaker
+    observers and host staging, through the entry points a user calls.
+
+    (a) full-width fused decide+exit steps on ``Sentinel(device="cuda")``
+    (default config, ``R`` rows, minute ring on, the scalar fixture),
+    obs on, against a twin constructed with obs off, and (b) a twin with
+    host staging off, in turns, the same stream on each: host ms a step,
+    equal verdicts, the obs-on counters, launches a step, and the cost of
+    one ``obs.annotate``; then a stream of nowait dispatches with the
+    staging ring at depth 1 and at depth 8 (equal verdicts; ``grown``);
+    (c) ``metrics_snapshot`` and ``all_node_totals`` at ``R`` rows; (d)
+    the breaker transitions an observer saw; (e) :func:`_drive_obs` on
+    the card and on a CPU twin at ``twin_rows``: every observation equal.
+    The dispatches run with the sync debug mode at "error". ``profile``
+    also records four more obs-on steps with ``torch.profiler`` (device
+    ms a step beside host ms a step)."""
+    import tempfile
+    t0 = 1_800_000_000_000
+    names = ("obs_on", "obs_off", "staging_off")
+    engines = {}
+    for name in names:
+        engines[name] = _obs_runtime(
+            stt, R, stt.ManualClock(start_ms=t0), dev,
+            obs_on=name != "obs_off", staging=name != "staging_off")
+    if engines["obs_off"].obs.enabled or not engines["obs_on"].obs.enabled:
+        fail("obs runtime phase: the obs knob did not take")
+    if engines["staging_off"]._staging_on:
+        fail("obs runtime phase: the staging knob did not take")
+    arcs = {name: [] for name in names}
+    for name, sph in engines.items():
+        sph.add_breaker_observer(
+            lambda r, o, n, name=name: arcs[name].append((r, o, n)))
+    batches, failing = _scalar_stream(engines["obs_on"], B, steps)
+    for sph in engines.values():        # same rows in every twin
+        sph.intern_resources([f"r{i}" for i in range(OBS_RULED)])
+        sph.intern_resources([f"u{i}" for i in range(60_000)])
+    host_ms = {name: [] for name in names}
+    allow = {name: [] for name in names}
+    prev = {name: np.empty(0, np.int32) for name in names}
+    launches = {name: 0 for name in names}
+    for step in range(steps):
+        order = names if step % 2 == 0 else names[::-1]
+        for name in order:
+            sph = engines[name]
+            sph.clock.advance_ms(2)
+            sync()
+            sa.LAUNCHES.clear()
+            t = time.perf_counter()
+            with no_host_sync(dev == "cuda"):
+                h = _fused_step(sph, batches[step], prev[name], failing)
+            v = h.result()
+            host_ms[name].append((time.perf_counter() - t) * 1e3)
+            launches[name] += sa.LAUNCHES["scatter_add"]
+            allow[name].append(v.allow)
+            prev[name] = batches[step][v.allow]
+    for name in names[1:]:
+        if not all(np.array_equal(a, b) for a, b in
+                   zip(allow[name], allow["obs_on"])):
+            fail(f"obs runtime phase: {name} verdicts differ from obs_on")
+        if arcs[name] != arcs["obs_on"]:
+            fail(f"obs runtime phase: {name} breaker arcs differ")
+        if launches[name] != launches["obs_on"]:
+            fail(f"obs runtime phase: {name} launched {launches[name]}, "
+                 f"obs_on {launches['obs_on']}")
+    on = engines["obs_on"]
+    counters = on.obs.counters.snapshot()
+    want = {"split_route.fused_exit": steps, "pipeline.dispatches": steps,
+            "split_route.sortfree": steps}
+    if any(counters.get(k) != v for k, v in want.items()):
+        fail(f"obs runtime phase: counters {counters}, want {want}")
+    if launches["obs_on"] == 0:
+        fail("obs runtime phase: the kernel was never launched")
+    if not arcs["obs_on"]:
+        fail("obs runtime phase: the observer saw no breaker transition")
+    ring = on._staging.get(B)
+    grown = None if ring is None else ring.grown
+    if ring is None:
+        fail("obs runtime phase: the staging ring was not used")
+    prof = None
+    if profile:
+        last = [prev["obs_on"]]
+        prof_host = []
+
+        def run_steps():
+            for step in range(4):
+                on.clock.advance_ms(2)
+                t = time.perf_counter()
+                v = _fused_step(on, batches[step], last[0], failing).result()
+                prof_host.append((time.perf_counter() - t) * 1e3)
+                last[0] = batches[step][v.allow]
+        prof = _profile_steps(run_steps, 4, "obs_runtime_trace.json",
+                              keep_trace=False)
+        prof["host_ms"] = prof_host
+        log(f"[obs_runtime] profiled obs-on steps: device "
+            f"{prof['device_ms_per_step']:.3f} ms a step, host "
+            f"{', '.join(f'{x:.2f}' for x in prof_host)} ms")
+
+    # the cost of one annotation, obs on and off (host us a call)
+    ann = {}
+    for name in ("obs_on", "obs_off"):
+        obs = engines[name].obs
+        t = time.perf_counter()
+        for _ in range(20_000):
+            with obs.annotate("sentinel_tpu.fused"):
+                pass
+        ann[name] = (time.perf_counter() - t) / 20_000 * 1e6
+
+    # (b) a stream of nowait dispatches held in flight, ring depth 1 and 8
+    depth_allow, depth_grown = {}, {}
+    stream = 8
+    for depth in (1, 8):
+        sph = _obs_runtime(stt, R, stt.ManualClock(start_ms=t0), dev)
+        sph._staging_depth = depth
+        rows_s, failing_s = _scalar_stream(sph, B, stream, seed=43)
+        handles = []
+        with no_host_sync(dev == "cuda"):
+            for step in range(stream):
+                sph.clock.advance_ms(2)
+                handles.append(_fused_step(sph, rows_s[step],
+                                           np.empty(0, np.int32), failing_s))
+        depth_allow[depth] = [h.result().allow for h in handles]
+        depth_grown[depth] = sph._staging[B].grown
+        del sph, handles
+    if not all(np.array_equal(a, b)
+               for a, b in zip(depth_allow[1], depth_allow[8])):
+        fail("obs runtime phase: verdicts differ between ring depths 1, 8")
+    if depth_grown != {1: stream - 1, 8: 0}:
+        fail(f"obs runtime phase: ring growth {depth_grown}, want "
+             f"{{1: {stream - 1}, 8: 0}}")
+
+    # (c) snapshots at R rows
+    on.clock.advance_ms(1000)
+    snap_ms, totals_ms = [], []
+    for _ in range(3):
+        sync()
+        t = time.perf_counter()
+        nodes = on.metrics_snapshot(on.clock.now_ms() - 1000)
+        snap_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        totals = on.all_node_totals()
+        totals_ms.append((time.perf_counter() - t) * 1e3)
+    if not nodes or len(totals) != len(on.resources.items()):
+        fail(f"obs runtime phase: snapshot {len(nodes)} nodes, totals "
+             f"{len(totals)}")
+    for sph in engines.values():
+        sph.close()
+    del engines, on
+
+    # (e) the card against a CPU twin
+    with tempfile.TemporaryDirectory() as tmp:
+        got = {}
+        for d in (dev, "cpu"):
+            clock = stt.ManualClock(start_ms=t0)
+            sph = stt.Sentinel(config=stt.load_config(max_resources=twin_rows),
+                               clock=clock, device=d)
+            if d == dev:
+                sa.LAUNCHES.clear()
+            got[d] = _drive_obs(stt, sph, clock, os.path.join(tmp, d))
+            if d == dev:
+                twin_launches = sa.LAUNCHES["scatter_add"]
+            sph.close()
+    for key in got["cpu"]:
+        if got[dev][key] != got["cpu"][key]:
+            fail(f"obs runtime phase: {key} differs from the CPU twin: "
+                 f"{str(got[dev][key])[:300]} vs {str(got['cpu'][key])[:300]}")
+    obs = got[dev]
+    if not (obs["arcs"] and obs["log_files"] and obs["forced"]
+            and obs["after_force"] == "DegradeException"
+            and "CustomSlotException" in obs["entries"]
+            and obs["routes"].get("split")):
+        fail(f"obs runtime phase: the twin drive missed a case: arcs "
+             f"{obs['arcs']}, files {list(obs['log_files'])}, routes "
+             f"{obs['routes']}, entries {obs['entries']}")
+
+    per_step = launches["obs_on"] / steps
+    res = {"launches": launches["obs_on"] + twin_launches,
+           "launches_per_step": per_step,
+           "host_ms": {k: summary(v[1:]) for k, v in host_ms.items()},
+           "host_ms_all": host_ms, "counters_obs_on": counters,
+           "annotate_us": ann, "ring_grown": grown,
+           "depth_grown": depth_grown, "breaker_arcs": len(arcs["obs_on"]),
+           "metrics_snapshot_ms": snap_ms, "all_node_totals_ms": totals_ms,
+           "snapshot_nodes": len(nodes), "resources": len(totals),
+           "twin_counters": obs["counters"], "profile": prof}
+    q = {k: np.percentile(v[1:], [25, 50, 75]) for k, v in host_ms.items()}
+    log(f"[obs_runtime] Sentinel(device={dev!r}) R={R}, default config, "
+        f"B={B}, {steps} fused scalar steps each in turns: host ms a step "
+        + "; ".join(f"{k} median {q[k][1]:.2f} (IQR {q[k][0]:.2f}-"
+                    f"{q[k][2]:.2f}, min {min(host_ms[k][1:]):.2f}, max "
+                    f"{max(host_ms[k][1:]):.2f})" for k in names)
+        + f"; verdicts equal; {per_step:.1f} launches a step in each; "
+        f"annotate {ann['obs_on']:.2f} us on, {ann['obs_off']:.3f} us off")
+    log(f"[obs_runtime] counters (obs on): {counters}")
+    log(f"[obs_runtime] staging ring grown {grown} over the turns; a "
+        f"stream of {stream} nowait dispatches in flight: depth 1 grew "
+        f"{depth_grown[1]}, depth 8 grew {depth_grown[8]}, verdicts equal")
+    log(f"[obs_runtime] metrics_snapshot at R={R} "
+        f"({len(nodes)} nodes of {len(totals)} resources): "
+        f"{', '.join(f'{x:.1f}' for x in snap_ms)} ms; all_node_totals "
+        f"{', '.join(f'{x:.1f}' for x in totals_ms)} ms")
+    log(f"[obs_runtime] breaker observer saw {len(arcs['obs_on'])} "
+        f"transitions; twin drive at {twin_rows} rows: counters, spans, "
+        f"histograms, callbacks ({len(obs['callbacks'])}), block-log and "
+        f"block-event files ({len(obs['log_files'])}), metric nodes, "
+        f"totals, breaker arcs ({len(obs['arcs'])}) equal to the CPU twin; "
+        f"kernel launches {res['launches']}")
+    return res
+
+
 def find_syncs(stt, sa) -> int:
     """``--find-syncs``: every place where a kernel-run engine step waits
     on the device, with the port's frames of its stack (the sync debug
@@ -2156,6 +2535,7 @@ def find_syncs(stt, sa) -> int:
     phase_origin_engine(stt, sa, "fast", R=1 << 17, steps=3)
     phase_param_engine(stt, sa, steps=3)
     phase_origin_engine(stt, sa, "general", steps=3, param=True)
+    phase_obs_runtime(stt, sa, steps=3)
     log(f"[sync] {len(sites)} place(s) wait on the device in a step")
     return 0
 
@@ -2178,6 +2558,11 @@ def main() -> int:
     if any(m == "jax" or m.startswith(("jax.", "sentinel_tpu."))
            or m == "sentinel_tpu" for m in sys.modules):
         fail("the port imported JAX or the JAX package")
+    # the runtimes' block logs and record log go to a directory of this
+    # run, removed at exit
+    import tempfile
+    log_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_logs_")
+    os.environ["SENTINEL_TPU_LOG_DIR"] = log_dir.name
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2213,6 +2598,7 @@ def main() -> int:
     report["runtime"] = phase_runtime(stt, sa)
     report["fast_path"] = phase_fast_path_runtime(stt, sa)
     report["param_runtime"] = phase_param_runtime(stt, sa)
+    report["obs_runtime"] = phase_obs_runtime(stt, sa, profile=profile)
     report["seconds"] = time.perf_counter() - t_all
 
     decide = report["kernel_cases"][0]
@@ -2220,7 +2606,7 @@ def main() -> int:
     launches = sum(report[p]["launches"] for p in (
         "engine", "prio", "prio_mixed", "general", "general_occupy", "fast",
         "scalar_param", "general_param", "runtime", "fast_path",
-        "param_runtime"))
+        "param_runtime", "obs_runtime"))
     kernels = [{
         "name": "scatter_add", "route": "cuda",
         "source": "sentinel_tpu_torch/csrc/scatter_add.cu",

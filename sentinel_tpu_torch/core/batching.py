@@ -26,3 +26,15 @@ def pad_to(arr, b: int, fill, dtype) -> np.ndarray:
     n = arr.shape[0] if hasattr(arr, "shape") else len(arr)
     out[:n] = arr
     return out
+
+
+def pad_into(dst: np.ndarray, arr, fill) -> np.ndarray:
+    """In-place :func:`pad_to` into a preallocated staging buffer: fill
+    ``dst[:n]`` from ``arr`` and ``dst[n:]`` with ``fill`` → ``dst``. The
+    caller owns the reuse discipline (the runtime's staging ring does not
+    rewrite a slot while a dispatch built from it may still read it)."""
+    n = arr.shape[0] if hasattr(arr, "shape") else len(arr)
+    dst[:n] = arr
+    if n < dst.shape[0]:
+        dst[n:] = fill
+    return dst

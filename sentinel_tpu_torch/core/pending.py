@@ -17,21 +17,37 @@ from typing import Sequence, Tuple
 import torch
 
 
+class _Cell:
+    """Shared settle state for a :class:`PendingResult`, split out of the
+    handle so a GC finalizer can settle a leaked handle without
+    resurrecting it (the finalizer closes over the cell)."""
+
+    __slots__ = ("fn", "done", "res")
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.done = False
+        self.res = None
+
+    def settle(self):
+        if not self.done:
+            self.res = self.fn()
+            self.done = True
+            self.fn = None
+        return self.res
+
+
 class PendingResult:
     """Memoizing one-shot handle: ``result()`` runs the deferred
     materialization exactly once and returns the cached value after."""
 
-    __slots__ = ("_fn", "_res")
+    __slots__ = ("_cell", "__weakref__")
 
     def __init__(self, fn):
-        self._fn = fn
-        self._res = None
+        self._cell = _Cell(fn)
 
     def result(self):
-        if self._fn is not None:
-            self._res = self._fn()
-            self._fn = None
-        return self._res
+        return self._cell.settle()
 
 
 def start_host_copy(tensors: Sequence[torch.Tensor]

@@ -58,6 +58,16 @@ home through :class:`PendingVerdicts` (pinned memory, ``non_blocking``
 copies, one CUDA event). A lease renewal of the host fast path reads its
 one verdict back: one pre-charge serves a chunk of calls.
 
+Self-telemetry (``Sentinel.obs``, :mod:`sentinel_tpu_torch.obs`), the
+block log (``Sentinel.block_log``), the statistic callbacks
+(``Sentinel.callbacks``) and breaker observers follow the JAX runtime
+site by site. Counters that depend on device values (the claim overflow,
+occupy grants, breaker states for observers) ride the verdict readback
+the dispatch already makes; only an exit batch with observers registered
+reads the breaker states itself. Serving-sized batches are staged in a
+ring of pinned host slots (``SENTINEL_HOST_STAGING``), each released only
+once its dispatch's verdicts have been read.
+
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"`` (as
 the tests do); with no CUDA device and no ``device`` given, construction
 raises instead of carrying on on the CPU.
@@ -66,14 +76,18 @@ raises instead of carrying on on the CPU.
 from __future__ import annotations
 
 import collections
+import dataclasses
+import logging
 import os
 import threading
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from sentinel_tpu_torch.core.batching import pad_pow2, pad_to
+from sentinel_tpu_torch.core.batching import pad_into, pad_pow2, pad_to
+from sentinel_tpu_torch.core.callbacks import StatisticCallbackRegistry
 from sentinel_tpu_torch.core.clock import Clock, global_clock
 from sentinel_tpu_torch.core.config import SentinelConfig, load_config
 from sentinel_tpu_torch.core.context import (
@@ -81,11 +95,13 @@ from sentinel_tpu_torch.core.context import (
 )
 from sentinel_tpu_torch.core.errors import (
     BlockException, BlockReason, ErrorEntryFreeError, block_exception_for,
-    is_block_exception,
+    exception_name_for, is_block_exception,
 )
+from sentinel_tpu_torch.core.logs import BlockStatLogger, record_log
 from sentinel_tpu_torch.core.pending import (
     PendingResult, start_host_copy, wait_host_copy,
 )
+from sentinel_tpu_torch.core.property import SentinelProperty
 from sentinel_tpu_torch.core.registry import (
     ENTRY_NODE_ROW, OriginRegistry, Registry, ResourceRegistry,
 )
@@ -96,6 +112,11 @@ from sentinel_tpu_torch.engine.pipeline import (
     decide_and_record_exits, decide_entries, init_state,
     invalidate_resource_rows, record_blocks, record_exits, uncount_reserved,
 )
+from sentinel_tpu_torch.metrics.node import (
+    TOTAL_IN_RESOURCE_NAME, MetricNode,
+)
+from sentinel_tpu_torch.obs import RuntimeObs
+from sentinel_tpu_torch.obs import counters as obs_keys
 from sentinel_tpu_torch.obs.resource_hist import engine_hist_buckets
 from sentinel_tpu_torch.rules import authority as auth_mod
 from sentinel_tpu_torch.rules import degrade as deg_mod
@@ -104,11 +125,18 @@ from sentinel_tpu_torch.rules import param_flow as pf_mod
 from sentinel_tpu_torch.rules import system as sys_mod
 from sentinel_tpu_torch.stats import events as ev
 from sentinel_tpu_torch.stats.window import (
-    MINUTE_SPEC, WindowSpec, rolling_totals, settle_occupied,
+    MINUTE_SPEC, WindowSpec, bucket_snapshot, init_window, rolling_totals,
+    rt_totals, settle_occupied,
 )
 
 ENTRY_TYPE_OUT = 0
 ENTRY_TYPE_IN = 1
+
+_log = logging.getLogger("sentinel_tpu_torch.runtime")
+
+#: Depth of the serving dispatch pipeline — how many batches may be in
+#: flight before a submit settles the oldest (sizes the staging ring).
+PIPELINE_DEPTH_ENV = "SENTINEL_PIPELINE_DEPTH"
 
 # what the port rejects, and where ROADMAP.md queues it
 _NOT_PORTED = {
@@ -122,6 +150,11 @@ _NOT_PORTED = {
 #: a mixed batch splits when it has at least this many scalar events
 SPLIT_MIN_SCALAR = 4096
 
+# the port's route names → the reference's split_route.* counters
+_ROUTE_KEYS = {"scalar": obs_keys.ROUTE_SCALAR, "fast": obs_keys.ROUTE_FAST,
+               "fast_occupy": obs_keys.ROUTE_FAST_OCCUPY,
+               "general": obs_keys.ROUTE_GENERAL}
+
 _H1 = 0x9E3779B1
 _H2 = 0x85EBCA6B
 _MASK = 0xFFFFFFFF
@@ -134,13 +167,35 @@ def _alt_hash(row: int, kind: int, key_id: int, ra: int) -> int:
     return h % ra
 
 
-def sortfree_enabled() -> bool:
-    """``SENTINEL_SORTFREE``: the fast and general paths group segments
-    through the claim cascade (ops/sortfree.py). On unless the variable
-    says ``0``/``off``/``false``/``disable``/``disabled``."""
-    v = os.environ.get("SENTINEL_SORTFREE", "")
+def _env_on(name: str) -> bool:
+    """On unless the variable says ``0``/``off``/``false``/``disable``/
+    ``disabled``."""
+    v = os.environ.get(name, "")
     return not v or v.lower() not in ("0", "off", "false", "disable",
                                       "disabled")
+
+
+def sortfree_enabled() -> bool:
+    """``SENTINEL_SORTFREE``: the fast and general paths group segments
+    through the claim cascade (ops/sortfree.py)."""
+    return _env_on("SENTINEL_SORTFREE")
+
+
+def host_staging_enabled() -> bool:
+    """``SENTINEL_HOST_STAGING``: serving-sized batches fill reused
+    (pinned, on CUDA) host slots of a :class:`_StagingRing` in place of
+    fresh allocations per column per call."""
+    return _env_on("SENTINEL_HOST_STAGING")
+
+
+def pipeline_depth(default: int = 2) -> int:
+    """The ``SENTINEL_PIPELINE_DEPTH`` knob, clamped to [1, 64]."""
+    raw = os.environ.get(PIPELINE_DEPTH_ENV, "")
+    try:
+        d = int(raw) if raw else default
+    except ValueError:
+        return default
+    return max(1, min(d, 64))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -254,12 +309,93 @@ class Entry:
         return False
 
 
+def _settle_leaked(cell, on_leak) -> None:
+    """GC finalizer for a :class:`PendingVerdicts` dropped without
+    ``.result()``: its deferred host bookkeeping (pin release, block log,
+    staging-slot release, breaker diffs) must not be lost with the
+    handle. The leak callback runs first, so a settle that fails still
+    leaves the leak visible."""
+    if cell.done:
+        return
+    try:
+        on_leak()
+    except Exception:   # telemetry must never mask the settle
+        pass
+    try:
+        cell.settle()
+    except Exception:
+        _log.debug("leaked PendingVerdicts settle failed", exc_info=True)
+
+
 class PendingVerdicts(PendingResult):
     """Handle for an in-flight batch decide: ``result()`` waits for the
-    verdict copies (one CUDA event) and returns numpy
-    :class:`~sentinel_tpu_torch.engine.pipeline.Verdicts`."""
+    verdict copies (one CUDA event), returns numpy
+    :class:`~sentinel_tpu_torch.engine.pipeline.Verdicts` and does the
+    deferred host bookkeeping (pin release, block log, counters) — call
+    it for every handle. One the caller drops anyway is settled by a GC
+    finalizer and counted in ``pipeline.leaked_handles``."""
 
-    __slots__ = ()
+    __slots__ = ("_leak_finalizer",)
+
+    def attach_leak_guard(self, on_leak) -> None:
+        f = weakref.finalize(self, _settle_leaked, self._cell, on_leak)
+        # never settle during interpreter shutdown: the device may be
+        # torn down already, and the process exiting is not a leak
+        f.atexit = False
+        self._leak_finalizer = f
+
+    def result(self):
+        fin = getattr(self, "_leak_finalizer", None)
+        if fin is not None:
+            fin.detach()
+        return self._cell.settle()
+
+
+class _StagingRing:
+    """Reused host staging for the always-present entry-batch columns of
+    one padded size: :meth:`Sentinel._entry_batch` fills a free slot in
+    place (``pad_into``) instead of allocating and pinning ~9 fresh
+    arrays per call.
+
+    On CUDA each slot holds pinned tensors (their ``.numpy()`` views are
+    what ``pad_into`` fills) that the step copies over with
+    ``non_blocking``, so a copy may still be reading a slot after the
+    dispatch call returns. A slot is therefore released only from the
+    dispatch's deferred read, after the verdict readback has settled —
+    by then the device has consumed it. ``acquire()`` grows the pool
+    with a fresh slot rather than ever rewriting one in flight (a
+    pipeline deeper than the ring); ``grown`` counts those growths. A
+    slot lost on an exception path just shrinks the pool."""
+
+    __slots__ = ("b", "pinned", "_free", "_lock", "grown")
+
+    _INT_COLS = ("rows", "origin_ids", "origin_rows", "context_ids",
+                 "chain_rows", "acquire")
+    _BOOL_COLS = ("is_in", "prioritized", "valid")
+
+    def __init__(self, b: int, depth: int, pinned: bool):
+        self.b = b
+        self.pinned = pinned
+        self.grown = 0
+        self._lock = threading.Lock()
+        self._free = [self._new_slot() for _ in range(depth)]
+
+    def _new_slot(self) -> Dict[str, torch.Tensor]:
+        def col(dtype):
+            return torch.empty(self.b, dtype=dtype, pin_memory=self.pinned)
+        return {**{c: col(torch.int32) for c in self._INT_COLS},
+                **{c: col(torch.bool) for c in self._BOOL_COLS}}
+
+    def acquire(self) -> Dict[str, torch.Tensor]:
+        with self._lock:
+            if self._free:
+                return self._free.pop()
+            self.grown += 1
+        return self._new_slot()
+
+    def release(self, slot: Dict[str, torch.Tensor]) -> None:
+        with self._lock:
+            self._free.append(slot)
 
 
 class Sentinel:
@@ -335,6 +471,57 @@ class Sentinel:
         # flush that carries its pass, skewing the thread gauge for good
         self._flush_lock = threading.Lock()
         self._compile_empty_rules()
+
+        # rule and window-geometry property cells (the reference's
+        # SentinelProperty listeners: a datasource pushes, the runtime
+        # reloads)
+        self.flow_property: SentinelProperty = SentinelProperty()
+        self.degrade_property: SentinelProperty = SentinelProperty()
+        self.system_property: SentinelProperty = SentinelProperty()
+        self.authority_property: SentinelProperty = SentinelProperty()
+        self.param_flow_property: SentinelProperty = SentinelProperty()
+        self.flow_property.add_listener(self.load_flow_rules)
+        self.degrade_property.add_listener(self.load_degrade_rules)
+        self.system_property.add_listener(self.load_system_rules)
+        self.authority_property.add_listener(self.load_authority_rules)
+        self.param_flow_property.add_listener(self.load_param_flow_rules)
+        self.sample_count_property: SentinelProperty = SentinelProperty()
+        self.sample_count_property.add_listener(
+            lambda sc: self.update_window_geometry(sample_count=int(sc)))
+        self.interval_property: SentinelProperty = SentinelProperty()
+        self.interval_property.add_listener(
+            lambda ms: self.update_window_geometry(interval_ms=int(ms)))
+
+        self._global_on = True      # the reference's setSwitch command
+        # resource → ResourceTypeConstants classification (metric lines)
+        self.resource_types: Dict[str, int] = {}
+        # per-second rolled-up block log (LogSlot → sentinel-block.log)
+        self.block_log = BlockStatLogger(self.clock)
+        # self-telemetry: spans, decision counters, latency histograms,
+        # sampled block events; every site guards on ``obs.enabled``
+        self.obs = RuntimeObs(clock=self.clock)
+        # services stopped by close(), LIFO, each once
+        self._shutdown_hooks: list = []
+        self._closed = False
+        self.callbacks = StatisticCallbackRegistry()
+        # breaker transition observers: the [ND] state column rides each
+        # step's verdict readback and is diffed against ONE shared
+        # baseline, in dispatch order (seq), by the thread that reads it
+        self._breaker_observers: list = []
+        # (seq, rules tuple, states) of the last landed diff
+        self._breaker_live: Optional[Tuple[int, tuple, List[int]]] = None
+        self._breaker_seq = 0           # dispatch order, under self._lock
+        self._breaker_event_lock = threading.Lock()
+        # transitions are queued under the event lock (queue order is seq
+        # order) and delivered by a single active drainer, with no lock
+        # held in user code
+        self._breaker_fire_q: "collections.deque" = collections.deque()
+        self._breaker_firing = False
+        # padded batch size → _StagingRing; the depth covers the deepest
+        # dispatch pipeline plus a split's two builds
+        self._staging_on = host_staging_enabled()
+        self._staging: Dict[int, _StagingRing] = {}
+        self._staging_depth = max(4, 2 * pipeline_depth() + 2)
 
     # ------------------------------------------------------------------
     # Rule management (XxxRuleManager.loadRules analog)
@@ -495,6 +682,14 @@ class Sentinel:
                 self.spec.second, self._state.second, old.occupied_count,
                 old.occupied_window,
                 self.spec.second.index_of(self.clock.now_ms()), ev.PASS)
+            if self.obs.enabled:
+                # the booking lifecycle at a reload (a cold path: the two
+                # device reads are acceptable here)
+                prev = int(old.occupied_count.sum().item())
+                carried = int(pend_cnt.sum().item())
+                self.obs.counters.add(obs_keys.OCCUPY_CARRIED, carried)
+                self.obs.counters.add(obs_keys.OCCUPY_SETTLED,
+                                      max(0, prev - carried))
             fresh = flow_mod.init_flow_dyn(
                 self.cfg.max_flow_rules, self.spec.second.buckets,
                 self.spec.rows, device=self.device)
@@ -699,8 +894,8 @@ class Sentinel:
 
     def _run_host_gates_batch(self, resources, origins, acq, args_list,
                               n: int):
-        """→ (blocked bool[n], reasons int32[n]); the caller records the
-        denials on the device in one batch."""
+        """→ (blocked bool[n], reasons int32[n]); the denials are logged
+        here and recorded on the device by the caller in one batch."""
         blocked = np.zeros(n, np.bool_)
         reasons = np.zeros(n, np.int32)
         for gi, gate in enumerate(self._host_gates):
@@ -708,8 +903,14 @@ class Sentinel:
                                               args_list), np.bool_)
             newly = ~oks & ~blocked
             if newly.any():
-                reasons[newly] = self._slot_code("gate", gi)
+                code = self._slot_code("gate", gi)
+                reasons[newly] = code
                 blocked |= newly
+                for i in np.nonzero(newly)[0].tolist():
+                    org = (origins[i] if origins is not None
+                           and origins[i] else "")
+                    self._log_cluster_block(code, resources[i], org,
+                                            int(acq[i]))
         return blocked, reasons
 
     def _record_blocks_locked(self, rows, origin_rows, chain_rows, acquire,
@@ -740,19 +941,42 @@ class Sentinel:
                 np.array([row], np.int32), np.array([o_row], np.int32),
                 np.array([c_row], np.int32), np.array([acquire], np.int32),
                 np.array([is_in], np.bool_), times)
-        return self._log_cluster_block(reason, resource, origin, exc=exc,
-                                       slot_name=slot_name)
+        return self._log_cluster_block(reason, resource, origin, acquire,
+                                       exc=exc, slot_name=slot_name)
 
-    @staticmethod
-    def _log_cluster_block(reason: int, resource: str, origin: str,
-                           exc=None, slot_name: str = "") -> BlockException:
-        """The exception of a denial decided off the device (``exc`` when
-        the gate raised its own). The block log and the callbacks are not
-        ported yet (ROADMAP A5)."""
-        if exc is not None:
-            return exc
-        return block_exception_for(reason, resource, origin=origin,
-                                   slot_name=slot_name)
+    def _log_cluster_block(self, reason: int, resource: str, origin: str,
+                           acquire: int, exc=None,
+                           slot_name: Optional[str] = None
+                           ) -> BlockException:
+        """Block log, counters and the ``onBlocked`` callbacks of a denial
+        decided off the device (a host gate's; the device record is the
+        caller's) → the exception for the caller to raise (``exc`` when
+        the gate raised its own)."""
+        if exc is None:
+            exc = (self._exception_for(reason, resource, origin)
+                   if slot_name is None else block_exception_for(
+                       reason, resource, origin=origin, slot_name=slot_name))
+        self.block_log.log(resource, type(exc).__name__, origin=origin)
+        if self.obs.enabled:
+            self._obs_block(resource, reason, origin, 1)
+        if not self.callbacks.empty:
+            self.callbacks.fire_blocked(resource, origin, acquire, exc)
+        return exc
+
+    def _obs_block(self, resource: str, rcode: int, origin: str,
+                   count: int) -> None:
+        """Per-reason denial counter, the sampled block-event record and
+        the flight recorder's block-burst trigger, keyed by the int8
+        verdict code (custom codes by their slot's name)."""
+        label = (self.slot_name_for_code(rcode)
+                 if rcode >= BlockReason.CUSTOM_BASE
+                 else exception_name_for(rcode))
+        obs = self.obs
+        obs.counters.add(obs_keys.BLOCK_PREFIX + label, count)
+        ms = self.clock.now_ms()
+        obs.block_events.log(ms, resource, rcode, reason_name=label,
+                             origin=origin, count=count)
+        obs.flight.note_blocks(count, ms)
 
     # ------------------------------------------------------------------
     # Time and device helpers
@@ -830,6 +1054,9 @@ class Sentinel:
                     self._dev(vals)))
         evicted = self.resources.drain_evicted()
         if evicted:
+            if self.obs.enabled:
+                # recycled rows lose their stats and any live bookings
+                self.obs.counters.add(obs_keys.OCCUPY_EVICTED, len(evicted))
             alt: List[int] = []
             for row in evicted:
                 alt.extend(self._alt_rows_by_row.pop(row, ()))
@@ -919,28 +1146,52 @@ class Sentinel:
     def _entry_batch(self, rows, origin_ids, origin_rows, context_ids,
                      chain_rows, acquire, is_in, prioritized, vfull,
                      count_thread=None, record_block=None, param_rules=None,
-                     param_keys=None) -> EntryBatch:
+                     param_keys=None, staged=None) -> EntryBatch:
         """Pad the raw columns to a power of two and copy them over (the
-        pairs padded with the NP and PK sentinels)."""
+        pairs padded with the NP and PK sentinels).
+
+        A serving-sized batch (``b >= _STAGING_MIN_B``) whose caller
+        passes a ``staged`` list fills a slot of the size's
+        :class:`_StagingRing` in place; the slot is appended to
+        ``staged`` as ``(ring, slot)`` and the caller releases it once the
+        dispatch has settled. Without a list the columns are fresh (a
+        slot nobody will release is never acquired); the rare optional
+        columns are always fresh."""
         b = pad_pow2(rows.shape[0])
         r, ra = self.spec.rows, self.spec.alt_rows
-        col = self._dev
+        cols = ((rows, r), (origin_ids, 0), (origin_rows, ra),
+                (context_ids, 0), (chain_rows, ra), (acquire, 0),
+                (is_in, False), (prioritized, False), (vfull, False))
+        names = _StagingRing._INT_COLS + _StagingRing._BOOL_COLS
+        if (self._staging_on and b >= self._STAGING_MIN_B
+                and staged is not None):
+            ring = self._staging.get(b)
+            if ring is None:
+                ring = self._staging.setdefault(b, _StagingRing(
+                    b, self._staging_depth, self.device.type == "cuda"))
+            slot = ring.acquire()
+            staged.append((ring, slot))
+            dev = {}
+            for name, (arr, fill) in zip(names, cols):
+                t = slot[name]
+                pad_into(t.numpy(), arr, fill)
+                # CPU: a copy, so the batch never aliases a reused slot
+                dev[name] = (t.to(self.device, non_blocking=True)
+                             if ring.pinned else t.clone())
+        else:
+            dev = {name: self._dev(pad_to(
+                       arr, b, fill,
+                       np.int32 if name in _StagingRing._INT_COLS
+                       else np.bool_))
+                   for name, (arr, fill) in zip(names, cols)}
         return EntryBatch(
-            rows=col(pad_to(rows, b, r, np.int32)),
-            origin_ids=col(pad_to(origin_ids, b, 0, np.int32)),
-            origin_rows=col(pad_to(origin_rows, b, ra, np.int32)),
-            context_ids=col(pad_to(context_ids, b, 0, np.int32)),
-            chain_rows=col(pad_to(chain_rows, b, ra, np.int32)),
-            acquire=col(pad_to(acquire, b, 0, np.int32)),
-            is_in=col(pad_to(is_in, b, False, np.bool_)),
-            prioritized=col(pad_to(prioritized, b, False, np.bool_)),
-            valid=col(pad_to(vfull, b, False, np.bool_)),
+            **dev,
             param_rules=self._pairs(param_rules, b, self.cfg.max_param_rules),
             param_keys=self._pairs(param_keys, b, self.spec.param_keys),
-            count_thread=(None if count_thread is None else
-                          col(pad_to(count_thread, b, False, np.bool_))),
-            record_block=(None if record_block is None else
-                          col(pad_to(record_block, b, False, np.bool_))))
+            count_thread=(None if count_thread is None else self._dev(
+                pad_to(count_thread, b, False, np.bool_))),
+            record_block=(None if record_block is None else self._dev(
+                pad_to(record_block, b, False, np.bool_))))
 
     def _exit_batch(self, rows, origin_rows, chain_rows, acquire, rt_ms,
                     error, is_in, valid, count_thread=None, param_rules=None,
@@ -972,36 +1223,84 @@ class Sentinel:
             vfull[:m] = vsrc[:m]
         return vfull
 
-    def _pending(self, parts, n: int) -> PendingVerdicts:
-        """Start the verdict copies of one dispatch → a handle. ``parts``
-        is ``[(verdicts, event indices or None for 0..n-1)]`` (a split
-        dispatch has two); each part's ``sf_overflow`` rides the same
-        copy and is added to ``sortfree_overflow`` at readback."""
+    # below this padded size staging buys nothing: the per-call tier pads
+    # to b=8..256, and a ring would be shared mutable state for every
+    # concurrent entry() thread
+    _STAGING_MIN_B = 512
+
+    def _pending(self, parts, n: int, *, staged=(), brk=None,
+                 on_read=None) -> PendingVerdicts:
+        """Start the verdict copies of one dispatch → a leak-guarded
+        handle. ``parts`` is ``[(verdicts, event indices or None for
+        0..n-1)]`` (a split dispatch has two). Each part's
+        ``sf_overflow`` and the breaker snapshot ``brk`` (seq, rules,
+        state column) ride the same copy; the reader releases the
+        ``staged`` slots (the device has consumed them once the copies
+        are done), adds the overflow to ``sortfree_overflow``, runs
+        ``on_read(verdicts, overflow)`` and diffs the breakers. Callers
+        hold ``self._lock``: the copies are enqueued before any later
+        step."""
         cols = []
         for v, idx in parts:
             m = n if idx is None else idx.shape[0]
             cols += [v.allow[:m], v.reason[:m], v.wait_ms[:m]]
         cols += [v.sf_overflow for v, _ in parts
                  if v.sf_overflow is not None]
+        if brk is not None:
+            cols.append(brk[2])
         host, event = start_host_copy(cols)
 
         def _read() -> Verdicts:
-            got = iter(wait_host_copy(host, event))
+            got = wait_host_copy(host, event)
             out = Verdicts(allow=np.empty(n, np.bool_),
                            reason=np.empty(n, np.int8),
                            wait_ms=np.empty(n, np.int32))
+            k = 0
             for _v, idx in parts:
                 sel = slice(None) if idx is None else idx
-                out.allow[sel] = next(got)
-                out.reason[sel] = next(got)
-                out.wait_ms[sel] = next(got)
-            overflow = sum(int(x) for x in got)
+                out.allow[sel] = got[k]
+                out.reason[sel] = got[k + 1]
+                out.wait_ms[sel] = got[k + 2]
+                k += 3
+            states = got.pop()[:-1].tolist() if brk is not None else None
+            overflow = sum(int(x) for x in got[k:])
+            while staged:
+                ring, slot = staged.pop()
+                ring.release(slot)
             if overflow:
                 with self._lock:
                     self.sortfree_overflow += overflow
+            if on_read is not None:
+                on_read(out, overflow)
+            if brk is not None:
+                self._diff_and_fire_breakers(brk[0], brk[1], states)
             return out
 
-        return PendingVerdicts(_read)
+        return self._pending_verdicts(_read)
+
+    def _on_leaked_handle(self) -> None:
+        if self.obs.enabled:
+            self.obs.counters.add(obs_keys.PIPE_LEAKED)
+        _log.warning("PendingVerdicts dropped without .result(); "
+                     "settled by the GC finalizer")
+
+    def _pending_verdicts(self, fn) -> PendingVerdicts:
+        """A leak-guarded handle for a deferred settle (every nowait path
+        returns through here)."""
+        h = PendingVerdicts(fn)
+        h.attach_leak_guard(self._on_leaked_handle)
+        return h
+
+    def _breaker_snapshot_locked(self):
+        """(seq, rules, state column) for the breaker observers, or None
+        without any. On the CPU the column is copied: a later step may
+        update the live state in place before the deferred read."""
+        if not self._breaker_observers:
+            return None
+        self._breaker_seq += 1
+        col = self._state.breakers.state
+        return (self._breaker_seq, self._deg.rules,
+                col if col.is_cuda else col.clone())
 
     # ------------------------------------------------------------------
     # Per-call API
@@ -1010,7 +1309,7 @@ class Sentinel:
     def entry(self, resource: str, *, origin: Optional[str] = None,
               acquire: int = 1, entry_type: int = ENTRY_TYPE_IN,
               prioritized: bool = False, args: Sequence = (),
-              sleep: bool = True) -> Entry:
+              resource_type: int = 0, sleep: bool = True) -> Entry:
         """Guard a call. Raises a BlockException subclass when denied;
         sleeps (via the clock) on pass-with-wait verdicts, or with
         ``sleep=False`` reports the wait on ``Entry.wait_ms``. The origin
@@ -1022,11 +1321,18 @@ class Sentinel:
         ``args`` are the call's parameters for hot-param rules
         (``SphU.entry(name, args)``). The host gates run first. With the
         host fast path on, calls on rule-free and leased resources are
-        decided on the host (``Entry.fast``)."""
+        decided on the host (``Entry.fast``). ``resource_type``
+        (``ResourceTypeConstants``) classifies the resource's metric
+        lines. With the global switch off every call passes unchecked."""
+        if not self._global_on:
+            return Entry(self, resource, -1, -1, -1, acquire,
+                         entry_type == ENTRY_TYPE_IN, self.clock.now_ms())
         ctx = current_context()
         use_origin = ctx.origin if origin is None else origin
         # rows resolved ONCE: the same rows feed the verdict and the Entry
         row = self.resources.get_or_create(resource)
+        if resource_type:
+            self.resource_types[resource] = resource_type
         origin_id = self.origins.get_or_create(use_origin) if use_origin \
             else 0
         o_row, c_row = self._alt_rows_for(row, use_origin, ctx.name)
@@ -1038,7 +1344,7 @@ class Sentinel:
                                      args, row, o_row, c_row, is_in)
         if self._fast_enabled and not prioritized:
             fe = self._fast_entry(resource, row, o_row, c_row, origin_id,
-                                  acquire, is_in)
+                                  use_origin or "", acquire, is_in, args)
             if fe is not None:
                 return fe
         if self._fast_enabled and self._fast.due(self.clock.now_ms()):
@@ -1057,12 +1363,24 @@ class Sentinel:
                 param_keys=None if pairs is None else pairs[1][None, :],
                 param_gen=-1 if pairs is None else pairs[2])
             if not bool(verdict.allow[0]):
-                raise self._exception_for(int(verdict.reason[0]), resource,
-                                          use_origin or "")
+                rcode = int(verdict.reason[0])
+                exc = self._exception_for(rcode, resource, use_origin or "")
+                # LogSlot: block events roll into sentinel-block.log
+                self.block_log.log(resource, type(exc).__name__,
+                                   origin=use_origin or "")
+                if self.obs.enabled:
+                    self._obs_block(resource, rcode, use_origin or "", 1)
+                if not self.callbacks.empty:   # StatisticSlot onBlocked
+                    self.callbacks.fire_blocked(resource, use_origin or "",
+                                                acquire, exc)
+                raise exc
         except BaseException:
             if pairs is not None:   # a blocked entry never exits: unpin
                 pairs[3].unpin_rows(pairs[4])
             raise
+        if not self.callbacks.empty:           # StatisticSlot onPass
+            self.callbacks.fire_pass(resource, use_origin or "", acquire,
+                                     args)
         wait = int(verdict.wait_ms[0])
         if wait > 0 and sleep:
             self.clock.sleep_ms(wait)
@@ -1095,8 +1413,8 @@ class Sentinel:
         return (pr, pk, gen, registry, pins)
 
     def _fast_entry(self, resource: str, row: int, o_row: int, c_row: int,
-                    origin_id: int, acquire: int,
-                    is_in: bool) -> Optional[Entry]:
+                    origin_id: int, origin: str, acquire: int,
+                    is_in: bool, args: Sequence = ()) -> Optional[Entry]:
         """Try the host fast path → an admitted :class:`Entry`, or None to
         take the exact device path (it never decides a denial)."""
         fast = self._fast
@@ -1155,6 +1473,8 @@ class Sentinel:
                 finally:
                     fast.end_renewal(row)
             mode = "leased"
+        if not self.callbacks.empty:   # StatisticSlot onPass
+            self.callbacks.fire_pass(resource, origin, acquire, args)
         e = Entry(self, resource, row, o_row, c_row, acquire, is_in, now)
         e.fast = mode
         if fast.due(now):
@@ -1229,6 +1549,8 @@ class Sentinel:
                 count_thread=column(grp, 7, np.bool_), at_ms=at)
 
     def _exit_one(self, e: Entry) -> None:
+        if e.row < 0:       # the global switch was off at entry
+            return
         now = self.clock.now_ms()
         rt = max(0, now - e.create_ms)
         if e.fast is not None:
@@ -1238,6 +1560,9 @@ class Sentinel:
                 e.row, e.origin_row, e.chain_row, e.acquire,
                 min(rt, self.cfg.statistic_max_rt), e.error is not None,
                 e.is_in, e.fast == "free", now)
+            if not self.callbacks.empty:
+                self.callbacks.fire_exit(e.resource, rt, e.error is not None,
+                                         e.acquire)
             if self._fast.due(now):
                 self._flush_fast(now)
             return
@@ -1253,6 +1578,9 @@ class Sentinel:
             param_rules=None if pairs is None else pairs[0][None, :],
             param_keys=None if pairs is None else pairs[1][None, :],
             param_gen=-1 if pairs is None else pairs[2])
+        if not self.callbacks.empty:           # MetricExitCallback
+            self.callbacks.fire_exit(e.resource, rt, e.error is not None,
+                                     e.acquire)
 
     # ------------------------------------------------------------------
     # Batch API (throughput tier)
@@ -1281,25 +1609,30 @@ class Sentinel:
             acquire: Optional[Sequence[int]] = None,
             entry_types: Optional[Sequence[int]] = None,
             prioritized: Optional[Sequence[bool]] = None,
-            args_list=None) -> PendingVerdicts:
+            args_list=None, trace_id: int = 0) -> PendingVerdicts:
         """Dispatch-only batch tier: the decide is enqueued and the
-        verdict copy started; ``.result()`` materializes (and releases the
-        param-key pins of the denied events: call it for every handle).
-        ``resources`` may be names or a numpy INTEGER array of pre-interned
-        rows (:meth:`intern_resources`); ``origins`` and ``contexts`` name
-        each event's caller and entrance context (empty = none);
-        ``args_list`` holds each event's parameters for hot-param rules —
-        a 2-D numpy integer array is the fastest form (one rule per
-        resource then resolves vectorized). The host gates run first; the
-        events they deny are recorded in one batch and left out of the
-        decide."""
+        verdict copy started; ``.result()`` materializes, releases the
+        param-key pins of the denied events and writes their block log
+        (call it for every handle). ``resources`` may be names or a numpy
+        INTEGER array of pre-interned rows (:meth:`intern_resources`);
+        ``origins`` and ``contexts`` name each event's caller and entrance
+        context (empty = none); ``args_list`` holds each event's
+        parameters for hot-param rules — a 2-D numpy integer array is the
+        fastest form (one rule per resource then resolves vectorized). The
+        host gates run first; the events they deny are recorded in one
+        batch and left out of the decide. ``trace_id`` (from a caller
+        that minted one) keeps the batch's spans on that trace; else the
+        span sampler decides."""
         n = len(resources)
+        obs = self.obs
+        obs_on = obs.enabled
+        tr = (trace_id or obs.spans.maybe_trace()) if obs_on else 0
+        t0 = obs.spans.now_ns() if obs_on else 0
         if isinstance(resources, np.ndarray) and resources.dtype.kind in "iu":
             rows = np.ascontiguousarray(resources, np.int32)
-            if self._host_gates:
-                # the gates are keyed by name
-                resources = [self.resources.name_of(int(r)) or ""
-                             for r in rows]
+            # names are recovered where a gate or the block log needs them
+            resources = ([self.resources.name_of(int(r)) or ""
+                          for r in rows] if self._host_gates else None)
         else:
             rows = np.fromiter(
                 (self.resources.get_or_create(r) for r in resources),
@@ -1331,12 +1664,18 @@ class Sentinel:
                  if entry_types is not None else np.ones(n, np.bool_))
         prio = (np.asarray(prioritized, np.bool_) if prioritized is not None
                 else np.zeros(n, np.bool_))
+        if tr:
+            obs.spans.record(tr, "entry.prep", t0, obs.spans.now_ns(), n=n)
         # the gates run before any key is pinned: a gate that raises
         # leaks no pin
         gate_blocked = gate_reasons = None
         if self._host_gates:
+            t_g = obs.spans.now_ns() if tr else 0
             gate_blocked, gate_reasons = self._run_host_gates_batch(
                 resources, origins, acq, args_list, n)
+            if tr:
+                obs.spans.record(tr, "entry.host_gates", t_g,
+                                 obs.spans.now_ns(), n=n)
             if not gate_blocked.any():
                 gate_blocked = gate_reasons = None
         param_rules = param_keys = pin_arr = None
@@ -1360,9 +1699,10 @@ class Sentinel:
         pending = self.decide_raw_nowait(
             rows, origin_ids, origin_rows, context_ids, chain_rows, acq,
             is_in, prio, valid=valid, param_rules=param_rules,
-            param_keys=param_keys, param_gen=gen)
+            param_keys=param_keys, param_gen=gen, trace_id=tr)
 
         def _finalize() -> Verdicts:
+            t_s = obs.spans.now_ns() if tr else 0
             verdicts = pending.result()
             if gate_blocked is not None:
                 verdicts = verdicts._replace(
@@ -1374,9 +1714,36 @@ class Sentinel:
                 denied = ~np.asarray(verdicts.allow)
                 if denied.any():
                     registry.unpin_rows(pin_arr[denied])
+            # LogSlot: the denials roll into sentinel-block.log, grouped
+            # so a mostly denied batch is a handful of log calls (the
+            # gates logged theirs already)
+            denied = np.nonzero(~np.asarray(verdicts.allow))[0]
+            if denied.size:
+                reasons = np.asarray(verdicts.reason)
+                grouped: Dict[tuple, int] = {}
+                for i in denied.tolist():
+                    if gate_blocked is not None and gate_blocked[i]:
+                        continue
+                    res_i = (resources[i] if resources is not None
+                             else self.resources.name_of(int(rows[i])) or "")
+                    key = (res_i, int(reasons[i]),
+                           (origins[i] if origins is not None
+                            and origins[i] else ""))
+                    grouped[key] = grouped.get(key, 0) + 1
+                for (res, rcode, origin), cnt in grouped.items():
+                    self.block_log.log(res, exception_name_for(rcode),
+                                       origin=origin, count=cnt)
+                    if obs_on:
+                        self._obs_block(res, rcode, origin, cnt)
+            if obs_on:
+                t_end = obs.spans.now_ns()
+                obs.hist_entry.record(t_end - t0)
+                if tr:
+                    obs.spans.record(tr, "entry.settle", t_s, t_end, n=n)
+                    obs.spans.record(tr, "entry.total", t0, t_end, n=n)
             return verdicts
 
-        return PendingVerdicts(_finalize)
+        return self._pending_verdicts(_finalize)
 
     def decide_raw(self, rows, origin_ids, origin_rows, context_ids,
                    chain_rows, acquire, is_in, prioritized, *,
@@ -1397,7 +1764,8 @@ class Sentinel:
                           valid=None, count_thread=None, record_block=None,
                           param_rules=None, param_keys=None,
                           param_gen: int = -1,
-                          at_ms: Optional[int] = None) -> PendingVerdicts:
+                          at_ms: Optional[int] = None,
+                          trace_id: int = 0) -> PendingVerdicts:
         """:meth:`decide_raw` with the verdict readback deferred: the step
         is enqueued (state advanced in order under the lock) and the
         device→host verdict copy started; ``.result()`` materializes. The
@@ -1405,8 +1773,16 @@ class Sentinel:
         ``count_thread`` / ``record_block`` (False = leave the event out
         of the thread gauges / record no BLOCK for its denial) and
         ``at_ms`` (event time, re-stamped to now when a full ring stale)
-        serve the host fast path."""
+        serve the host fast path. ``trace_id`` threads a sampled batch's
+        spans through from :meth:`entry_batch_nowait`; direct callers get
+        their own sampling decision. Every dispatch lands one
+        ``split_route.*`` counter."""
         n = rows.shape[0]
+        obs = self.obs
+        obs_on = obs.enabled
+        tr = trace_id if trace_id else (obs.spans.maybe_trace()
+                                        if obs_on else 0)
+        t_d0 = obs.spans.now_ns() if obs_on else 0
         vfull = self._valid_full(n, valid)
         acq_uniform, no_origin_ids = self._batch_facts(acquire, origin_ids,
                                                        vfull)
@@ -1427,16 +1803,24 @@ class Sentinel:
             n_general = int(np.count_nonzero(~ev_scalar & vfull))
             n_scalar = int(np.count_nonzero(ev_scalar & vfull))
             if n_general > 0 and n_scalar >= SPLIT_MIN_SCALAR:
+                if obs_on:
+                    obs.counters.add(obs_keys.ROUTE_SPLIT)
+                    if tr:
+                        obs.spans.record(
+                            tr, "decide.split_decision", t_d0,
+                            obs.spans.now_ns(), n=n,
+                            note=f"scalar={n_scalar} general={n_general}")
                 return self._decide_split_nowait(
                     rows, origin_ids, origin_rows, context_ids, chain_rows,
                     acquire, is_in, ev_scalar, vfull, prio_np, any_prio,
                     count_thread, record_block, param_rules, param_keys,
-                    param_gen, now)
+                    param_gen, now, tr)
         route = self._route(acq_uniform, no_origin_ids, no_alt, any_prio)
+        staged: list = []
         batch = self._entry_batch(rows, origin_ids, origin_rows, context_ids,
                                   chain_rows, acquire, is_in, prio_np,
                                   vfull, count_thread, record_block,
-                                  param_rules, param_keys)
+                                  param_rules, param_keys, staged=staged)
         times = self._time_scalars(now)
         sys_scalars = self._sys_scalars()
         with self._lock:
@@ -1447,20 +1831,71 @@ class Sentinel:
             now, times = self._restamp_if_stale_locked(at_ms, now, times)
             self._drain_evictions_locked()
             use_occ = self._note_dispatch_locked(now, any_prio)
-            self._state, verdicts = decide_entries(
-                self.spec, self._ruleset, self._state, batch, times,
-                sys_scalars, **self._flags(route, not no_alt, use_occ,
-                                           any_prio))
-            self.routes["fast_occupy" if route == "fast" and use_occ
-                        else route] += 1
-            return self._pending([(verdicts, None)], n)
+            with obs.annotate("sentinel_tpu.decide"):
+                self._state, verdicts = decide_entries(
+                    self.spec, self._ruleset, self._state, batch, times,
+                    sys_scalars, **self._flags(route, not no_alt, use_occ,
+                                               any_prio))
+            routed = "fast_occupy" if route == "fast" and use_occ else route
+            self.routes[routed] += 1
+            t_disp = self._obs_dispatched(
+                tr, t_d0, n, "decide.dispatch", _ROUTE_KEYS[routed],
+                note=_ROUTE_KEYS[routed].split(".", 1)[1])
+            return self._pending(
+                [(verdicts, None)], n, staged=staged,
+                brk=self._breaker_snapshot_locked(),
+                on_read=(self._obs_settled(tr, t_disp, n, "decide.device",
+                                           prio_np if any_prio else None)
+                         if obs_on else None))
+
+    def _obs_dispatched(self, tr: int, t_d0: int, n: int, span: str,
+                        route_key: Optional[str], dispatches: int = 1,
+                        note: str = "") -> int:
+        """The counters and span of a dispatch just enqueued → its end
+        time (0 with obs off): the route's counter (``route_key``), the
+        sort-free one beside it, ``dispatches`` device steps."""
+        obs = self.obs
+        if not obs.enabled:
+            return 0
+        if route_key is not None:
+            obs.counters.add(route_key)
+        if self._sortfree:
+            obs.counters.add(obs_keys.ROUTE_SORTFREE)
+        obs.counters.add(obs_keys.PIPE_DISPATCH, dispatches)
+        t_disp = obs.spans.now_ns()
+        if tr:
+            obs.spans.record(tr, span, t_d0, t_disp, n=n, note=note)
+        return t_disp
+
+    def _obs_settled(self, tr: int, t_disp: int, n: int, span: str,
+                     prio_mask):
+        """→ ``on_read(verdicts, overflow)`` for :meth:`_pending`: the
+        dispatch→verdict histogram, the device span, the claim overflow
+        and the occupy grants (prioritized events admitted with a wait;
+        ``prio_mask`` is None when the batch had none)."""
+        obs = self.obs
+
+        def on_read(out: Verdicts, overflow: int) -> None:
+            t_end = obs.spans.now_ns()
+            obs.hist_dispatch.record(t_end - t_disp)
+            if tr:
+                obs.spans.record(tr, span, t_disp, t_end, n=n)
+            if overflow:
+                obs.counters.add(obs_keys.SORTFREE_OVERFLOW, overflow)
+            if prio_mask is not None:
+                granted = int(np.count_nonzero(
+                    out.allow & (out.wait_ms > 0) & prio_mask[:n]))
+                if granted:
+                    obs.counters.add(obs_keys.OCCUPY_GRANTED, granted)
+
+        return on_read
 
     def _decide_split_nowait(self, rows, origin_ids, origin_rows,
                              context_ids, chain_rows, acquire, is_in,
                              ev_scalar, vfull, prio_np, any_prio,
                              count_thread, record_block, param_rules,
-                             param_keys, param_gen,
-                             now: int) -> PendingVerdicts:
+                             param_keys, param_gen, now: int,
+                             trace_id: int = 0) -> PendingVerdicts:
         """Mixed batch: the scalar-eligible events take the scalar step,
         the others (prioritized ones included) the fast step, scalar
         first, under one lock hold (a legitimate serialization of the
@@ -1469,8 +1904,12 @@ class Sentinel:
         occupy-aware steps: the scalar side reads bookings, the fast side
         may book."""
         n = rows.shape[0]
+        obs = self.obs
+        tr = trace_id
+        t_d0 = obs.spans.now_ns() if obs.enabled else 0
         idx_s = np.nonzero(ev_scalar)[0]
         idx_g = np.nonzero(~ev_scalar)[0]
+        staged: list = []
 
         def batch_of(idx, prio):
             cols = [np.asarray(a)[idx] for a in (
@@ -1479,7 +1918,8 @@ class Sentinel:
             opt = [None if a is None else np.asarray(a)[idx]
                    for a in (count_thread, record_block, param_rules,
                              param_keys)]
-            return self._entry_batch(*cols, prio, vfull[idx], *opt)
+            return self._entry_batch(*cols, prio, vfull[idx], *opt,
+                                     staged=staged)
 
         prio_g = prio_np[idx_g]
         bs = batch_of(idx_s, np.zeros(idx_s.shape[0], np.bool_))
@@ -1494,23 +1934,37 @@ class Sentinel:
                 bg = bg._replace(param_rules=None, param_keys=None)
             self._drain_evictions_locked()
             use_occ = self._note_dispatch_locked(now, any_prio)
-            state, v1 = decide_entries(
-                self.spec, self._ruleset, self._state, bs, times,
-                sys_scalars, **self._flags("scalar", False, use_occ))
-            self._state, v2 = decide_entries(
-                self.spec, self._ruleset, state, bg, times, sys_scalars,
-                **self._flags("fast", not no_alt_g, use_occ,
-                              bool(prio_g.any())))
+            with obs.annotate("sentinel_tpu.decide_split"):
+                state, v1 = decide_entries(
+                    self.spec, self._ruleset, self._state, bs, times,
+                    sys_scalars, **self._flags("scalar", False, use_occ))
+                self._state, v2 = decide_entries(
+                    self.spec, self._ruleset, state, bg, times, sys_scalars,
+                    **self._flags("fast", not no_alt_g, use_occ,
+                                  bool(prio_g.any())))
             self.routes["split"] += 1
-            return self._pending([(v1, idx_s), (v2, idx_g)], n)
+            t_disp = self._obs_dispatched(
+                tr, t_d0, n, "split.dispatch", None, dispatches=2,
+                note=f"scalar={idx_s.shape[0]} general={idx_g.shape[0]} "
+                     f"occ={int(use_occ)}")
+            prio_mask = None
+            if any_prio:
+                prio_mask = np.zeros(n, np.bool_)
+                prio_mask[idx_g] = prio_g
+            return self._pending(
+                [(v1, idx_s), (v2, idx_g)], n, staged=staged,
+                brk=self._breaker_snapshot_locked(),
+                on_read=(self._obs_settled(tr, t_disp, n, "split.device",
+                                           prio_mask)
+                         if obs.enabled else None))
 
     def decide_and_exit_raw_nowait(
             self, rows, origin_ids, origin_rows, context_ids, chain_rows,
             acquire, is_in, prioritized, *, exit_rows,
             exit_origin_rows=None, exit_chain_rows=None, exit_acquire=None,
             exit_rt_ms=None, exit_error=None, exit_is_in=None,
-            exit_valid=None, valid=None,
-            at_ms: Optional[int] = None) -> PendingVerdicts:
+            exit_valid=None, valid=None, at_ms: Optional[int] = None,
+            trace_id: int = 0) -> PendingVerdicts:
         """Fused decide+exit: this step's entry decisions and the previous
         step's completions in one engine step (exits land after decides,
         identical to the decide-then-exit pair). Exit columns default to
@@ -1519,6 +1973,11 @@ class Sentinel:
         either half carries an origin or chain row."""
         n = rows.shape[0]
         n_x = exit_rows.shape[0]
+        obs = self.obs
+        obs_on = obs.enabled
+        tr = trace_id if trace_id else (obs.spans.maybe_trace()
+                                        if obs_on else 0)
+        t_d0 = obs.spans.now_ns() if obs_on else 0
         ra = self.spec.alt_rows
         vfull = self._valid_full(n, valid)
         acq_uniform, no_origin_ids = self._batch_facts(acquire, origin_ids,
@@ -1533,9 +1992,10 @@ class Sentinel:
         no_alt = (self._no_alt(origin_rows, chain_rows)
                   and self._no_alt(x_orows, x_crows))
         route = self._route(acq_uniform, no_origin_ids, no_alt, any_prio)
+        staged: list = []
         batch = self._entry_batch(rows, origin_ids, origin_rows, context_ids,
                                   chain_rows, acquire, is_in, prio_np,
-                                  vfull)
+                                  vfull, staged=staged)
         xbatch = self._exit_batch(
             exit_rows, x_orows, x_crows,
             exit_acquire if exit_acquire is not None
@@ -1553,12 +2013,22 @@ class Sentinel:
             now, times = self._restamp_if_stale_locked(at_ms, now, times)
             self._drain_evictions_locked()
             use_occ = self._note_dispatch_locked(now, any_prio)
-            self._state, verdicts = decide_and_record_exits(
-                self.spec, self._ruleset, self._state, batch, xbatch, times,
-                sys_scalars, **self._flags(route, not no_alt, use_occ,
-                                           any_prio))
+            with obs.annotate("sentinel_tpu.fused"):
+                self._state, verdicts = decide_and_record_exits(
+                    self.spec, self._ruleset, self._state, batch, xbatch,
+                    times, sys_scalars, **self._flags(route, not no_alt,
+                                                      use_occ, any_prio))
             self.routes["fused"] += 1
-            return self._pending([(verdicts, None)], n)
+            routed = "fast_occupy" if route == "fast" and use_occ else route
+            t_disp = self._obs_dispatched(
+                tr, t_d0, n, "fused.dispatch", obs_keys.ROUTE_FUSED,
+                note=f"{_ROUTE_KEYS[routed].split('.', 1)[1]} exits={n_x}")
+            return self._pending(
+                [(verdicts, None)], n, staged=staged,
+                brk=self._breaker_snapshot_locked(),
+                on_read=(self._obs_settled(tr, t_disp, n, "fused.device",
+                                           prio_np if any_prio else None)
+                         if obs_on else None))
 
     def exit_batch(self, *, rows, origin_rows, chain_rows, acquire, rt_ms,
                    error, is_in, param_rules=None, param_keys=None,
@@ -1572,14 +2042,20 @@ class Sentinel:
         between, when neither happens (the pins lived on the discarded
         registry). ``count_thread`` False leaves an exit out of the
         thread gauges; ``at_ms`` is its event time (see
-        :meth:`decide_raw_nowait`)."""
+        :meth:`decide_raw_nowait`). With breaker observers registered the
+        call reads the breaker states back (one small read), so an arc an
+        exit causes fires within it."""
         n = rows.shape[0]
+        obs = self.obs
+        tr = obs.spans.maybe_trace() if obs.enabled else 0
+        t0 = obs.spans.now_ns() if tr else 0
         batch = self._exit_batch(rows, origin_rows, chain_rows, acquire,
                                  rt_ms, error, is_in, np.ones(n, np.bool_),
                                  count_thread, param_rules, param_keys)
         now = self.clock.now_ms() if at_ms is None else at_ms
         times = self._time_scalars(now)
         unpin = None
+        brk = None
         with self._lock:
             now, times = self._restamp_if_stale_locked(at_ms, now, times)
             self._drain_evictions_locked()
@@ -1592,17 +2068,159 @@ class Sentinel:
                     unpin = (self.param_key_registry,
                              pf_mod.thread_key_rows(self._param, param_rules,
                                                     param_keys))
-            self._state = record_exits(
-                self.spec, self._ruleset, self._state, batch, times,
-                record_alt=not self._no_alt(origin_rows, chain_rows),
-                skip_threads=self._skip_threads)
+            with obs.annotate("sentinel_tpu.exit"):
+                self._state = record_exits(
+                    self.spec, self._ruleset, self._state, batch, times,
+                    record_alt=not self._no_alt(origin_rows, chain_rows),
+                    skip_threads=self._skip_threads)
+            if self._breaker_observers:
+                self._breaker_seq += 1
+                brk = (self._breaker_seq, self._deg.rules,
+                       self._state.breakers.state[:-1].tolist())
         # unpin only after the decrement is enqueued
         if unpin is not None:
             unpin[0].unpin_rows(unpin[1])
+        if obs.enabled:
+            obs.counters.add(obs_keys.PIPE_DISPATCH)
+        if tr:
+            obs.spans.record(tr, "exit.dispatch", t0, obs.spans.now_ns(),
+                             n=n)
+        if brk is not None:
+            self._diff_and_fire_breakers(*brk)
+
+    # ------------------------------------------------------------------
+    # Live window geometry, switches and lifecycle
+    # ------------------------------------------------------------------
+
+    def update_window_geometry(self, sample_count: Optional[int] = None,
+                               interval_ms: Optional[int] = None) -> None:
+        """Live second-window geometry change (the reference's
+        ``SampleCountProperty``/``IntervalProperty``: fresh windows for
+        every node). The second windows and the flow shaping state
+        cold-reset at the new geometry; the minute ring, the gauges, the
+        breakers and the param state carry over; the host fast path's
+        leases are dropped. No step or plan of the port is cached by
+        geometry, so nothing else is rebuilt."""
+        sc = int(sample_count if sample_count is not None
+                 else self.cfg.second_sample_count)
+        iv = int(interval_ms if interval_ms is not None
+                 else self.cfg.second_interval_ms)
+        if sc <= 0 or iv <= 0 or iv % sc:
+            raise ValueError(
+                "interval_ms must be a positive multiple of sample_count")
+        self._flush_fast()      # land buffered stats on the OLD geometry
+        with self._lock:
+            if (sc == self.cfg.second_sample_count
+                    and iv == self.cfg.second_interval_ms):
+                return
+            self.cfg = dataclasses.replace(self.cfg, second_sample_count=sc,
+                                           second_interval_ms=iv)
+            new_second = WindowSpec(sc, iv // sc)
+            self.spec = dataclasses.replace(self.spec, second=new_second)
+            dev = self.device
+            self._state = self._state._replace(
+                second=init_window(new_second, self.spec.rows, device=dev),
+                alt_second=init_window(new_second, self.spec.alt_rows,
+                                       device=dev),
+                flow_dyn=flow_mod.init_flow_dyn(
+                    self.cfg.max_flow_rules, new_second.buckets,
+                    self.spec.rows, device=dev))
+            self._occupy_live_until_ms = -1
+            self._seen_idx = -(2 ** 62)
+            self._fast.win_ms = max(1, new_second.win_ms)
+            self._rebuild_fastpath()     # drops leases on the old buckets
+
+    def set_global_switch(self, on: bool) -> None:
+        """The reference's setSwitch command: off, every call passes
+        unchecked."""
+        self._global_on = bool(on)
+
+    @property
+    def threads_elided(self) -> bool:
+        """True while the thread gauges are not maintained (no loaded
+        rule reads live concurrency): gauges read 0 whatever the
+        traffic."""
+        return bool(self._skip_threads)
+
+    def register_shutdown(self, service) -> None:
+        """Register a service for :meth:`close` — anything with a
+        ``stop()`` or ``close()`` method (``MetricTimerListener``
+        registers itself). Stopped LIFO, each at most once."""
+        if not any(service is s for s in self._shutdown_hooks):
+            self._shutdown_hooks.append(service)
+
+    def close(self) -> None:
+        """Idempotent teardown: land buffered fast-path stats, stop every
+        registered service (their daemon threads joined), close the
+        self-telemetry and the block log (its appender's thread joined).
+        The engine stays readable but should not dispatch after."""
+        if self._closed:
+            return
+        self._closed = True
+        try:
+            self._flush_fast()
+        except Exception:       # closing must not depend on device health
+            _log.debug("fast-path flush at close failed", exc_info=True)
+        hooks, self._shutdown_hooks = self._shutdown_hooks, []
+        for svc in reversed(hooks):
+            fn = getattr(svc, "stop", None) or getattr(svc, "close", None)
+            if fn is None:
+                continue
+            try:
+                fn()
+            except Exception:   # one bad service must not leak the rest
+                _log.debug("shutdown hook failed", exc_info=True)
+        self.obs.close()
+        self.block_log.close()
+
+    def __enter__(self) -> "Sentinel":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
 
     # ------------------------------------------------------------------
     # Introspection
     # ------------------------------------------------------------------
+
+    def metrics_snapshot(self, time_ms: int) -> list:
+        """Per-resource :class:`~sentinel_tpu_torch.metrics.node.MetricNode`
+        list for the completed second containing ``time_ms`` (the
+        ``MetricTimerListener`` pull; the ENTRY row as the inbound total).
+        Needs the minute ring; [] without it. One masked read of the
+        second's bucket ``[R, E]`` and one copy to the host."""
+        if self.spec.minute is None:
+            return []
+        self._flush_fast()      # buffered fast-path stats land first
+        idx = self.spec.minute.index_of(time_ms)
+        with self._lock:
+            counters, rt = bucket_snapshot(self.spec.minute,
+                                           self._state.minute, idx)
+            counters = counters.cpu().numpy()
+            rt = rt.cpu().numpy()
+            threads = self._state.threads.cpu().numpy()
+            items = self.resources.items()
+            rtypes = dict(self.resource_types)
+        sec_ms = (time_ms // 1000) * 1000
+        nodes = []
+        for name, row in items:
+            c = counters[row]
+            if not (c[ev.PASS] or c[ev.BLOCK] or c[ev.SUCCESS]
+                    or c[ev.EXCEPTION] or c[ev.OCCUPIED_PASS]):
+                continue
+            succ = int(c[ev.SUCCESS])
+            nodes.append(MetricNode(
+                timestamp=sec_ms,
+                resource=(TOTAL_IN_RESOURCE_NAME if row == ENTRY_NODE_ROW
+                          else name),
+                pass_qps=int(c[ev.PASS]), block_qps=int(c[ev.BLOCK]),
+                success_qps=succ, exception_qps=int(c[ev.EXCEPTION]),
+                rt=int(rt[row] / succ) if succ else 0,
+                occupied_pass_qps=int(c[ev.OCCUPIED_PASS]),
+                concurrency=int(threads[row]),
+                classification=rtypes.get(name, 0)))
+        nodes.sort(key=lambda n: n.resource)
+        return nodes
 
     def node_totals(self, resource: str) -> dict:
         """Current rolling-second totals for a resource (ClusterNode view):
@@ -1610,12 +2228,250 @@ class Sentinel:
         row = self.resources.lookup(resource)
         if row is None:
             return {}
+        t = self.node_totals_by_row(row)
+        t.pop("avg_rt", None)
+        return t
+
+    def _totals_snapshot(self, rows: Optional[List[int]] = None):
+        """Rolling-second (counters[n, E], rt[n], threads[n]) of ``rows``
+        (all rows when None), one device read."""
         self._flush_fast()      # buffered fast-path stats land first
         idx_s = self.spec.second.index_of(self.clock.now_ms())
         with self._lock:
-            tot = rolling_totals(self.spec.second, self._state.second,
-                                 idx_s)[row].cpu().numpy()
-            threads = int(self._state.threads[row])
-        return {"pass": int(tot[ev.PASS]), "block": int(tot[ev.BLOCK]),
-                "success": int(tot[ev.SUCCESS]),
-                "exception": int(tot[ev.EXCEPTION]), "threads": threads}
+            w = self._state.second
+            threads = self._state.threads
+            if rows is not None:
+                sel = torch.as_tensor(rows, dtype=torch.long,
+                                      device=self.device)
+                w = w._replace(counters=w.counters[sel],
+                               stamps=w.stamps[sel], rt_sum=w.rt_sum[sel],
+                               min_rt=w.min_rt[sel])
+                threads = threads[sel]
+            tot = rolling_totals(self.spec.second, w, idx_s).cpu().numpy()
+            rt = rt_totals(self.spec.second, w, idx_s).cpu().numpy()
+            threads = threads.cpu().numpy()
+        return tot, rt, threads
+
+    @staticmethod
+    def _totals_dict(tot_row, rt_row: float, threads_row: int) -> dict:
+        succ = int(tot_row[ev.SUCCESS])
+        return {
+            "pass": int(tot_row[ev.PASS]), "block": int(tot_row[ev.BLOCK]),
+            "success": succ, "exception": int(tot_row[ev.EXCEPTION]),
+            "threads": int(threads_row),
+            "avg_rt": (float(rt_row) / succ) if succ else 0.0,
+        }
+
+    def node_totals_by_row(self, row: int) -> dict:
+        tot, rt, threads = self._totals_snapshot([row])
+        return self._totals_dict(tot[0], rt[0], threads[0])
+
+    def all_node_totals(self) -> List[Tuple[str, int, dict]]:
+        """(name, row, totals) for every registered resource — one device
+        read whatever the resource count."""
+        items = self.resources.items()
+        tot, rt, threads = self._totals_snapshot()
+        return [(name, row,
+                 self._totals_dict(tot[row], rt[row], threads[row]))
+                for name, row in items]
+
+    def origin_totals(self, resource: str) -> List[dict]:
+        """Per-origin rolling-second stats of one resource (the ``origin``
+        command). Origins are hashed alt rows, so attribution is per
+        (resource × origin) hash cell; collisions merge."""
+        row = self.resources.lookup(resource)
+        if row is None:
+            return []
+        self._flush_fast()      # buffered fast-path stats land first
+        idx_s = self.spec.second.index_of(self.clock.now_ms())
+        with self._lock:
+            touched = set(self._alt_rows_by_row.get(row, ()))
+            origins = self.origins.items()
+            tot = rolling_totals(self.spec.second, self._state.alt_second,
+                                 idx_s).cpu().numpy()
+            threads = self._state.alt_threads.cpu().numpy()
+        out = []
+        for name, oid in origins:
+            if not name:
+                continue
+            r = _alt_hash(row, 0, oid, self.spec.alt_rows)
+            if r not in touched:
+                continue
+            t = tot[r]
+            out.append({
+                "origin": name, "passQps": int(t[ev.PASS]),
+                "blockQps": int(t[ev.BLOCK]),
+                "successQps": int(t[ev.SUCCESS]),
+                "exceptionQps": int(t[ev.EXCEPTION]),
+                "threadNum": int(threads[r]),
+            })
+        return out
+
+    def system_status(self) -> dict:
+        """The ``systemStatus`` command payload (SystemStatusListener)."""
+        load, cpu = self._cpu.sample()
+        entry = self.node_totals_by_row(ENTRY_NODE_ROW)
+        return {
+            "rqps": entry.get("pass", 0), "qps": entry.get("pass", 0),
+            "thread": entry.get("threads", 0), "rt": entry.get("avg_rt", 0),
+            "load": load, "cpuUsage": cpu,
+        }
+
+    def get_flow_rules(self) -> List[flow_mod.FlowRule]:
+        return list(self._flow.rules)
+
+    def get_degrade_rules(self) -> List[deg_mod.DegradeRule]:
+        return list(self._deg.rules)
+
+    def get_authority_rules(self) -> List[auth_mod.AuthorityRule]:
+        return list(self._auth.rules)
+
+    def get_system_rules(self) -> List[sys_mod.SystemRule]:
+        return list(self._sys_rules)
+
+    def get_param_flow_rules(self) -> List[pf_mod.ParamFlowRule]:
+        return list(self._user_param_rules)
+
+    # ------------------------------------------------------------------
+    # Circuit breakers: states, observers, forcing
+    # ------------------------------------------------------------------
+
+    def breaker_states(self) -> List[int]:
+        with self._lock:
+            return self._state.breakers.state[:-1].tolist()
+
+    def breaker_resources(self) -> List[Tuple[str, int]]:
+        """(resource, state) per loaded degrade rule, rule-slot order;
+        rules and states read under one lock."""
+        with self._lock:
+            states = self._state.breakers.state[:-1].tolist()
+            rules = list(self._deg.rules)
+        return [(r.resource, states[j]) for j, r in enumerate(rules)
+                if j < len(states)]
+
+    def add_breaker_observer(self, fn) -> None:
+        """Register ``fn(resource, prev_state, new_state)`` for breaker
+        transitions (the reference's ``EventObserverRegistry``). It fires
+        on the thread that reads the verdicts of the batch that caused
+        the arc (the states ride that readback); an exit batch reads them
+        itself. :meth:`check_breaker_transitions` is the poll fallback,
+        on the same baseline, so no transition fires twice."""
+        with self._lock:
+            self._breaker_observers = self._breaker_observers + [fn]
+
+    def _diff_and_fire_breakers(self, seq: int, rules_snap: tuple,
+                                states: List[int]) -> int:
+        """Diff ``states`` (rule-slot order) against the shared baseline
+        and notify the observers → transitions fired. A snapshot older
+        (``seq``) than the last one landed is skipped: the newer diff saw
+        its transitions already."""
+        observers = self._breaker_observers
+        to_fire = []
+        with self._breaker_event_lock:
+            prev = self._breaker_live
+            if prev is not None and seq <= prev[0]:
+                return 0
+            self._breaker_live = (seq, rules_snap, states)
+            # a rules reload re-pairs slots with new rules: new baseline
+            if prev is None or prev[1] is not rules_snap:
+                return 0
+            if observers:
+                for j, r in enumerate(rules_snap):
+                    if j < len(prev[2]) and j < len(states) \
+                            and prev[2][j] != states[j]:
+                        to_fire.append((r.resource, prev[2][j], states[j],
+                                        observers))
+            fired = len(to_fire)
+            # queued under the event lock: queue order is seq order
+            self._breaker_fire_q.extend(to_fire)
+        if to_fire:
+            self._drain_breaker_fires()
+        return fired
+
+    def _drain_breaker_fires(self) -> None:
+        """Deliver queued transitions in seq order. One thread drains at
+        a time; the others (an observer that re-enters the engine among
+        them) enqueue and return, and the active drainer delivers their
+        items. Observers run with no lock of the engine held."""
+        with self._breaker_event_lock:
+            if self._breaker_firing:
+                return
+            self._breaker_firing = True
+        try:
+            while True:
+                with self._breaker_event_lock:
+                    if not self._breaker_fire_q:
+                        # reset atomically with the empty check, or a
+                        # concurrent enqueuer's items would strand
+                        self._breaker_firing = False
+                        return
+                    res, old, new, observers = \
+                        self._breaker_fire_q.popleft()
+                for fn in observers:
+                    try:
+                        fn(res, old, new)
+                    except Exception as exc:
+                        record_log().warning(
+                            "breaker observer failed: %r", exc)
+        except BaseException:
+            # an interrupt in an observer must not leave the flag stuck
+            with self._breaker_event_lock:
+                self._breaker_firing = False
+            raise
+
+    def check_breaker_transitions(self) -> int:
+        """Poll fallback: read the breaker states now and run them through
+        the shared diff → transitions seen (arcs whose verdicts nobody
+        read; rule reloads reset the baseline)."""
+        with self._lock:
+            observers = self._breaker_observers
+            if not observers:
+                return 0
+            self._breaker_seq += 1
+            seq = self._breaker_seq
+            rules_snap = self._deg.rules
+            states = self._state.breakers.state[:-1].tolist()
+        return self._diff_and_fire_breakers(seq, rules_snap, states)
+
+    def force_breaker(self, resource: str, state: int) -> bool:
+        """Force every degrade-rule slot on ``resource`` into ``state``
+        (``STATE_CLOSED``/``STATE_OPEN``/``STATE_HALF_OPEN``), the overload
+        controller's degrade actuator. A forced-OPEN slot half-opens after
+        its rule's ``time_window`` (``next_retry_ms`` stamped as a trip
+        would); a forced-CLOSED or HALF_OPEN one starts a fresh stat
+        window. Observers see the arc. → True when the resource has a
+        loaded degrade rule."""
+        state = int(state)
+        if state not in (deg_mod.STATE_CLOSED, deg_mod.STATE_OPEN,
+                         deg_mod.STATE_HALF_OPEN):
+            raise ValueError(f"invalid breaker state {state}")
+        # buffered fast-path passes were admitted under the old state
+        self._flush_fast()
+        never = -(2 ** 30)
+        with self._lock:
+            slots = [j for j, r in enumerate(self._deg.rules)
+                     if r.resource == resource]
+            if not slots:
+                return False
+            idx = torch.as_tensor(slots, dtype=torch.long,
+                                  device=self.device)
+            st = self._state.breakers
+
+            def set_at(col, value):
+                out = col.clone()
+                out[idx] = value
+                return out
+
+            if state == deg_mod.STATE_OPEN:
+                now_rel = self._rel_ms(self.clock.now_ms())
+                retry = set_at(st.next_retry_ms,
+                               (self._deg.table.retry_timeout_ms[idx]
+                                + now_rel).to(torch.int32))
+            else:
+                retry = set_at(st.next_retry_ms, never)
+            self._state = self._state._replace(breakers=st._replace(
+                state=set_at(st.state, state), next_retry_ms=retry,
+                win_stamp=set_at(st.win_stamp, never),
+                bad=set_at(st.bad, 0), total=set_at(st.total, 0)))
+        self.check_breaker_transitions()
+        return True

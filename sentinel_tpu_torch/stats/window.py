@@ -368,6 +368,21 @@ def invalidate_rows(spec: WindowSpec, state: WindowState,
     return state
 
 
+def bucket_snapshot(spec: WindowSpec, state: WindowState, idx: int):
+    """All rows' counters (+ rt sum) for the bucket at window index
+    ``idx`` — zeros where that bucket is dead → ``(int32[R, E],
+    float32[R])``. The per-second read of the metric-file pipeline."""
+    k = _bucket_of(spec, idx)
+    live = state.stamps[:, k] == idx                        # [R]
+    counters = torch.where(live[:, None], state.counters[:, k, :], 0)
+    if spec.track_rt:
+        rt = torch.where(live, state.rt_sum[:, k], 0.0)
+    else:
+        rt = torch.zeros(live.shape, dtype=torch.float32,
+                         device=live.device)
+    return counters, rt
+
+
 def min_rt_rows(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
                 now_idx: int, default_rt: int) -> torch.Tensor:
     """Min RT over live buckets per row (``ArrayMetric.minRt`` — returns

@@ -32,12 +32,71 @@ import sentinel_tpu_torch.rules.param_flow
 import sentinel_tpu_torch.rules.flow
 import sentinel_tpu_torch.rules.degrade
 import sentinel_tpu_torch.stats.window
+import sentinel_tpu_torch.obs
+import sentinel_tpu_torch.obs.counters
+import sentinel_tpu_torch.obs.eventlog
+import sentinel_tpu_torch.obs.flight
+import sentinel_tpu_torch.obs.hist
+import sentinel_tpu_torch.obs.spans
+import sentinel_tpu_torch.obs.traceexport
+import sentinel_tpu_torch.metrics
+import sentinel_tpu_torch.metrics.node
+import sentinel_tpu_torch.metrics.searcher
+import sentinel_tpu_torch.metrics.timer
+import sentinel_tpu_torch.metrics.writer
+import sentinel_tpu_torch.core.callbacks
+import sentinel_tpu_torch.core.logs
+import sentinel_tpu_torch.core.property
+import sentinel_tpu_torch.core.statlog
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "sentinel_tpu")
              or m.startswith(("jax.", "jaxlib.", "sentinel_tpu.")))
 print("BAD=" + ",".join(bad))
 """
+
+
+_BLOCKED_PROBE = """
+import sys
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "sentinel_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, _Refuse())
+for name in [m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "sentinel_tpu")]:
+    del sys.modules[name]
+import importlib
+for mod in sys.argv[1:]:
+    importlib.import_module(mod)
+print("OK")
+"""
+
+#: every module of the observability slice, imported with JAX and the
+#: JAX package made unimportable
+OBS_MODULES = [
+    "sentinel_tpu_torch.obs", "sentinel_tpu_torch.obs.counters",
+    "sentinel_tpu_torch.obs.eventlog", "sentinel_tpu_torch.obs.flight",
+    "sentinel_tpu_torch.obs.hist", "sentinel_tpu_torch.obs.spans",
+    "sentinel_tpu_torch.obs.traceexport", "sentinel_tpu_torch.metrics",
+    "sentinel_tpu_torch.metrics.node", "sentinel_tpu_torch.metrics.searcher",
+    "sentinel_tpu_torch.metrics.timer", "sentinel_tpu_torch.metrics.writer",
+    "sentinel_tpu_torch.core.callbacks", "sentinel_tpu_torch.core.logs",
+    "sentinel_tpu_torch.core.property", "sentinel_tpu_torch.core.statlog",
+    "sentinel_tpu_torch.runtime",
+]
+
+
+@pytest.mark.parametrize("module", OBS_MODULES)
+def test_module_imports_with_jax_blocked(module):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_PROBE, module],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
 
 
 def _forbidden(name: str) -> bool:
