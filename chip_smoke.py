@@ -76,8 +76,25 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    denials, a forced breaker and a geometry change against a CPU twin:
    counters, spans, histograms, callbacks, block-log and block-event
    files, metric nodes and breaker transitions equal;
-9. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-   line (``launches`` summed over the runs of phases 3-8), and as the last
+9. drives the serving tier (default configuration, 1M resources, the
+   scalar fixture's rules, minute ring on): the same stream of full-width
+   fused steps sequentially and through ``DispatchPipeline.submit_fused``
+   at depth 1, 2 and 4 on twin runtimes in turns (equal verdicts and
+   state, host ms a step by depth, the staging ring's growth; with
+   ``--profile`` device ms a step and the busy share at depth 1 and 4);
+   32k single requests (30% prioritized, 40% with one of 64 origins)
+   through ``sph.frontend(batch_max=4096, depth=2)`` against an
+   ``entry_batch`` replay of its flush log, and the same drive at 16k rows
+   against a CPU twin; the workload zoo (``frontend/workloads``) open-loop
+   on the wall clock for 1 s each at ``batch_max`` 256 and 4096 with a
+   ``CadenceScheduler`` (offered and achieved decisions/s, request→verdict
+   p50/p95/p99, flushes, sheds, and the invariants: every request settles
+   once, offered = settled + shed, verdicts = the ENTRY row's PASS,
+   OCCUPIED_PASS and BLOCK); and ``sph.telemetry`` at 1M rows (tick and
+   drain ms, the hot set and its quantiles against a host recompute with
+   tied loads, the timeline ring wrapping past 64 slots);
+10. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
+   line (``launches`` summed over the runs of phases 3-9), and as the last
    line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --find-syncs`` runs 3-5 steps of each engine phase
@@ -2503,6 +2520,658 @@ def phase_obs_runtime(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the serving tier (pipeline, batcher, open-loop replay, telemetry)
+# ---------------------------------------------------------------------------
+
+SERVING_LAG = 4          # exits of step N: the admissions of step N - 4
+SERVING_ORIGINS = 64
+#: (workload, offered req/s) of the open-loop replay, each for 1 s
+OPEN_LOOP_RUNS = (("steady", 5_000), ("steady", 20_000), ("steady", 80_000),
+                  ("flash_crowd", 20_000), ("zipf_hot", 20_000),
+                  ("priority_mix", 20_000))
+
+
+def _fused_args(sph, rows, prev, failing):
+    """``decide_and_exit_raw_nowait`` arguments of one fused scalar step
+    (exits ``prev``; those of ``failing`` resources raise)."""
+    n = rows.shape[0]
+    ra = sph.spec.alt_rows
+    err = np.isin(prev, list(failing))
+    return ((rows, np.zeros(n, np.int32), np.full(n, ra, np.int32),
+             np.zeros(n, np.int32), np.full(n, ra, np.int32),
+             np.ones(n, np.int32), np.ones(n, np.bool_),
+             np.zeros(n, np.bool_)),
+            dict(exit_rows=prev, exit_error=err,
+                 exit_rt_ms=(prev % 97).astype(np.int32)))
+
+
+def _leaves(tree, prefix=""):
+    """(path, tensor) of every tensor leaf of a state tree."""
+    if isinstance(tree, torch.Tensor):
+        yield prefix, tree
+    elif isinstance(tree, tuple):
+        names = getattr(tree, "_fields", None) or range(len(tree))
+        for name, item in zip(names, tree):
+            yield from _leaves(item, f"{prefix}{name}.")
+
+
+def _device_state_diff(a, b) -> list:
+    """Leaves of two engine states that differ, compared where they
+    live (no copy of the 1M-row tables to the host)."""
+    la, lb = dict(_leaves(a)), dict(_leaves(b))
+    return sorted(k for k in la.keys() | lb.keys()
+                  if k not in la or k not in lb
+                  or la[k].shape != lb[k].shape
+                  or la[k].dtype != lb[k].dtype
+                  or not torch.equal(la[k], lb[k]))
+
+
+def _serving_pipeline(stt, sa, dev, R, B, turns, per_turn, profile):
+    """(a) the same fused scalar stream four ways on twin runtimes:
+    sequential ``.result()`` per step and ``DispatchPipeline.submit_fused``
+    at depth 1, 2 and 4, each way ``per_turn`` steps a turn, in turns."""
+    t0 = 1_800_000_000_000
+    ways = {"sequential": 0, "depth1": 1, "depth2": 2, "depth4": 4}
+    sph = {w: _obs_runtime(stt, R, stt.ManualClock(start_ms=t0), dev)
+           for w in ways}
+    steps = turns * per_turn
+    batches, failing = _scalar_stream(sph["sequential"], B, steps, seed=47)
+    for w in list(ways)[1:]:                   # same rows in every twin
+        sph[w].intern_resources([f"r{i}" for i in range(OBS_RULED)])
+        sph[w].intern_resources([f"u{i}" for i in range(60_000)])
+    pipes = {w: stt.DispatchPipeline(sph[w], depth=d)
+             for w, d in ways.items() if d}
+    allow = {w: [] for w in ways}
+    tickets = {w: [] for w in ways}
+    host_ms = {w: [] for w in ways}
+    submit_ms = {w: [] for w in ways}   # inside the dispatch calls alone
+    launches = {w: 0 for w in ways}
+    empty = np.empty(0, np.int32)
+
+    def exits(w, step):
+        if step < SERVING_LAG:
+            return empty
+        k = step - SERVING_LAG
+        if w != "sequential" and len(allow[w]) <= k:
+            allow[w].append(tickets[w][k].result().allow)
+        return batches[k][allow[w][k]]
+
+    for turn in range(turns):
+        order = list(ways) if turn % 2 == 0 else list(ways)[::-1]
+        for w in order:
+            s = sph[w]
+            sync()
+            sa.LAUNCHES.clear()
+            t = time.perf_counter()
+            t_sub = 0.0
+            for step in range(turn * per_turn, (turn + 1) * per_turn):
+                s.clock.advance_ms(2)
+                args, kw = _fused_args(s, batches[step], exits(w, step),
+                                       failing)
+                t1 = time.perf_counter()
+                with no_host_sync(dev == "cuda"):
+                    if w == "sequential":
+                        h = s.decide_and_exit_raw_nowait(*args, **kw)
+                    else:
+                        tickets[w].append(pipes[w].submit_fused(*args, **kw))
+                t_sub += time.perf_counter() - t1
+                if w == "sequential":
+                    allow[w].append(h.result().allow)
+            submit_ms[w].append(t_sub * 1e3 / per_turn)
+            if w != "sequential":
+                pipes[w].flush()
+                while len(allow[w]) < len(tickets[w]):
+                    allow[w].append(tickets[w][len(allow[w])].result().allow)
+            host_ms[w].append((time.perf_counter() - t) * 1e3 / per_turn)
+            launches[w] += sa.LAUNCHES["scatter_add"]
+    for w in list(ways)[1:]:
+        if not all(np.array_equal(a, b) for a, b in
+                   zip(allow[w], allow["sequential"])):
+            fail(f"serving phase: {w} verdicts differ from the sequential "
+                 f"loop")
+        diff = _device_state_diff(sph[w]._state, sph["sequential"]._state)
+        if diff:
+            fail(f"serving phase: {w} state differs from the sequential "
+                 f"loop: {diff}")
+        if launches[w] != launches["sequential"]:
+            fail(f"serving phase: {w} launched {launches[w]}, sequential "
+                 f"{launches['sequential']}")
+    grown = {w: (sph[w]._staging[B].grown if B in sph[w]._staging else None)
+             for w in ways}
+    counters = {w: {k: v for k, v in sph[w].obs.counters.snapshot().items()
+                    if k.startswith("pipeline.")} for w in ways}
+    prof = None
+    if profile:
+        prof = {}
+        for w in ("depth1", "depth4"):
+            s, pipe = sph[w], pipes[w]
+            host = []
+
+            def run_steps(s=s, pipe=pipe, host=host, w=w):
+                t = time.perf_counter()
+                out = []
+                for i in range(per_turn):
+                    s.clock.advance_ms(2)
+                    args, kw = _fused_args(s, batches[i], empty, failing)
+                    out.append(pipe.submit_fused(*args, **kw))
+                pipe.flush()
+                host.append((time.perf_counter() - t) * 1e3 / per_turn)
+
+            p = _profile_steps(run_steps, per_turn, f"serving_{w}_trace.json",
+                               keep_trace=False)
+            p["host_ms_per_step"] = host[0]
+            p["busy_share"] = p["device_ms_per_step"] / host[0]
+            prof[w] = {k: p[k] for k in ("device_ms_per_step",
+                                         "host_ms_per_step", "busy_share")}
+            log(f"[serving] profiled {w}: device {p['device_ms_per_step']:.3f}"
+                f" ms a step, host {host[0]:.2f} ms a step, busy share "
+                f"{p['busy_share']:.3f}")
+    for s in sph.values():
+        s.close()
+    per_step = launches["sequential"] / steps
+    q = {w: np.percentile(v[1:], [25, 50, 75]) for w, v in host_ms.items()}
+    log(f"[serving] pipeline: R={R}, B={B}, {turns} turns of {per_turn} fused "
+        f"scalar steps a way (exits: admissions {SERVING_LAG} steps back): "
+        f"host ms a step " + "; ".join(
+            f"{w} median {q[w][1]:.2f} (IQR {q[w][0]:.2f}-{q[w][2]:.2f})"
+            for w in ways)
+        + "; of which inside the dispatch call " + ", ".join(
+            f"{w} {np.median(submit_ms[w][1:]):.2f}" for w in ways)
+        + f"; verdicts and state equal; {per_step:.1f} launches a step; "
+        f"staging ring grown {grown}")
+    return {"launches": sum(launches.values()), "launches_per_step": per_step,
+            "host_ms": {w: summary(v[1:]) for w, v in host_ms.items()},
+            "host_ms_all": host_ms, "ring_grown": grown,
+            "submit_ms": {w: summary(v[1:]) for w, v in submit_ms.items()},
+            "counters": counters, "profile": prof}
+
+
+def _batcher_stream(n: int, seed: int = 53):
+    """``n`` requests over the 4096 ruled resources, Zipf(1.1) popularity
+    (so the head exceeds its QPS rule, and prioritized requests book the
+    next window): 30% prioritized, 40% with one of 64 origins."""
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, OBS_RULED + 1) ** 1.1
+    res = rng.choice(OBS_RULED, n, p=w / w.sum())
+    prio = rng.random(n) < 0.3
+    org = np.where(rng.random(n) < 0.4,
+                   rng.integers(0, SERVING_ORIGINS, n), -1)
+    return [(f"r{int(r)}", bool(p), f"app-{int(o)}" if o >= 0 else "")
+            for r, p, o in zip(res, prio, org)]
+
+
+def _drive_batcher(sph, stream, batch_max: int, timeout_s: float = 600):
+    """``stream`` through ``sph.frontend(batch_max, depth=2,
+    record_flushes=True)`` under the runtime's ManualClock → (verdict
+    tuples, flush log)."""
+    import asyncio
+
+    async def run():
+        b = sph.frontend(batch_max=batch_max, depth=2, deadline_ms=60_000,
+                         idle_ms=60_000.0, queue_max=len(stream) + 1,
+                         record_flushes=True)
+        vs = await asyncio.gather(*(b.submit(r, prioritized=p, origin=o)
+                                    for r, p, o in stream))
+        await b.drain()
+        if b.pending:
+            fail(f"serving phase: {b.pending} requests still pending")
+        b.close()
+        return vs, b.flush_log
+
+    vs, log_ = asyncio.run(asyncio.wait_for(run(), timeout_s))
+    return [(v.allow, v.reason, v.wait_ms) for v in vs], log_
+
+
+def _replay_flushes(sph, flush_log):
+    out = []
+    for f in flush_log:
+        v = sph.entry_batch_nowait(
+            f["resources"], acquire=np.asarray(f["counts"], np.int32),
+            prioritized=np.asarray(f["prioritized"], np.bool_),
+            origins=f["origins"] if any(f["origins"]) else None).result()
+        out += list(zip(v.allow.tolist(), v.reason.tolist(),
+                        v.wait_ms.tolist()))
+    return out
+
+
+def _serving_batcher(stt, sa, dev, R, n, twin_rows):
+    """(b) ``n`` requests through the batcher at ``R`` rows, replayed
+    through ``entry_batch_nowait`` on a second runtime; then the same
+    drive at ``twin_rows`` on the card and on the CPU."""
+    from sentinel_tpu_torch import convert
+    t0 = 1_800_000_000_000
+    stream = _batcher_stream(n)
+    fe_s = _obs_runtime(stt, R, stt.ManualClock(start_ms=t0), dev)
+    seq_s = _obs_runtime(stt, R, stt.ManualClock(start_ms=t0), dev)
+    sync()
+    sa.LAUNCHES.clear()
+    t = time.perf_counter()
+    with no_host_sync(dev == "cuda"):
+        got, flush_log = _drive_batcher(fe_s, stream, 4096)
+    drive_s = time.perf_counter() - t
+    launches = sa.LAUNCHES["scatter_add"]
+    want = _replay_flushes(seq_s, flush_log)
+    if [r for f in flush_log for r in f["resources"]] != [
+            r for r, _p, _o in stream]:
+        fail("serving phase: the flush log does not hold the stream in order")
+    if got != want:
+        bad = sum(a != b for a, b in zip(got, want))
+        fail(f"serving phase: batcher verdicts differ from the replay in "
+             f"{bad} of {len(got)} requests")
+    diff = _device_state_diff(fe_s._state, seq_s._state)
+    if diff:
+        fail(f"serving phase: batcher state differs from the replay: {diff}")
+    if sorted(fe_s.all_node_totals()) != sorted(seq_s.all_node_totals()):
+        fail("serving phase: batcher node totals differ from the replay")
+    reasons = collections.Counter(f["reason"] for f in flush_log)
+    granted = sum(1 for a, _r, w in got if a and w > 0)
+    blocked = sum(1 for a, _r, _w in got if not a)
+    routes = dict(fe_s.routes)
+    for s in (fe_s, seq_s):
+        s.close()
+    del fe_s, seq_s
+
+    # the same drive at twin_rows, the card against the CPU
+    twin = {}
+    for d in (dev, "cpu"):
+        s = _obs_runtime(stt, twin_rows, stt.ManualClock(start_ms=t0), d)
+        if d == dev:
+            sa.LAUNCHES.clear()
+        v, fl = _drive_batcher(s, stream, 4096)
+        if d == dev:
+            launches += sa.LAUNCHES["scatter_add"]
+        twin[d] = (v, fl, sorted(s.all_node_totals()),
+                   convert.to_numpy(s._state),
+                   {k: c for k, c in s.obs.counters.snapshot().items()},
+                   s.obs.hist_request.snapshot())
+        s.close()
+    for i, name in enumerate(("verdicts", "flush log", "node totals")):
+        if twin[dev][i] != twin["cpu"][i]:
+            fail(f"serving phase: twin {name} differ from the CPU twin")
+    diff = convert.leaf_diff(twin[dev][3], twin["cpu"][3])
+    if diff:
+        fail(f"serving phase: twin state differs from the CPU twin: {diff}")
+    if twin[dev][4] != twin["cpu"][4] or twin[dev][5] != twin["cpu"][5]:
+        fail(f"serving phase: twin counters differ from the CPU twin: "
+             f"{twin[dev][4]} vs {twin['cpu'][4]}")
+    log(f"[serving] batcher: {n} requests (4096 resources, 30% prioritized, "
+        f"40% of 64 origins) through sph.frontend(batch_max=4096, depth=2) "
+        f"at R={R}: {len(flush_log)} flushes {dict(reasons)}, routes "
+        f"{routes}, {blocked} blocked, {granted} occupy grants, "
+        f"{drive_s:.2f} s; verdicts, node totals and state equal to the "
+        f"entry_batch replay; the {twin_rows}-row drive equal to its CPU "
+        f"twin (verdicts, flush log, totals, counters, state)")
+    return {"launches": launches, "requests": n, "flushes": len(flush_log),
+            "flush_reasons": dict(reasons), "routes": routes,
+            "blocked": blocked, "granted": granted, "drive_s": drive_s}
+
+
+def _entry_minute_totals(sph) -> np.ndarray:
+    """The ENTRY row's live minute-window counters, summed → int64[E]."""
+    from sentinel_tpu_torch.core.registry import ENTRY_NODE_ROW
+    with sph._lock:
+        st = sph._state.minute
+        idx = sph.spec.minute.index_of(sph.clock.now_ms())
+        d = idx - st.stamps[ENTRY_NODE_ROW]
+        live = (d >= 0) & (d < sph.spec.minute.buckets)
+        c = torch.where(live[:, None], st.counters[ENTRY_NODE_ROW], 0)
+        return c.sum(0).cpu().numpy().astype(np.int64)
+
+
+def _open_loop_rules(stt):
+    """The scalar fixture's rules with the last 40 QPS rules given to the
+    workloads (the default configuration holds 4096): generous on
+    ``steady/*`` and ``flash/*``, 300 QPS on the flash crowd's hot key,
+    400 QPS on the priority mix's resources (``serving_bench``'s)."""
+    rules = [stt.FlowRule(resource=f"r{i}", count=50.0)
+             for i in range(OBS_RULED - 40)]
+    rules += [stt.FlowRule(resource=f"{p}/{i}", count=1e9)
+              for p in ("steady", "flash") for i in range(16)]
+    rules += [stt.FlowRule(resource="flash/hot", count=300.0)]
+    rules += [stt.FlowRule(resource=f"prio/{i}", count=400.0)
+              for i in range(7)]
+    return rules
+
+
+def _open_loop_run(stt, sph, reqs, batch_max, duration_ms, guard):
+    """Replay ``reqs`` open-loop (each submitted at its arrival time on
+    the wall clock) through a fresh batcher → (the run's numbers, failed
+    invariants). ``guard``: the replay runs with the sync debug mode at
+    "error"."""
+    import asyncio
+    from sentinel_tpu_torch.frontend import IngestOverload
+    from sentinel_tpu_torch.obs import counters as ck
+    stats = collections.Counter()
+    disp = [0.0, 0]      # wall seconds inside the batcher's dispatch, calls
+
+    async def replay():
+        b = stt.AdaptiveBatcher(sph, batch_max=batch_max, deadline_ms=25,
+                                depth=2)
+        dispatch = b._dispatch
+
+        def timed_dispatch(reqs, trace_id=0):
+            t = time.perf_counter()
+            try:
+                return dispatch(reqs, trace_id)
+            finally:
+                disp[0] += time.perf_counter() - t
+                disp[1] += 1
+        b._dispatch = timed_dispatch
+        loop = asyncio.get_running_loop()
+        t_start = loop.time()
+
+        async def fire(r):
+            delay = t_start + r.t_ms / 1000.0 - loop.time()
+            if delay > 0:
+                await asyncio.sleep(delay)
+            try:
+                v = await b.submit(r.resource, count=r.count,
+                                   prioritized=r.prioritized, origin=r.origin)
+            except IngestOverload:
+                stats["shed"] += 1
+                return "shed"
+            key = ("granted" if v.allow and v.wait_ms > 0
+                   else "allowed" if v.allow else "blocked")
+            stats[key] += 1
+            return key
+
+        t = time.perf_counter()
+        out = await asyncio.gather(*(fire(r) for r in reqs))
+        await b.drain()
+        elapsed = time.perf_counter() - t
+        pending = b.pending
+        b.close()
+        return out, elapsed, pending
+
+    before = _entry_minute_totals(sph)
+    with no_host_sync(guard):
+        statuses, elapsed, pending = asyncio.run(asyncio.wait_for(
+            replay(), 120 + duration_ms / 1000.0))
+    delta = _entry_minute_totals(sph) - before
+    c = sph.obs.counters.snapshot()
+    settled = stats["allowed"] + stats["granted"] + stats["blocked"]
+    flushes = {k: c.get(f"frontend.flush_reason.{k}", 0)
+               for k in ("full", "deadline", "idle")}
+    h = sph.obs.hist_request
+    from sentinel_tpu_torch.stats import events as ev
+    res = {
+        "offered": len(reqs), "offered_per_s": len(reqs) / (duration_ms / 1e3),
+        "settled": settled, "shed": stats["shed"],
+        "allowed": stats["allowed"], "granted": stats["granted"],
+        "blocked": stats["blocked"], "elapsed_s": elapsed,
+        "decisions_per_s": settled / elapsed,
+        "p50_ms": h.percentile_ms(0.50), "p95_ms": h.percentile_ms(0.95),
+        "p99_ms": h.percentile_ms(0.99),
+        "flushes": flushes,
+        "mean_batch": (c.get(ck.FE_ENQUEUE, 0) / max(1, sum(flushes.values()))),
+        "dispatch_ms_per_flush": disp[0] * 1e3 / max(1, disp[1]),
+        "telemetry_tick": c.get(ck.TELEMETRY_TICK, 0),
+        "pipeline_stall": c.get(ck.PIPE_STALL, 0),
+        "pipeline_depth_sum": c.get(ck.PIPE_DEPTH, 0),
+        "entry_delta": {"pass": int(delta[ev.PASS]),
+                        "block": int(delta[ev.BLOCK]),
+                        "occupied_pass": int(delta[ev.OCCUPIED_PASS])},
+    }
+    problems = []
+    if len(statuses) != len(reqs) or pending:
+        problems.append(f"{len(statuses)} of {len(reqs)} settled, "
+                        f"{pending} pending after drain")
+    if settled + stats["shed"] != len(reqs):
+        problems.append(f"settled {settled} + shed {stats['shed']} != "
+                        f"offered {len(reqs)}")
+    if c.get(ck.FE_ENQUEUE, 0) != settled or c.get(ck.FE_SHED, 0) != \
+            stats["shed"] or h.count != settled:
+        problems.append(f"enqueued {c.get(ck.FE_ENQUEUE, 0)}, shed counter "
+                        f"{c.get(ck.FE_SHED, 0)}, request histogram "
+                        f"{h.count}: want {settled} and {stats['shed']}")
+    # admitted + blocked == the ENTRY row's PASS + BLOCK; an occupy grant's
+    # pass belongs to the window it booked and counts OCCUPIED_PASS now
+    if (res["entry_delta"]["pass"], res["entry_delta"]["occupied_pass"],
+            res["entry_delta"]["block"]) != (
+            stats["allowed"], stats["granted"], stats["blocked"]):
+        problems.append(f"verdicts allowed {stats['allowed']} granted "
+                        f"{stats['granted']} blocked {stats['blocked']} vs "
+                        f"the engine's {res['entry_delta']}")
+    return res, problems
+
+
+def _serving_open_loop(stt, sa, dev, R, duration_ms, runs, batch_maxes):
+    """(c) the workload zoo open-loop under the wall clock, one runtime per
+    ``batch_max`` with a CadenceScheduler (1 s telemetry interval)."""
+    from sentinel_tpu_torch.frontend import workloads
+    out = {}
+    launches = 0
+    for bm in batch_maxes:
+        sph = _obs_runtime(stt, R, stt.SystemClock(), dev)
+        sph.load_flow_rules(_open_loop_rules(stt))
+        sched = stt.CadenceScheduler(sph, telemetry_interval_sec=1.0)
+        sched.start()
+        # warm-up episode (first allocations of each padded size)
+        _open_loop_run(stt, sph, workloads.make(
+            "steady", 1, duration_ms=min(300.0, duration_ms),
+            rate_rps=20_000.0), bm, min(300.0, duration_ms), False)
+        for name, rate in runs:
+            reqs = workloads.make(name, 7, duration_ms=float(duration_ms),
+                                  rate_rps=float(rate))
+            sph.obs.counters.clear()
+            sph.obs.hist_request.clear()
+            sa.LAUNCHES.clear()
+            res, problems = _open_loop_run(stt, sph, reqs, bm, duration_ms,
+                                           dev == "cuda")
+            launches += sa.LAUNCHES["scatter_add"]
+            if problems:
+                fail(f"serving phase: open loop {name} at {rate}/s, "
+                     f"batch_max {bm}: " + "; ".join(problems))
+            out[f"{name}@{rate}/bm{bm}"] = res
+            log(f"[serving] open loop {name} {rate}/s, batch_max {bm}: "
+                f"offered {res['offered_per_s']:.0f}/s, achieved "
+                f"{res['decisions_per_s']:.0f} decisions/s; request->verdict "
+                f"p50 {res['p50_ms']:.2f} p95 {res['p95_ms']:.2f} p99 "
+                f"{res['p99_ms']:.2f} ms; flushes {res['flushes']}, mean "
+                f"batch {res['mean_batch']:.1f} ("
+                f"{res['dispatch_ms_per_flush']:.2f} ms in a dispatch), "
+                f"shed {res['shed']}, blocked "
+                f"{res['blocked']}, granted {res['granted']}; telemetry.tick "
+                f"{res['telemetry_tick']}, pipeline.stall "
+                f"{res['pipeline_stall']}, pipeline.depth "
+                f"{res['pipeline_depth_sum']}")
+        # the scheduler's daemon self-dispatches a stale tick (1.5 s with
+        # none): wait for one if the runs were too short to see it
+        deadline = time.monotonic() + 5.0
+        while (sph.telemetry.snapshot()["ticks"] == 0
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        sched.stop()
+        if sph.telemetry.snapshot()["ticks"] == 0:
+            fail(f"serving phase: the CadenceScheduler never ticked the "
+                 f"telemetry at batch_max {bm}")
+        sph.close()
+        del sph
+    return out, launches
+
+
+def _serving_telemetry(stt, dev, R, ticks, cycles_per_ms):
+    """(d) ``Sentinel.telemetry`` at ``R`` rows: tick and drain times, the
+    hot set and its quantiles against a host recompute (with ties), and
+    the ring wrapping past its 64 slots."""
+    from sentinel_tpu_torch.core.registry import ENTRY_NODE_ROW
+    from sentinel_tpu_torch.obs import resource_hist as rh
+    from sentinel_tpu_torch.obs import telemetry as tel_mod
+    t0 = 1_800_000_000_000
+    clock = stt.ManualClock(start_ms=t0)
+    sph = _obs_runtime(stt, R, clock, dev)
+    tel = sph.telemetry
+    rng = np.random.default_rng(61)
+    ruled = sph.intern_resources([f"r{i}" for i in range(OBS_RULED)])
+    pool = sph.intern_resources([f"u{i}" for i in range(20_000)])
+
+    def host_check(tag):
+        """The drained hot set against the state copied to the host."""
+        with sph._lock:
+            st = sph._state
+            stamps = st.second.stamps.cpu().numpy()
+            counters = st.second.counters.cpu().numpy()
+            hist = st.rt_hist.cpu().numpy()
+            spec = sph.spec
+            idx_s = spec.second.index_of(clock.now_ms())
+            sec = clock.now_ms() // 1000 - 1
+            outs, _ = tel_mod.telemetry_tick(
+                spec.second, spec.minute, tel.k, st.second, st.minute,
+                st.rt_hist, tel_mod.init_ring(device=sph.device), idx_s,
+                spec.minute.index_of(sec * 1000), 0)
+            q_dev = outs[8].cpu().numpy()
+        d = np.int32(idx_s) - stamps
+        live = (d >= 0) & (d < spec.second.buckets)
+        load = np.where(live, counters[:, :, 0] + counters[:, :, 1], 0) \
+            .sum(axis=1).astype(np.int64)
+        load[ENTRY_NODE_ROW] = -1
+        order = np.argsort(-load, kind="stable")[:tel.k]
+        vals, rows = tel.last_topk
+        if list(rows) != list(order) or list(vals) != list(load[order]):
+            fail(f"serving phase: telemetry top-K ({tag}) differs from the "
+                 f"host recompute: {list(rows)} vs {list(order)}")
+        want_q = rh.np_quantiles(hist[order])
+        if not np.array_equal(q_dev, want_q):
+            fail(f"serving phase: telemetry quantiles ({tag}) differ from "
+                 f"np_quantiles")
+        for h in tel.hot_entries():
+            if h["rt_hist"] != hist[h["row"]].tolist():
+                fail(f"serving phase: hot entry {h['resource']} carries "
+                     f"another histogram than its row")
+        ties = int(np.sum(load[order] == load[order][-1]))
+        return ties, int(np.sum(load == load[order][-1]))
+
+    # traffic with RT histograms: fused steps with exits
+    prev = np.empty(0, np.int32)
+    for step in range(4):
+        clock.advance_ms(2)
+        rows = np.where(rng.random(1 << 16) < 0.25,
+                        ruled[rng.integers(0, OBS_RULED, 1 << 16)],
+                        pool[rng.integers(0, pool.shape[0], 1 << 16)]
+                        ).astype(np.int32)
+        v = _fused_step(sph, rows, prev, set()).result()
+        prev = rows[v.allow]
+    # timed ticks (host ms; device ms between two events behind a hold)
+    host_tick, host_total, dev_ms = [], [], []
+    for i in range(ticks):
+        clock.advance_ms(37)
+        if dev == "cuda":
+            sync()
+            torch.cuda._sleep(int(cycles_per_ms * 20))
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+        t = time.perf_counter()
+        with no_host_sync(dev == "cuda"):
+            ok = tel.tick()
+        t1 = time.perf_counter()
+        if dev == "cuda":
+            end.record()
+        tel.drain()
+        t2 = time.perf_counter()
+        if not ok:
+            fail("serving phase: a telemetry tick was dropped")
+        host_tick.append((t1 - t) * 1e3)
+        host_total.append((t2 - t) * 1e3)
+        if dev == "cuda":
+            dev_ms.append(start.elapsed_time(end))
+    ties_a = host_check("traffic")
+    # every one of 3000 fresh resources entered exactly 3 times: the hot
+    # set is decided by the tie-break alone
+    clock.advance_ms(1000)
+    tied = sph.intern_resources([f"tie{i}" for i in range(3000)])
+    sph.entry_batch(np.repeat(tied, 3))
+    clock.advance_ms(1)
+    tel.poll()
+    ties_b = host_check("ties")
+    if ties_b[1] < 3000 or ties_b[0] != tel.k:
+        fail(f"serving phase: the tie drive did not tie: {ties_b}")
+    # fill the ring past its slots: one event and one tick a second
+    clock.advance_ms(2000)
+    n_sec = tel.ring_slots + 6
+    cursor0 = int(tel._ring.cursor)
+    for i in range(n_sec):
+        sph.entry_batch(ruled[:1])
+        clock.advance_ms(1000)
+        tel.poll()
+    ring = {k: v.cpu().numpy() for k, v in tel._ring._asdict().items()}
+    sec_now = clock.now_ms() // 1000 - 1
+    want = list(range(sec_now - tel.ring_slots + 1, sec_now + 1))
+    if int(ring["cursor"]) != cursor0 + n_sec or sorted(
+            ring["seconds"].tolist()) != want:
+        fail(f"serving phase: telemetry ring did not wrap: cursor "
+             f"{int(ring['cursor'])}, seconds {sorted(ring['seconds'])[:4]}...")
+    tl = tel.snapshot(timeline_limit=n_sec)["timeline"]
+    if [e["sec"] for e in tl[-n_sec:]] != list(
+            range(sec_now - n_sec + 1, sec_now + 1)) or any(
+            e["pass"] != 1 for e in tl[-n_sec:]):
+        fail("serving phase: the telemetry timeline does not hold one "
+             "completed second a tick")
+    snap = tel.snapshot()
+    sph.close()
+    res = {"tick_host_ms": summary(host_tick),
+           "tick_drain_host_ms": summary(host_total),
+           "tick_device_ms": summary(dev_ms) if dev_ms else None,
+           "k": tel.k, "ticks": snap["ticks"], "drops": snap["drops"],
+           "ties_in_topk": [ties_a[0], ties_b[0]],
+           "rows_at_cut_load": [ties_a[1], ties_b[1]],
+           "ring_cursor": int(ring["cursor"])}
+    log(f"[serving] telemetry at R={R} (k={tel.k}): tick host ms median "
+        f"{res['tick_host_ms']['median']:.3f}, tick+drain "
+        f"{res['tick_drain_host_ms']['median']:.3f}"
+        + (f", device {res['tick_device_ms']['median']:.3f}" if dev_ms
+           else "")
+        + f" ms; hot set and quantiles equal the host recompute (ties at "
+        f"the cut: {ties_a[0]} and {ties_b[0]} of the top {tel.k}, "
+        f"{ties_b[1]} rows at the cut's load); ring wrapped to cursor "
+        f"{res['ring_cursor']}")
+    return res
+
+
+def phase_serving(stt, sa, dev="cuda", R=1 << 20, B=1 << 19, turns=11,
+                  per_turn=6, requests=1 << 15, twin_rows=1 << 14,
+                  duration_ms=1000, runs=OPEN_LOOP_RUNS,
+                  batch_maxes=(256, 4096), tel_ticks=21, timer=None,
+                  profile: bool = False) -> dict:
+    """The serving tier through the entry points a service calls, at the
+    default configuration with ``R`` rows and the scalar fixture's rules:
+
+    (a) the same stream of fused scalar steps (``B`` events; exits = the
+    admissions of the step four back) sequentially and through
+    ``DispatchPipeline.submit_fused`` at depth 1, 2 and 4 on twin runtimes
+    under twin ManualClocks, in turns: equal verdicts and state, host ms a
+    step by depth, the staging ring's growth (``profile``: device ms a step
+    and the busy share at depth 1 and 4);
+    (b) ``requests`` single requests through ``sph.frontend(batch_max=4096,
+    depth=2)`` replayed through ``entry_batch_nowait`` on a second runtime,
+    and the same drive at ``twin_rows`` against a CPU twin;
+    (c) the workload zoo open-loop on the wall clock at each ``batch_max``
+    with a ``CadenceScheduler``: rates, request→verdict quantiles, flushes,
+    and the invariants (each request settles once, none pending,
+    enqueued = settled, offered = settled + shed, verdicts = the ENTRY
+    row's PASS / OCCUPIED_PASS / BLOCK);
+    (d) ``Sentinel.telemetry``: tick times, the hot set against a host
+    recompute with ties, the ring wrapping.
+    Submits run with the sync debug mode at "error"."""
+    t_phase = time.perf_counter()
+    res = {}
+    res["pipeline"] = _serving_pipeline(stt, sa, dev, R, B, turns, per_turn,
+                                        profile)
+    res["batcher"] = _serving_batcher(stt, sa, dev, R, requests, twin_rows)
+    res["open_loop"], ol_launches = _serving_open_loop(
+        stt, sa, dev, R, duration_ms, runs, batch_maxes)
+    res["telemetry"] = _serving_telemetry(
+        stt, dev, R, tel_ticks, timer.cycles_per_ms if timer else 0.0)
+    res["launches"] = (res["pipeline"]["launches"]
+                       + res["batcher"]["launches"] + ol_launches)
+    res["launches_per_step"] = res["pipeline"]["launches_per_step"]
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[serving] phase 9 took {res['seconds']:.1f} s; kernel launches "
+        f"{res['launches']}")
+    return res
+
+
 def find_syncs(stt, sa) -> int:
     """``--find-syncs``: every place where a kernel-run engine step waits
     on the device, with the port's frames of its stack (the sync debug
@@ -2536,6 +3205,9 @@ def find_syncs(stt, sa) -> int:
     phase_param_engine(stt, sa, steps=3)
     phase_origin_engine(stt, sa, "general", steps=3, param=True)
     phase_obs_runtime(stt, sa, steps=3)
+    phase_serving(stt, sa, turns=2, per_turn=3, requests=1 << 12,
+                  duration_ms=300, runs=(("steady", 20_000),),
+                  batch_maxes=(256,), tel_ticks=3)
     log(f"[sync] {len(sites)} place(s) wait on the device in a step")
     return 0
 
@@ -2578,8 +3250,8 @@ def main() -> int:
     t_all = time.perf_counter()
     report = {"card": card, "torch": torch.__version__}
     report["build"] = phase_build(_build)
-    report["kernel_cases"] = phase_kernels(sa, DEFAULT_BUCKETS,
-                                           timer=CudaTimer())
+    timer = CudaTimer()
+    report["kernel_cases"] = phase_kernels(sa, DEFAULT_BUCKETS, timer=timer)
     profile = "--profile" in sys.argv[1:]
     report["engine"] = phase_engine(stt, sa, profile=profile)
     report["prio"] = phase_prio_engine(stt, sa, "prio", profile=profile)
@@ -2599,6 +3271,7 @@ def main() -> int:
     report["fast_path"] = phase_fast_path_runtime(stt, sa)
     report["param_runtime"] = phase_param_runtime(stt, sa)
     report["obs_runtime"] = phase_obs_runtime(stt, sa, profile=profile)
+    report["serving"] = phase_serving(stt, sa, timer=timer, profile=profile)
     report["seconds"] = time.perf_counter() - t_all
 
     decide = report["kernel_cases"][0]
@@ -2606,7 +3279,7 @@ def main() -> int:
     launches = sum(report[p]["launches"] for p in (
         "engine", "prio", "prio_mixed", "general", "general_occupy", "fast",
         "scalar_param", "general_param", "runtime", "fast_path",
-        "param_runtime", "obs_runtime"))
+        "param_runtime", "obs_runtime", "serving"))
     kernels = [{
         "name": "scatter_add", "route": "cuda",
         "source": "sentinel_tpu_torch/csrc/scatter_add.cu",

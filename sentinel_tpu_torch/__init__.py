@@ -27,6 +27,11 @@ rules and user processor slots::
             do_something()
     except stt.BlockException:
         do_fallback()
+
+and the serving tier above it: ``sph.frontend()`` turns single requests
+into deadline-cut batches (``await b.submit("HelloWorld")``) through a
+depth-k :class:`DispatchPipeline`, and a :class:`CadenceScheduler` ticks
+the hot-resource telemetry (``sph.telemetry``).
 """
 
 from sentinel_tpu_torch.core.clock import (
@@ -76,6 +81,13 @@ from sentinel_tpu_torch.rules.param_flow import (
 from sentinel_tpu_torch.rules.system import SystemRule
 from sentinel_tpu_torch.runtime import (
     ENTRY_TYPE_IN, ENTRY_TYPE_OUT, Entry, PendingVerdicts, Sentinel,
+    pipeline_depth,
+)
+from sentinel_tpu_torch.serving import (
+    CadenceScheduler, DispatchPipeline, PipelinedVerdicts,
+)
+from sentinel_tpu_torch.frontend import (
+    AdaptiveBatcher, FrontendClosed, IngestOverload, RequestVerdict,
 )
 
 __version__ = "0.1.0"
@@ -96,4 +108,8 @@ __all__ = [
     "STRATEGY_WHITE", "STRATEGY_BLACK",
     "Clock", "ManualClock", "SystemClock", "set_global_clock",
     "SentinelConfig", "load_config",
+    "CadenceScheduler", "DispatchPipeline", "PipelinedVerdicts",
+    "pipeline_depth",
+    "AdaptiveBatcher", "RequestVerdict", "IngestOverload",
+    "FrontendClosed",
 ]

@@ -1,0 +1,23 @@
+"""Row-ownership layout of the device state.
+
+Port of the part of ``sentinel_tpu/parallel/local_shard.py`` the telemetry
+tick needs. The port runs one engine on one GPU: its state is one shard
+that owns every row. Row-sharded engines over several GPUs are not ported
+yet (ROADMAP A11).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+MESH_NOT_PORTED = ("meshes (row-sharded multi-GPU engines) are not ported "
+                   "yet: ROADMAP A11")
+
+
+def topk_layout(spec, mesh=None) -> Tuple[int, int]:
+    """→ ``(n_shards, rows_per_shard)`` for the telemetry top-K: shard
+    ``i`` owns the global rows ``[i*rows_per_shard, (i+1)*rows_per_shard)``.
+    One device: ``(1, spec.rows)``; a mesh raises."""
+    if mesh is not None:
+        raise NotImplementedError(MESH_NOT_PORTED)
+    return 1, spec.rows

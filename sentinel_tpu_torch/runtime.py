@@ -118,6 +118,8 @@ from sentinel_tpu_torch.metrics.node import (
 from sentinel_tpu_torch.obs import RuntimeObs
 from sentinel_tpu_torch.obs import counters as obs_keys
 from sentinel_tpu_torch.obs.resource_hist import engine_hist_buckets
+from sentinel_tpu_torch.obs.telemetry import HotTelemetry
+from sentinel_tpu_torch.parallel.local_shard import MESH_NOT_PORTED
 from sentinel_tpu_torch.rules import authority as auth_mod
 from sentinel_tpu_torch.rules import degrade as deg_mod
 from sentinel_tpu_torch.rules import flow as flow_mod
@@ -142,8 +144,7 @@ PIPELINE_DEPTH_ENV = "SENTINEL_PIPELINE_DEPTH"
 _NOT_PORTED = {
     "cluster": "cluster-mode flow and param rules are not ported yet: "
                "ROADMAP A12",
-    "mesh": "meshes (row-sharded multi-GPU engines) are not ported yet: "
-            "ROADMAP A11",
+    "mesh": MESH_NOT_PORTED,
 }
 
 
@@ -414,6 +415,7 @@ class Sentinel:
         self.cfg = cfg = config or load_config()
         if mesh is not None:
             raise NotImplementedError(_NOT_PORTED["mesh"])
+        self.mesh = None            # one GPU; meshes are ROADMAP A11
         self.clock = clock or global_clock()
 
         self.resources = ResourceRegistry(cfg.max_resources)
@@ -503,6 +505,12 @@ class Sentinel:
         # services stopped by close(), LIFO, each once
         self._shutdown_hooks: list = []
         self._closed = False
+        # hot-resource telemetry (obs/telemetry.py): a top-K and timeline
+        # read of the live window state, read back off the engine lock;
+        # self-registers for close() and pins the hot set into flight
+        # records. Its ticker starts with telemetry.start() or a
+        # serving.CadenceScheduler.
+        self.telemetry = HotTelemetry(self)
         self.callbacks = StatisticCallbackRegistry()
         # breaker transition observers: the [ND] state column rides each
         # step's verdict readback and is diffed against ONE shared
@@ -2172,6 +2180,19 @@ class Sentinel:
                 _log.debug("shutdown hook failed", exc_info=True)
         self.obs.close()
         self.block_log.close()
+
+    def frontend(self, **kwargs):
+        """A new :class:`~sentinel_tpu_torch.frontend.AdaptiveBatcher`
+        ingest tier over this runtime (kwargs pass through: batch_max,
+        deadline_ms, budget_ms, idle_ms, queue_max, depth,
+        record_flushes). The batcher registers with
+        :meth:`register_shutdown`, so :meth:`close` tears it down. One
+        batcher per event loop. Unset kwargs take the
+        ``SENTINEL_FRONTEND_*`` knobs and then the batcher's defaults (the
+        reference also fills them from a tuned-config artifact: ROADMAP
+        A12)."""
+        from sentinel_tpu_torch.frontend import AdaptiveBatcher
+        return AdaptiveBatcher(self, **kwargs)
 
     def __enter__(self) -> "Sentinel":
         return self

@@ -142,12 +142,24 @@ def window_sum_all(spec: WindowSpec, state: WindowState, event: int,
         1, dtype=torch.int32)
 
 
-def rolling_totals(spec: WindowSpec, state: WindowState,
-                   now_idx: int) -> torch.Tensor:
-    """All events, all rows → int32[R, E]."""
-    mask = valid_mask(spec, state.stamps, now_idx)       # [R, B]
-    return torch.where(mask[:, :, None], state.counters, 0).sum(
+def rolling_totals(spec: WindowSpec, state: WindowState, now_idx: int,
+                   rows=slice(None)) -> torch.Tensor:
+    """All events of ``rows`` (all rows by default; else an in-range
+    index tensor) → int32[N, E]: gathering the rows first gives the same
+    values as indexing the full result, for the bytes of N rows."""
+    mask = valid_mask(spec, state.stamps[rows], now_idx)  # [N, B]
+    return torch.where(mask[:, :, None], state.counters[rows], 0).sum(
         1, dtype=torch.int32)
+
+
+def rolling_load(spec: WindowSpec, state: WindowState,
+                 now_idx: int) -> torch.Tensor:
+    """Rolling PASS+BLOCK total per row → int32[R]: the hot-resource
+    ranking key of the telemetry tick (obs/telemetry.py), one masked
+    sweep over two lanes."""
+    mask = valid_mask(spec, state.stamps, now_idx)       # [R, B]
+    sub = state.counters[:, :, ev.PASS] + state.counters[:, :, ev.BLOCK]
+    return torch.where(mask, sub, 0).sum(1, dtype=torch.int32)
 
 
 def rt_totals(spec: WindowSpec, state: WindowState,
@@ -368,15 +380,17 @@ def invalidate_rows(spec: WindowSpec, state: WindowState,
     return state
 
 
-def bucket_snapshot(spec: WindowSpec, state: WindowState, idx: int):
-    """All rows' counters (+ rt sum) for the bucket at window index
-    ``idx`` — zeros where that bucket is dead → ``(int32[R, E],
-    float32[R])``. The per-second read of the metric-file pipeline."""
+def bucket_snapshot(spec: WindowSpec, state: WindowState, idx: int,
+                    rows=slice(None)):
+    """The counters (+ rt sum) of ``rows`` (all rows by default; else an
+    in-range index tensor) for the bucket at window index ``idx`` — zeros
+    where that bucket is dead → ``(int32[N, E], float32[N])``. The
+    per-second read of the metric-file pipeline and the telemetry tick."""
     k = _bucket_of(spec, idx)
-    live = state.stamps[:, k] == idx                        # [R]
-    counters = torch.where(live[:, None], state.counters[:, k, :], 0)
+    live = state.stamps[rows, k] == idx                     # [N]
+    counters = torch.where(live[:, None], state.counters[rows, k, :], 0)
     if spec.track_rt:
-        rt = torch.where(live, state.rt_sum[:, k], 0.0)
+        rt = torch.where(live, state.rt_sum[rows, k], 0.0)
     else:
         rt = torch.zeros(live.shape, dtype=torch.float32,
                          device=live.device)

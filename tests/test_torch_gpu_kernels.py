@@ -520,3 +520,26 @@ def test_param_check_scalar_with_shared_key_rows_on_the_card():
     torch.cuda.synchronize()
     for a, c in zip(*out):
         assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_telemetry_topk_ties_and_quantiles_on_the_card():
+    """The telemetry tick's ranking and quantile extraction on the card
+    equal the CPU's and a stable host argsort, with thousands of tied
+    loads (plain PyTorch ops, no hand kernel: ``torch.topk`` on the card
+    must not pick another of the equal rows)."""
+    from sentinel_tpu_torch.obs import resource_hist as rh
+    from sentinel_tpu_torch.obs import telemetry as tel
+    dev = _card()
+    rng = np.random.default_rng(71)
+    load = rng.integers(0, 4, 1 << 20).astype(np.int32)
+    load[0] = -1
+    for k in (1, 16, 128):
+        vals, rows = tel.topk_rows(torch.from_numpy(load).to(dev), k)
+        order = np.argsort(-load.astype(np.int64), kind="stable")[:k]
+        assert rows.cpu().numpy().tolist() == order.tolist()
+        assert vals.cpu().numpy().tolist() == load[order].tolist()
+    counts = rng.integers(0, 5000, (4096, 32)).astype(np.int32)
+    counts[rng.random(counts.shape) < 0.4] = 0
+    got = rh.quantiles_from_counts(torch.from_numpy(counts).to(dev))
+    assert np.array_equal(got.cpu().numpy(), rh.np_quantiles(counts))

@@ -48,6 +48,13 @@ import sentinel_tpu_torch.core.callbacks
 import sentinel_tpu_torch.core.logs
 import sentinel_tpu_torch.core.property
 import sentinel_tpu_torch.core.statlog
+import sentinel_tpu_torch.serving
+import sentinel_tpu_torch.frontend
+import sentinel_tpu_torch.frontend.batcher
+import sentinel_tpu_torch.frontend.workloads
+import sentinel_tpu_torch.obs.telemetry
+import sentinel_tpu_torch.obs.resource_hist
+import sentinel_tpu_torch.parallel.local_shard
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "sentinel_tpu")
@@ -87,16 +94,50 @@ OBS_MODULES = [
     "sentinel_tpu_torch.runtime",
 ]
 
+#: the serving tier and the telemetry slice, imported the same way (the
+#: HTTP server, which needs aiohttp, has a case of its own below)
+SERVING_MODULES = [
+    "sentinel_tpu_torch.serving", "sentinel_tpu_torch.frontend",
+    "sentinel_tpu_torch.frontend.batcher",
+    "sentinel_tpu_torch.frontend.workloads",
+    "sentinel_tpu_torch.obs.telemetry", "sentinel_tpu_torch.obs.resource_hist",
+    "sentinel_tpu_torch.parallel.local_shard",
+]
 
-@pytest.mark.parametrize("module", OBS_MODULES)
-def test_module_imports_with_jax_blocked(module):
+
+def _import_blocked(*modules):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
-    proc = subprocess.run([sys.executable, "-c", _BLOCKED_PROBE, module],
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_PROBE, *modules],
                           cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
+
+
+@pytest.mark.parametrize("module", OBS_MODULES + SERVING_MODULES)
+def test_module_imports_with_jax_blocked(module):
+    _import_blocked(module)
+
+
+def test_frontend_server_imports_with_jax_blocked():
+    """``frontend.server`` imports aiohttp (which the GPU machine lacks:
+    nothing else of the port imports this module)."""
+    pytest.importorskip("aiohttp")
+    _import_blocked("sentinel_tpu_torch.frontend.server")
+
+
+def test_package_and_runtime_never_import_aiohttp_server():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    probe = ("import sys, sentinel_tpu_torch, sentinel_tpu_torch.frontend, "
+             "chip_smoke\n"
+             "print(sorted(m for m in sys.modules if m == "
+             "'sentinel_tpu_torch.frontend.server' or m.startswith('aiohttp')))")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
 
 
 def _forbidden(name: str) -> bool:
