@@ -93,8 +93,27 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    OCCUPIED_PASS and BLOCK); and ``sph.telemetry`` at 1M rows (tick and
    drain ms, the hot set and its quantiles against a host recompute with
    tied loads, the timeline ring wrapping past 64 slots);
-10. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-   line (``launches`` summed over the runs of phases 3-9), and as the last
+10. drives tiered resource state, single dispatch and the overload
+   controller (default configuration, the scalar fixture's rules, 1M
+   rows): (a) 32 batches of 2^16 names, Zipf(1.1) over 2^20 - 4096 names,
+   25% prioritized, a flow-rule reload half way, 25 ms a batch, a
+   ``CadenceScheduler`` armed at 100 ms, through a tiered runtime
+   (``SENTINEL_HOT_ROWS=65536``: most keys pass through the host cold tier)
+   in turns with an all-resident one and one with single dispatch off:
+   equal verdicts every batch, equal count-min tables, equal launches a
+   batch; the same leg at 16k rows against a CPU twin (verdicts, state,
+   sketch, cold tier, counters); (b) 2^18 requests, Zipf(1.1) over 16M
+   keys, through ``sph.frontend(batch_max=4096, depth=2)`` with the cold
+   tier bounded (hit rate, migrations, host ms a flush in intern, demote
+   gather and promote restore, device ms of the sketch update, the
+   decay+estimate over 1M rows and the row-slice extract/restore); (c)
+   fused steps with both carries armed (one dispatch a batch, each
+   service ticking once a due slot) and host ms a step armed and
+   disarmed in turns; (d) the workload zoo's ``steady`` at 80k req/s with
+   and without a ``ControlLoop`` in turns (actions, admitted share, sheds,
+   p50/p99) and the ``Degrade`` actuator forcing a real breaker;
+11. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
+   line (``launches`` summed over the runs of phases 3-10), and as the last
    line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --find-syncs`` runs 3-5 steps of each engine phase
@@ -2834,11 +2853,13 @@ def _open_loop_rules(stt):
     return rules
 
 
-def _open_loop_run(stt, sph, reqs, batch_max, duration_ms, guard):
+def _open_loop_run(stt, sph, reqs, batch_max, duration_ms, guard,
+                   on_batcher=None):
     """Replay ``reqs`` open-loop (each submitted at its arrival time on
     the wall clock) through a fresh batcher → (the run's numbers, failed
     invariants). ``guard``: the replay runs with the sync debug mode at
-    "error"."""
+    "error"; ``on_batcher(b)`` sees the batcher before the first request
+    (phase 10 binds an overload controller to it)."""
     import asyncio
     from sentinel_tpu_torch.frontend import IngestOverload
     from sentinel_tpu_torch.obs import counters as ck
@@ -2848,6 +2869,8 @@ def _open_loop_run(stt, sph, reqs, batch_max, duration_ms, guard):
     async def replay():
         b = stt.AdaptiveBatcher(sph, batch_max=batch_max, deadline_ms=25,
                                 depth=2)
+        if on_batcher is not None:
+            on_batcher(b)
         dispatch = b._dispatch
 
         def timed_dispatch(reqs, trace_id=0):
@@ -3172,6 +3195,624 @@ def phase_serving(stt, sa, dev="cuda", R=1 << 20, B=1 << 19, turns=11,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: tiered resource state, single dispatch and the controller
+# ---------------------------------------------------------------------------
+
+TIER_TICK_MS = 100       # SENTINEL_TIER_TICK_MS of the churn legs
+TIER_STEP_MS = 25        # virtual time a batch
+TIER_PRIO = 0.25         # prioritized share (bookings ride demote/promote)
+
+
+def _tier_runtime(stt, R: int, clock, dev, **env):
+    """:func:`_obs_runtime` (default configuration, the scalar fixture's
+    rules) constructed with the ``SENTINEL_*`` knobs in ``env`` set."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        return _obs_runtime(stt, R, clock, dev)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _tier_stream(universe: int, B: int, batches: int, seed: int):
+    """``batches`` batches of ``B`` names, Zipf(1.1) over ``universe``
+    ranks (rank k <= 4096 is the ruled ``r{k-1}``, the rest ``u{k}``),
+    ``TIER_PRIO`` of each prioritized."""
+    from sentinel_tpu_torch.frontend.workloads import _zipf_ranks
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(batches):
+        ranks = _zipf_ranks(rng, B, 1.1, universe)
+        names = [f"r{k - 1}" if k <= OBS_RULED else f"u{k}"
+                 for k in ranks.tolist()]
+        out.append((names, rng.random(B) < TIER_PRIO))
+    return out
+
+
+def _tier_reload_rules(stt):
+    """The mid-run reload: half the ruled resources keep their rule, 2048
+    unruled ones gain one (new pins on keys that may be cold)."""
+    return ([stt.FlowRule(resource=f"r{i}", count=50.0)
+             for i in range(OBS_RULED // 2)]
+            + [stt.FlowRule(resource=f"u{k}", count=40.0)
+               for k in range(OBS_RULED + 1, OBS_RULED + 2049)])
+
+
+def _cold_bytes(cold) -> int:
+    """Host bytes of a cold tier's numpy payloads."""
+    total = 0
+    with cold._lock:
+        entries = list(cold._entries.values())
+    for e in entries:
+        for v in vars(e).values():
+            if isinstance(v, np.ndarray):
+                total += v.nbytes
+        for alt in e.alts.values():
+            total += sum(a.nbytes for a in alt[:4])
+    return total
+
+
+def _tier_churn(stt, sa, dev, R, B, batches, hot_rows, universe, seed,
+                names=("tiered", "tiered_sd0", "resident")):
+    """(a)/(c) the churn legs: the same seeded traffic through
+    ``entry_batch_nowait`` on twin runtimes in turns — ``tiered``
+    (``SENTINEL_HOT_ROWS=hot_rows``), ``tiered_sd0`` (the same with
+    ``SENTINEL_SINGLE_DISPATCH=0``) and ``resident``
+    (``SENTINEL_TIERING_DISABLE=1``; ``universe`` must fit its table) —
+    a flow-rule reload half way, ``TIER_STEP_MS`` a batch, each runtime's
+    ``CadenceScheduler`` armed (telemetry 1 s, tiering ``TIER_TICK_MS``)
+    and polled after every batch. Verdicts equal every batch, the
+    count-min tables of the two tiered twins equal after every batch,
+    kernel launches a step equal → the runtimes and the numbers."""
+    t0 = 1_800_000_000_000
+    envs = {"tiered": dict(SENTINEL_HOT_ROWS=hot_rows),
+            "tiered_sd0": dict(SENTINEL_HOT_ROWS=hot_rows,
+                               SENTINEL_SINGLE_DISPATCH=0),
+            "resident": dict(SENTINEL_TIERING_DISABLE=1)}
+    sph, sched = {}, {}
+    for n in names:
+        sph[n] = _tier_runtime(stt, R, stt.ManualClock(start_ms=t0), dev,
+                               **envs[n])
+        sched[n] = stt.CadenceScheduler(
+            sph[n], telemetry_interval_sec=1.0,
+            tiering_interval_sec=TIER_TICK_MS / 1000.0)
+        # armed without the wall-clock daemon: poll() runs in turn
+        sph[n].telemetry.arm_carry(1000)
+        sph[n].tiering.arm_carry(TIER_TICK_MS)
+    stream = _tier_stream(universe, B, batches, seed)
+    reload_rules = _tier_reload_rules(stt)
+    host_ms = {n: [] for n in names}
+    launches = {n: [] for n in names}
+    polls = {n: [] for n in names}
+    verdicts = []
+    blocked = granted = 0
+    for step, (res, prio) in enumerate(stream):
+        if step == batches // 2:
+            for n in names:
+                sph[n].load_flow_rules(reload_rules)
+        got = {}
+        order = names if step % 2 == 0 else names[::-1]
+        for n in order:
+            s = sph[n]
+            sa.LAUNCHES.clear()
+            t = time.perf_counter()
+            with no_host_sync(dev == "cuda"):
+                h = s.entry_batch_nowait(res, prioritized=prio)
+            v = h.result()
+            host_ms[n].append((time.perf_counter() - t) * 1e3)
+            launches[n].append(sa.LAUNCHES["scatter_add"])
+            got[n] = v
+            s.clock.advance_ms(TIER_STEP_MS)
+            t = time.perf_counter()
+            sched[n].poll()
+            polls[n].append((time.perf_counter() - t) * 1e3)
+        ref = got[names[0]]
+        verdicts.append((ref.allow, ref.reason, ref.wait_ms))
+        for n in names[1:]:
+            for f in ("allow", "reason", "wait_ms"):
+                if not np.array_equal(getattr(got[n], f), getattr(ref, f)):
+                    fail(f"tiering phase: {n} {f} differs from {names[0]} "
+                         f"at batch {step}")
+            if launches[n][-1] != launches[names[0]][-1]:
+                fail(f"tiering phase: {n} launched {launches[n][-1]} at "
+                     f"batch {step}, {names[0]} {launches[names[0]][-1]}")
+        if "tiered_sd0" in sph and not torch.equal(
+                sph["tiered"].tiering._sketch,
+                sph["tiered_sd0"].tiering._sketch):
+            fail(f"tiering phase: the count-min tables of single dispatch "
+                 f"on and off differ at batch {step}")
+        blocked += int(np.count_nonzero(~ref.allow))
+        granted += int(np.count_nonzero(ref.allow & (ref.wait_ms > 0)))
+    return sph, sched, {"host_ms": host_ms, "launches": launches,
+                        "poll_ms": polls, "blocked": blocked,
+                        "granted": granted, "verdicts": verdicts}
+
+
+def _tier_snapshot(sph) -> dict:
+    t = sph.tiering
+    snap = dict(t.snapshot())
+    snap["hit_rate"] = t.hit_rate()
+    snap["cold_bytes"] = _cold_bytes(t.cold)
+    return snap
+
+
+def _tier_fused(stt, sph, B, steps, turns, per_turn):
+    """(c) full-width fused decide+exit steps over the ruled (pinned)
+    rows with both carries armed (telemetry 400 ms, tiering 150 ms), 50
+    ms a step: one dispatch a batch, each service ticking once per due
+    slot; then host ms a step armed and disarmed in turns (no tick due in
+    a timed step: the clock stands still inside a turn, and one untimed
+    armed step between turns runs the epilogue)."""
+    from sentinel_tpu_torch.obs import counters as ck
+    rows_all = sph.intern_resources([f"r{i}" for i in range(OBS_RULED)])
+    rng = np.random.default_rng(67)
+    w = 1.0 / np.arange(1, OBS_RULED + 1) ** 1.1
+    stream = [rows_all[rng.choice(OBS_RULED, B, p=w / w.sum())]
+              for _ in range(8)]
+    prev = np.empty(0, np.int32)
+
+    def step(i):
+        nonlocal prev
+        rows = stream[i % len(stream)]
+        v = _fused_step(sph, rows, prev, set()).result()
+        prev = rows[v.allow]
+
+    tel, tier = sph.telemetry, sph.tiering
+    t_arm = int(sph.clock.now_ms())
+    tel.arm_carry(400)
+    tier.arm_carry(150)
+    base = sph.obs.counters.get(ck.PIPE_DISPATCH)
+    sd0 = sph.obs.counters.get(ck.ROUTE_SINGLE_DISPATCH)
+    tel0, tier0 = tel.snapshot()["ticks"], tier.snapshot()["ticks"]
+    times = []
+    for i in range(steps):
+        times.append(int(sph.clock.now_ms()))
+        with no_host_sync(sph.device.type == "cuda"):
+            step(i)
+        tel.drain()             # what the scheduler's daemon does
+        tier.drain()
+        sph.clock.advance_ms(50)
+
+    def claims(interval):
+        last, n = t_arm, 0
+        for t in times:
+            if t - last >= interval:
+                last, n = t, n + 1
+        return n
+
+    res = {"steps": steps,
+           "dispatches": sph.obs.counters.get(ck.PIPE_DISPATCH) - base,
+           "single_dispatch": (sph.obs.counters.get(ck.ROUTE_SINGLE_DISPATCH)
+                               - sd0),
+           "tel_ticks": tel.snapshot()["ticks"] - tel0,
+           "tel_claims": claims(400),
+           "tier_ticks": tier.snapshot()["ticks"] - tier0,
+           "tier_claims": claims(150)}
+    if (res["dispatches"] != steps or res["single_dispatch"] != steps
+            or res["tel_ticks"] != res["tel_claims"]
+            or res["tier_ticks"] != res["tier_claims"]
+            or res["tier_claims"] < 3):
+        fail(f"tiering phase: single dispatch with both carries armed: "
+             f"{res}")
+    # armed vs disarmed host ms a step, in turns
+    host = {"armed": [], "disarmed": []}
+    for turn in range(turns):
+        for mode in (("armed", "disarmed") if turn % 2 == 0
+                     else ("disarmed", "armed")):
+            if mode == "armed":
+                sph.clock.advance_ms(500)       # an untimed epilogue step
+                tel.arm_carry(200)
+                tier.arm_carry(200)
+                sph.clock.advance_ms(250)
+                step(turn)
+                tel.drain()
+                tier.drain()
+            else:
+                tel.disarm_carry()
+                tier.disarm_carry()
+            for i in range(per_turn):
+                t = time.perf_counter()
+                with no_host_sync(sph.device.type == "cuda"):
+                    step(i)
+                host[mode].append((time.perf_counter() - t) * 1e3)
+    tel.disarm_carry()
+    tier.disarm_carry()
+    res["host_ms"] = {k: dict(summary(v), q1=float(np.percentile(v, 25)),
+                              q3=float(np.percentile(v, 75)))
+                      for k, v in host.items()}
+    return res
+
+
+def _tier_serving(stt, sa, dev, R, requests, hot_rows, cold_max, timer):
+    """(b) the serving half of the reference's gate (l): ``requests``
+    single requests, Zipf(1.1) over a 16,000,000-key universe, through
+    ``sph.frontend(batch_max=4096, depth=2)`` under a ManualClock, one
+    full flush at a time, ``TIER_STEP_MS`` a flush, the tiering ticker
+    polled after each (``SENTINEL_HOT_ROWS=hot_rows``,
+    ``SENTINEL_TIER_COLD_MAX=cold_max``); host ms a flush split into
+    intern, demote gather and promote restore; device ms of the sketch
+    update, the decay+estimate over every row and the row-slice
+    extract/restore (CUDA events, ``timer``)."""
+    import asyncio
+    from sentinel_tpu_torch.frontend.workloads import _zipf_ranks
+    from sentinel_tpu_torch.tiering import sketch as sk
+    from sentinel_tpu_torch.engine import pipeline as pl
+    t0 = 1_800_000_000_000
+    sph = _tier_runtime(stt, R, stt.ManualClock(start_ms=t0), dev,
+                        SENTINEL_HOT_ROWS=hot_rows,
+                        SENTINEL_TIER_COLD_MAX=cold_max)
+    sched = stt.CadenceScheduler(sph, telemetry_interval_sec=1.0,
+                                 tiering_interval_sec=TIER_TICK_MS / 1000.0)
+    sph.telemetry.arm_carry(1000)
+    sph.tiering.arm_carry(TIER_TICK_MS)
+    rng = np.random.default_rng(15)
+    ranks = _zipf_ranks(rng, requests, 1.1, 16_000_000)
+    names = [f"zipf/r{k}" for k in ranks.tolist()]
+    spent = collections.defaultdict(float)
+
+    def timed(key, fn):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return wrapper
+
+    sph.intern_resources = timed("intern", sph.intern_resources)
+    tier = sph.tiering
+    tier.pre_invalidate_locked = timed("demote_gather",
+                                       tier.pre_invalidate_locked)
+    tier.post_invalidate_locked = timed("promote_restore",
+                                        tier.post_invalidate_locked)
+    tier.drain = timed("tier_drain", tier.drain)
+    sa.LAUNCHES.clear()
+    chunk = 4096
+    settled = []
+    flush_ms = []
+
+    async def run():
+        b = sph.frontend(batch_max=chunk, depth=2, deadline_ms=60_000,
+                         idle_ms=60_000.0, queue_max=2 * chunk)
+        for i in range(0, requests, chunk):
+            t = time.perf_counter()
+            vs = await asyncio.gather(*(b.submit(r)
+                                        for r in names[i:i + chunk]))
+            flush_ms.append((time.perf_counter() - t) * 1e3)
+            settled.extend(vs)
+            sph.clock.advance_ms(TIER_STEP_MS)
+            sched.poll()
+        await b.drain()
+        pending = b.pending
+        b.close()
+        return pending
+
+    t = time.perf_counter()
+    with no_host_sync(dev == "cuda"):
+        pending = asyncio.run(asyncio.wait_for(run(), 900))
+    wall = time.perf_counter() - t
+    launches = sa.LAUNCHES["scatter_add"]
+    snap = _tier_snapshot(sph)
+    flushes = len(flush_ms)
+    res = {"requests": requests, "distinct_keys": len(set(names)),
+           "settled": len(settled), "pending": pending, "wall_s": wall,
+           "flush_host_ms": summary(flush_ms),
+           "host_ms_per_flush": {k: v * 1e3 / flushes
+                                 for k, v in spent.items()},
+           "tiering": snap, "launches": launches,
+           "blocked": sum(1 for v in settled if not v.allow)}
+    problems = []
+    if len(settled) != requests or pending:
+        problems.append(f"{len(settled)} of {requests} settled, {pending} "
+                        f"pending")
+    if not (snap["promoted"] > 0 and snap["demoted"] > 0):
+        problems.append(f"no migration: {snap}")
+    if snap["resident"] > R:
+        problems.append(f"resident {snap['resident']} > the table {R}")
+    if problems:
+        fail("tiering phase (serving): " + "; ".join(problems))
+    if timer is not None:
+        dev_ms = {}
+        sketch = tier._sketch
+        for n in (1 << 12, 1 << 16):
+            items = torch.from_numpy(np.where(
+                rng.random(n) < 0.75, rng.integers(1, R, n), R
+            ).astype(np.int32)).to(dev)
+            valid = items < R
+            dev_ms[f"sketch_update_{n}"] = summary(timer.warm(
+                {"f": lambda i=items, v=valid: sk.update_sketch(sketch, i,
+                                                                v)},
+                rounds=3, iters=10)["f"])
+        dev_ms[f"decay_estimate_{R}"] = summary(timer.warm(
+            {"f": lambda: sk.tick_read(sketch, R)}, rounds=3, iters=5)["f"])
+        k = 4096
+        rows = torch.from_numpy(np.asarray(
+            [r for _n, r in sph.resources.items()][:k], np.int32)).to(dev)
+        alt = torch.full((k,), sph.spec.alt_rows, dtype=torch.int32,
+                         device=dev)
+        with sph._lock:
+            payload = pl.extract_resource_rows(sph.spec, sph._state, rows,
+                                               alt)
+            dev_ms[f"extract_{k}"] = summary(timer.warm(
+                {"f": lambda: pl.extract_resource_rows(
+                    sph.spec, sph._state, rows, alt)},
+                rounds=3, iters=10)["f"])
+            # restore the rows' own slices back: the state is unchanged
+            dev_ms[f"restore_{k}"] = summary(timer.warm(
+                {"f": lambda: pl.restore_resource_rows(
+                    sph.spec, sph._state, rows, payload, alt)},
+                rounds=3, iters=10)["f"])
+        res["device_ms"] = dev_ms
+    sph.close()
+    return res
+
+
+def _tier_controller(stt, sa, dev, R, duration_ms, rate, turns):
+    """(d) the workload zoo's ``steady`` at ``rate`` req/s offered
+    through ``AdaptiveBatcher(batch_max=4096, deadline 25 ms)`` on the
+    wall clock with a ``CadenceScheduler``, with a
+    ``ControlLoop(sph, batcher, interval_ms=50)`` and without, in turns
+    (off, on, on, off, ...); then the ``Degrade`` actuator forces a real
+    breaker (held against ``breaker_states()`` and an ``entry``)."""
+    from sentinel_tpu_torch import control
+    from sentinel_tpu_torch.frontend import workloads
+    from sentinel_tpu_torch.obs import counters as ck
+    sph = _obs_runtime(stt, R, stt.SystemClock(), dev)
+    sph.load_flow_rules(_open_loop_rules(stt))
+    sched = stt.CadenceScheduler(sph, telemetry_interval_sec=1.0)
+    sched.start()
+    _open_loop_run(stt, sph, workloads.make(
+        "steady", 1, duration_ms=min(300.0, duration_ms),
+        rate_rps=20_000.0), 4096, min(300.0, duration_ms), False)
+    out = {"on": [], "off": []}
+    launches = 0
+    loops = []
+    for turn in range(turns):
+        mode = "on" if turn % 4 in (1, 2) else "off"
+        reqs = workloads.make("steady", 7 + turn, duration_ms=float(
+            duration_ms), rate_rps=float(rate))
+        sph.obs.counters.clear()
+        sph.obs.hist_request.clear()
+        sa.LAUNCHES.clear()
+        hook = None
+        if mode == "on":
+            def hook(b):
+                loops.append(control.ControlLoop(sph, b, interval_ms=50))
+        res, problems = _open_loop_run(stt, sph, reqs, 4096, duration_ms,
+                                       dev == "cuda", on_batcher=hook)
+        launches += sa.LAUNCHES["scatter_add"]
+        if problems:
+            fail(f"tiering phase (controller {mode}): " + "; ".join(problems))
+        c = sph.obs.counters.snapshot()
+        if mode == "on":
+            ctl = loops[-1]
+            kinds = collections.Counter(a["kind"] for a in ctl.action_log())
+            res["actions"] = dict(kinds)
+            res["admit_frac"] = ctl.policy.admit_frac
+            res["controller_ticks"] = ctl.snapshot()["ticks"]
+            res["admission_dropped"] = c.get(ck.CONTROL_DROPPED, 0)
+            ctl.enabled = False          # detached for the next turns
+            del sph.control
+        res["admitted_fraction"] = res["settled"] / max(1, res["offered"])
+        out[mode].append(res)
+        log(f"[tiering] controller {mode}: steady {rate}/s offered, "
+            f"{res['decisions_per_s']:.0f} decisions/s, admitted "
+            f"{res['admitted_fraction']:.3f}, shed {res['shed']}, p50 "
+            f"{res['p50_ms']:.2f} p99 {res['p99_ms']:.2f} ms"
+            + (f"; actions {res['actions']}, admit_frac "
+               f"{res['admit_frac']:.3f}, controller ticks "
+               f"{res['controller_ticks']}" if mode == "on" else ""))
+    sched.stop()
+    if not any(sum(r["actions"].values()) for r in out["on"]):
+        fail("tiering phase: the controller took no action under overload")
+    act = control.Actuators(sph)
+    slot = 5
+    res_name = f"r{slot}"
+    note = act.apply(control.Degrade(res_name, "open"))
+    opened = sph.breaker_states()[slot]
+    try:
+        sph.entry(res_name).exit()
+        denied = False
+    except stt.DegradeException:
+        denied = True
+    act.apply(control.Degrade(res_name, "close"))
+    closed = sph.breaker_states()[slot]
+    if note != f"{res_name}->open" or opened != 1 or not denied \
+            or closed != 0:
+        fail(f"tiering phase: the Degrade actuator did not force the "
+             f"breaker: note {note}, states {opened} -> {closed}, denied "
+             f"{denied}")
+    sph.close()
+    return {"turns": out, "degrade": {"note": note, "opened": opened,
+                                      "closed": closed, "denied": denied},
+            "launches": launches}
+
+
+def phase_tiering(stt, sa, dev="cuda", R=1 << 20, B=1 << 16, batches=32,
+                  hot_rows=1 << 16, twin_rows=1 << 14, twin_B=1 << 12,
+                  twin_hot=1 << 13, requests=1 << 18, serve_hot=1 << 15,
+                  cold_max=1 << 21, fused_steps=30, turns=11, per_turn=3,
+                  ctl_duration_ms=1000, ctl_rate=80_000, ctl_turns=4,
+                  timer=None, profile: bool = False) -> dict:
+    """Tiered resource state, single-dispatch serving and the overload
+    controller through the entry points a service calls, the default
+    configuration and the scalar fixture's rules at ``R`` rows:
+
+    (a) churn parity: ``batches`` batches of ``B`` names, Zipf(1.1) over
+    ``R - 4096`` names, 25% prioritized, a reload half way, 25 ms a
+    batch, a ``CadenceScheduler`` armed at 100 ms — a tiered runtime
+    (``SENTINEL_HOT_ROWS=hot_rows``) against an all-resident one: equal
+    verdicts every batch, equal kernel launches a batch; the same leg at
+    ``twin_rows`` rows on the card against a CPU twin: equal verdicts,
+    state, sketch, cold tier and counters;
+    (b) :func:`_tier_serving`;
+    (c) the (a) traffic with ``SENTINEL_SINGLE_DISPATCH=0`` in turns with
+    the tiered runtime (equal verdicts and count-min tables every batch),
+    then :func:`_tier_fused`;
+    (d) :func:`_tier_controller`."""
+    from sentinel_tpu_torch import convert
+    t_phase = time.perf_counter()
+    res = {}
+    launches = 0
+    sph, _sched, churn = _tier_churn(stt, sa, dev, R, B, batches, hot_rows,
+                                     R - OBS_RULED, seed=1501)
+    launches += sum(churn["launches"]["tiered"])
+    lps = sorted(set(churn["launches"]["tiered"]))
+    snap = {n: _tier_snapshot(s) for n, s in sph.items()}
+    t, t0_ = snap["tiered"], snap["tiered_sd0"]
+    if snap["resident"]["demoted"] or not (t["demoted"] > 0
+                                           and t["promoted"] > 0):
+        fail(f"tiering phase: churn did not migrate (or the resident twin "
+             f"did): {snap}")
+    if any(t[k] != t0_[k] for k in ("hot_hit", "cold_miss", "promoted",
+                                    "demoted", "cold", "resident")):
+        fail(f"tiering phase: single dispatch on and off migrated "
+             f"differently: {t} vs {t0_}")
+    c_on = sph["tiered"].obs.counters.snapshot()
+    c_off = sph["tiered_sd0"].obs.counters.snapshot()
+    res["churn"] = {
+        "batches": batches, "B": B, "hot_rows": hot_rows,
+        "blocked": churn["blocked"], "granted": churn["granted"],
+        "launches_per_step": lps, "tiering": snap,
+        "host_ms": {n: summary(v) for n, v in churn["host_ms"].items()},
+        "poll_ms": {n: summary(v) for n, v in churn["poll_ms"].items()},
+        "dispatches": {"sd1": c_on.get("pipeline.dispatches", 0),
+                       "sd0": c_off.get("pipeline.dispatches", 0)},
+        "single_dispatch": {"sd1": c_on.get("split_route.single_dispatch",
+                                            0),
+                            "sd0": c_off.get("split_route.single_dispatch",
+                                             0)}}
+    log(f"[tiering] churn at R={R}: {batches} batches of {B}, Zipf(1.1) "
+        f"over {R - OBS_RULED} names, 25% prioritized, reload at "
+        f"{batches // 2}: tiered == resident == single dispatch off, "
+        f"every batch ({churn['blocked']} blocked, {churn['granted']} "
+        f"occupy grants); launches a step {lps}; promoted {t['promoted']}, "
+        f"demoted {t['demoted']}, hit rate {t['hit_rate']:.4f}, migrate "
+        f"p50 {t['migrate_p50_ms']} p99 {t['migrate_p99_ms']} ms; cold "
+        f"{t['cold']} entries, {t['cold_bytes'] / 2**20:.1f} MiB on the "
+        f"host; host ms a batch tiered "
+        f"{res['churn']['host_ms']['tiered']['median']:.2f}, resident "
+        f"{res['churn']['host_ms']['resident']['median']:.2f}, poll "
+        f"{res['churn']['poll_ms']['tiered']['median']:.2f}; dispatches "
+        f"{res['churn']['dispatches']}")
+    if profile and dev == "cuda":
+        s = sph["tiered"]
+        prof_stream = _tier_stream(R - OBS_RULED, B, 2, seed=1601)
+
+        def run_steps():
+            for names, prio in prof_stream:
+                s.entry_batch_nowait(names, prioritized=prio).result()
+                s.clock.advance_ms(TIER_STEP_MS)
+                _sched["tiered"].poll()
+        res["churn"]["profile"] = _profile_steps(
+            run_steps, 2, "tiering_trace.json", keep_trace=False)
+    for s in sph.values():
+        s.close()
+    del sph, _sched
+    # the same leg at twin_rows: the card against the CPU
+    twin = {}
+    for d in (dev, "cpu"):
+        s2, _sc, ch = _tier_churn(stt, sa, d, twin_rows, twin_B, batches,
+                                  twin_hot, 1 << 16, seed=2026,
+                                  names=("tiered",))
+        s = s2["tiered"]
+        twin[d] = (ch["verdicts"], _tier_snapshot(s),
+                   convert.engine_to_numpy(s),
+                   convert.cold_tier_to_numpy(s.tiering.cold),
+                   {k: v for k, v in s.obs.counters.snapshot().items()},
+                   ch["blocked"], ch["granted"])
+        if d == dev:
+            launches += sum(ch["launches"]["tiered"])
+        s.close()
+    _tier_twin_equal(twin[dev], twin["cpu"])
+    res["twin"] = {"rows": twin_rows, "B": twin_B, "hot_rows": twin_hot,
+                   "tiering": twin[dev][1], "blocked": twin[dev][5]}
+    log(f"[tiering] churn at R={twin_rows} (B={twin_B}, hot rows "
+        f"{twin_hot}): the card == the CPU twin (verdicts, state, sketch, "
+        f"{twin[dev][1]['cold']} cold entries, counters); promoted "
+        f"{twin[dev][1]['promoted']}, demoted {twin[dev][1]['demoted']}")
+    # (c) the fused path: one dispatch a batch, host ms armed / disarmed
+    s = _tier_runtime(stt, R, stt.ManualClock(start_ms=1_800_000_000_000),
+                      dev, SENTINEL_HOT_ROWS=hot_rows)
+    sa.LAUNCHES.clear()
+    res["fused"] = _tier_fused(stt, s, B, fused_steps, turns, per_turn)
+    launches += sa.LAUNCHES["scatter_add"]
+    s.close()
+    hm = res["fused"]["host_ms"]
+    log(f"[tiering] fused steps of {B} with both carries armed: "
+        f"{res['fused']['dispatches']} dispatches in "
+        f"{res['fused']['steps']} batches, telemetry ticks "
+        f"{res['fused']['tel_ticks']} of {res['fused']['tel_claims']} due, "
+        f"tiering {res['fused']['tier_ticks']} of "
+        f"{res['fused']['tier_claims']}; host ms a step armed median "
+        f"{hm['armed']['median']:.2f} (IQR {hm['armed']['q1']:.2f}-"
+        f"{hm['armed']['q3']:.2f}), disarmed {hm['disarmed']['median']:.2f} "
+        f"(IQR {hm['disarmed']['q1']:.2f}-{hm['disarmed']['q3']:.2f}), "
+        f"{hm['armed']['n']} steps each")
+    # (b) the serving half
+    res["serving"] = _tier_serving(stt, sa, dev, R, requests, serve_hot,
+                                   cold_max, timer)
+    launches += res["serving"]["launches"]
+    sv, st = res["serving"], res["serving"]["tiering"]
+    log(f"[tiering] serving: {requests} requests, Zipf(1.1) over 16M keys "
+        f"({sv['distinct_keys']} distinct) through sph.frontend("
+        f"batch_max=4096, depth=2), hot rows {serve_hot}, cold max "
+        f"{cold_max}: hit rate {st['hit_rate']:.4f}, promoted "
+        f"{st['promoted']}, demoted {st['demoted']}, sketch_overflow "
+        f"{st['sketch_overflow']}, resident {st['resident']}, cold "
+        f"{st['cold']} ({st['cold_bytes'] / 2**20:.1f} MiB, dropped "
+        f"{st['cold_dropped']}); host ms a flush "
+        + ", ".join(f"{k} {v:.2f}"
+                    for k, v in sv["host_ms_per_flush"].items())
+        + f" of {sv['flush_host_ms']['median']:.2f} (median)"
+        + ("; device ms " + ", ".join(
+            f"{k} {v['median']:.4f}" for k, v in sv["device_ms"].items())
+           if "device_ms" in sv else ""))
+    # (d) the controller
+    res["controller"] = _tier_controller(stt, sa, dev, R, ctl_duration_ms,
+                                         ctl_rate, ctl_turns)
+    launches += res["controller"]["launches"]
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[tiering] phase 10 took {res['seconds']:.1f} s; kernel launches "
+        f"{launches}")
+    return res
+
+
+def _tier_twin_equal(a, b) -> None:
+    """The card's and the CPU twin's churn leg agree: verdicts every
+    batch, tiering snapshots (less the wall-clock migration times),
+    state and sketch, cold tiers, counters."""
+    from sentinel_tpu_torch import convert
+    for i, (x, y) in enumerate(zip(a[0], b[0])):
+        if not all(np.array_equal(p, q) for p, q in zip(x, y)):
+            fail(f"tiering phase: twin verdicts differ at batch {i}")
+    sa_, sb = dict(a[1]), dict(b[1])
+    for snap in (sa_, sb):
+        for k in ("migrate_p50_ms", "migrate_p99_ms"):
+            snap[k] = snap[k] is not None
+    if sa_ != sb:
+        fail(f"tiering phase: twin tiering snapshots differ: {sa_} vs {sb}")
+    diff = convert.leaf_diff(a[2], b[2])
+    if diff or set(a[2]) != set(b[2]):
+        fail(f"tiering phase: twin state or sketch differs: {diff}")
+    if list(a[3]) != list(b[3]):
+        fail("tiering phase: twin cold tiers hold other names")
+    for name in a[3]:
+        if sorted(a[3][name]) != sorted(b[3][name]) or any(
+                not np.array_equal(a[3][name][k], b[3][name][k])
+                for k in a[3][name]):
+            fail(f"tiering phase: twin cold entry {name} differs")
+    if a[4] != b[4] or a[5:] != b[5:]:
+        fail("tiering phase: twin counters or verdict tallies differ")
+
+
+
 def find_syncs(stt, sa) -> int:
     """``--find-syncs``: every place where a kernel-run engine step waits
     on the device, with the port's frames of its stack (the sync debug
@@ -3208,6 +3849,8 @@ def find_syncs(stt, sa) -> int:
     phase_serving(stt, sa, turns=2, per_turn=3, requests=1 << 12,
                   duration_ms=300, runs=(("steady", 20_000),),
                   batch_maxes=(256,), tel_ticks=3)
+    phase_tiering(stt, sa, batches=8, requests=1 << 16, serve_hot=1 << 13,
+                  fused_steps=12, turns=2, per_turn=2, ctl_turns=2)
     log(f"[sync] {len(sites)} place(s) wait on the device in a step")
     return 0
 
@@ -3272,6 +3915,7 @@ def main() -> int:
     report["param_runtime"] = phase_param_runtime(stt, sa)
     report["obs_runtime"] = phase_obs_runtime(stt, sa, profile=profile)
     report["serving"] = phase_serving(stt, sa, timer=timer, profile=profile)
+    report["tiering"] = phase_tiering(stt, sa, timer=timer, profile=profile)
     report["seconds"] = time.perf_counter() - t_all
 
     decide = report["kernel_cases"][0]
@@ -3279,7 +3923,7 @@ def main() -> int:
     launches = sum(report[p]["launches"] for p in (
         "engine", "prio", "prio_mixed", "general", "general_occupy", "fast",
         "scalar_param", "general_param", "runtime", "fast_path",
-        "param_runtime", "obs_runtime", "serving"))
+        "param_runtime", "obs_runtime", "serving", "tiering"))
     kernels = [{
         "name": "scatter_add", "route": "cuda",
         "source": "sentinel_tpu_torch/csrc/scatter_add.cu",

@@ -31,7 +31,10 @@ rules and user processor slots::
 and the serving tier above it: ``sph.frontend()`` turns single requests
 into deadline-cut batches (``await b.submit("HelloWorld")``) through a
 depth-k :class:`DispatchPipeline`, and a :class:`CadenceScheduler` ticks
-the hot-resource telemetry (``sph.telemetry``).
+the hot-resource telemetry (``sph.telemetry``), the tiered resource state
+(``sph.tiering``: more keys than the device table, the cold ones on the
+host) and the overload controller a user attaches
+(``sentinel_tpu_torch.control.ControlLoop``).
 """
 
 from sentinel_tpu_torch.core.clock import (

@@ -8,7 +8,10 @@ dict of numpy arrays keyed by leaf path (``"second.counters"``,
 tensors from such a dict. The device slots' states (``custom``) are
 tuples whose items are arrays or tuples again: they flatten by position
 (``"custom.0"``, ``"custom.1.0"``, ...) and come back as nested tuples.
-Nothing here imports JAX: a JAX array converts through ``np.asarray``.
+:func:`engine_to_numpy` adds a runtime's tiering sketch table to its
+state leaves, and :func:`cold_tier_to_numpy` flattens its host cold tier
+by name. Nothing here imports JAX: a JAX array converts through
+``np.asarray``.
 """
 
 from __future__ import annotations
@@ -105,6 +108,49 @@ def ruleset_from_numpy(d: Dict[str, np.ndarray],
     """The port's :class:`RuleSet` from a :func:`to_numpy` dict
     (``joint_idx`` None when absent)."""
     return from_numpy(RuleSet, d, device)
+
+
+#: the leaf :func:`engine_to_numpy` files the tiering sketch table under
+SKETCH_LEAF = "tiering.sketch"
+
+
+def engine_to_numpy(sentinel) -> Dict[str, np.ndarray]:
+    """A runtime's (either package's) engine state as :func:`to_numpy`
+    leaves, plus the tiering count-min table as :data:`SKETCH_LEAF`
+    when its tiering keeps one — copies, so the snapshot outlives the
+    in-place updates of later steps (a CPU tensor's ``numpy()`` is a
+    view)."""
+    out = to_numpy(sentinel._state)
+    tiering = getattr(sentinel, "tiering", None)
+    sketch = getattr(tiering, "_sketch", None)
+    if sketch is not None:
+        out[SKETCH_LEAF] = to_numpy((sketch,))["0"]
+    return {k: np.array(v, copy=True) for k, v in out.items()}
+
+
+def sketch_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> torch.Tensor:
+    """The port's sketch table from an :func:`engine_to_numpy` dict."""
+    return _tensor(d[SKETCH_LEAF], device)
+
+
+def cold_tier_to_numpy(cold) -> Dict[str, Dict[str, np.ndarray]]:
+    """A cold tier's (either package's) entries → ``{name: {field:
+    array}}`` in the tier's order: every ``ColdEntry`` field, scalars as
+    0-d arrays, each alt slice as ``alts.<kind>.<key id>.<i>``."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    with cold._lock:
+        items = list(cold._entries.items())
+    for name, e in items:
+        leaves: Dict[str, np.ndarray] = {}
+        for field, value in vars(e).items():
+            if field == "alts":
+                for (kind, key_id), alt in value.items():
+                    for i, a in enumerate(alt):
+                        leaves[f"alts.{kind}.{key_id}.{i}"] = np.asarray(a)
+            elif value is not None:
+                leaves[field] = np.asarray(value)
+        out[name] = leaves
+    return out
 
 
 def leaf_diff(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray]) -> list:

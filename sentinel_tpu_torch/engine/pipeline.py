@@ -57,9 +57,10 @@ from sentinel_tpu_torch.rules import param_flow as pf_mod
 from sentinel_tpu_torch.rules import system as sys_mod
 from sentinel_tpu_torch.stats import events as ev
 from sentinel_tpu_torch.stats.window import (
-    WindowSpec, WindowState, add_one_row, add_rows, add_rows_multi,
-    add_rows_vec, init_window, invalidate_rows, refresh_all, refresh_rows,
-    row_mask, uncount_rows, window_sum_rows,
+    RowWriter, WindowSpec, WindowState, add_one_row, add_rows,
+    add_rows_multi, add_rows_vec, extract_rows, init_window,
+    invalidate_rows, refresh_all, refresh_rows, restore_rows, row_mask,
+    uncount_rows, window_sum_rows,
 )
 
 Times = Tuple[int, int, int, int]
@@ -705,4 +706,79 @@ def invalidate_resource_rows(spec: EngineSpec, state: SentinelState,
     occ.occupied_window.masked_fill_(hit[:, None], -(2 ** 30))
     invalidate_rows(spec.second, state.alt_second, alt_rows)
     state.alt_threads.masked_fill_(row_mask(alt_rows, spec.alt_rows), 0)
+    return state
+
+
+class ResourceRowSlice(NamedTuple):
+    """One batch of demoted rows' complete per-row state — everything
+    :func:`invalidate_resource_rows` destroys, gathered FIRST so the cold
+    tier (``sentinel_tpu_torch/tiering/``) can hold it on the host and a
+    later promotion restores the row bit-identically. Window stamps and
+    occupy target windows are absolute indices, so the payload needs no
+    rebasing. ``alt_*`` leaves carry the hashed (resource ×
+    origin/context) slots the demoted resources touched, keyed by (kind,
+    key id) on the host so promotion can re-hash them to the new row's
+    slots."""
+
+    second: WindowState            # [K, ...] per-row second-window slice
+    minute: WindowState            # [K, ...] (row 0 of the stub when off)
+    threads: torch.Tensor          # int32[K]
+    occ_cnt: torch.Tensor          # float32[K, B+1] occupy booking ring
+    occ_win: torch.Tensor          # int32[K, B+1]
+    alt_second: WindowState        # [KA, ...] alt-window slices
+    alt_threads: torch.Tensor      # int32[KA]
+    rt_hist: Optional[torch.Tensor] = None   # int32[K, HB] (None: no table)
+
+
+def extract_resource_rows(spec: EngineSpec, state: SentinelState,
+                          rows: torch.Tensor,
+                          alt_rows: torch.Tensor) -> ResourceRowSlice:
+    """Gather the demotion payload for ``rows`` (+ their ``alt_rows``)
+    out of the live state, into FRESH tensors: the engine updates its
+    state in place, so the invalidate dispatched right after must not be
+    read back through the payload. No wait on the device."""
+    r = torch.clamp(rows, 0, spec.rows - 1).long()
+    ra = torch.clamp(alt_rows, 0, spec.alt_rows - 1).long()
+    if spec.minute:
+        minute = extract_rows(spec.minute, state.minute, rows)
+    else:   # minute ring off: placeholder slice (ignored at restore)
+        minute = extract_rows(spec.second, state.minute,
+                              torch.zeros_like(rows))
+    return ResourceRowSlice(
+        second=extract_rows(spec.second, state.second, rows),
+        minute=minute,
+        threads=state.threads[r],
+        occ_cnt=state.flow_dyn.occupied_count[r],
+        occ_win=state.flow_dyn.occupied_window[r],
+        alt_second=extract_rows(spec.second, state.alt_second, alt_rows),
+        alt_threads=state.alt_threads[ra],
+        rt_hist=state.rt_hist[r] if state.rt_hist is not None else None)
+
+
+def restore_resource_rows(spec: EngineSpec, state: SentinelState,
+                          rows: torch.Tensor, payload: ResourceRowSlice,
+                          alt_rows: torch.Tensor) -> SentinelState:
+    """Scatter a promotion payload into freshly (re)allocated ``rows``,
+    in place. The inverse of :func:`extract_resource_rows` modulo two
+    asymmetries: ``alt_rows`` are the NEW rows' hashed slots (a collision
+    with a live pair overwrites that pair's alt slice, the merging the
+    hash already implies), and bookings that straddled a rule reload
+    while cold were settled on the host first
+    (``tiering/coldtier.settle_entry_np``). Padding rows >= R (alt:
+    >= RA) drop. Two promoted keys' re-hashed alt slots may coincide:
+    the LAST lane's slice wins, as in the reference's scatter on the CPU
+    (:class:`~sentinel_tpu_torch.stats.window.RowWriter`)."""
+    main = RowWriter(rows, spec.rows)
+    restore_rows(spec.second, state.second, rows, payload.second, main)
+    if spec.minute:
+        restore_rows(spec.minute, state.minute, rows, payload.minute, main)
+    main.write(state.flow_dyn.occupied_count, payload.occ_cnt)
+    main.write(state.flow_dyn.occupied_window, payload.occ_win)
+    if state.rt_hist is not None and payload.rt_hist is not None:
+        main.write(state.rt_hist, payload.rt_hist)
+    main.write(state.threads, payload.threads)
+    alt = RowWriter(alt_rows, spec.alt_rows)
+    restore_rows(spec.second, state.alt_second, alt_rows,
+                 payload.alt_second, alt)
+    alt.write(state.alt_threads, payload.alt_threads)
     return state

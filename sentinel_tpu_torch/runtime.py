@@ -68,6 +68,16 @@ reads the breaker states itself. Serving-sized batches are staged in a
 ring of pinned host slots (``SENTINEL_HOST_STAGING``), each released only
 once its dispatch's verdicts have been read.
 
+Tiered resource state (``Sentinel.tiering``,
+:mod:`sentinel_tpu_torch.tiering`) is on unless
+``SENTINEL_TIERING_DISABLE`` is set: the eviction drain before every
+step first gathers recycled rows' state for the host cold tier, and after
+the invalidate restores cold keys interned again. With
+``SENTINEL_SINGLE_DISPATCH`` on (the default) each decide call also
+updates the tiering sketch, and a fused decide+exit call runs a due
+telemetry or tiering tick, in the JAX runtime's order and accounting
+(``pipeline.dispatches``, ``split_route.single_dispatch``).
+
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"`` (as
 the tests do); with no CUDA device and no ``device`` given, construction
 raises instead of carrying on on the CPU.
@@ -118,7 +128,7 @@ from sentinel_tpu_torch.metrics.node import (
 from sentinel_tpu_torch.obs import RuntimeObs
 from sentinel_tpu_torch.obs import counters as obs_keys
 from sentinel_tpu_torch.obs.resource_hist import engine_hist_buckets
-from sentinel_tpu_torch.obs.telemetry import HotTelemetry
+from sentinel_tpu_torch.obs.telemetry import HotTelemetry, telemetry_tick
 from sentinel_tpu_torch.parallel.local_shard import MESH_NOT_PORTED
 from sentinel_tpu_torch.rules import authority as auth_mod
 from sentinel_tpu_torch.rules import degrade as deg_mod
@@ -130,6 +140,8 @@ from sentinel_tpu_torch.stats.window import (
     MINUTE_SPEC, WindowSpec, bucket_snapshot, init_window, rolling_totals,
     rt_totals, settle_occupied,
 )
+from sentinel_tpu_torch.tiering import sketch as sk_mod
+from sentinel_tpu_torch.tiering.manager import TierManager
 
 ENTRY_TYPE_OUT = 0
 ENTRY_TYPE_IN = 1
@@ -180,6 +192,17 @@ def sortfree_enabled() -> bool:
     """``SENTINEL_SORTFREE``: the fast and general paths group segments
     through the claim cascade (ops/sortfree.py)."""
     return _env_on("SENTINEL_SORTFREE")
+
+
+def single_dispatch_enabled() -> bool:
+    """``SENTINEL_SINGLE_DISPATCH`` (on unless set to 0): the tiering
+    sketch's update runs inside the decide call, and a fused decide+exit
+    call also runs a due telemetry tick and sketch decay+estimate
+    (``CadenceScheduler`` carries), so a steady serving batch is ONE
+    dispatch (``pipeline.dispatches``). Off, the sketch update is a
+    dispatch of its own and the ticks are the scheduler's. The math and
+    its order are the same either way."""
+    return _env_on("SENTINEL_SINGLE_DISPATCH")
 
 
 def host_staging_enabled() -> bool:
@@ -511,6 +534,15 @@ class Sentinel:
         # records. Its ticker starts with telemetry.start() or a
         # serving.CadenceScheduler.
         self.telemetry = HotTelemetry(self)
+        # tiered resource state (tiering/): the device table is the HOT
+        # tier; recycled rows' windows, gauges, bookings and RT histogram
+        # rows spill to a host cold tier and come back bit-identically
+        # when the key is interned again. Self-registers for close(); its
+        # ticker starts with tiering.start() or a CadenceScheduler.
+        # SENTINEL_TIERING_DISABLE reverts to the lossy eviction.
+        self.tiering = TierManager(self)
+        # the sketch update (and the carried ticks) ride the decide call
+        self._single_dispatch = single_dispatch_enabled()
         self.callbacks = StatisticCallbackRegistry()
         # breaker transition observers: the [ND] state column rides each
         # step's verdict readback and is diffed against ONE shared
@@ -636,6 +668,19 @@ class Sentinel:
                     still |= sets[kind]
             for name in old[kind] - new[kind] - still:
                 regs[kind].unpin(name)
+        # pin-path interns bypass intern_resources: a newly ruled key in
+        # the COLD tier just got a fresh row from the pin's allocation —
+        # classify it so the next eviction drain promotes its state before
+        # any rule reads the zeroed row. tick=False: rule loads are the
+        # control plane, not serving traffic (the hit rate stays pure).
+        if self.tiering.enabled and res:
+            pairs = [(n, r) for n, r in
+                     ((n, self.resources.lookup(n)) for n in res)
+                     if r is not None]
+            if pairs:
+                self.tiering.note_interned(
+                    [p[0] for p in pairs], [p[1] for p in pairs],
+                    tick=False)
 
     def _rebuild_fastpath(self) -> None:
         """Recompute the host fast path's classification after a rule
@@ -686,10 +731,10 @@ class Sentinel:
             # already granted, so they survive: landed ones settle into
             # the second window as PASS, pending ones carry into the ring
             old = self._state.flow_dyn
+            now_idx = self.spec.second.index_of(self.clock.now_ms())
             _, pend_cnt, pend_win = settle_occupied(
                 self.spec.second, self._state.second, old.occupied_count,
-                old.occupied_window,
-                self.spec.second.index_of(self.clock.now_ms()), ev.PASS)
+                old.occupied_window, now_idx, ev.PASS)
             if self.obs.enabled:
                 # the booking lifecycle at a reload (a cold path: the two
                 # device reads are acceptable here)
@@ -717,6 +762,9 @@ class Sentinel:
                 elif r.strategy == flow_mod.STRATEGY_CHAIN:
                     ctxs.add(r.ref_resource)
             self._update_rule_pins_locked("flow", res, org, ctxs)
+            # cold entries replay this settle at promote time with this
+            # exact now_idx (tiering/coldtier.settle_entry_np)
+            self.tiering.on_rules_reloaded_locked(now_idx)
 
     def load_degrade_rules(self, rules: Sequence[deg_mod.DegradeRule]) -> None:
         self._flush_fast()          # see load_flow_rules
@@ -1041,7 +1089,9 @@ class Sentinel:
         overrides written (both padded with PK, as the reference pads
         them); rows recycled by registry pressure lose their history (and
         that of the alt rows they hashed to) before they serve a new
-        resource."""
+        resource — with tiering on, after the tier manager has gathered
+        it for the cold tier, and then cold keys interned again are
+        restored into their new rows."""
         ev_keys, overrides = self.param_key_registry.drain_updates()
         pk = self.spec.param_keys
         if ev_keys:
@@ -1065,6 +1115,11 @@ class Sentinel:
             if self.obs.enabled:
                 # recycled rows lose their stats and any live bookings
                 self.obs.counters.add(obs_keys.OCCUPY_EVICTED, len(evicted))
+            # tiering demote: snapshot the recycled rows' state before the
+            # invalidate below destroys it (stream order keeps the gather
+            # reading the old values); it needs the alt edges' host
+            # identities, so it runs before they are popped
+            self.tiering.pre_invalidate_locked(evicted, self.clock.now_ms())
             alt: List[int] = []
             for row in evicted:
                 alt.extend(self._alt_rows_by_row.pop(row, ()))
@@ -1074,6 +1129,11 @@ class Sentinel:
                              self.spec.alt_rows, np.int32)
             self._state = invalidate_resource_rows(
                 self.spec, self._state, self._dev(rows), self._dev(alt_arr))
+        # tiering promote: restore re-interned cold keys into their fresh
+        # rows — after the invalidate, before the decide that interned
+        # them. Unconditional: a promoted row may come from the free list
+        # with no eviction in this drain.
+        self.tiering.post_invalidate_locked(self.clock.now_ms())
 
     def _alt_row(self, row: int, kind: int, key_id: int) -> int:
         """Hash (row, origin/context id) to its alt row and record the
@@ -1339,6 +1399,9 @@ class Sentinel:
         use_origin = ctx.origin if origin is None else origin
         # rows resolved ONCE: the same rows feed the verdict and the Entry
         row = self.resources.get_or_create(resource)
+        if self.tiering.enabled:
+            # classify + queue a promotion if this key's state is cold
+            self.tiering.note_interned((resource,), (row,))
         if resource_type:
             self.resource_types[resource] = resource_type
         origin_id = self.origins.get_or_create(use_origin) if use_origin \
@@ -1601,6 +1664,7 @@ class Sentinel:
         names = list(dict.fromkeys(resources))
         drows = np.fromiter((self.resources.get_or_create(r) for r in names),
                             np.int32, count=len(names))
+        self.tiering.note_interned(names, drows)
         if len(names) == len(resources):
             return drows
         by_name = dict(zip(names, drows))
@@ -1645,6 +1709,9 @@ class Sentinel:
             rows = np.fromiter(
                 (self.resources.get_or_create(r) for r in resources),
                 np.int32, count=n)
+            # tiering: classify hot hits / cold misses and queue the
+            # promotions (restored in this dispatch's eviction drain)
+            self.tiering.note_interned(resources, rows)
         with self._lock:
             compiled = self._param
             registry = self.param_key_registry
@@ -1838,16 +1905,27 @@ class Sentinel:
                 batch = batch._replace(param_rules=None, param_keys=None)
             now, times = self._restamp_if_stale_locked(at_ms, now, times)
             self._drain_evictions_locked()
+            # hot-set sketch (tiering): single dispatch updates it inside
+            # this decide call; off, it is an update call of its own
+            sd_sketch = self._sd_sketch_locked()
+            observed = (sd_sketch is None
+                        and self.tiering.observe_locked(batch.rows,
+                                                        batch.valid))
             use_occ = self._note_dispatch_locked(now, any_prio)
             with obs.annotate("sentinel_tpu.decide"):
                 self._state, verdicts = decide_entries(
                     self.spec, self._ruleset, self._state, batch, times,
                     sys_scalars, **self._flags(route, not no_alt, use_occ,
                                                any_prio))
+                if sd_sketch is not None:
+                    self.tiering.set_sketch_locked(sk_mod.update_sketch(
+                        sd_sketch, batch.rows, batch.valid)[0])
             routed = "fast_occupy" if route == "fast" and use_occ else route
             self.routes[routed] += 1
             t_disp = self._obs_dispatched(
                 tr, t_d0, n, "decide.dispatch", _ROUTE_KEYS[routed],
+                dispatches=2 if observed else 1,
+                single=sd_sketch is not None,
                 note=_ROUTE_KEYS[routed].split(".", 1)[1])
             return self._pending(
                 [(verdicts, None)], n, staged=staged,
@@ -1856,12 +1934,22 @@ class Sentinel:
                                            prio_np if any_prio else None)
                          if obs_on else None))
 
+    def _sd_sketch_locked(self):
+        """The sketch a single-dispatch decide call updates itself, or
+        None (single dispatch off, or no sketch): then the caller takes
+        the standalone ``tiering.observe_locked`` update."""
+        if not self._single_dispatch:
+            return None
+        return self.tiering.sketch_for_fuse_locked()
+
     def _obs_dispatched(self, tr: int, t_d0: int, n: int, span: str,
                         route_key: Optional[str], dispatches: int = 1,
-                        note: str = "") -> int:
+                        single: bool = False, note: str = "") -> int:
         """The counters and span of a dispatch just enqueued → its end
         time (0 with obs off): the route's counter (``route_key``), the
-        sort-free one beside it, ``dispatches`` device steps."""
+        sort-free one beside it, ``dispatches`` device steps (a standalone
+        sketch update counts as one), and ``split_route.single_dispatch``
+        when the call updated the sketch itself (``single``)."""
         obs = self.obs
         if not obs.enabled:
             return 0
@@ -1870,6 +1958,8 @@ class Sentinel:
         if self._sortfree:
             obs.counters.add(obs_keys.ROUTE_SORTFREE)
         obs.counters.add(obs_keys.PIPE_DISPATCH, dispatches)
+        if single:
+            obs.counters.add(obs_keys.ROUTE_SINGLE_DISPATCH)
         t_disp = obs.spans.now_ns()
         if tr:
             obs.spans.record(tr, span, t_d0, t_disp, n=n, note=note)
@@ -1941,6 +2031,15 @@ class Sentinel:
                 bs = bs._replace(param_rules=None, param_keys=None)
                 bg = bg._replace(param_rules=None, param_keys=None)
             self._drain_evictions_locked()
+            # hot-set sketch: both halves carry traffic rows; with single
+            # dispatch each half's call updates it (scalar half first)
+            sd_sketch = self._sd_sketch_locked()
+            observed = 0
+            if sd_sketch is None:
+                observed += int(self.tiering.observe_locked(bs.rows,
+                                                            bs.valid))
+                observed += int(self.tiering.observe_locked(bg.rows,
+                                                            bg.valid))
             use_occ = self._note_dispatch_locked(now, any_prio)
             with obs.annotate("sentinel_tpu.decide_split"):
                 state, v1 = decide_entries(
@@ -1950,9 +2049,17 @@ class Sentinel:
                     self.spec, self._ruleset, state, bg, times, sys_scalars,
                     **self._flags("fast", not no_alt_g, use_occ,
                                   bool(prio_g.any())))
+                if sd_sketch is not None:
+                    sk1, _ = sk_mod.update_sketch(sd_sketch, bs.rows,
+                                                  bs.valid)
+                    self.tiering.set_sketch_locked(sk_mod.update_sketch(
+                        sk1, bg.rows, bg.valid)[0])
             self.routes["split"] += 1
+            # two calls plus any standalone sketch updates; a split never
+            # counts split_route.single_dispatch (it is two calls)
             t_disp = self._obs_dispatched(
-                tr, t_d0, n, "split.dispatch", None, dispatches=2,
+                tr, t_d0, n, "split.dispatch", None,
+                dispatches=2 + observed,
                 note=f"scalar={idx_s.shape[0]} general={idx_g.shape[0]} "
                      f"occ={int(use_occ)}")
             prio_mask = None
@@ -2020,16 +2127,26 @@ class Sentinel:
         with self._lock:
             now, times = self._restamp_if_stale_locked(at_ms, now, times)
             self._drain_evictions_locked()
+            # single dispatch: the sketch update and any due telemetry /
+            # tiering tick ride this call (see _fused_epilogue_locked)
+            sd_sketch = self._sd_sketch_locked()
+            observed = (sd_sketch is None
+                        and self.tiering.observe_locked(batch.rows,
+                                                        batch.valid))
             use_occ = self._note_dispatch_locked(now, any_prio)
             with obs.annotate("sentinel_tpu.fused"):
                 self._state, verdicts = decide_and_record_exits(
                     self.spec, self._ruleset, self._state, batch, xbatch,
                     times, sys_scalars, **self._flags(route, not no_alt,
                                                       use_occ, any_prio))
+                if sd_sketch is not None:
+                    self._fused_epilogue_locked(sd_sketch, batch, now)
             self.routes["fused"] += 1
             routed = "fast_occupy" if route == "fast" and use_occ else route
             t_disp = self._obs_dispatched(
                 tr, t_d0, n, "fused.dispatch", obs_keys.ROUTE_FUSED,
+                dispatches=2 if observed else 1,
+                single=sd_sketch is not None,
                 note=f"{_ROUTE_KEYS[routed].split('.', 1)[1]} exits={n_x}")
             return self._pending(
                 [(verdicts, None)], n, staged=staged,
@@ -2037,6 +2154,36 @@ class Sentinel:
                 on_read=(self._obs_settled(tr, t_disp, n, "fused.device",
                                            prio_np if any_prio else None)
                          if obs_on else None))
+
+    def _fused_epilogue_locked(self, sketch, batch: EntryBatch,
+                               now: int) -> None:
+        """The single-dispatch tail of a fused decide+exit call, in the
+        reference's order: the sketch update over the batch's rows, then
+        — when a carry cadence claims this call's slot — the telemetry
+        tick over the post-step windows and the sketch decay + estimate
+        of every row, their readbacks queued with the services. Which
+        parts run is known on the host (the claims), so each is a Python
+        branch."""
+        tel = self.telemetry
+        tel_prep = tel.carry_due_locked(now)
+        tier_due = self.tiering.carry_due_locked(now)
+        sketch, _overflow = sk_mod.update_sketch(sketch, batch.rows,
+                                                 batch.valid)
+        if tel_prep is not None or tier_due:
+            ring = tel.ring_for_fuse_locked()
+            if tel_prep is not None:
+                _now, _sec, append, idx_s, sec_idx_m = tel_prep
+                st, spec = self._state, self.spec
+                outs, ring = telemetry_tick(
+                    spec.second, spec.minute, tel.k, st.second, st.minute,
+                    st.rt_hist, ring, idx_s, sec_idx_m, append)
+                tel.queue_carry(tel_prep, outs, ring)
+            else:
+                tel.set_ring_locked(ring)
+            if tier_due:
+                sketch, est = sk_mod.tick_read(sketch, self.spec.rows)
+                self.tiering.queue_estimates(est)
+        self.tiering.set_sketch_locked(sketch)
 
     def exit_batch(self, *, rows, origin_rows, chain_rows, acquire, rt_ms,
                    error, is_in, param_rules=None, param_keys=None,
@@ -2066,7 +2213,11 @@ class Sentinel:
         brk = None
         with self._lock:
             now, times = self._restamp_if_stale_locked(at_ms, now, times)
-            self._drain_evictions_locked()
+            if self.tiering.enabled:
+                # a key demoted between entry and exit promotes back
+                # before this decrement (else it lands on a recycled or
+                # invalidated row); tiering off keeps the no-drain exit
+                self._drain_evictions_locked()
             self._seen_idx = max(self._seen_idx,
                                  self.spec.second.index_of(now))
             if batch.param_rules is not None:
@@ -2137,6 +2288,10 @@ class Sentinel:
             self._seen_idx = -(2 ** 62)
             self._fast.win_ms = max(1, new_second.win_ms)
             self._rebuild_fastpath()     # drops leases on the old buckets
+            # cold entries and in-flight demote payloads hold OLD-geometry
+            # windows and rings: land the in-flight ones, then cold-reset
+            # every entry to the new bucket count (what resident rows got)
+            self.tiering.on_geometry_changed_locked()
 
     def set_global_switch(self, on: bool) -> None:
         """The reference's setSwitch command: off, every call passes

@@ -24,14 +24,13 @@ runtime; none while meshes are not ported). Knob:
 staging ring.
 
 :class:`CadenceScheduler` is the one daemon that drives the runtime's
-periodic services (telemetry here; tiering and the overload controller
-where the runtime has them).
+periodic services: the hot-set telemetry, the tiering ticker and, once a
+``control.ControlLoop`` is attached, the overload controller.
 """
 
 from __future__ import annotations
 
 import collections
-import os
 import threading
 from typing import Optional
 
@@ -39,23 +38,11 @@ from sentinel_tpu_torch.obs import counters as obs_keys
 from sentinel_tpu_torch.runtime import (   # noqa: F401 - re-exported knob
     PIPELINE_DEPTH_ENV, PendingVerdicts, Sentinel, pipeline_depth,
 )
-
-TIER_TICK_MS_ENV = "SENTINEL_TIER_TICK_MS"
-DEFAULT_TIER_TICK_MS = 200
+from sentinel_tpu_torch.tiering.manager import (  # noqa: F401 - re-exported
+    TIER_TICK_MS_ENV, tier_tick_ms,
+)
 
 _MISSING = object()
-
-
-def tier_tick_ms(default: int = DEFAULT_TIER_TICK_MS) -> int:
-    """``SENTINEL_TIER_TICK_MS``, the tiering cadence, clamped to
-    [10, 60000] (the reference's ``tiering.manager.tier_tick_ms``)."""
-    raw = os.environ.get(TIER_TICK_MS_ENV, "")
-    if not raw:
-        return default
-    try:
-        return min(60_000, max(10, int(raw)))
-    except ValueError:
-        return default
 
 
 class PipelinedVerdicts:
@@ -235,8 +222,11 @@ class CadenceScheduler:
     whose armed cadence has gone stale (:data:`IDLE_FACTOR` × its interval
     without a tick: no serving dispatch carried one) and drains its queued
     readbacks off the engine lock. The services are ``sn.telemetry``,
-    ``sn.tiering`` and ``sn.control``; a runtime without one of them (the
-    port has no tiering or controller yet, ROADMAP A10) skips it.
+    ``sn.tiering`` and ``sn.control``; a disabled service is skipped, and
+    so is the controller until a ``control.ControlLoop`` attaches itself
+    as ``sn.control``. Armed, the telemetry and tiering ticks ride the
+    fused serving dispatch (``SENTINEL_SINGLE_DISPATCH``), so under load
+    the scheduler only drains.
 
     ``poll()`` is callable directly in tests; ``start``/``stop`` are
     idempotent and ``stop`` is registered with

@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from sentinel_tpu_torch.ops import scatter_add as sa
+from sentinel_tpu_torch.ops import segments as seg
 from sentinel_tpu_torch.stats import events as ev
 
 INT32_MAX = 2 ** 31 - 1
@@ -377,6 +378,72 @@ def invalidate_rows(spec: WindowSpec, state: WindowState,
     >= R drop."""
     hit = row_mask(rows, state.stamps.shape[0])
     state.stamps.masked_fill_(hit[:, None], NEVER)
+    return state
+
+
+def extract_rows(spec: WindowSpec, state: WindowState,
+                 rows: torch.Tensor) -> WindowState:
+    """Gather the full window slice of each row in ``rows`` → a
+    WindowState whose leading axis is ``len(rows)`` (the tier demotion
+    snapshot), in FRESH tensors: the engine updates its state in place,
+    so a slice that aliased it would read the invalidate that follows.
+    Stamps are absolute window indices, so the slice reads the same
+    restored into any row at any later time. Out-of-range rows (padding)
+    gather the clamped row; the restore drops them."""
+    r = torch.clamp(rows, 0, state.stamps.shape[0] - 1).long()
+    return WindowState(counters=state.counters[r], stamps=state.stamps[r],
+                       rt_sum=state.rt_sum[r], min_rt=state.min_rt[r])
+
+
+class RowWriter:
+    """``dest.at[rows].set(values, mode="drop")`` for tables with a
+    leading row axis, written in place, with the writer of each row
+    elected once for every table of a payload: a negative row wraps
+    once, other out-of-range rows drop, and where rows repeat the LAST
+    lane wins (the reference's scatter on the CPU;
+    ``rules/param_flow.scatter_set_last`` elects the same way). Every
+    lane writes its row's winning payload, so duplicate writes carry one
+    value and the order of writes cannot matter; dropped lanes rewrite a
+    written row (or, with none, row 0's own value). Nothing waits on the
+    device."""
+
+    def __init__(self, rows: torch.Tensor, r: int):
+        idx, ok = _drop_rows(rows, r)
+        lane = torch.arange(rows.shape[0], device=rows.device)
+        last = seg.scatter_reduce_drop(
+            torch.full((r,), -1, dtype=torch.long, device=rows.device),
+            idx, lane, ok, "amax")
+        win = last[idx]                      # the winning lane of a row
+        anchor = torch.where(ok, lane, -1).amax()      # last kept lane
+        has = anchor >= 0
+        # a 1-element index, not a 0-d one (that would read it back)
+        a = torch.clamp(anchor, min=0).view(1)
+        self.tgt = torch.where(ok, idx,
+                               torch.where(has, idx.index_select(0, a), 0))
+        self.src = torch.where(ok, win,
+                               torch.where(has, win.index_select(0, a), 0))
+        self.any_kept = has
+
+    def write(self, dest: torch.Tensor, values: torch.Tensor) -> None:
+        vals = values[self.src].to(dest.dtype)
+        keep0 = dest[0:1].expand_as(vals)
+        mask = self.any_kept.view((1,) * vals.dim())
+        dest.index_put_((self.tgt,), torch.where(mask, vals, keep0))
+
+
+def restore_rows(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
+                 payload: WindowState, writer: Optional[RowWriter] = None
+                 ) -> WindowState:
+    """Scatter an :func:`extract_rows` payload back into ``rows`` (tier
+    promotion), in place: the destination rows are overwritten whole
+    (the caller just invalidated them), so the row reads bit-identically
+    to one that never left. Padding rows drop; repeated rows take the
+    last lane's slice (see :class:`RowWriter`, which a caller restoring
+    several tables over the same rows may pass in)."""
+    w = writer if writer is not None else RowWriter(
+        rows, state.stamps.shape[0])
+    for name in WindowState._fields:
+        w.write(getattr(state, name), getattr(payload, name))
     return state
 
 

@@ -143,7 +143,10 @@ def test_fused_steps_match_leaf_by_leaf(variant):
         clk.advance_ms(int(rng.integers(20, 400)))
 
 
-def test_convert_round_trip_and_ignored_leaves():
+def test_convert_round_trip_and_ignored_leaves(monkeypatch, tmp_path):
+    monkeypatch.setenv("SENTINEL_TPU_NATIVE", "0")
+    monkeypatch.setenv("SENTINEL_TPU_LOG_DIR", str(tmp_path))
+    monkeypatch.delenv("SENTINEL_TIERING_DISABLE", raising=False)
     cfg = stpu.load_config(max_resources=32, max_flow_rules=4,
                            max_degrade_rules=4, host_fast_path=False)
     sph = stpu.Sentinel(config=cfg, clock=ManualClock())
@@ -159,6 +162,31 @@ def test_convert_round_trip_and_ignored_leaves():
     # fresh tensors: updating the port's state leaves the dict untouched
     ts.second.counters.add_(1)
     assert d["second.counters"].sum() == 0
+    # the tiering sketch table rides engine_to_numpy, and comes back
+    sph.entry_batch(["a", "b"], acquire=[1, 1])
+    e = convert.engine_to_numpy(sph)
+    assert set(e) == set(d) | {convert.SKETCH_LEAF}
+    sk = convert.sketch_from_numpy(e)
+    assert sk.dtype == torch.int32 and tuple(sk.shape) == (4, 4096)
+    assert int(sk.max()) == 1
+    np.testing.assert_array_equal(sk.numpy(), e[convert.SKETCH_LEAF])
+    # the cold tier flattens by name: every ColdEntry field, alts by id
+    assert sph.resources.evict_name("a")
+    sph.entry_batch(["b"], acquire=[1], origins=["app-x"])
+    assert sph.resources.evict_name("b")
+    sph.entry_batch(["c"], acquire=[1])
+    sph.tiering.poll()
+    cold = convert.cold_tier_to_numpy(sph.tiering.cold)
+    assert list(cold) == ["a", "b"]
+    want = {"sec_counters", "sec_stamps", "sec_rt_sum", "sec_min_rt",
+            "min_counters", "min_stamps", "min_rt_sum", "min_min_rt",
+            "threads", "occ_cnt", "occ_win", "reload_gen", "demoted_ms",
+            "rt_hist"}
+    assert set(cold["a"]) == want
+    alts = set(cold["b"]) - want
+    assert len(alts) == 5 and all(k.startswith("alts.0.") for k in alts)
+    assert int(cold["a"]["sec_counters"][:, 0].sum()) == 1
+    sph.close()
 
 
 def test_off_route_steps_raise():

@@ -543,3 +543,76 @@ def test_telemetry_topk_ties_and_quantiles_on_the_card():
     counts[rng.random(counts.shape) < 0.4] = 0
     got = rh.quantiles_from_counts(torch.from_numpy(counts).to(dev))
     assert np.array_equal(got.cpu().numpy(), rh.np_quantiles(counts))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [12, 20])
+def test_sketch_update_and_tick_read_on_the_card(bits):
+    """The tiering sketch's update (2^16 lanes, a Zipf-like hot set, a
+    quarter of the lanes dead on the pad row) and its decay + estimate
+    over 2^20 rows on the card equal the CPU's, exactly (plain PyTorch
+    ops: the hash's logical shift and the dead lanes' spare slots must
+    behave alike on both)."""
+    from sentinel_tpu_torch.tiering import sketch as sk
+    dev = _card()
+    rng = np.random.default_rng(80 + bits)
+    n, r = 1 << 16, 1 << 20
+    items = np.where(rng.random(n) < 0.3, rng.integers(1, 64, n),
+                     rng.integers(1, r, n)).astype(np.int32)
+    valid = rng.random(n) < 0.75
+    items[~valid] = r
+    base = rng.integers(0, 1 << 12, (4, 1 << bits)).astype(np.int32)
+    cpu, gpu = torch.from_numpy(base), torch.from_numpy(base).to(dev)
+    for _ in range(3):
+        cpu, _ = sk.update_sketch(cpu, torch.from_numpy(items),
+                                  torch.from_numpy(valid))
+        gpu, over = sk.update_sketch(gpu, torch.from_numpy(items).to(dev),
+                                     torch.from_numpy(valid).to(dev))
+    assert not bool(over)
+    assert torch.equal(gpu.cpu(), cpu)
+    c_cpu, e_cpu = sk.tick_read(cpu, r)
+    c_gpu, e_gpu = sk.tick_read(gpu, r)
+    assert torch.equal(c_gpu.cpu(), c_cpu) and torch.equal(e_gpu.cpu(), e_cpu)
+
+
+@pytest.mark.gpu
+def test_row_slice_extract_restore_round_trip_on_the_card():
+    """``extract_resource_rows`` then ``restore_resource_rows`` into other
+    rows on the card equal the CPU's, with repeated destination rows and
+    alt slots (the last lane wins) and padding that drops; the payload
+    is fresh (an invalidate after the gather is not read back)."""
+    from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch.engine import pipeline as pl
+    from sentinel_tpu_torch.stats.window import MINUTE_SPEC, WindowSpec
+    dev = _card()
+    spec = pl.EngineSpec(rows=1 << 14, alt_rows=1 << 15,
+                         second=WindowSpec(2, 500), minute=MINUTE_SPEC,
+                         statistic_max_rt=5000, hist_buckets=32)
+    d = convert.to_numpy(pl.init_state(spec, 16, 8))
+    rng = np.random.default_rng(91)
+    for key, a in d.items():
+        if a.dtype == np.int32:
+            d[key] = rng.integers(-50, 5000, a.shape).astype(np.int32)
+        elif a.dtype == np.float32:
+            d[key] = (rng.random(a.shape) * 100).astype(np.float32)
+    k = 4096
+    src = rng.choice(spec.rows, k, replace=False).astype(np.int32)
+    src_alt = rng.choice(spec.alt_rows, 2 * k, replace=False).astype(np.int32)
+    dst = rng.integers(0, spec.rows, k).astype(np.int32)
+    dst[-64:] = spec.rows                                   # padding
+    dst_alt = rng.integers(0, 1024, 2 * k).astype(np.int32)  # collisions
+    out = []
+    for device in ("cpu", dev):
+        st = convert.state_from_numpy(d, device)
+        t = {name: torch.from_numpy(x).to(device) for name, x in
+             (("src", src), ("src_alt", src_alt), ("dst", dst),
+              ("dst_alt", dst_alt))}
+        payload = pl.extract_resource_rows(spec, st, t["src"], t["src_alt"])
+        keep = {key: a.copy() for key, a in
+                convert.to_numpy(payload).items()}
+        pl.invalidate_resource_rows(spec, st, t["src"], t["src_alt"])
+        assert convert.leaf_diff(keep, convert.to_numpy(payload)) == []
+        pl.restore_resource_rows(spec, st, t["dst"], payload, t["dst_alt"])
+        out.append(convert.to_numpy(st))
+    torch.cuda.synchronize()
+    assert convert.leaf_diff(out[0], out[1]) == []

@@ -55,6 +55,14 @@ import sentinel_tpu_torch.frontend.workloads
 import sentinel_tpu_torch.obs.telemetry
 import sentinel_tpu_torch.obs.resource_hist
 import sentinel_tpu_torch.parallel.local_shard
+import sentinel_tpu_torch.tiering
+import sentinel_tpu_torch.tiering.coldtier
+import sentinel_tpu_torch.tiering.manager
+import sentinel_tpu_torch.tiering.sketch
+import sentinel_tpu_torch.control
+import sentinel_tpu_torch.control.actuators
+import sentinel_tpu_torch.control.loop
+import sentinel_tpu_torch.control.policy
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "sentinel_tpu")
@@ -104,6 +112,17 @@ SERVING_MODULES = [
     "sentinel_tpu_torch.parallel.local_shard",
 ]
 
+#: tiered resource state, the overload controller and the conversion
+#: helpers that carry their tables, imported the same way
+TIER_CONTROL_MODULES = [
+    "sentinel_tpu_torch.tiering", "sentinel_tpu_torch.tiering.coldtier",
+    "sentinel_tpu_torch.tiering.manager", "sentinel_tpu_torch.tiering.sketch",
+    "sentinel_tpu_torch.control", "sentinel_tpu_torch.control.actuators",
+    "sentinel_tpu_torch.control.loop", "sentinel_tpu_torch.control.policy",
+    "sentinel_tpu_torch.convert", "sentinel_tpu_torch.engine.pipeline",
+    "sentinel_tpu_torch.stats.window",
+]
+
 
 def _import_blocked(*modules):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -115,7 +134,8 @@ def _import_blocked(*modules):
     assert proc.stdout.strip().endswith("OK")
 
 
-@pytest.mark.parametrize("module", OBS_MODULES + SERVING_MODULES)
+@pytest.mark.parametrize("module", OBS_MODULES + SERVING_MODULES
+                         + TIER_CONTROL_MODULES)
 def test_module_imports_with_jax_blocked(module):
     _import_blocked(module)
 

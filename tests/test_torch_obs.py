@@ -16,9 +16,9 @@ Left out of the counter comparison, and only these:
 * ``tune.*`` — the reference's autotuner (startup artifact and
   ``SENTINEL_*`` knob validation); the port has no tuner.
 
-The reference's tiering is switched off in the twins
-(``SENTINEL_TIERING_DISABLE``): the port has none yet (ROADMAP A10), and
-off it is the lossy eviction the port implements.
+Both packages' tiering is switched off in these twins
+(``SENTINEL_TIERING_DISABLE``): their counter expectations predate it
+(ROADMAP C8); ``test_torch_tiering.py`` and its siblings run it on.
 
 Also here: the port's ``counters_catalog.txt`` pinned to the reference's
 file line by line, the host staging ring, the leak guard of

@@ -10,7 +10,9 @@ known values and edge cases of ``tests/test_resource_hist.py`` run on both
 packages' modules; the engine test records RT histograms through
 ``entry()`` on twin runtimes and reads the quantiles back through
 ``Sentinel.telemetry``; the tail tracker is compared on the same
-sequences of cumulative vectors.
+sequences of cumulative vectors. With the reference's tiering ON, a
+demoted row's histogram vector rides its cold entry and the promote
+restores it; the controller's degrade lever reads the interval tails.
 """
 
 import numpy as np
@@ -184,10 +186,10 @@ def test_knob_envs(monkeypatch):
 
 # ---- the engine records, telemetry surfaces ---------------------------------
 
-def _make(pkg):
-    cfg = pkg.load_config(max_resources=64, max_flow_rules=16,
-                          max_degrade_rules=16, max_authority_rules=16,
-                          host_fast_path=False)
+def _make(pkg, **over):
+    base = dict(max_resources=64, max_flow_rules=16, max_degrade_rules=16,
+                max_authority_rules=16, host_fast_path=False)
+    cfg = pkg.load_config(**{**base, **over})
     extra = {"device": "cpu"} if pkg is stt else {}
     return pkg.Sentinel(cfg, clock=pkg.ManualClock(start_ms=T0), **extra)
 
@@ -268,3 +270,155 @@ def test_tail_tracker_cap_evicts_stale_names():
 
     sizes = _both(run)
     assert max(sizes) <= 5
+
+
+# ---- tiering: counts ride demote → promote -----------------------------
+
+def _tiered(monkeypatch):
+    monkeypatch.delenv("SENTINEL_TIERING_DISABLE", raising=False)
+    monkeypatch.setenv("SENTINEL_TPU_NATIVE", "0")
+
+
+def test_demoted_cold_entry_carries_the_vector(monkeypatch):
+    _tiered(monkeypatch)
+    out = {}
+    for name, pkg in (("jax", stpu), ("torch", stt)):
+        s = _make(pkg, max_resources=32)
+        try:
+            t = s.tiering
+            assert t.enabled
+            for _ in range(5):
+                _timed_exit(s, "r0", 2)          # bucket 1 ((1, 2])
+            _timed_exit(s, "r0", 300)            # bucket 9 ((256, 512])
+            row0 = s.resources.lookup("r0")
+            before = convert.to_numpy(s._state)["rt_hist"][row0].copy()
+            assert before[1] == 5 and before[9] == 1
+            assert s.resources.evict_name("r0")
+            s.entry("keepalive").exit()          # run the demote drain
+            t.poll()                             # land the payload
+            entry = t.cold.pop("r0")
+            assert entry is not None and entry.rt_hist is not None
+            assert np.array_equal(entry.rt_hist, before)
+            out[name] = (before.tolist(), entry.rt_hist.tolist(),
+                         convert.engine_to_numpy(s))
+        finally:
+            s.close()
+    assert out["torch"][:2] == out["jax"][:2]
+    assert convert.leaf_diff(out["jax"][2], out["torch"][2]) == []
+
+
+def test_cold_entry_vector_round_trips_bit_exact(monkeypatch):
+    _tiered(monkeypatch)
+    out = {}
+    for name, pkg in (("jax", stpu), ("torch", stt)):
+        s = _make(pkg, max_resources=32)
+        try:
+            t = s.tiering
+            for _ in range(5):
+                _timed_exit(s, "r0", 2)
+            _timed_exit(s, "r0", 300)
+            row0 = s.resources.lookup("r0")
+            before = convert.to_numpy(s._state)["rt_hist"][row0].copy()
+            assert s.resources.evict_name("r0")
+            s.entry("keepalive").exit()
+            t.poll()
+            assert "r0" in t.cold
+            s.entry_batch(["r0"], acquire=[1])   # cold miss → promote
+            assert t.snapshot()["promoted"] >= 1
+            row1 = s.resources.lookup("r0")
+            after = convert.to_numpy(s._state)["rt_hist"][row1].copy()
+            assert np.array_equal(after, before)
+            _timed_exit(s, "r0", 2)
+            assert (convert.to_numpy(s._state)["rt_hist"][row1].sum()
+                    == before.sum() + 1)
+            out[name] = (row1, after.tolist(), convert.engine_to_numpy(s))
+        finally:
+            s.close()
+    assert out["torch"][:2] == out["jax"][:2]
+    assert convert.leaf_diff(out["jax"][2], out["torch"][2]) == []
+
+
+# ---- controller: interval tails from cumulative vectors ------------------
+
+def test_policy_prefers_tail_signal_over_mean():
+    """Bimodal victim RT: mean under the bound, interval p99 above. The
+    p99 signal trips the victim's tracker on both packages; the mean
+    alone decides nothing."""
+    from sentinel_tpu import control as jctl
+    from sentinel_tpu_torch import control as tctl
+
+    def run(c):
+        cfg = c.PolicyConfig(cooldown_ms=0, degrade_rt_ms=100.0,
+                             degrade_bad_ticks=2, degrade_hold_ms=1000)
+
+        def ob(ts, p99_pairs, mean_pairs):
+            return c.Observation(ts_ms=ts, pass_per_s=100.0,
+                                 block_per_s=0.0, rt_avg_ms=10.0,
+                                 p99_ms=0.0, queue_depth=0, queue_max=0,
+                                 resource_rt=mean_pairs,
+                                 resource_p99=p99_pairs)
+
+        mean = (("victim", 10.5), ("steady", 0.6))
+        tail = (("victim", 229.1), ("steady", 0.6))
+        pol = c.OverloadPolicy(cfg)
+        out = [[tuple(a) for a in pol.observe(ob(0, tail, mean))],
+               [tuple(a) for a in pol.observe(ob(100, tail, mean))]]
+        pol2 = c.OverloadPolicy(cfg)
+        out.append([pol2.observe(ob(ts, (), mean))
+                    for ts in range(0, 1000, 100)])
+        return out
+
+    got = run(tctl)
+    assert got == run(jctl)
+    assert got[0] == [] and got[1] == [("victim", "open")]
+    assert all(a == [] for a in got[2])
+
+
+def test_control_loop_force_opens_slow_consumer(monkeypatch):
+    """End to end on twin engines: bimodal victim traffic whose MEAN
+    stays under the bound and tail above it; the tick wires the device
+    histogram deltas into the policy and the drain forces the victim's
+    real breaker while the steady resource keeps serving."""
+    monkeypatch.setenv("SENTINEL_CONTROL_DEGRADE_RT_MS", "100")
+    from sentinel_tpu import control as jctl
+    from sentinel_tpu_torch import control as tctl
+    out = {}
+    for name, pkg, c in (("jax", stpu, jctl), ("torch", stt, tctl)):
+        s = _make(pkg)
+        try:
+            s.load_degrade_rules([
+                pkg.DegradeRule(resource="victim",
+                                grade=pkg.GRADE_EXCEPTION_COUNT,
+                                count=10_000, time_window=5),
+                pkg.DegradeRule(resource="steady",
+                                grade=pkg.GRADE_EXCEPTION_COUNT,
+                                count=10_000, time_window=5)])
+            ctl = c.ControlLoop(s, interval_ms=50)
+            assert ctl.enabled and ctl.policy.cfg.degrade_rt_ms == 100.0
+            p99s = []
+            for _tick in range(ctl.policy.cfg.degrade_bad_ticks):
+                for _ in range(40):
+                    _timed_exit(s, "victim", 1)
+                    _timed_exit(s, "steady", 1)
+                for _ in range(2):
+                    _timed_exit(s, "victim", 200)
+                assert s.telemetry.poll() == 1
+                hot = {h["resource"]: h for h in s.telemetry.hot_entries()}
+                assert float(hot["victim"].get("rt_ms", 0.0)) < 100.0
+                assert hot["victim"]["rt_p99_ms"] > 100.0
+                p99s.append(hot["victim"]["rt_p99_ms"])
+                ctl.tick()
+                ctl.drain()
+            assert s.obs.counters.get(ck.CONTROL_TAIL_SIGNAL) >= 1
+            assert s.obs.counters.get(ck.CONTROL_DEGRADE_ACTION) >= 1
+            assert ctl.policy.snapshot()["degrade"].get("victim") == "open"
+            with pytest.raises(pkg.DegradeException):
+                s.entry("victim")
+            with s.entry("steady"):
+                pass
+            out[name] = (p99s, [a["note"] for a in ctl.action_log()],
+                         s.breaker_states(),
+                         s.obs.counters.get(ck.CONTROL_TICK))
+        finally:
+            s.close()
+    assert out["torch"] == out["jax"]

@@ -482,19 +482,31 @@ def test_cadence_poll_self_dispatches_stale_telemetry_tick(tmp_path):
     assert out == [0, 0, 1, 0, 1, 2, ["a", "b"]]
 
 
-def test_cadence_skips_services_the_runtime_lacks():
-    """The port's runtime has telemetry but no tiering or controller (they
-    come with ROADMAP A10): the scheduler skips them, and a disabled
-    telemetry is skipped too."""
+def test_cadence_skips_services_the_runtime_lacks(monkeypatch):
+    """The scheduler carries the runtime's telemetry and tiering; it skips
+    the overload controller until a ``ControlLoop`` attaches itself as
+    ``sph.control``, and it skips a disabled service."""
+    from sentinel_tpu_torch.control import ControlLoop
+    monkeypatch.delenv("SENTINEL_TIERING_DISABLE")
     sph = make(stt, stt.ManualClock(start_ms=T0))
-    assert not hasattr(sph, "tiering") and not hasattr(sph, "control")
+    assert sph.tiering.enabled and not hasattr(sph, "control")
     sched = stt.CadenceScheduler(sph, telemetry_interval_sec=0.5)
-    assert [svc for svc, _ in sched._carried()] == [sph.telemetry]
+    assert [svc for svc, _ in sched._carried()] == [sph.telemetry,
+                                                    sph.tiering]
     sph.clock.advance_ms(5000)
-    assert sched.poll() == 1
+    assert sched.poll() == 2                 # one tick of each, drained
+    ctl = ControlLoop(sph, interval_ms=100)
+    assert sph.control is ctl
+    sph.clock.advance_ms(5000)
+    assert sched.poll() == 2                 # the idle loop applies nothing
+    assert ctl.snapshot()["ticks"] == 1
     sph.telemetry.enabled = False
+    sph.tiering.enabled = False
+    ctl.enabled = False
     sph.clock.advance_ms(5000)
     assert sched.poll() == 0
+    assert ctl.snapshot()["ticks"] == 1
+    assert sph.tiering.snapshot()["ticks"] == 2
     sph.close()
 
 
