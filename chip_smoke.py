@@ -112,8 +112,24 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    disarmed in turns; (d) the workload zoo's ``steady`` at 80k req/s with
    and without a ``ControlLoop`` in turns (actions, admitted share, sheds,
    p50/p99) and the ``Degrade`` actuator forcing a real breaker;
-11. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-   line (``launches`` summed over the runs of phases 3-10), and as the last
+11. drives the cluster token tier on the card: (a) ``ClusterEngine`` at
+   the JAX bench's config 5 geometry (8 logical shards, 4096 flow rows over
+   4 namespaces, 2^16 hot-key rows, 4 values a param request), 40 steps of
+   2^16 requests 10 ms apart (3/4 flow requests, Zipf(1.1) ids, 1/8
+   prioritized; 1/4 param requests with 1–4 Zipf user ids) with the
+   kernel, with the plain seam and on the CPU — equal verdicts, windows,
+   ``flow_metrics`` and ``top_params``, 3 launches an engine step, a
+   saturated 3e9 AVG_LOCAL threshold; pipelined at depth 8; 8 steps at
+   2^18; (b) a ``ClusterTokenServer`` on loopback with 8 client threads
+   (2048 single calls and 32 batches of 256 each): exactly C grants under
+   a frozen clock, PING-tripled AVG_LOCAL, concurrent tokens through the
+   lease sweep, round-trip p50/p99; (c) ``Sentinel(device="cuda")`` at 1M
+   rows with 64 cluster flow and 16 cluster param rules served by an
+   embedded ``ClusterCoordinator``: 4096 ``entry()``+exit calls and
+   batches of 2^16 with origins, the service uninstalled half way, equal
+   to the same drive at 16k rows on the card and on the CPU;
+12. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
+   line (``launches`` summed over the runs of phases 3-11), and as the last
    line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --find-syncs`` runs 3-5 steps of each engine phase
@@ -525,6 +541,29 @@ def phase_kernels(sa, hist_buckets: int, dev="cuda", R=1 << 20,
          rint(0, 3, (PARAM_KEYS + 1, 1)), whole,
          torch.where(paired, zipf, PARAM_KEYS).contiguous(), None,
          torch.where(consume, 1, 0).int()[:, None].contiguous())
+    # the cluster token step's three window records (phase 11's geometry:
+    # S = 8 shards), each one payload launch (E = 8) into the current
+    # bucket slice of a 10-bucket window; the rest of the lanes at the
+    # global pad (dropped). Namespace window: S·NS = 32 rows, every lane of
+    # a step on it; flow window: S·L = 4096 rows, Zipf lanes; hot-key
+    # window: S·PK = 2^16 rows, B·PV = 2^18 lanes, a quarter of them live
+    for name, rows, n, live_share in (
+            ("cluster namespace [32,8] slice of [32,10,8], N=2^16", 32,
+             1 << 16, 1.0),
+            ("cluster flow [4096,8] slice of [4096,10,8], N=2^16", 4096,
+             1 << 16, 0.95),
+            ("cluster hot-key [2^16,8] slice of [2^16,10,8], N=2^18",
+             1 << 16, 1 << 18, 0.25)):
+        ck = torch.from_numpy((np.random.default_rng(rows).zipf(1.1, n)
+                               % rows).astype(np.int32)).to(dev)
+        ck[torch.rand(n, device=dev, generator=g) >= live_share] = rows
+        cpay = torch.zeros((n, 8), dtype=torch.int32, device=dev)
+        cpay[:, 0] = rint(0, 3, (n,))                  # PASS (acquire)
+        cpay[:, 5] = (cpay[:, 0] > 0).int()            # PASS_REQUEST
+        cpay[:, 1] = torch.where(cpay[:, 0] == 0, 1, 0)  # BLOCK
+        cpay[:, 6] = cpay[:, 1]                        # BLOCK_REQUEST
+        case(name, 1, rint(0, 50, (rows, 10, 8)), lambda t: t[:, 7, :],
+             ck.contiguous(), None, cpay)
 
     results = []
     for c in cases:
@@ -3813,6 +3852,585 @@ def _tier_twin_equal(a, b) -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the cluster token tier
+# ---------------------------------------------------------------------------
+
+CLUSTER_SHARDS = 8
+CLUSTER_FLOWS = 512          # L: flow rows a shard (4096 in all)
+CLUSTER_PARAM_RULES = 64     # of those rows, param rules' proxy rows
+CLUSTER_PK = 1 << 13         # hot-key rows a shard (2^16 in all)
+CLUSTER_USERS = 1 << 20      # param values: Zipf(1.1) over these user ids
+CLUSTER_STEP_MS = 10         # virtual time between steps
+CLUSTER_T0 = 1_785_000_000_000
+CLUSTER_BUDGET_MS = 20       # the reference client's request timeout
+
+
+def _cluster_rules(tcl):
+    """Flow rules over 4 namespaces and the param rules: GLOBAL and
+    AVG_LOCAL, ``exceed`` 1.0–1.5, a quarter with ``max_occupy_ratio``
+    0.5, and flow 1 an AVG_LOCAL rule of count 1e9 in the namespace with
+    3 connected clients (a 3e9 threshold: the saturating cast)."""
+    n_flow = CLUSTER_SHARDS * CLUSTER_FLOWS - CLUSTER_PARAM_RULES
+    flow = {ns: [] for ns in range(4)}
+    for i in range(n_flow):
+        if i == 1:
+            r = tcl.ClusterFlowRule(flow_id=i, count=1e9,
+                                    threshold_type=tcl.THRESHOLD_AVG_LOCAL)
+        else:
+            r = tcl.ClusterFlowRule(
+                flow_id=i, count=float(40 + (i * 37) % 400),
+                threshold_type=(tcl.THRESHOLD_GLOBAL if i % 3
+                                else tcl.THRESHOLD_AVG_LOCAL),
+                exceed_count=1.0 + 0.125 * (i % 5),
+                max_occupy_ratio=0.5 if i % 4 == 3 else 1.0)
+        flow[i % 4].append(r)
+    param = [tcl.ClusterParamFlowRule(
+        flow_id=10_000 + j, count=float(2 + j % 20),
+        threshold_type=j % 2, items={0: 500.0})
+        for j in range(CLUSTER_PARAM_RULES)]
+    return n_flow, flow, param
+
+
+def _cluster_engine(tcl, dev, rules):
+    """The phase's engine: namespace ``ns0`` keeps the default 30,000/s
+    request limit, the others are at 1e9; ``ns1`` has 3 connected
+    clients."""
+    _, flow, param = rules
+    eng = tcl.ClusterEngine(tcl.ClusterSpec(
+        n_shards=CLUSTER_SHARDS, flows_per_shard=CLUSTER_FLOWS,
+        namespaces=4, param_keys_per_shard=CLUSTER_PK, max_params=4),
+        device=dev)
+    for ns in range(4):
+        eng.load_rules(f"ns{ns}", flow[ns])
+        if ns:
+            eng.set_namespace_qps_limit(f"ns{ns}", 1e9)
+    eng.load_param_rules("ns2", param)
+    eng.set_connected_count("ns1", 3)
+    return eng
+
+
+def _cluster_stream(n_flow, B: int, steps: int, seed: int) -> list:
+    """Per step: 3B/4 flow requests (Zipf(1.1) flow ids, 16 ids past the
+    rules: NO_RULE; acquire 1–2; 1/8 prioritized) and B/4 param requests
+    (the 64 param rules, 1–4 values each, Zipf(1.1) over 2^20 user ids)."""
+    rng = np.random.default_rng(seed)
+    nf, npr = B - B // 4, B // 4
+    out = []
+    for _ in range(steps):
+        ids = (rng.zipf(1.1, nf) - 1) % (n_flow + 16)
+        acq = rng.integers(1, 3, nf)
+        prio = rng.random(nf) < 0.125
+        pids = (10_000 + rng.integers(0, CLUSTER_PARAM_RULES, npr)).tolist()
+        k = rng.integers(1, 5, npr)
+        users = ((rng.zipf(1.1, int(k.sum())) - 1) % CLUSTER_USERS).tolist()
+        vals, at = [], 0
+        for kk in k.tolist():
+            vals.append(users[at:at + kk])
+            at += kk
+        out.append((ids, acq, prio, pids, [1] * npr, vals))
+    return out
+
+
+def _cluster_run(eng, stream, strict: bool, depth: int = 0):
+    """Drive the stream: each step one ``request_tokens_nowait`` and one
+    ``request_param_tokens_nowait`` (under the sync debug mode "error"
+    when ``strict``), read back at once (``depth`` 0) or with ``depth``
+    steps in flight → (results, host ms: dispatch, readback, step)."""
+    results, disp, read, step = [], [], [], []
+    inflight = collections.deque()
+    for i, (ids, acq, prio, pids, pacq, vals) in enumerate(stream):
+        now = CLUSTER_T0 + i * CLUSTER_STEP_MS
+        t0 = time.perf_counter()
+        with no_host_sync(strict and eng.device.type == "cuda"):
+            hf = eng.request_tokens_nowait(ids, acq, prio, now_ms=now)
+            hp = eng.request_param_tokens_nowait(pids, pacq, vals,
+                                                 now_ms=now)
+        t1 = time.perf_counter()
+        inflight.append((hf, hp))
+        if len(inflight) > depth:
+            a, b = inflight.popleft()
+            results.append((a.result(), b.result()))
+        t2 = time.perf_counter()
+        disp.append((t1 - t0) * 1e3)
+        read.append((t2 - t1) * 1e3)
+        step.append((t2 - t0) * 1e3)
+    while inflight:
+        a, b = inflight.popleft()
+        results.append((a.result(), b.result()))
+    return results, disp, read, step
+
+
+def _cluster_counts(results) -> dict:
+    counts = collections.Counter()
+    for flow, param in results:
+        counts.update(s for s, _, _ in flow)
+        counts.update(s for s, _, _ in param)
+    return dict(counts)
+
+
+def _cluster_engine_leg(stt, sa, dev, B, steps, profile) -> dict:
+    """(a) The engine at full width: the kernel run on the card, the plain
+    seam on the card, the CPU at the same size, and the kernel run
+    pipelined at depth 8 — equal verdicts and windows; 3 launches an
+    engine step on the card, none in the plain run."""
+    from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch.parallel import cluster as tcl
+    rules = _cluster_rules(tcl)
+    stream = _cluster_stream(rules[0], B, steps, seed=61)
+    out = {"B": B, "steps": steps}
+    # warm-up on a throwaway engine (allocator, library handles)
+    _cluster_run(_cluster_engine(tcl, dev, rules), stream[:2], False)
+    sync()
+    eng = _cluster_engine(tcl, dev, rules)
+    sa.LAUNCHES.clear()
+    kernel, disp, read, step = _cluster_run(eng, stream, strict=True)
+    launches = sa.LAUNCHES["scatter_add"]
+    # flows, namespaces, hot keys: one payload launch each, two engine
+    # steps (flow and param) a stream step
+    if launches != 6 * steps:
+        fail(f"cluster phase: {launches} kernel launches in {steps} steps, "
+             f"want 6 a step (3 an engine step)")
+    k_state = convert.cluster_to_numpy(eng)
+    probe = [0, 1, 2, 3, 7, 4031]
+    k_metrics = [eng.flow_metrics(f, now_ms=CLUSTER_T0 + steps * 10)
+                 for f in probe]
+    k_top = [eng.top_params(10_000 + j, now_ms=CLUSTER_T0 + steps * 10)
+             for j in range(4)]
+    counts = _cluster_counts(kernel)
+    for st in (tcl.STATUS_OK, tcl.STATUS_BLOCKED, tcl.STATUS_SHOULD_WAIT,
+               tcl.STATUS_TOO_MANY_REQUEST, tcl.STATUS_NO_RULE_EXISTS):
+        if not counts.get(st):
+            fail(f"cluster phase: status {st} never occurred: {counts}")
+    flow1 = [rm for (flow, _), (ids, *_r) in zip(kernel, stream)
+             for (s, _w, rm), fid in zip(flow, ids.tolist())
+             if fid == 1 and s == tcl.STATUS_OK]
+    if not flow1 or any(rm != 2 ** 31 - 1 for rm in flow1):
+        fail(f"cluster phase: the 3e9 AVG_LOCAL flow's remaining did not "
+             f"saturate: {sorted(set(flow1))[:5]}")
+    real = sa.scatter_add
+    sa.scatter_add = sa.scatter_add_reference     # the plain seam
+    try:
+        sa.LAUNCHES.clear()
+        peng = _cluster_engine(tcl, dev, rules)
+        plain = _cluster_run(peng, stream, strict=False)[0]
+        if sa.LAUNCHES["scatter_add"]:
+            fail("cluster phase: the plain run launched the kernel")
+    finally:
+        sa.scatter_add = real
+    p_state = convert.cluster_to_numpy(peng)
+    ceng = _cluster_engine(tcl, "cpu", rules)
+    t_cpu = time.perf_counter()
+    cpu = _cluster_run(ceng, stream, strict=False)[0]
+    t_cpu = time.perf_counter() - t_cpu
+    c_state = convert.cluster_to_numpy(ceng)
+    for tag, other, st in (("plain seam", plain, p_state),
+                           ("CPU", cpu, c_state)):
+        if other != kernel:
+            bad = next(i for i, (a, b) in enumerate(zip(kernel, other))
+                       if a != b)
+            fail(f"cluster phase: verdicts differ from the {tag} run at "
+                 f"step {bad}")
+        diff = convert.leaf_diff(st, k_state)
+        if diff:
+            fail(f"cluster phase: windows differ from the {tag} run: {diff}")
+    if ([ceng.flow_metrics(f, now_ms=CLUSTER_T0 + steps * 10)
+         for f in probe] != k_metrics
+            or [ceng.top_params(10_000 + j, now_ms=CLUSTER_T0 + steps * 10)
+                for j in range(4)] != k_top):
+        fail("cluster phase: flow_metrics/top_params differ from the CPU")
+    # pipelined at depth 8 (the JAX bench's config 5 drive)
+    deng = _cluster_engine(tcl, dev, rules)
+    sync()
+    t_pipe = time.perf_counter()
+    piped = _cluster_run(deng, stream, strict=False, depth=8)[0]
+    t_pipe = time.perf_counter() - t_pipe
+    if piped != kernel:
+        fail("cluster phase: pipelined verdicts differ")
+    # host ms of the param values' blake2s hashing, one step's batch
+    ids0, _a, _p, pids, _pa, vals = stream[0]
+    t_h = time.perf_counter()
+    for fid, vs in zip(pids, vals):
+        for v in vs:
+            eng._param_key(fid, v)
+    hash_ms = (time.perf_counter() - t_h) * 1e3
+    grants = counts.get(tcl.STATUS_OK, 0)
+    sync_s = sum(step) / 1e3
+    out.update({
+        "launches": launches, "launches_per_engine_step": launches
+        / (2 * steps), "status_counts": {str(k): v
+                                         for k, v in counts.items()},
+        "step_ms": summary(step), "dispatch_ms": summary(disp),
+        "readback_ms": summary(read),
+        "step_ms_p99": float(np.percentile(step, 99)),
+        "decisions_per_s_sync": B * steps / sync_s,
+        "grants_per_s_sync": grants / sync_s,
+        "decisions_per_s_depth8": B * steps / t_pipe,
+        "grants_per_s_depth8": grants / t_pipe,
+        "cpu_step_ms": t_cpu / steps * 1e3,
+        "param_hash_ms_per_batch": hash_ms,
+        "param_values_per_batch": sum(len(v) for v in vals),
+        "saturated_remaining": len(flow1)})
+    log(f"[cluster] (a) S={CLUSTER_SHARDS} L={CLUSTER_FLOWS} PK="
+        f"{CLUSTER_PK} B={B} x {steps} steps: verdicts, windows, "
+        f"flow_metrics and top_params equal (kernel, plain seam, CPU, "
+        f"depth 8); launches {launches} (3 an engine step); statuses "
+        f"{counts}")
+    log(f"[cluster]   step p50 {out['step_ms']['median']:.2f} ms, p99 "
+        f"{out['step_ms_p99']:.2f} ms (budget {CLUSTER_BUDGET_MS} ms); "
+        f"dispatch {out['dispatch_ms']['median']:.2f} ms, readback "
+        f"{out['readback_ms']['median']:.2f} ms; grants/s sync "
+        f"{out['grants_per_s_sync']:.0f}, depth 8 "
+        f"{out['grants_per_s_depth8']:.0f}; decisions/s sync "
+        f"{out['decisions_per_s_sync']:.0f}, depth 8 "
+        f"{out['decisions_per_s_depth8']:.0f}; CPU {out['cpu_step_ms']:.1f}"
+        f" ms a step; param hashing {hash_ms:.2f} ms for "
+        f"{out['param_values_per_batch']} values")
+    if profile:
+        out["profile"] = prof = _profile_steps(
+            lambda: _cluster_run(_cluster_engine(tcl, dev, rules), stream,
+                                 strict=False), steps,
+            trace_name="cluster_trace.json", keep_trace=False)
+        log(f"[cluster]   device time {prof['device_ms_per_step']:.3f} ms a "
+            f"step of {B} requests (two engine steps)")
+    return out
+
+
+def _cluster_server_leg(stt, sa, dev, threads: int, singles: int,
+                        batches: int, batch_n: int, log_dir: str) -> dict:
+    """(b) A ``ClusterTokenServer`` on 127.0.0.1 (ephemeral port), its
+    engine on the card: ``threads`` clients each make ``singles``
+    ``request_token`` calls and ``batches`` pipelined batches of
+    ``batch_n`` under a frozen ManualClock — a GLOBAL rule of count C
+    grants exactly C; 3 PINGs triple an AVG_LOCAL threshold; concurrent
+    tokens balance through acquire, release and the lease sweep."""
+    import threading
+    from sentinel_tpu_torch.cluster.client import ClusterTokenClient
+    from sentinel_tpu_torch.cluster.server import ClusterTokenServer
+    from sentinel_tpu_torch.parallel import cluster as tcl
+    from sentinel_tpu_torch.parallel.concurrent import ConcurrentFlowRule
+    clock = stt.ManualClock(start_ms=CLUSTER_T0)
+    eng = tcl.ClusterEngine(tcl.ClusterSpec(
+        n_shards=CLUSTER_SHARDS, flows_per_shard=64, namespaces=4,
+        param_keys_per_shard=1024), device=dev)
+    total = threads * (singles + batches * batch_n)
+    C = total // 4               # a quarter of the requests get a token
+    eng.load_rules("g", [tcl.ClusterFlowRule(
+        flow_id=1, count=C, threshold_type=tcl.THRESHOLD_GLOBAL)])
+    eng.load_rules("avg", [tcl.ClusterFlowRule(
+        flow_id=2, count=5, threshold_type=tcl.THRESHOLD_AVG_LOCAL)])
+    eng.set_namespace_qps_limit("g", 1e9)
+    steps = []
+    real_step = eng.request_tokens
+
+    def counted(ids, *a, **kw):
+        steps.append(len(ids))
+        return real_step(ids, *a, **kw)
+
+    eng.request_tokens = counted
+    server = ClusterTokenServer(eng, clock=clock, host="127.0.0.1", port=0,
+                                log_dir=log_dir)
+    server.load_concurrent_rules("c", [ConcurrentFlowRule(
+        flow_id=7, count=3, resource_timeout_ms=500)])
+    server.start()                # raises if it does not come up
+    clients = []
+    try:
+        def client(ns):
+            c = ClusterTokenClient("127.0.0.1", server.port, namespace=ns,
+                                   request_timeout_ms=10_000,
+                                   auto_reconnect=False)
+            c.start()
+            clients.append(c)
+            return c
+
+        g_clients = [client("g") for _ in range(threads)]
+        real_step([1], [1], now_ms=CLUSTER_T0)    # warm the step
+        steps.clear()
+        statuses, rt_single, rt_batch = [], [], []
+        lock = threading.Lock()
+
+        def drive(c):
+            st, rs, rb = [], [], []
+            for _ in range(singles):
+                t = time.perf_counter_ns()
+                st.append(c.request_token(1, 1).status)
+                rs.append((time.perf_counter_ns() - t) / 1e3)
+            for _ in range(batches):
+                t = time.perf_counter_ns()
+                st += [r.status for r in c.request_tokens_batch(
+                    [(1, 1, False)] * batch_n)]
+                rb.append((time.perf_counter_ns() - t) / 1e3)
+            with lock:
+                statuses.extend(st)
+                rt_single.extend(rs)
+                rt_batch.extend(rb)
+
+        sa.LAUNCHES.clear()
+        workers = [threading.Thread(target=drive, args=(c,), daemon=True)
+                   for c in g_clients]
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=600)
+            if w.is_alive():
+                fail("cluster phase: a token client did not finish")
+        wall = time.perf_counter() - t0
+        launches = sa.LAUNCHES["scatter_add"]
+        n_steps = len(steps)
+        sc = collections.Counter(statuses)
+        # the warm-up step took one of the C tokens
+        if len(statuses) != total or sc[tcl.STATUS_OK] != C - 1 \
+                or sc[tcl.STATUS_BLOCKED] != total - (C - 1):
+            fail(f"cluster phase: the server granted {dict(sc)} of "
+                 f"{total}, want exactly {C - 1} OK and the rest BLOCKED")
+        if launches != 3 * n_steps:
+            fail(f"cluster phase: {launches} kernel launches for "
+                 f"{n_steps} server steps, want 3 each")
+        avg_clients = [client("avg") for _ in range(3)]
+        if avg_clients[0].ping() != 3:
+            fail("cluster phase: 3 PINGs did not register 3 clients")
+        avg = [r.status for r in avg_clients[0].request_tokens_batch(
+            [(2, 1, False)] * 20)]
+        if avg.count(tcl.STATUS_OK) != 15:
+            fail(f"cluster phase: AVG_LOCAL with 3 clients granted "
+                 f"{avg.count(tcl.STATUS_OK)}, want 15")
+        cc = client("c")
+        got = [cc.acquire_concurrent_token(7, 1) for _ in range(4)]
+        ok = [r.status for r in got] == [tcl.STATUS_OK] * 3 + [
+            tcl.STATUS_BLOCKED]
+        ok &= cc.release_concurrent_token(got[0].token_id).status \
+            == tcl.STATUS_RELEASE_OK
+        ok &= server.concurrent.now_calls(7) == 2
+        clock.advance_ms(600)         # the other two leases expire
+        end = time.perf_counter() + 10
+        while server.concurrent.now_calls(7) and time.perf_counter() < end:
+            time.sleep(0.05)
+        ok &= server.concurrent.now_calls(7) == 0
+        ok &= server.concurrent.lease_count() == 0
+        ok &= cc.release_concurrent_token(got[1].token_id).status \
+            == tcl.STATUS_ALREADY_RELEASE
+        if not ok:
+            fail("cluster phase: concurrent tokens did not balance")
+    finally:
+        for c in clients:
+            c.stop()
+        server.stop()
+    out = {"launches": launches, "threads": threads, "requests": total,
+           "wall_s": wall, "decisions_per_s": total / wall,
+           "server_steps": n_steps,
+           "mean_requests_per_step": float(np.mean(steps[:n_steps])),
+           "rt_single_us": {"p50": float(np.percentile(rt_single, 50)),
+                            "p99": float(np.percentile(rt_single, 99))},
+           "rt_batch_us": {"p50": float(np.percentile(rt_batch, 50)),
+                           "p99": float(np.percentile(rt_batch, 99))}}
+    log(f"[cluster] (b) server on loopback, {threads} clients: exactly "
+        f"{C - 1} of {total} granted, AVG_LOCAL x3 by PING, concurrent "
+        f"tokens balanced; round trip single p50 "
+        f"{out['rt_single_us']['p50']:.0f} us p99 "
+        f"{out['rt_single_us']['p99']:.0f} us, batch of {batch_n} p50 "
+        f"{out['rt_batch_us']['p50']:.0f} us p99 "
+        f"{out['rt_batch_us']['p99']:.0f} us; {out['decisions_per_s']:.0f} "
+        f"decisions/s; {n_steps} device steps, "
+        f"{out['mean_requests_per_step']:.1f} requests a step; launches "
+        f"{launches}")
+    return out
+
+
+def _cluster_runtime_drive(stt, sph, clock, calls: int, batch: int,
+                           seed: int = 71) -> dict:
+    """(c)'s drive: 64 cluster-mode flow rules (half with
+    ``cluster_fallback_to_local``) and 16 cluster param rules served by
+    an embedded ``ClusterCoordinator`` (its engine on the Sentinel's
+    device); ``calls`` ``entry()``+exit calls and one ``entry_batch`` of
+    ``batch`` events with origins, then the service is uninstalled and
+    the same again (the fallback rules checked locally, the rest
+    pass)."""
+    from sentinel_tpu_torch.cluster import coordinator as tcoord
+    from sentinel_tpu_torch.parallel import cluster as tcl
+    coord = tcoord.ClusterCoordinator(
+        sph, n_shards=CLUSTER_SHARDS, flows_per_shard=16,
+        param_keys_per_shard=1024, clock=clock)
+    coord.on_mode_change(tcoord.CLUSTER_SERVER)
+    if coord.mode != tcoord.CLUSTER_SERVER or coord.server is None:
+        fail("cluster phase: the embedded token server did not start")
+    try:
+        sph.load_flow_rules([stt.FlowRule(
+            resource=f"c{i}", count=5.0, cluster_mode=True,
+            cluster_flow_id=1 + i, cluster_fallback_to_local=i % 2 == 0)
+            for i in range(64)] + [stt.FlowRule(resource="plain",
+                                                count=1e6)])
+        sph.load_param_flow_rules([stt.ParamFlowRule(
+            resource=f"p{j}", param_idx=0, count=3, cluster_mode=True,
+            cluster_flow_id=101 + j) for j in range(16)])
+        coord.server.load_flow_rules(coord.namespace, [tcl.ClusterFlowRule(
+            flow_id=1 + i, count=float(4 + i % 8),
+            threshold_type=tcl.THRESHOLD_GLOBAL) for i in range(64)])
+        coord.server.load_param_rules(coord.namespace, [
+            tcl.ClusterParamFlowRule(flow_id=101 + j, count=2.0,
+                                     threshold_type=tcl.THRESHOLD_GLOBAL)
+            for j in range(16)])
+        rng = np.random.default_rng(seed)
+        names = [f"c{i}" for i in range(64)] + [
+            f"p{j}" for j in range(16)] + ["plain"] * 16
+        obs, cluster_us = [], []
+        for half in range(2):
+            picks = rng.integers(0, len(names), calls // 2)
+            users = rng.integers(0, 4, calls // 2)
+            for k, (pi, u) in enumerate(zip(picks.tolist(),
+                                            users.tolist())):
+                res = names[pi]
+                args = (u,) if res[0] == "p" else ()
+                t = time.perf_counter()
+                try:
+                    with sph.entry(res, args=args):
+                        got = "pass"
+                except stt.BlockException as exc:
+                    got = type(exc).__name__
+                if res[0] == "c" and half == 0:
+                    cluster_us.append((time.perf_counter() - t) * 1e6)
+                obs.append(got)
+                if k % 8 == 7:
+                    clock.advance_ms(1)
+            bn = rng.integers(0, len(names), batch)
+            v = sph.entry_batch(
+                [names[i] for i in bn.tolist()],
+                origins=[f"app-{o}" if o < 8 else ""
+                         for o in rng.integers(0, 16, batch).tolist()],
+                args_list=[(int(u),) for u in rng.integers(0, 4, batch)])
+            obs.append((np.asarray(v.allow).tolist(),
+                        np.asarray(v.reason).tolist(),
+                        np.asarray(v.wait_ms).tolist()))
+            clock.advance_ms(30)
+            if half == 0:
+                sph.set_token_service(None)       # the service goes away
+        from sentinel_tpu_torch import convert
+        engine_state = convert.cluster_to_numpy(coord.server.engine)
+    finally:
+        coord.stop()
+    return {"obs": obs, "cluster_us": cluster_us,
+            "engine_state": engine_state}
+
+
+def _cluster_runtime_leg(stt, sa, dev, R, twin_rows, calls, batch,
+                         log_dir) -> dict:
+    """(c) ``Sentinel(device="cuda")`` at ``R`` rows through ``entry()``
+    and ``entry_batch`` with cluster-mode rules (:func:`_cluster_runtime_
+    drive`); the same drive at ``twin_rows`` on the card and on the CPU
+    must agree on verdicts and exceptions, block-log lines, counters,
+    engine state and the embedded engine's windows."""
+    from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch.core.logs import BlockStatLogger
+    runs = {}
+    for tag, d, rows in (("card", dev, R), ("card_twin", dev, twin_rows),
+                         ("cpu_twin", "cpu", twin_rows)):
+        clock = stt.ManualClock(start_ms=CLUSTER_T0)
+        sph = stt.Sentinel(stt.load_config(max_resources=rows), clock=clock,
+                           device=d)
+        sph._cpu.sample = lambda: (0.5, 0.25)
+        sph.block_log.close()
+        sph.block_log = BlockStatLogger(clock, base_dir=os.path.join(
+            log_dir, tag))
+        sa.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = _cluster_runtime_drive(stt, sph, clock, calls, batch)
+        out["seconds"] = time.perf_counter() - t0
+        out["launches"] = sa.LAUNCHES["scatter_add"]
+        sph.block_log.flush()
+        path = os.path.join(log_dir, tag, sph.block_log.FILE_NAME)
+        out["lines"] = (open(path).read().splitlines()
+                        if os.path.exists(path) else [])
+        out["counters"] = sph.obs.counters.snapshot()
+        out["state"] = convert.engine_to_numpy(sph) if rows == twin_rows \
+            else None
+        sph.close()
+        runs[tag] = out
+    card, twin, cpu = runs["card"], runs["card_twin"], runs["cpu_twin"]
+    if not (card["obs"] == twin["obs"] == cpu["obs"]):
+        fail("cluster phase: runtime verdicts differ (1M card, 16k card, "
+             "16k CPU)")
+    if not (card["lines"] == twin["lines"] == cpu["lines"]) \
+            or not card["lines"]:
+        fail("cluster phase: runtime block-log lines differ or are empty")
+    if twin["counters"] != cpu["counters"]:
+        fail("cluster phase: runtime counters differ from the CPU twin")
+    bad = convert.leaf_diff(cpu["state"], twin["state"])
+    for a in (twin, card):
+        bad += convert.leaf_diff(cpu["engine_state"], a["engine_state"])
+    if bad:
+        fail(f"cluster phase: runtime state differs from the CPU twin: "
+             f"{bad}")
+    if not card["launches"]:
+        fail("cluster phase: the runtime drive launched no kernel")
+    outcomes = collections.Counter(o for o in card["obs"]
+                                   if isinstance(o, str))
+    for want in ("pass", "FlowException", "ParamFlowException"):
+        if not outcomes.get(want):
+            fail(f"cluster phase: the runtime drive never saw {want}")
+    us = card["cluster_us"]
+    res = {"launches": card["launches"], "R": R, "calls": calls,
+           "batch": batch, "outcomes": dict(outcomes),
+           "block_log_lines": len(card["lines"]),
+           "entry_exit_us_cluster": summary(us),
+           "seconds": {k: v["seconds"] for k, v in runs.items()}}
+    log(f"[cluster] (c) runtime at {R} rows: {calls} entry()+exit and 2 "
+        f"batches of {batch} with origins, the service uninstalled half "
+        f"way; equal to the 16k card and CPU twins (verdicts, "
+        f"{len(card['lines'])} block-log lines, counters, state, the "
+        f"embedded engine's windows); outcomes {dict(outcomes)}; "
+        f"entry()+exit with a cluster rule {np.median(us):.0f} us "
+        f"(median); launches {card['launches']}")
+    return res
+
+
+def phase_cluster(stt, sa, dev="cuda", B=1 << 16, steps=40,
+                  big_B=1 << 18, big_steps=8, threads=8, singles=2048,
+                  batches=32, batch_n=256, R=1 << 20, twin_rows=1 << 14,
+                  calls=4096, rt_batch=1 << 16,
+                  profile: bool = False) -> dict:
+    """The cluster token tier: (a) :func:`_cluster_engine_leg` at 2^16
+    requests a step and the kernel run alone at 2^18; (b)
+    :func:`_cluster_server_leg`; (c) :func:`_cluster_runtime_leg`."""
+    import tempfile
+    from sentinel_tpu_torch.parallel import cluster as tcl
+    t_phase = time.perf_counter()
+    res = {"engine": _cluster_engine_leg(stt, sa, dev, B, steps, profile)}
+    launches = res["engine"]["launches"]
+    rules = _cluster_rules(tcl)
+    stream = _cluster_stream(rules[0], big_B, big_steps, seed=62)
+    eng = _cluster_engine(tcl, dev, rules)
+    sa.LAUNCHES.clear()
+    big, disp, read, step = _cluster_run(eng, stream, strict=True)
+    big_launches = sa.LAUNCHES["scatter_add"]
+    if big_launches != 6 * big_steps:
+        fail(f"cluster phase: {big_launches} launches at B={big_B}")
+    launches += big_launches
+    grants = _cluster_counts(big).get(tcl.STATUS_OK, 0)
+    res["engine_big"] = {
+        "B": big_B, "steps": big_steps, "launches": big_launches,
+        "step_ms": summary(step), "dispatch_ms": summary(disp),
+        "readback_ms": summary(read),
+        "decisions_per_s": big_B * big_steps / (sum(step) / 1e3),
+        "grants_per_s": grants / (sum(step) / 1e3)}
+    log(f"[cluster] (a) B={big_B}: step p50 "
+        f"{res['engine_big']['step_ms']['median']:.2f} ms, "
+        f"{res['engine_big']['decisions_per_s']:.0f} decisions/s, "
+        f"{res['engine_big']['grants_per_s']:.0f} grants/s; launches "
+        f"{big_launches}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_") as tmp:
+        res["server"] = _cluster_server_leg(stt, sa, dev, threads, singles,
+                                            batches, batch_n, tmp)
+        launches += res["server"]["launches"]
+        res["runtime"] = _cluster_runtime_leg(stt, sa, dev, R, twin_rows,
+                                              calls, rt_batch, tmp)
+        launches += res["runtime"]["launches"]
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[cluster] phase 11 took {res['seconds']:.1f} s; kernel launches "
+        f"{launches}")
+    return res
+
+
 def find_syncs(stt, sa) -> int:
     """``--find-syncs``: every place where a kernel-run engine step waits
     on the device, with the port's frames of its stack (the sync debug
@@ -3851,6 +4469,10 @@ def find_syncs(stt, sa) -> int:
                   batch_maxes=(256,), tel_ticks=3)
     phase_tiering(stt, sa, batches=8, requests=1 << 16, serve_hot=1 << 13,
                   fused_steps=12, turns=2, per_turn=2, ctl_turns=2)
+    # (fewer steps never reach ns0's 30,000/s limit, fewer calls see no
+    # ParamFlowException: the phase requires both)
+    phase_cluster(stt, sa, steps=6, big_steps=2, singles=64, batches=2,
+                  calls=1024, rt_batch=1 << 12)
     log(f"[sync] {len(sites)} place(s) wait on the device in a step")
     return 0
 
@@ -3916,6 +4538,7 @@ def main() -> int:
     report["obs_runtime"] = phase_obs_runtime(stt, sa, profile=profile)
     report["serving"] = phase_serving(stt, sa, timer=timer, profile=profile)
     report["tiering"] = phase_tiering(stt, sa, timer=timer, profile=profile)
+    report["cluster"] = phase_cluster(stt, sa, profile=profile)
     report["seconds"] = time.perf_counter() - t_all
 
     decide = report["kernel_cases"][0]
@@ -3923,7 +4546,7 @@ def main() -> int:
     launches = sum(report[p]["launches"] for p in (
         "engine", "prio", "prio_mixed", "general", "general_occupy", "fast",
         "scalar_param", "general_param", "runtime", "fast_path",
-        "param_runtime", "obs_runtime", "serving", "tiering"))
+        "param_runtime", "obs_runtime", "serving", "tiering", "cluster"))
     kernels = [{
         "name": "scatter_add", "route": "cuda",
         "source": "sentinel_tpu_torch/csrc/scatter_add.cu",

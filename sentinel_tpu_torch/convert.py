@@ -10,7 +10,10 @@ tuples whose items are arrays or tuples again: they flatten by position
 (``"custom.0"``, ``"custom.1.0"``, ...) and come back as nested tuples.
 :func:`engine_to_numpy` adds a runtime's tiering sketch table to its
 state leaves, and :func:`cold_tier_to_numpy` flattens its host cold tier
-by name. Nothing here imports JAX: a JAX array converts through
+by name. :func:`cluster_to_numpy` flattens a cluster token engine's
+windows and rule table (``state.flows.counters``, ``table.count``, ...)
+and :func:`cluster_from_numpy` builds the port's ``ClusterState`` and
+``ClusterRuleTable`` from such a dict. Nothing here imports JAX: a JAX array converts through
 ``np.asarray``.
 """
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from sentinel_tpu_torch.engine.pipeline import RuleSet, SentinelState
+from sentinel_tpu_torch.parallel.cluster import ClusterRuleTable, ClusterState
 from sentinel_tpu_torch.rules.authority import AuthorityRuleTable
 from sentinel_tpu_torch.rules.degrade import BreakerState, DegradeRuleTable
 from sentinel_tpu_torch.rules.flow import FlowDynState, FlowRuleTable
@@ -38,6 +42,8 @@ _NESTED = {
               "auth_table": AuthorityRuleTable,
               "sys_thresholds": SystemThresholds,
               "param_table": ParamRuleTable},
+    ClusterState: {"flows": WindowState, "ns": WindowState,
+                   "params": WindowState},
 }
 
 
@@ -151,6 +157,24 @@ def cold_tier_to_numpy(cold) -> Dict[str, Dict[str, np.ndarray]]:
                 leaves[field] = np.asarray(value)
         out[name] = leaves
     return out
+
+
+def cluster_to_numpy(engine) -> Dict[str, np.ndarray]:
+    """A cluster token engine's (either package's) three windows under
+    ``state.`` and its rule table under ``table.`` — copies (the port
+    updates its state in place). A JAX engine's row-sharded arrays come
+    back whole, shard ``s``'s rows at ``[s·L, (s+1)·L)`` as in the
+    port."""
+    out = to_numpy(engine.state, "state.")
+    out.update(to_numpy(engine._table, "table."))
+    return {k: np.array(v, copy=True) for k, v in out.items()}
+
+
+def cluster_from_numpy(d: Dict[str, np.ndarray], device="cpu"):
+    """The port's ``(ClusterState, ClusterRuleTable)`` from a
+    :func:`cluster_to_numpy` dict (fresh tensors on ``device``)."""
+    return (from_numpy(ClusterState, d, device, "state."),
+            from_numpy(ClusterRuleTable, d, device, "table."))
 
 
 def leaf_diff(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray]) -> list:

@@ -141,6 +141,11 @@ class EntryBatch(NamedTuple):
     param_rules: Optional[torch.Tensor] = None   # int32[B, PV] (None: no
     # param slot)
     param_keys: Optional[torch.Tensor] = None    # int32[B, PV]
+    # per-event bitmask over the per-resource rule slots: bit k set = the
+    # cluster-mode rule in slot k had its token request fail with
+    # fallbackToLocalWhenFail, so exactly that rule checks LOCALLY
+    # (per-rule FlowRuleChecker.fallbackToLocalOrPass); None = no fallback
+    cluster_fallback: Optional[torch.Tensor] = None   # int32[B]
     # False = not counted in the thread gauges (host-leased admissions:
     # the lease pre-charge and each leased exit both carry False). None =
     # all True.
@@ -342,7 +347,9 @@ def decide_entries(
             rows=batch.rows, origin_ids=batch.origin_ids,
             origin_rows=batch.origin_rows, context_ids=batch.context_ids,
             chain_rows=batch.chain_rows, acquire=batch.acquire, valid=live2,
-            cluster_fallback=torch.zeros_like(batch.rows),
+            cluster_fallback=(batch.cluster_fallback
+                              if batch.cluster_fallback is not None
+                              else torch.zeros_like(batch.rows)),
             prioritized=batch.prioritized)
         args = (rules.flow_table, state.flow_dyn, rules.flow_idx,
                 spec.second, state.second, state.alt_second, state.threads,

@@ -50,9 +50,12 @@ every rule reload, as in the JAX package). Two API tiers:
 * :meth:`Sentinel.entry_batch` / :meth:`Sentinel.exit_batch` and the raw
   ``*_nowait`` forms — numpy arrays in, verdict arrays out.
 
-What is not ported raises :class:`NotImplementedError` naming the ROADMAP
-item that will port it — cluster mode (param rules' too), meshes — and never
-quietly takes another path. A decide step reads nothing back from the
+Cluster-mode flow and param rules ask the token service installed with
+:meth:`Sentinel.set_token_service` (a ``ClusterTokenClient``, or the
+embedded server's engine through ``cluster.coordinator``) before the
+local decide, as the JAX runtime does. What is not ported raises
+:class:`NotImplementedError` naming the ROADMAP item that will port it —
+meshes — and never quietly takes another path. A decide step reads nothing back from the
 device: the verdicts (and the sort-free steps' claim overflow count) come
 home through :class:`PendingVerdicts` (pinned memory, ``non_blocking``
 copies, one CUDA event). A lease renewal of the host fast path reads its
@@ -104,8 +107,8 @@ from sentinel_tpu_torch.core.context import (
     DEFAULT_CONTEXT_NAME, current_context,
 )
 from sentinel_tpu_torch.core.errors import (
-    BlockException, BlockReason, ErrorEntryFreeError, block_exception_for,
-    exception_name_for, is_block_exception,
+    BlockException, BlockReason, ErrorEntryFreeError, ParamFlowException,
+    block_exception_for, exception_name_for, is_block_exception,
 )
 from sentinel_tpu_torch.core.logs import BlockStatLogger, record_log
 from sentinel_tpu_torch.core.pending import (
@@ -154,8 +157,6 @@ PIPELINE_DEPTH_ENV = "SENTINEL_PIPELINE_DEPTH"
 
 # what the port rejects, and where ROADMAP.md queues it
 _NOT_PORTED = {
-    "cluster": "cluster-mode flow and param rules are not ported yet: "
-               "ROADMAP A12",
     "mesh": MESH_NOT_PORTED,
 }
 
@@ -464,6 +465,12 @@ class Sentinel:
         # bumped at every param-rule reload: pairs resolved against an
         # older (table, registry) carry their generation and are dropped
         self._param_gen = 0
+        # the cluster TokenService (client or embedded server facade; set
+        # via set_token_service) and the cluster-mode rules by row: flow
+        # rules as (rule-slot position, rule), param rules as rules
+        self._token_service = None
+        self._cluster_rules_by_row: Dict[int, list] = {}
+        self._cluster_param_rules_by_row: Dict[int, list] = {}
         self._host_gates: Tuple[slots_mod.HostGate, ...] = ()
         self._device_slots: Tuple[slots_mod.DeviceSlot, ...] = ()
         # process epoch: wraparound-safe int32 relative time base
@@ -695,6 +702,8 @@ class Sentinel:
         inel = {row_of(r.resource) for r in self._deg.rules}
         inel.update(row_of(r.resource) for r in self._auth.rules)
         inel.update(self._param.by_row.keys())
+        inel.update(self._cluster_rules_by_row.keys())
+        inel.update(self._cluster_param_rules_by_row.keys())
         flow_by_row: Dict[int, list] = {}
         for r in self._flow.rules:
             flow_by_row.setdefault(row_of(r.resource), []).append(r)
@@ -717,14 +726,26 @@ class Sentinel:
         self._fast.set_tables(inel, lease, sys_active=bool(self._sys_rules))
 
     def load_flow_rules(self, rules: Sequence[flow_mod.FlowRule]) -> None:
-        if any(r.cluster_mode for r in rules if r.is_valid()):
-            raise NotImplementedError(_NOT_PORTED["cluster"])
         # buffered fast-path passes were admitted under the OLD tables:
         # land them before the swap, or the flush would re-decide them
         self._flush_fast()
         compiled = self._compile_flow(rules)
+        # cluster rules carry their rule-table SLOT position (k within the
+        # per-resource rule gather) so a failed token request re-enables
+        # exactly that rule locally through a per-event bitmask — per-rule
+        # fallbackToLocalOrPass (FlowRuleChecker.java:184-193). The slots
+        # are assigned as compile_flow_rules assigns them.
+        cluster_map: Dict[int, list] = {}
+        slots_used: Dict[int, int] = {}
+        for r in compiled.rules:
+            row = self.resources.get_or_create(r.resource)
+            k = slots_used.get(row, 0)
+            slots_used[row] = k + 1
+            if r.cluster_mode:
+                cluster_map.setdefault(row, []).append((k, r))
         with self._lock:
             self._flow = compiled
+            self._cluster_rules_by_row = cluster_map
             self._ruleset = self._build_ruleset()
             # fresh shaping state for the new tables (the reference
             # rebuilds its raters); occupy bookings are row-keyed promises
@@ -820,19 +841,27 @@ class Sentinel:
         """Compile the user's and the gateway's param rules together. A
         reload gets a fresh key registry, a new generation (pairs resolved
         before it are dropped, and their exits neither decrement nor
-        unpin), fresh key state and its rule pins."""
+        unpin), fresh key state and its rule pins. Cluster-mode param
+        rules ask the token server (ParamFlowChecker.passClusterCheck →
+        requestParamToken); only the local ones compile into the device
+        table."""
         all_rules = ((self._user_param_rules if user is None else user)
                      + (self._gateway_param_rules if gateway is None
                         else gateway))
-        if any(r.cluster_mode for r in all_rules if r.is_valid()):
-            raise NotImplementedError(_NOT_PORTED["cluster"])
         self._flush_fast()          # see load_flow_rules
-        compiled = self._compile_param(all_rules)
+        cluster_map: Dict[int, list] = {}
+        for r in all_rules:
+            if r.cluster_mode:
+                row = self.resources.get_or_create(r.resource)
+                cluster_map.setdefault(row, []).append(r)
+        compiled = self._compile_param(
+            [r for r in all_rules if not r.cluster_mode])
         with self._lock:
             if user is not None:
                 self._user_param_rules = user
             if gateway is not None:
                 self._gateway_param_rules = gateway
+            self._cluster_param_rules_by_row = cluster_map
             self._param = compiled
             self._ruleset = self._build_ruleset()
             # rule slots changed meaning: fresh interning, cold key state
@@ -843,8 +872,23 @@ class Sentinel:
                 param_dyn=pf_mod.init_param_dyn(self.spec.param_keys,
                                                 device=self.device))
             self._rebuild_fastpath()
+            # cluster-mode param rules compile into no device table, but
+            # their rows stay resident for the delegation
             self._update_rule_pins_locked(
-                "param", {r.resource for r in compiled.rules}, set(), set())
+                "param", {r.resource for r in compiled.rules}
+                | {r.resource for r in all_rules if r.cluster_mode},
+                set(), set())
+
+    def set_token_service(self, svc) -> None:
+        """Install the cluster token service used for cluster-mode flow and
+        param rules (reference ``TokenClientProvider`` / embedded-server
+        provider): any object with ``request_token(flow_id, count,
+        prioritized=False)`` and ``request_param_token(flow_id, count,
+        params)`` → TokenResult-like (``status``, ``wait_ms``); with
+        ``request_tokens_batch`` (and ``request_param_tokens_batch``) the
+        batch tier asks once a batch. ``None`` uninstalls — cluster rules
+        then take the fallback path."""
+        self._token_service = svc
 
     # ------------------------------------------------------------------
     # Pluggable processor slots (the SlotChainBuilder SPI;
@@ -1019,6 +1063,99 @@ class Sentinel:
             self.callbacks.fire_blocked(resource, origin, acquire, exc)
         return exc
 
+    def _cluster_check(self, resource: str, origin: str, row: int,
+                       o_row: int, c_row: int, acquire: int, is_in: bool,
+                       prioritized: bool, crules, sleep: bool = True,
+                       record: bool = True) -> Tuple[int, int]:
+        """``passClusterCheck`` for this resource's cluster-mode flow
+        rules (``crules``: ``(slot_k, rule)`` pairs) → ``(fallback_bits,
+        pending_wait_ms)``: bit k re-enables exactly slot k's rule in the
+        local pipeline (per-rule ``fallbackToLocalOrPass``,
+        FlowRuleChecker.java:184-193). BLOCKED raises FlowException (and,
+        with ``record``, records the block on the device); SHOULD_WAIT
+        sleeps, or with ``sleep=False`` adds to the returned wait;
+        FAIL / NO_RULE / BAD_REQUEST / TOO_MANY_REQUEST (server overload:
+        never a denial, FlowRuleChecker.applyTokenResult) take the
+        fallback."""
+        svc = self._token_service
+        fallback_bits = 0
+        pending_wait = 0
+        for slot_k, r in crules:
+            status, wait = -1, 0           # FAIL when no service installed
+            if svc is not None:
+                try:
+                    res = svc.request_token(r.cluster_flow_id, acquire,
+                                            prioritized)
+                    status = int(res.status)
+                    wait = int(getattr(res, "wait_ms", 0))
+                except Exception as exc:
+                    record_log().warning(
+                        "cluster token request failed: %r", exc)
+            if status == 0:                # OK
+                continue
+            if status == 2:                # SHOULD_WAIT → wait, then pass
+                if wait > 0:
+                    if sleep:
+                        self.clock.sleep_ms(wait)
+                    else:
+                        pending_wait += wait
+                continue
+            if status == 1:                # BLOCKED
+                if record:
+                    raise self._record_cluster_block(
+                        int(BlockReason.FLOW), resource, origin, row,
+                        o_row, c_row, acquire, is_in)
+                raise self._log_cluster_block(int(BlockReason.FLOW),
+                                              resource, origin, acquire)
+            if r.cluster_fallback_to_local:
+                fallback_bits |= 1 << slot_k
+        return fallback_bits, pending_wait
+
+    def _cluster_param_check(self, resource: str, origin: str, row: int,
+                             o_row: int, c_row: int, acquire: int,
+                             is_in: bool, args: Sequence, cprules,
+                             sleep: bool = True, record: bool = True) -> int:
+        """``ParamFlowChecker.passClusterCheck`` → ``requestParamToken``
+        for the cluster-mode param rules → the wait to add. BLOCKED raises
+        ParamFlowException (recorded with ``record``; the batch tier
+        records all its cluster blocks in one device call instead);
+        SHOULD_WAIT as in :meth:`_cluster_check`; every other status —
+        TOO_MANY_REQUEST included — passes (the param fallback is a
+        documented pass-through)."""
+        svc = self._token_service
+        pending_wait = 0
+        for r in cprules:
+            idx = r.param_idx if r.param_idx >= 0 else len(args) + r.param_idx
+            if idx < 0 or idx >= len(args):
+                continue                      # no such arg → rule passes
+            status, wait = -1, 0
+            if svc is not None:
+                try:
+                    res = svc.request_param_token(r.cluster_flow_id, acquire,
+                                                  [args[idx]])
+                    status = int(res.status)
+                    wait = int(getattr(res, "wait_ms", 0))
+                except Exception as exc:
+                    record_log().warning(
+                        "cluster param token request failed: %r", exc)
+            if status == 0:
+                continue
+            if status == 2:
+                if wait > 0:
+                    if sleep:
+                        self.clock.sleep_ms(wait)
+                    else:
+                        pending_wait += wait
+                continue
+            if status == 1:                   # BLOCKED
+                if record:
+                    raise self._record_cluster_block(
+                        int(BlockReason.PARAM_FLOW), resource, origin, row,
+                        o_row, c_row, acquire, is_in)
+                raise self._log_cluster_block(int(BlockReason.PARAM_FLOW),
+                                              resource, origin, acquire)
+        return pending_wait
+
     def _obs_block(self, resource: str, rcode: int, origin: str,
                    count: int) -> None:
         """Per-reason denial counter, the sampled block-event record and
@@ -1177,10 +1314,11 @@ class Sentinel:
                                    initial=0)) == 0
         return acq_uniform, no_origin_ids
 
-    def _route(self, acq_uniform: bool, no_origin_ids: bool,
-               no_alt: bool, any_prio: bool) -> str:
-        """The whole batch's route: scalar, fast or general."""
-        if no_alt and no_origin_ids and acq_uniform and not any_prio:
+    def _route(self, acq_uniform: bool, pure_scalar: bool,
+               any_prio: bool) -> str:
+        """The whole batch's route: scalar (``pure_scalar``: no origin
+        ids, alt rows or cluster-fallback bits), fast or general."""
+        if pure_scalar and acq_uniform and not any_prio:
             return "scalar"
         if acq_uniform and self._key_fits():
             return "fast"
@@ -1214,7 +1352,8 @@ class Sentinel:
     def _entry_batch(self, rows, origin_ids, origin_rows, context_ids,
                      chain_rows, acquire, is_in, prioritized, vfull,
                      count_thread=None, record_block=None, param_rules=None,
-                     param_keys=None, staged=None) -> EntryBatch:
+                     param_keys=None, cluster_fallback=None,
+                     staged=None) -> EntryBatch:
         """Pad the raw columns to a power of two and copy them over (the
         pairs padded with the NP and PK sentinels).
 
@@ -1256,6 +1395,8 @@ class Sentinel:
             **dev,
             param_rules=self._pairs(param_rules, b, self.cfg.max_param_rules),
             param_keys=self._pairs(param_keys, b, self.spec.param_keys),
+            cluster_fallback=(None if cluster_fallback is None else self._dev(
+                pad_to(cluster_fallback, b, 0, np.int32))),
             count_thread=(None if count_thread is None else self._dev(
                 pad_to(count_thread, b, False, np.bool_))),
             record_block=(None if record_block is None else self._dev(
@@ -1421,6 +1562,22 @@ class Sentinel:
         if self._fast_enabled and self._fast.due(self.clock.now_ms()):
             # buffered stats reach the device before this decide
             self._flush_fast()
+        # cluster-mode rules: token-server delegation BEFORE the local
+        # pipeline (FlowRuleChecker.passClusterCheck); failed requests
+        # with fallbackToLocalWhenFail re-enable exactly those rules
+        # locally (the per-rule slot bitmask)
+        cluster_fb = 0
+        cluster_wait = 0
+        crules = self._cluster_rules_by_row.get(row)
+        if crules:
+            cluster_fb, cluster_wait = self._cluster_check(
+                resource, use_origin or "", row, o_row, c_row, acquire,
+                is_in, prioritized, crules, sleep)
+        cprules = self._cluster_param_rules_by_row.get(row)
+        if cprules and args:
+            cluster_wait += self._cluster_param_check(
+                resource, use_origin or "", row, o_row, c_row, acquire,
+                is_in, args, cprules, sleep)
         pairs = self._resolve_param_pairs_one(row, args)
         try:
             verdict = self.decide_raw(
@@ -1432,7 +1589,9 @@ class Sentinel:
                 np.array([prioritized], np.bool_),
                 param_rules=None if pairs is None else pairs[0][None, :],
                 param_keys=None if pairs is None else pairs[1][None, :],
-                param_gen=-1 if pairs is None else pairs[2])
+                param_gen=-1 if pairs is None else pairs[2],
+                cluster_fallback=(np.array([cluster_fb], np.int32)
+                                  if cluster_fb else None))
             if not bool(verdict.allow[0]):
                 rcode = int(verdict.reason[0])
                 exc = self._exception_for(rcode, resource, use_origin or "")
@@ -1455,6 +1614,8 @@ class Sentinel:
         wait = int(verdict.wait_ms[0])
         if wait > 0 and sleep:
             self.clock.sleep_ms(wait)
+        if not sleep:
+            wait += cluster_wait     # a cluster SHOULD_WAIT surfaces here too
         now = self.clock.now_ms()
         # sleep=False: project create_ms past the wait the caller will
         # await, so rt excludes the pacing delay as with sleep=True
@@ -1702,9 +1863,12 @@ class Sentinel:
         t0 = obs.spans.now_ns() if obs_on else 0
         if isinstance(resources, np.ndarray) and resources.dtype.kind in "iu":
             rows = np.ascontiguousarray(resources, np.int32)
-            # names are recovered where a gate or the block log needs them
+            # names are recovered where a gate, the cluster delegation or
+            # the block log needs them
             resources = ([self.resources.name_of(int(r)) or ""
-                          for r in rows] if self._host_gates else None)
+                          for r in rows]
+                         if (self._host_gates or self._cluster_rules_by_row
+                             or self._cluster_param_rules_by_row) else None)
         else:
             rows = np.fromiter(
                 (self.resources.get_or_create(r) for r in resources),
@@ -1762,28 +1926,54 @@ class Sentinel:
             pin_arr = pf_mod.thread_key_rows(
                 compiled, param_rules, param_keys).reshape(param_keys.shape)
             registry.pin_rows(pin_arr)
-        valid = None
+        # cluster-mode rules: token delegation BEFORE the local decide,
+        # one batched call when the service has one; the events it denies
+        # leave the decide and come back as FLOW / PARAM_FLOW denials
+        cluster_fb = pre_blocked = pre_reasons = pre_waits = valid = None
+        if self._cluster_rules_by_row or self._cluster_param_rules_by_row:
+            t_c = obs.spans.now_ns() if tr else 0
+            cluster_fb, pre_blocked, pre_waits, pre_reasons, valid = \
+                self._cluster_precheck_batch(
+                    resources, origins, rows, acq, prio, args_list, n,
+                    skip=gate_blocked)
+            if tr:
+                obs.spans.record(tr, "entry.cluster_precheck", t_c,
+                                 obs.spans.now_ns(), n=n)
         if gate_blocked is not None:
-            idxs = np.nonzero(gate_blocked)[0]
+            # the gates ran first: their denials take precedence and never
+            # overlap a cluster denial
+            if pre_blocked is None:
+                pre_blocked, pre_reasons = gate_blocked, gate_reasons
+                pre_waits = np.zeros(n, np.int32)
+                valid = ~gate_blocked
+            else:
+                pre_blocked = pre_blocked | gate_blocked
+                pre_reasons = np.where(gate_blocked, gate_reasons,
+                                       pre_reasons)
+                valid = valid & ~gate_blocked
+        if pre_blocked is not None and pre_blocked.any():
+            # one batched device record for every event denied on the host
+            idxs = np.nonzero(pre_blocked)[0]
             times = self._time_scalars(self.clock.now_ms())
             with self._lock:
                 self._record_blocks_locked(
                     rows[idxs], origin_rows[idxs], chain_rows[idxs],
                     acq[idxs], is_in[idxs], times)
-            valid = ~gate_blocked
         pending = self.decide_raw_nowait(
             rows, origin_ids, origin_rows, context_ids, chain_rows, acq,
             is_in, prio, valid=valid, param_rules=param_rules,
-            param_keys=param_keys, param_gen=gen, trace_id=tr)
+            param_keys=param_keys, param_gen=gen,
+            cluster_fallback=cluster_fb, trace_id=tr)
 
         def _finalize() -> Verdicts:
             t_s = obs.spans.now_ns() if tr else 0
             verdicts = pending.result()
-            if gate_blocked is not None:
+            if pre_blocked is not None:
                 verdicts = verdicts._replace(
-                    allow=np.where(gate_blocked, False, verdicts.allow),
-                    reason=np.where(gate_blocked, gate_reasons,
-                                    verdicts.reason).astype(np.int8))
+                    allow=np.where(pre_blocked, False, verdicts.allow),
+                    reason=np.where(pre_blocked, pre_reasons,
+                                    verdicts.reason).astype(np.int8),
+                    wait_ms=np.maximum(verdicts.wait_ms, pre_waits))
             if pin_arr is not None:
                 # denied events never exit: release their pins now
                 denied = ~np.asarray(verdicts.allow)
@@ -1791,13 +1981,13 @@ class Sentinel:
                     registry.unpin_rows(pin_arr[denied])
             # LogSlot: the denials roll into sentinel-block.log, grouped
             # so a mostly denied batch is a handful of log calls (the
-            # gates logged theirs already)
+            # gates and the cluster precheck logged theirs already)
             denied = np.nonzero(~np.asarray(verdicts.allow))[0]
             if denied.size:
                 reasons = np.asarray(verdicts.reason)
                 grouped: Dict[tuple, int] = {}
                 for i in denied.tolist():
-                    if gate_blocked is not None and gate_blocked[i]:
+                    if pre_blocked is not None and pre_blocked[i]:
                         continue
                     res_i = (resources[i] if resources is not None
                              else self.resources.name_of(int(rows[i])) or "")
@@ -1820,10 +2010,140 @@ class Sentinel:
 
         return self._pending_verdicts(_finalize)
 
+    def _cluster_precheck_batch(self, resources, origins, rows, acq, prio,
+                                args_list, n: int, skip=None):
+        """Cluster token delegation for a whole batch → ``(fallback bits
+        or None, blocked, waits, reasons, valid)``.
+
+        A service with ``request_tokens_batch`` (the embedded engine and
+        the socket client both have it) gets ALL the batch's flow token
+        requests in one call (``ClusterFlowChecker.java:55-112`` per
+        request, applied in rule order per event; a BLOCKED verdict
+        short-circuits the event's remaining results as the exception
+        would), and the param requests in one
+        ``request_param_tokens_batch`` call where the service has that
+        too. Tokens for an event's later rules may be consumed even when
+        an earlier rule blocks — bounded over-consumption of the class
+        the reference's check-then-act races tolerate. A plain per-call
+        service is asked event by event. Denials are logged here and
+        recorded on the device by the caller; ``skip`` marks events a
+        host gate already denied."""
+        svc = self._token_service
+        fallback = np.zeros(n, np.int32)      # per-rule slot bitmask
+        cl_blocked = np.zeros(n, np.bool_)
+        cl_waits = np.zeros(n, np.int32)
+        cl_reasons = np.full(n, int(BlockReason.FLOW), np.int32)
+        valid = np.ones(n, np.bool_)
+
+        def origin_of(i):
+            return origins[i] if origins is not None and origins[i] else ""
+
+        def has_args(i):
+            return (args_list is not None and args_list[i] is not None
+                    and len(args_list[i]) > 0)
+
+        if svc is None or not hasattr(svc, "request_tokens_batch"):
+            for i in range(n):
+                if skip is not None and skip[i]:
+                    continue       # already denied by a host gate
+                crules = self._cluster_rules_by_row.get(int(rows[i]))
+                cprules = self._cluster_param_rules_by_row.get(int(rows[i]))
+                if not crules and not cprules:
+                    continue
+                try:
+                    if crules:
+                        fallback[i], cl_waits[i] = self._cluster_check(
+                            resources[i], origin_of(i), int(rows[i]), 0, 0,
+                            int(acq[i]), True, bool(prio[i]), crules,
+                            sleep=False, record=False)
+                    if cprules and has_args(i):
+                        cl_waits[i] += self._cluster_param_check(
+                            resources[i], origin_of(i), int(rows[i]), 0, 0,
+                            int(acq[i]), True, args_list[i], cprules,
+                            sleep=False, record=False)
+                except BlockException as exc:
+                    cl_blocked[i] = True
+                    if isinstance(exc, ParamFlowException):
+                        cl_reasons[i] = int(BlockReason.PARAM_FLOW)
+                    valid[i] = False        # out of the local decide
+            return ((fallback if fallback.any() else None), cl_blocked,
+                    cl_waits, cl_reasons, valid)
+
+        # ---- batched: collect → one call per kind → apply in order ----
+        flow_req: list = []    # (event i, slot k, rule)
+        param_req: list = []   # (event i, rule, value)
+        for i in range(n):
+            if skip is not None and skip[i]:
+                continue
+            for slot_k, r in self._cluster_rules_by_row.get(int(rows[i]),
+                                                           ()):
+                flow_req.append((i, slot_k, r))
+            cprules = self._cluster_param_rules_by_row.get(int(rows[i]))
+            if cprules and has_args(i):
+                a = args_list[i]
+                for r in cprules:
+                    idx = (r.param_idx if r.param_idx >= 0
+                           else len(a) + r.param_idx)
+                    if 0 <= idx < len(a):
+                        param_req.append((i, r, a[idx]))
+        flow_res: list = [None] * len(flow_req)
+        param_res: list = [None] * len(param_req)
+        try:
+            if flow_req:
+                flow_res = svc.request_tokens_batch(
+                    [(r.cluster_flow_id, int(acq[i]), bool(prio[i]))
+                     for i, _k, r in flow_req])
+        except Exception as exc:
+            record_log().warning("batched cluster token request failed: %r",
+                                 exc)
+        # the param batch call is gated on ITS OWN method: a service with
+        # only the flow batch must not silently fail open for param rules
+        try:
+            if param_req and hasattr(svc, "request_param_tokens_batch"):
+                param_res = svc.request_param_tokens_batch(
+                    [(r.cluster_flow_id, int(acq[i]), [v])
+                     for i, r, v in param_req])
+            elif param_req:
+                param_res = [svc.request_param_token(
+                    r.cluster_flow_id, int(acq[i]), [v])
+                    for i, r, v in param_req]
+        except Exception as exc:
+            record_log().warning("batched cluster param request failed: %r",
+                                 exc)
+        for kind, reqs, res_list in (("flow", flow_req, flow_res),
+                                     ("param", param_req, param_res)):
+            reason = int(BlockReason.FLOW if kind == "flow"
+                         else BlockReason.PARAM_FLOW)
+            for req, res in zip(reqs, res_list):
+                i = req[0]
+                if cl_blocked[i]:
+                    continue    # the first BLOCK wins (the exception's
+                    # short-circuit)
+                status = int(res.status) if res is not None else -1
+                if status == 0:
+                    continue
+                if status == 2:
+                    cl_waits[i] += int(getattr(res, "wait_ms", 0))
+                    continue
+                if status == 1:
+                    cl_blocked[i] = True
+                    valid[i] = False
+                    cl_reasons[i] = reason
+                    self._log_cluster_block(reason, resources[i],
+                                            origin_of(i), int(acq[i]))
+                    continue
+                # FAIL / NO_RULE / BAD_REQUEST / TOO_MANY: a flow rule's
+                # fallback; a param rule passes through
+                if kind == "flow" and req[2].cluster_fallback_to_local:
+                    fallback[i] |= 1 << req[1]
+        return ((fallback if fallback.any() else None), cl_blocked,
+                cl_waits, cl_reasons, valid)
+
     def decide_raw(self, rows, origin_ids, origin_rows, context_ids,
                    chain_rows, acquire, is_in, prioritized, *,
                    valid=None, count_thread=None, record_block=None,
                    param_rules=None, param_keys=None, param_gen: int = -1,
+                   cluster_fallback=None,
                    at_ms: Optional[int] = None) -> Verdicts:
         """Lowest-level host entry point: pre-resolved numpy arrays.
         ``param_gen`` is the generation the pairs were resolved against:
@@ -1832,13 +2152,14 @@ class Sentinel:
             rows, origin_ids, origin_rows, context_ids, chain_rows, acquire,
             is_in, prioritized, valid=valid, count_thread=count_thread,
             record_block=record_block, param_rules=param_rules,
-            param_keys=param_keys, param_gen=param_gen, at_ms=at_ms).result()
+            param_keys=param_keys, param_gen=param_gen,
+            cluster_fallback=cluster_fallback, at_ms=at_ms).result()
 
     def decide_raw_nowait(self, rows, origin_ids, origin_rows, context_ids,
                           chain_rows, acquire, is_in, prioritized, *,
                           valid=None, count_thread=None, record_block=None,
                           param_rules=None, param_keys=None,
-                          param_gen: int = -1,
+                          param_gen: int = -1, cluster_fallback=None,
                           at_ms: Optional[int] = None,
                           trace_id: int = 0) -> PendingVerdicts:
         """:meth:`decide_raw` with the verdict readback deferred: the step
@@ -1848,7 +2169,9 @@ class Sentinel:
         ``count_thread`` / ``record_block`` (False = leave the event out
         of the thread gauges / record no BLOCK for its denial) and
         ``at_ms`` (event time, re-stamped to now when a full ring stale)
-        serve the host fast path. ``trace_id`` threads a sampled batch's
+        serve the host fast path. ``cluster_fallback`` (int32 per event:
+        bit k = check the cluster-mode rule of slot k locally) keeps its
+        events off the scalar route. ``trace_id`` threads a sampled batch's
         spans through from :meth:`entry_batch_nowait`; direct callers get
         their own sampling decision. Every dispatch lands one
         ``split_route.*`` counter."""
@@ -1865,16 +2188,19 @@ class Sentinel:
         prio_np = np.asarray(prioritized, np.bool_)
         any_prio = bool(prio_np.any())
         now = self.clock.now_ms() if at_ms is None else at_ms
-        if (not (no_origin_ids and no_alt) or any_prio) and acq_uniform \
+        pure_scalar = no_origin_ids and no_alt and cluster_fallback is None
+        if (not pure_scalar or any_prio) and acq_uniform \
                 and self._key_fits():
             # per-event scalar eligibility (prioritized events only on
-            # the fast side, the one that may book); invalid lanes are
-            # scalar-safe
+            # the fast side, the one that may book; no cluster-fallback
+            # bits); invalid lanes are scalar-safe
             pad_a = self.spec.alt_rows
-            ev_scalar = (((np.asarray(origin_ids) == 0)
-                          & (np.asarray(origin_rows) >= pad_a)
-                          & (np.asarray(chain_rows) >= pad_a) & ~prio_np)
-                         | ~vfull)
+            ev_scalar = ((np.asarray(origin_ids) == 0)
+                         & (np.asarray(origin_rows) >= pad_a)
+                         & (np.asarray(chain_rows) >= pad_a) & ~prio_np)
+            if cluster_fallback is not None:
+                ev_scalar &= np.asarray(cluster_fallback) == 0
+            ev_scalar |= ~vfull
             n_general = int(np.count_nonzero(~ev_scalar & vfull))
             n_scalar = int(np.count_nonzero(ev_scalar & vfull))
             if n_general > 0 and n_scalar >= SPLIT_MIN_SCALAR:
@@ -1889,13 +2215,14 @@ class Sentinel:
                     rows, origin_ids, origin_rows, context_ids, chain_rows,
                     acquire, is_in, ev_scalar, vfull, prio_np, any_prio,
                     count_thread, record_block, param_rules, param_keys,
-                    param_gen, now, tr)
-        route = self._route(acq_uniform, no_origin_ids, no_alt, any_prio)
+                    param_gen, cluster_fallback, now, tr)
+        route = self._route(acq_uniform, pure_scalar, any_prio)
         staged: list = []
         batch = self._entry_batch(rows, origin_ids, origin_rows, context_ids,
                                   chain_rows, acquire, is_in, prio_np,
                                   vfull, count_thread, record_block,
-                                  param_rules, param_keys, staged=staged)
+                                  param_rules, param_keys, cluster_fallback,
+                                  staged=staged)
         times = self._time_scalars(now)
         sys_scalars = self._sys_scalars()
         with self._lock:
@@ -1992,8 +2319,8 @@ class Sentinel:
                              context_ids, chain_rows, acquire, is_in,
                              ev_scalar, vfull, prio_np, any_prio,
                              count_thread, record_block, param_rules,
-                             param_keys, param_gen, now: int,
-                             trace_id: int = 0) -> PendingVerdicts:
+                             param_keys, param_gen, cluster_fallback,
+                             now: int, trace_id: int = 0) -> PendingVerdicts:
         """Mixed batch: the scalar-eligible events take the scalar step,
         the others (prioritized ones included) the fast step, scalar
         first, under one lock hold (a legitimate serialization of the
@@ -2015,7 +2342,7 @@ class Sentinel:
                 acquire, is_in)]
             opt = [None if a is None else np.asarray(a)[idx]
                    for a in (count_thread, record_block, param_rules,
-                             param_keys)]
+                             param_keys, cluster_fallback)]
             return self._entry_batch(*cols, prio, vfull[idx], *opt,
                                      staged=staged)
 
@@ -2106,7 +2433,7 @@ class Sentinel:
                    else np.full(n_x, ra, np.int32))
         no_alt = (self._no_alt(origin_rows, chain_rows)
                   and self._no_alt(x_orows, x_crows))
-        route = self._route(acq_uniform, no_origin_ids, no_alt, any_prio)
+        route = self._route(acq_uniform, no_origin_ids and no_alt, any_prio)
         staged: list = []
         batch = self._entry_batch(rows, origin_ids, origin_rows, context_ids,
                                   chain_rows, acquire, is_in, prio_np,

@@ -17,7 +17,9 @@ and float32, and is compared with ``scatter_add_reference`` and with
 warps with duplicate addresses take the combining branch. Tolerance:
 exact.
 The float32 sums stay far below 2^24, where float32 addition is exact in
-any order.
+any order. The cluster token step's three window records run at their
+phase-11 shapes, and a whole ``ClusterEngine`` step on the card equals
+the CPU engine's with 3 launches an engine call.
 """
 
 import numpy as np
@@ -616,3 +618,77 @@ def test_row_slice_extract_restore_round_trip_on_the_card():
         out.append(convert.to_numpy(st))
     torch.cuda.synchronize()
     assert convert.leaf_diff(out[0], out[1]) == []
+
+
+# (window rows, lanes, hot rows, seed): the cluster token step's three
+# window records, each one payload launch (E = 8) into the current bucket
+# slice of a 10-bucket window — the namespace window (S·NS = 32 rows, every
+# lane on it), the flow window (S·L = 4096 rows, Zipf), the hot-key window
+# (S·PK = 2^16 rows, B·PV = 2^18 lanes)
+CLUSTER_SHAPES = {"namespace": (32, 1 << 16, 32, 21),
+                  "flow": (4096, 1 << 16, 64, 22),
+                  "hot_key": (1 << 16, 1 << 18, 512, 23)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", sorted(CLUSTER_SHAPES))
+def test_cluster_window_record_shapes_on_the_card(what):
+    """A cluster step's record: int32 ``[rows, 8]`` bucket slice of a
+    ``[rows, 10, 8]`` window, payload mode, a share of the lanes at the
+    global pad ``rows`` (dropped, never wrapped) and zero payload rows;
+    exact against the plain version."""
+    dev = _card()
+    rows, n, hot, seed = CLUSTER_SHAPES[what]
+    rng = np.random.default_rng(seed)
+    keys = np.where(rng.random(n) < 0.5, rng.integers(0, hot, n),
+                    rng.integers(0, rows, n)).astype(np.int32)
+    keys[rng.random(n) < 0.2] = rows
+    amounts = rng.integers(0, 4, (n, 8)).astype(np.int32)
+    amounts[rng.random(n) < 0.3] = 0
+    table = torch.from_numpy(rng.integers(0, 50, (rows, 10, 8)).astype(
+        np.int32)).to(dev)
+    plan = _seam_equals_plain(
+        table, lambda t: t[:, 7, :], torch.from_numpy(keys).to(dev), None,
+        torch.from_numpy(amounts).to(dev))
+    assert plan.e_inst == 8
+
+
+@pytest.mark.gpu
+def test_cluster_engine_step_on_the_card_equals_the_cpu():
+    """Whole token steps (flow and param, prioritized lanes, a namespace
+    at its limit) on ``ClusterEngine(device="cuda")`` against the CPU
+    engine: equal verdicts and windows, 3 kernel launches a step."""
+    from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch.parallel import cluster as tc
+    dev = _card()
+    spec = tc.ClusterSpec(n_shards=8, flows_per_shard=64, namespaces=4,
+                          param_keys_per_shard=256)
+    engines = [tc.ClusterEngine(spec, device=d) for d in ("cpu", dev)]
+    out = []
+    for eng in engines:
+        eng.load_rules("a", [tc.ClusterFlowRule(
+            flow_id=i, count=float(5 + i % 17), threshold_type=i % 2,
+            max_occupy_ratio=0.5 + 0.5 * (i % 2)) for i in range(400)])
+        eng.load_param_rules("b", [tc.ClusterParamFlowRule(
+            flow_id=1000 + i, count=3.0) for i in range(8)])
+        eng.set_connected_count("a", 3)
+        eng.set_namespace_qps_limit("a", 3000)
+        rng = np.random.default_rng(31)
+        res, launches = [], []
+        for step in range(12):
+            n = 4096
+            ids = (rng.zipf(1.1, n) % 420).astype(np.int64)
+            before = sa.LAUNCHES["scatter_add"]
+            res.append(eng.request_tokens(
+                ids, rng.integers(1, 3, n), rng.random(n) < 0.125,
+                now_ms=10_000_000 + 40 * step))
+            res.append(eng.request_param_tokens(
+                [1000 + int(i) for i in rng.integers(0, 8, 512)],
+                [1] * 512, [[int(v) for v in rng.integers(0, 50, 1 + j % 4)]
+                            for j in range(512)],
+                now_ms=10_000_000 + 40 * step + 5))
+            launches.append(sa.LAUNCHES["scatter_add"] - before)
+        out.append((res, launches, convert.cluster_to_numpy(eng)))
+    assert out[0][0] == out[1][0]
+    assert out[0][1] == [0] * 12 and out[1][1] == [6] * 12
+    assert convert.leaf_diff(out[0][2], out[1][2]) == []

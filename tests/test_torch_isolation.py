@@ -63,6 +63,14 @@ import sentinel_tpu_torch.control
 import sentinel_tpu_torch.control.actuators
 import sentinel_tpu_torch.control.loop
 import sentinel_tpu_torch.control.policy
+import sentinel_tpu_torch.parallel.shard_math
+import sentinel_tpu_torch.parallel.cluster
+import sentinel_tpu_torch.parallel.concurrent
+import sentinel_tpu_torch.cluster
+import sentinel_tpu_torch.cluster.codec
+import sentinel_tpu_torch.cluster.client
+import sentinel_tpu_torch.cluster.server
+import sentinel_tpu_torch.cluster.coordinator
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "sentinel_tpu")
@@ -124,6 +132,19 @@ TIER_CONTROL_MODULES = [
 ]
 
 
+#: the cluster token tier (sharded engine, routing math, concurrent
+#: tokens, wire codec, token server and client, coordinator), imported
+#: the same way
+CLUSTER_MODULES = [
+    "sentinel_tpu_torch.parallel.shard_math",
+    "sentinel_tpu_torch.parallel.cluster",
+    "sentinel_tpu_torch.parallel.concurrent",
+    "sentinel_tpu_torch.cluster", "sentinel_tpu_torch.cluster.codec",
+    "sentinel_tpu_torch.cluster.client", "sentinel_tpu_torch.cluster.server",
+    "sentinel_tpu_torch.cluster.coordinator",
+]
+
+
 def _import_blocked(*modules):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -135,7 +156,7 @@ def _import_blocked(*modules):
 
 
 @pytest.mark.parametrize("module", OBS_MODULES + SERVING_MODULES
-                         + TIER_CONTROL_MODULES)
+                         + TIER_CONTROL_MODULES + CLUSTER_MODULES)
 def test_module_imports_with_jax_blocked(module):
     _import_blocked(module)
 

@@ -720,10 +720,10 @@ def test_annotate_names_dispatches_in_the_profiler():
 
 
 def test_runtime_module_has_every_public_method_of_the_reference():
-    """Every public name of the reference's ``Sentinel`` but the one
-    queued in ROADMAP (A12 ``set_token_service``)."""
+    """Every public name of the reference's ``Sentinel`` (the last one,
+    ``set_token_service``, came with the cluster token tier)."""
     from sentinel_tpu import runtime as jrt
     want = {n for n in dir(jrt.Sentinel) if not n.startswith("_")}
     have = {n for n in dir(trt.Sentinel) if not n.startswith("_")}
-    assert want - have == {"set_token_service"}
+    assert want - have == set()
     assert hasattr(trt.PendingVerdicts, "attach_leak_guard")

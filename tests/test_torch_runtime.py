@@ -205,23 +205,27 @@ def test_sentinel_without_cuda_needs_an_explicit_device(monkeypatch):
 
 
 def test_off_route_calls_raise_not_implemented():
-    """Meshes (A11) and cluster rules (A12), param ones included, still
-    raise and leave no trace; param rules and call args (A8), the host
-    fast path (A6, the default config) and prioritized events (A7b) run,
-    as the reference does."""
+    """Meshes (A11) still raise; cluster-mode flow and param rules load
+    (their rows keyed by rule slot for the token delegation), as do
+    param rules and call args (A8), the host fast path (A6, the default
+    config) and prioritized events (A7b), as the reference does."""
     cfg = stt.load_config(**CFG)
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         stt.Sentinel(config=cfg, device="cpu", mesh=object())
     sph = stt.Sentinel(config=cfg, clock=stt.ManualClock(start_ms=T0),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        sph.load_flow_rules([stt.FlowRule(resource="c", count=1.0,
-                                          cluster_mode=True)])
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        sph.load_param_flow_rules([stt.ParamFlowRule(
-            resource="c", count=1.0, cluster_mode=True)])
-    # nothing off-route reached the engine
-    assert not sph.routes and sph.resources.lookup("c") is None
+    sph.load_flow_rules([stt.FlowRule(resource="c", count=1.0,
+                                      cluster_mode=True)])
+    row = sph.resources.lookup("c")
+    assert [(k, r.resource) for k, r in sph._cluster_rules_by_row[row]] \
+        == [(0, "c")]
+    sph.load_param_flow_rules([stt.ParamFlowRule(
+        resource="c", count=1.0, cluster_mode=True)])
+    assert [r.resource for r in sph._cluster_param_rules_by_row[row]] \
+        == ["c"]
+    # nothing was decided, and a cluster param rule compiles into no
+    # device table
+    assert not sph.routes
     assert sph._param.num_active == 0
 
     # param rules and args (A8) run, as in the JAX package
