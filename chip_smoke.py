@@ -125,11 +125,27 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    a frozen clock, PING-tripled AVG_LOCAL, concurrent tokens through the
    lease sweep, round-trip p50/p99; (c) ``Sentinel(device="cuda")`` at 1M
    rows with 64 cluster flow and 16 cluster param rules served by an
-   embedded ``ClusterCoordinator``: 4096 ``entry()``+exit calls and
+   embedded ``ClusterCoordinator``: 1024 ``entry()``+exit calls and
    batches of 2^16 with origins, the service uninstalled half way, equal
    to the same drive at 16k rows on the card and on the CPU;
-12. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-   line (``launches`` summed over the runs of phases 3-11), and as the last
+12. drives the command plane: ``Sentinel(device="cuda")`` at 1M rows
+   (default configuration) behind ``start_transport(port=0)``; over
+   loopback HTTP ``setRules`` of 4096 flow, 1024 degrade, 1 system and 64
+   authority rules and ``setParamFlowRules`` of 512; 8192
+   ``api.entry``+exit calls, 2048 ``@sentinel_resource`` calls and 2048
+   WSGI requests; 16 fused full-width steps (2^19 events) with a second
+   thread polling ``metric``, ``clusterNode`` and ``obs`` over HTTP and a
+   ``setRules`` reload half way through a writable file datasource that a
+   file datasource brings back; ``setClusterMode`` to the embedded token
+   server, ``cluster/server/modifyFlowRules``, 4096 cluster-ruled
+   ``entry()``+exit and ``cluster/server/metricList``; the same session
+   at 16k rows on the card, with the plain seam and on the CPU (each in
+   a process of its own, ``--cp-twin``, beside the 1M run) must give the
+   same verdicts and response bodies (the twins the same state); then,
+   alone, the round trips, rule loads, per-call and per-step times with
+   polls on and off, in turns;
+13. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
+   line (``launches`` summed over the runs of phases 3-12), and as the last
    line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --find-syncs`` runs 3-5 steps of each engine phase
@@ -4386,11 +4402,12 @@ def _cluster_runtime_leg(stt, sa, dev, R, twin_rows, calls, batch,
 def phase_cluster(stt, sa, dev="cuda", B=1 << 16, steps=40,
                   big_B=1 << 18, big_steps=8, threads=8, singles=2048,
                   batches=32, batch_n=256, R=1 << 20, twin_rows=1 << 14,
-                  calls=4096, rt_batch=1 << 16,
+                  calls=1024, rt_batch=1 << 16,
                   profile: bool = False) -> dict:
     """The cluster token tier: (a) :func:`_cluster_engine_leg` at 2^16
     requests a step and the kernel run alone at 2^18; (b)
-    :func:`_cluster_server_leg`; (c) :func:`_cluster_runtime_leg`."""
+    :func:`_cluster_server_leg`; (c) :func:`_cluster_runtime_leg` (1024
+    calls: phase 12 sends 4096 cluster-ruled calls through the facade)."""
     import tempfile
     from sentinel_tpu_torch.parallel import cluster as tcl
     t_phase = time.perf_counter()
@@ -4428,6 +4445,655 @@ def phase_cluster(stt, sa, dev="cuda", B=1 << 16, steps=40,
     res["seconds"] = time.perf_counter() - t_phase
     log(f"[cluster] phase 11 took {res['seconds']:.1f} s; kernel launches "
         f"{launches}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the command plane (rule JSON codec, HTTP command center,
+# datasources, cluster server commands, the api facade, the web adapters)
+# ---------------------------------------------------------------------------
+
+CP_T0 = 1_810_000_000_000
+CP_APP = "chip-smoke-cp"
+CP_RULED = 4096              # QPS-ruled resources r0..r4095 (the fixture's)
+CP_BREAKERS = 1024           # exception-ratio breakers on r0..r1023
+CP_AUTH = 64                 # authority rules: "evil" blacklisted on r0..r63
+CP_HOT = 16                  # the calls' hot set r0..r15 (breakers trip)
+CP_LEASED = 64               # one-QPS-rule names the calls lease
+CP_POOL = 8192               # rule-free names: the universe fits 16k rows
+CP_CLUSTER = 64              # cluster-mode flow rules c0..c63
+CP_POLLS = ("metric", "clusterNode", "obs")
+#: the command that runs one twin session in a process of its own
+CP_TWIN_CMD = [sys.executable, os.path.abspath(__file__), "--cp-twin"]
+
+
+def _cp_docs(stt, codec, flow_count: float = 50.0,
+             cluster: bool = False) -> dict:
+    """The rules an operator pushes, as the dashboard's JSON: the scalar
+    fixture's 4096 QPS rules and 1024 breakers, one system rule, 64
+    authority rules, rules for the decorated and one web resource, and
+    512 param rules on p0..p255; ``cluster`` adds the 64 cluster-mode
+    flow rules of (c)."""
+    from sentinel_tpu_torch.rules import param_flow as tpf
+    flow = [stt.FlowRule(resource=f"r{i}", count=flow_count)
+            for i in range(CP_RULED)]
+    flow += [stt.FlowRule(resource="cp-deco", count=2000.0),
+             stt.FlowRule(resource="GET:/admin", count=20.0)]
+    if cluster:
+        flow += [stt.FlowRule(resource=f"c{i}", count=5.0, cluster_mode=True,
+                              cluster_flow_id=1 + i,
+                              cluster_fallback_to_local=i % 2 == 0)
+                 for i in range(CP_CLUSTER)]
+    param, _grades = _param_rules(tpf, [f"p{i}" for i in
+                                        range(PARAM_RESOURCES)])
+    return {
+        "flow": codec.rules_to_json("flow", flow),
+        "degrade": codec.rules_to_json("degrade", [stt.DegradeRule(
+            resource=f"r{i}", grade=stt.GRADE_EXCEPTION_RATIO, count=0.5,
+            time_window=10, min_request_amount=5)
+            for i in range(CP_BREAKERS)]),
+        "system": codec.rules_to_json("system", [stt.SystemRule(
+            qps=1e12, max_thread=1e9)]),
+        "authority": codec.rules_to_json("authority", [stt.AuthorityRule(
+            resource=f"r{i}", limit_app="evil",
+            strategy=stt.STRATEGY_BLACK) for i in range(CP_AUTH)]),
+        "paramFlow": codec.rules_to_json("paramFlow", param),
+    }
+
+
+def _cp_http(port: int, method: str, cmd: str, params=None):
+    """One command over loopback HTTP → (status, body text, µs)."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+    url = f"http://127.0.0.1:{port}/{cmd}"
+    data = None
+    if params and method == "GET":
+        url += "?" + urllib.parse.urlencode(params)
+    elif method == "POST":
+        data = urllib.parse.urlencode(params or {}).encode()
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(
+                url, data=data, method=method), timeout=120) as r:
+            status, text = r.status, r.read().decode("utf-8")
+    except urllib.error.HTTPError as exc:
+        status, text = exc.code, exc.read().decode("utf-8")
+    return status, text, (time.perf_counter() - t) * 1e6
+
+
+def _cp_body(text: str):
+    """A response as the twins compare it: JSON parsed, less the token
+    server's ephemeral port."""
+    try:
+        doc = json.loads(text)
+    except ValueError:
+        return text
+
+    def strip(d):
+        if isinstance(d, dict):
+            return {k: strip(v) for k, v in d.items()
+                    if k not in ("port", "serverPort")}
+        if isinstance(d, list):
+            return [strip(v) for v in d]
+        return d
+    return strip(doc)
+
+
+class _CpPoller:
+    """A second thread polling ``metric``, ``clusterNode`` and ``obs``
+    over HTTP, back to back, while ``on``; every answer must be a 200
+    (JSON where the command answers JSON)."""
+
+    def __init__(self, port: int):
+        import threading
+        self.port = port
+        self.lat = {c: [] for c in CP_POLLS}
+        self.bad = []
+        self._go = threading.Event()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="chip-smoke-poller")
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            if not self._go.wait(0.05):
+                continue
+            for cmd in CP_POLLS:
+                params = ({"startTime": str(CP_T0)} if cmd == "metric"
+                          else {"spans": "16", "events": "16"}
+                          if cmd == "obs" else None)
+                try:
+                    status, text, us = _cp_http(self.port, "GET", cmd,
+                                                params)
+                    if status != 200:
+                        self.bad.append((cmd, status, text[:200]))
+                    elif cmd != "metric":
+                        json.loads(text)
+                    self.lat[cmd].append(us)
+                except Exception as exc:     # noqa: BLE001 — reported
+                    self.bad.append((cmd, repr(exc)))
+
+    def on(self, flag: bool) -> None:
+        (self._go.set if flag else self._go.clear)()
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=120)
+
+
+def _cp_stream(sph, B: int, steps: int, seed: int = 83):
+    """``steps`` fused-step batches over the ruled names (1/4) and the
+    pool (3/4), as rows; the exits of r0..r31 fail, so breakers trip."""
+    ruled = sph.intern_resources([f"r{i}" for i in range(CP_RULED)])
+    pool = sph.intern_resources([f"u{i}" for i in range(CP_POOL)])
+    rng = np.random.default_rng(seed)
+    batches = [np.where(rng.random(B) < 0.25,
+                        ruled[rng.integers(0, CP_RULED, B)],
+                        pool[rng.integers(0, CP_POOL, B)]).astype(np.int32)
+               for _ in range(steps)]
+    return batches, set(ruled[:32].tolist())
+
+
+def _cp_calls(stt, api, deco, web, clock, calls: int, deco_calls: int,
+              wsgi_calls: int, seed: int, timed: dict = None) -> list:
+    """Application traffic, 1 ms of virtual time every 8 calls →
+    outcomes (and µs a call by kind into ``timed``):
+
+    * ``calls`` ``api.entry``+exit: 5% inbound on a hot set of 16 ruled
+      names (business errors on 3 in 5, so breakers trip; 1% from the
+      blacklisted origin); outbound (``SphU.entry``'s default in the
+      reference; the system rule checks inbound calls only, so these may
+      take the host fast path) 3% on param-ruled names with user ids,
+      32% on 64 names of one QPS rule each (leased), 60% on rule-free
+      names;
+    * ``deco_calls`` calls of a ``@sentinel_resource`` function (one QPS
+      rule, leased);
+    * ``wsgi_calls`` WSGI requests: 1 in 16 on ``/admin`` (a QPS rule),
+      the rest on the rule-free ``/item/{id}``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    picks = rng.integers(0, 100, calls).tolist()
+    keys = rng.integers(0, 1 << 20, calls).tolist()
+    for k in range(calls):
+        pick, key = picks[k], keys[k]
+        t = time.perf_counter()
+        try:
+            if pick < 5:
+                row = key % CP_HOT
+                e = api.entry(f"r{row}", origin="evil" if pick < 1 else "")
+                if pick % 5 < 3 or key % 5 < 3:
+                    api.trace(RuntimeError("business error"))
+                e.exit()
+            elif pick < 8:
+                with api.entry(f"p{key % 16}", args=(key % 3, key % 2),
+                               entry_type=stt.ENTRY_TYPE_OUT):
+                    pass
+            elif pick < 40:
+                with api.entry(f"r{CP_BREAKERS + key % CP_LEASED}",
+                               entry_type=stt.ENTRY_TYPE_OUT):
+                    pass
+            else:
+                with api.entry(f"u{key % CP_POOL}",
+                               entry_type=stt.ENTRY_TYPE_OUT):
+                    pass
+            out.append("pass")
+        except stt.BlockException as exc:
+            out.append(type(exc).__name__)
+        if timed is not None:
+            timed["entry"].append((time.perf_counter() - t) * 1e6)
+        if k % 8 == 7:
+            clock.advance_ms(1)
+    for k in range(deco_calls):
+        t = time.perf_counter()
+        out.append(deco(k))
+        if timed is not None:
+            timed["decorated"].append((time.perf_counter() - t) * 1e6)
+        if k % 8 == 7:
+            clock.advance_ms(1)
+    for k in range(wsgi_calls):
+        t = time.perf_counter()
+        out.append(web("/admin" if k % 16 == 0 else f"/item/{k % 97}"))
+        if timed is not None:
+            timed["wsgi"].append((time.perf_counter() - t) * 1e6)
+        if k % 8 == 7:
+            clock.advance_ms(1)
+    return out
+
+
+def _cp_steps(sph, dev, batches, failing, prev, strict: bool,
+              host_ms=None) -> list:
+    """Fused full-width decide+exit steps, 2 ms of virtual time apart,
+    each dispatched (``strict``) with the sync debug mode at "error" →
+    verdicts."""
+    allow = []
+    for rows in batches:
+        sph.clock.advance_ms(2)
+        if dev == "cuda":
+            sync()
+        t = time.perf_counter()
+        with no_host_sync(strict):
+            h = _fused_step(sph, rows, prev[0], failing)
+        v = h.result()
+        if host_ms is not None:
+            host_ms.append((time.perf_counter() - t) * 1e3)
+        allow.append(np.asarray(v.allow).tolist())
+        prev[0] = rows[v.allow]
+    return allow
+
+
+def _cp_session(stt, sa, dev, R: int, tmp: str, B: int, steps: int,
+                calls: int, deco_calls: int, wsgi_calls: int,
+                cluster_calls: int, timing: bool, rtt_n: int = 32,
+                turns: int = 4, tag: str = "", plain: bool = False,
+                before_timing=None) -> dict:
+    """One operator session on ``Sentinel(device=dev)`` at ``R`` rows
+    through the entry points a user calls (see :func:`phase_command_
+    plane`) → its observations: every response (command, status, body),
+    every verdict, the reload's round trip, the embedded engine's windows
+    and the engine state. The steps run under the sync debug mode
+    "error" on the card unless ``plain`` (the plain seam waits on the
+    device by design). With ``timing`` it then (after
+    ``before_timing()``) times the round trips, the rule loads again and
+    the calls and steps with polls off and on, in turns."""
+    import io
+    from sentinel_tpu_torch import adapters, api, convert
+    from sentinel_tpu_torch.cluster.coordinator import ClusterCoordinator
+    from sentinel_tpu_torch.core.logs import BlockStatLogger
+    from sentinel_tpu_torch.datasource import (
+        FileRefreshableDataSource, FileWritableDataSource,
+        WritableDataSourceRegistry, rule_converter, rule_encoder,
+    )
+    from sentinel_tpu_torch.metrics.timer import MetricTimerListener
+    from sentinel_tpu_torch.rules import codec
+    from sentinel_tpu_torch.transport import start_transport
+    os.makedirs(tmp, exist_ok=True)
+    api.reset()
+    clock = stt.ManualClock(start_ms=CP_T0)
+    sph = api.init(stt.load_config(
+        max_resources=R, max_flow_rules=2 * CP_RULED, app_name=CP_APP,
+        metric_log_dir=os.path.join(tmp, "metrics")), clock=clock,
+        device=dev)
+    sph._cpu.sample = lambda: (0.5, 0.25)
+    sph.block_log.close()
+    sph.block_log = BlockStatLogger(clock, base_dir=os.path.join(tmp, "bl"))
+    registry = WritableDataSourceRegistry()
+    flow_file = os.path.join(tmp, "flow-rules.json")
+    registry.register("flow", FileWritableDataSource(
+        flow_file, rule_encoder("flow")))
+    rt = start_transport(sph, host="127.0.0.1", port=0,
+                         writable_registry=registry)
+    # the twins must agree: the metric timer and the cadence scheduler
+    # do not tick on the wall clock here; the session ticks the timer
+    rt.metric_timer.stop()
+    if rt.cadence is not None:
+        rt.cadence.stop()
+    timer = MetricTimerListener(sph)
+    coord = ClusterCoordinator(sph, n_shards=CLUSTER_SHARDS,
+                               flows_per_shard=16, param_keys_per_shard=64,
+                               clock=clock)
+    coord.bind(rt.cluster_state, rt.center)
+    reader = FileRefreshableDataSource(flow_file, rule_converter("flow"),
+                                       start_thread=False)
+    poller = _CpPoller(rt.port)
+    strict = dev == "cuda" and not plain
+    res = {"http": [], "timing": {}, "section_s": {}}
+    t_sec = [time.perf_counter()]
+
+    def section(name):
+        now = time.perf_counter()
+        res["section_s"][name] = now - t_sec[0]
+        t_sec[0] = now
+        log(f"[command_plane] {tag} {name}: {res['section_s'][name]:.1f} s")
+
+    def call(method, cmd, params=None, record=True):
+        status, text, us = _cp_http(rt.port, method, cmd, params)
+        if record:
+            res["http"].append((cmd, status, _cp_body(text)))
+        if status != 200:
+            fail(f"command plane phase: {cmd} answered {status}: "
+                 f"{text[:300]}")
+        return us
+
+    @adapters.sentinel_resource("cp-deco", sentinel=sph,
+                                block_handler=lambda k, exc: "deco-blocked")
+    def deco(k):
+        return "deco-ok"
+
+    def shop(environ, start_response):
+        start_response("200 OK", [("Content-Type", "text/plain")])
+        return [b"ok"]
+    wsgi = adapters.SentinelWSGIMiddleware(
+        shop, sph,
+        url_cleaner=lambda p: "/item/{id}" if p.startswith("/item/") else p)
+
+    def web(path):
+        seen = {}
+
+        def start_response(status, headers):
+            seen["status"] = status
+        body = b"".join(wsgi({"REQUEST_METHOD": "GET", "PATH_INFO": path,
+                              "wsgi.input": io.BytesIO(b"")},
+                             start_response))
+        return seen["status"][:3] + body.decode()
+
+    def push_rules(docs, record=True):
+        ms = {}
+        for rtype in ("flow", "degrade", "system", "authority"):
+            ms[rtype] = call("POST", "setRules", {
+                "type": rtype, "data": docs[rtype]}, record) / 1e3
+        ms["paramFlow"] = call("POST", "setParamFlowRules", {
+            "data": docs["paramFlow"]}, record) / 1e3
+        return ms
+
+    try:
+        sa.LAUNCHES.clear()
+        # (a) the rules, over loopback HTTP only
+        docs = _cp_docs(stt, codec)
+        res["timing"]["rule_load_ms_first"] = push_rules(docs)
+        for rtype in ("flow", "degrade", "system", "authority"):
+            call("GET", "getRules", {"type": rtype})
+        call("GET", "getParamFlowRules")
+        section("rules")
+        # (b) application traffic, then the fused steps with polls beside
+        res["calls"] = _cp_calls(stt, api, deco, web, clock, calls,
+                                 deco_calls, wsgi_calls, seed=87)
+        section("calls")
+        clock.advance_ms(1000)
+        res["ticked"] = [timer.tick()]
+        call("GET", "clusterNode")
+        call("GET", "metric", {"startTime": str(CP_T0),
+                               "endTime": str(CP_T0 + 600_000)})
+        batches, failing = _cp_stream(sph, B, steps)
+        prev = [np.empty(0, np.int32)]
+        poller.on(True)
+        res["steps"] = _cp_steps(sph, dev, batches[:steps // 2], failing,
+                                 prev, strict)
+        # the mid-run reload: a push persisted through the writable
+        # source comes back through a file source reading that file
+        reload_doc = _cp_docs(stt, codec, flow_count=40.0)["flow"]
+        call("POST", "setRules", {"type": "flow", "data": reload_doc})
+        reader.refresh_now()
+        back = codec.rules_to_json("flow", reader.get_property().get()
+                                   or [])
+        res["reload_round_trip"] = back == codec.rules_to_json(
+            "flow", codec.rules_from_json("flow", reload_doc))
+        res["steps"] += _cp_steps(sph, dev, batches[steps // 2:], failing,
+                                  prev, strict)
+        poller.on(False)
+        section("steps")
+        # (c) the embedded token server, over HTTP
+        call("POST", "setClusterMode", {"mode": "1"})
+        if coord.server is None:
+            fail("command plane phase: setClusterMode did not start the "
+                 "embedded token server")
+        call("GET", "getClusterMode")
+        call("POST", "cluster/server/modifyFlowRules", {
+            "namespace": coord.namespace,
+            "data": json.dumps([{
+                "resource": f"c{i}", "count": float(4 + i % 8),
+                "clusterMode": True,
+                "clusterConfig": {"flowId": 1 + i, "thresholdType": 1}}
+                for i in range(CP_CLUSTER)])})
+        call("POST", "setRules", {"type": "flow", "data": _cp_docs(
+            stt, codec, flow_count=40.0, cluster=True)["flow"]})
+        rng = np.random.default_rng(89)
+        cluster_out = []
+        for k, i in enumerate(rng.integers(0, CP_CLUSTER,
+                                           cluster_calls).tolist()):
+            try:
+                with api.entry(f"c{i}"):
+                    cluster_out.append("pass")
+            except stt.BlockException as exc:
+                cluster_out.append(type(exc).__name__)
+            if k % 16 == 15:
+                clock.advance_ms(5)
+        res["cluster_calls"] = cluster_out
+        call("GET", "cluster/server/metricList",
+             {"namespace": coord.namespace})
+        call("GET", "cluster/server/info")
+        res["cluster_state"] = convert.cluster_to_numpy(coord.server.engine)
+        call("POST", "setClusterMode", {"mode": "-1"})
+        section("cluster")
+        # (d) the metric lines and the node tree
+        clock.advance_ms(2000)
+        res["ticked"].append(timer.tick())
+        for cmd, params in (("metric", {"startTime": str(CP_T0),
+                                        "endTime": str(CP_T0 + 600_000)}),
+                            ("clusterNode", None), ("jsonTree", None),
+                            ("cnode", {"id": "r7"}),
+                            ("origin", {"id": "r5"}),
+                            ("systemStatus", None)):
+            call("GET", cmd, params)
+        res["launches"] = sa.LAUNCHES["scatter_add"]
+        res["state"] = convert.engine_to_numpy(sph)
+        res["polls"] = {c: len(v) for c, v in poller.lat.items()}
+        res["poll_bad"] = list(poller.bad)
+        section("reads")
+        if timing:
+            if before_timing is not None:
+                before_timing()     # the measurements below run alone
+            t = res["timing"]
+            t["rule_load_ms"] = push_rules(
+                _cp_docs(stt, codec, cluster=True), record=False)
+            t["rtt_us"] = {cmd: [_cp_http(rt.port, "GET", cmd, params)[2]
+                                 for _ in range(rtt_n)]
+                           for cmd, params in (
+                               ("version", None),
+                               ("getRules", {"type": "flow"}),
+                               ("metric", {"startTime": str(CP_T0)}),
+                               ("clusterNode", None))}
+            # polls off and on, in turns: per-call µs and fused-step ms
+            per = {flag: {"entry": [], "decorated": [], "wsgi": [],
+                          "step_ms": []} for flag in ("off", "on")}
+            extra, _f = _cp_stream(sph, B, 2 * turns, seed=91)
+            for turn in range(turns):
+                flag = "on" if turn % 4 in (1, 2) else "off"
+                poller.on(flag == "on")
+                # a device-decided call waits ~0.5 s for the GIL with
+                # the polls on: few of those a turn
+                _cp_calls(stt, api, deco, web, clock, calls // 32,
+                          deco_calls // 32, wsgi_calls // 128,
+                          seed=100 + turn, timed=per[flag])
+                _cp_steps(sph, dev, extra[2 * turn:2 * turn + 2], failing,
+                          prev, strict, host_ms=per[flag]["step_ms"])
+            poller.on(False)
+            t["turns"] = per
+            t["poll_us"] = {c: list(v) for c, v in poller.lat.items()}
+            res["poll_bad"] = list(poller.bad)
+            section("timing")
+    finally:
+        poller.close()
+        coord.stop()
+        rt.stop()
+        reader.close()
+        api.reset()
+        sph.close()
+    return res
+
+
+def _cp_twin_main(spec_path: str, out_path: str) -> int:
+    """``chip_smoke.py --cp-twin SPEC OUT``: one twin session of phase 12
+    in a process of its own (the spec: device, rows, plain seam, the
+    session's sizes) → its observations, pickled to OUT."""
+    import pickle
+    import sentinel_tpu_torch as stt
+    from sentinel_tpu_torch.ops import scatter_add as sa
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    if spec["plain"]:
+        sa.scatter_add = sa.scatter_add_reference       # the plain seam
+    res = _cp_session(stt, sa, timing=False, **spec)
+    with open(out_path, "wb") as fh:
+        pickle.dump(res, fh)
+    return 0
+
+
+def phase_command_plane(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
+                        steps: int = 16, twin_rows: int = 1 << 14,
+                        calls: int = 8192, deco_calls: int = 2048,
+                        wsgi_calls: int = 2048, cluster_calls: int = 4096,
+                        rtt_n: int = 32, turns: int = 4) -> dict:
+    """An operator drives a live agent over HTTP while its application
+    admits traffic through the facade and the adapters:
+    ``Sentinel(device="cuda")`` at ``R`` rows (default configuration)
+    behind ``start_transport(port=0)``; (a) ``setRules`` of 4096 flow,
+    1024 degrade, 1 system and 64 authority rules and
+    ``setParamFlowRules`` of 512, all over loopback HTTP; (b) ``calls``
+    ``api.entry``+exit, ``deco_calls`` ``@sentinel_resource`` calls and
+    ``wsgi_calls`` WSGI requests (in-process environ dicts), then
+    ``steps`` fused full-width steps of ``B`` events with a second thread
+    polling ``metric``, ``clusterNode`` and ``obs`` over HTTP, a
+    ``setRules`` reload half way that a ``FileWritableDataSource``
+    persists and a ``FileRefreshableDataSource`` brings back; (c)
+    ``setClusterMode`` to the embedded token server through the bound
+    ``ClusterCoordinator``, ``cluster/server/modifyFlowRules``,
+    ``cluster_calls`` cluster-ruled ``entry()``+exit and
+    ``cluster/server/metricList``. The same session at ``twin_rows`` on
+    the card, on the card with the plain seam in the kernel's place and
+    on the CPU — each in a process of its own, beside the 1M run — must
+    give the same verdicts and response bodies, the twins the same
+    engine state, all four the same embedded engine windows. Once the
+    twins are done the 1M run times the round trips, the rule loads and
+    the calls and steps with polls on and off, in turns."""
+    import pickle
+    import tempfile
+    from sentinel_tpu_torch import convert
+    t_phase = time.perf_counter()
+    kw = dict(B=B, steps=steps, calls=calls, deco_calls=deco_calls,
+              wsgi_calls=wsgi_calls, cluster_calls=cluster_calls)
+    twins = (("card_twin", dev, False), ("plain_twin", dev, True),
+             ("cpu_twin", "cpu", False))
+    runs, procs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cp_") as tmp:
+        for tag, d, plain in twins:
+            spec = os.path.join(tmp, f"{tag}.json")
+            with open(spec, "w") as fh:
+                json.dump(dict(kw, dev=d, R=twin_rows, plain=plain,
+                               tmp=os.path.join(tmp, tag), tag=tag), fh)
+            out = open(os.path.join(tmp, f"{tag}.log"), "w")
+            procs[tag] = (subprocess.Popen(
+                CP_TWIN_CMD + [spec, os.path.join(tmp, f"{tag}.pkl")],
+                stdout=out, stderr=subprocess.STDOUT), out)
+
+        def join_twins():
+            for tag, (proc, out) in procs.items():
+                try:
+                    rc = proc.wait(timeout=900)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+                    rc = "timeout"
+                out.close()
+                if rc != 0:
+                    with open(os.path.join(tmp, f"{tag}.log")) as fh:
+                        tail = fh.read()[-3000:]
+                    fail(f"command plane phase: the {tag} process ended "
+                         f"with {rc}:\n{tail}")
+                with open(os.path.join(tmp, f"{tag}.pkl"), "rb") as fh:
+                    runs[tag] = pickle.load(fh)
+            log(f"[command_plane] twins done at "
+                f"{time.perf_counter() - t_phase:.1f} s: " + ", ".join(
+                    f"{t} {sum(r['section_s'].values()):.1f} s"
+                    for t, r in runs.items()))
+
+        try:
+            runs["card"] = _cp_session(
+                stt, sa, dev, R, os.path.join(tmp, "card"), timing=True,
+                rtt_n=rtt_n, turns=turns, tag="card",
+                before_timing=join_twins, **kw)
+        finally:
+            for proc, out in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                out.close()
+    card = runs["card"]
+    for tag, run in runs.items():
+        if run["poll_bad"]:
+            fail(f"command plane phase: {tag} polls failed: "
+                 f"{run['poll_bad'][:3]}")
+        if not all(run["polls"].values()):
+            fail(f"command plane phase: {tag} polled nothing: "
+                 f"{run['polls']}")
+        if not run["reload_round_trip"]:
+            fail(f"command plane phase: {tag} file source did not bring "
+                 f"the pushed rules back")
+        for key in ("calls", "steps", "cluster_calls", "ticked"):
+            if run[key] != card[key]:
+                fail(f"command plane phase: {tag} {key} differ from the "
+                     f"1M card run")
+        if [h[:2] for h in run["http"]] != [h[:2] for h in card["http"]]:
+            fail(f"command plane phase: {tag} statuses differ")
+        # origins live in hashed alt rows, whose count follows the rows:
+        # the 1M run's origin cells may merge otherwise than the twins'
+        ref = runs["cpu_twin"] if tag != "card" else card
+        for a, b, c in zip(run["http"], card["http"], ref["http"]):
+            if a[2] != (c[2] if a[0] == "origin" else b[2]):
+                fail(f"command plane phase: {tag} {a[0]} body differs")
+        bad = convert.leaf_diff(card["cluster_state"], run["cluster_state"])
+        if bad:
+            fail(f"command plane phase: {tag} embedded engine differs: "
+                 f"{bad}")
+    for tag in ("card_twin", "plain_twin"):
+        bad = convert.leaf_diff(runs["cpu_twin"]["state"], runs[tag]["state"])
+        if bad:
+            fail(f"command plane phase: {tag} state differs from the CPU "
+                 f"twin: {bad}")
+    if not card["launches"] or not runs["card_twin"]["launches"]:
+        fail("command plane phase: the session launched no kernel")
+    if runs["plain_twin"]["launches"]:
+        fail("command plane phase: the plain-seam run launched the kernel")
+    outcomes = collections.Counter(card["calls"] + card["cluster_calls"])
+    for want in ("pass", "FlowException", "AuthorityException",
+                 "DegradeException", "ParamFlowException", "deco-ok",
+                 "deco-blocked", "200ok",
+                 "429Blocked by Sentinel (flow limiting)"):
+        if not outcomes.get(want):
+            fail(f"command plane phase: the session never saw {want}: "
+                 f"{dict(outcomes)}")
+    if not sum(v.count(False) for v in card["steps"]):
+        fail("command plane phase: no fused step denied an event")
+    t = card["timing"]
+    res = {"launches": card["launches"], "R": R, "B": B, "steps": steps,
+           "outcomes": dict(outcomes), "polls": card["polls"],
+           "rule_load_ms": t["rule_load_ms"],
+           "rule_load_ms_first": t["rule_load_ms_first"],
+           "rtt_us": {c: {"p50": float(np.percentile(v, 50)),
+                          "p99": float(np.percentile(v, 99)), "n": len(v)}
+                      for c, v in t["rtt_us"].items()},
+           "per_call_us": {flag: {k: float(np.median(v)) for k, v in
+                                  per.items() if k != "step_ms"}
+                           for flag, per in t["turns"].items()},
+           "step_host_ms": {flag: summary(per["step_ms"])
+                            for flag, per in t["turns"].items()},
+           "poll_us": {c: summary(v) for c, v in t["poll_us"].items()},
+           "section_s": {tag: r["section_s"] for tag, r in runs.items()}}
+    res["seconds"] = time.perf_counter() - t_phase
+    rtt = res["rtt_us"]
+    log(f"[command_plane] round trip at {R} rows (us p50/p99): " + ", ".join(
+        f"{c} {v['p50']:.0f}/{v['p99']:.0f}" for c, v in rtt.items()))
+    lm = t["rule_load_ms"]
+    log(f"[command_plane] setRules of {CP_RULED + 2 + CP_CLUSTER} flow rules "
+        f"{lm['flow']:.1f} ms, {CP_BREAKERS} degrade {lm['degrade']:.1f} "
+        f"ms, setParamFlowRules of {2 * PARAM_RESOURCES} "
+        f"{lm['paramFlow']:.1f} ms (HTTP, decode, compile, upload)")
+    pc = res["per_call_us"]
+    log(f"[command_plane] us a call (median), polls off/on: api.entry+exit "
+        f"{pc['off']['entry']:.1f}/{pc['on']['entry']:.1f}, decorated "
+        f"{pc['off']['decorated']:.1f}/{pc['on']['decorated']:.1f}, WSGI "
+        f"{pc['off']['wsgi']:.1f}/{pc['on']['wsgi']:.1f}")
+    sm = res["step_host_ms"]
+    log(f"[command_plane] host ms a fused step of {B} events, polls "
+        f"off/on: {sm['off']['median']:.2f}/{sm['on']['median']:.2f}; "
+        f"polls answered {card['polls']}")
+    log(f"[command_plane] verdicts, {len(card['http'])} response bodies "
+        f"and the embedded engine equal at {R} rows on the card, "
+        f"{twin_rows} on the card, with the plain seam and on the CPU; "
+        f"state equal across the twins; outcomes {dict(outcomes)}")
+    log(f"[command_plane] phase 12 took {res['seconds']:.1f} s; kernel "
+        f"launches {card['launches']}")
     return res
 
 
@@ -4473,6 +5139,8 @@ def find_syncs(stt, sa) -> int:
     # ParamFlowException: the phase requires both)
     phase_cluster(stt, sa, steps=6, big_steps=2, singles=64, batches=2,
                   calls=1024, rt_batch=1 << 12)
+    # phase 12's steps are phase 8's fused scalar steps, and its HTTP
+    # polls run beside them under "error" in the plain pass already
     log(f"[sync] {len(sites)} place(s) wait on the device in a step")
     return 0
 
@@ -4495,6 +5163,8 @@ def main() -> int:
     if any(m == "jax" or m.startswith(("jax.", "sentinel_tpu."))
            or m == "sentinel_tpu" for m in sys.modules):
         fail("the port imported JAX or the JAX package")
+    if sys.argv[1:2] == ["--cp-twin"]:
+        return _cp_twin_main(sys.argv[2], sys.argv[3])
     # the runtimes' block logs and record log go to a directory of this
     # run, removed at exit
     import tempfile
@@ -4539,6 +5209,7 @@ def main() -> int:
     report["serving"] = phase_serving(stt, sa, timer=timer, profile=profile)
     report["tiering"] = phase_tiering(stt, sa, timer=timer, profile=profile)
     report["cluster"] = phase_cluster(stt, sa, profile=profile)
+    report["command_plane"] = phase_command_plane(stt, sa)
     report["seconds"] = time.perf_counter() - t_all
 
     decide = report["kernel_cases"][0]
@@ -4546,7 +5217,8 @@ def main() -> int:
     launches = sum(report[p]["launches"] for p in (
         "engine", "prio", "prio_mixed", "general", "general_occupy", "fast",
         "scalar_param", "general_param", "runtime", "fast_path",
-        "param_runtime", "obs_runtime", "serving", "tiering", "cluster"))
+        "param_runtime", "obs_runtime", "serving", "tiering", "cluster",
+        "command_plane"))
     kernels = [{
         "name": "scatter_add", "route": "cuda",
         "source": "sentinel_tpu_torch/csrc/scatter_add.cu",

@@ -34,7 +34,12 @@ depth-k :class:`DispatchPipeline`, and a :class:`CadenceScheduler` ticks
 the hot-resource telemetry (``sph.telemetry``), the tiered resource state
 (``sph.tiering``: more keys than the device table, the cold ones on the
 host) and the overload controller a user attaches
-(``sentinel_tpu_torch.control.ControlLoop``).
+(``sentinel_tpu_torch.control.ControlLoop``). An operator drives a running
+instance over HTTP (``sentinel_tpu_torch.transport.start_transport``: the
+dashboard's commands, rule pushes in the reference's JSON), datasources
+push rules into it (``sentinel_tpu_torch.datasource``), and applications
+guard calls through the static facade (``sentinel_tpu_torch.api``) and
+the web adapters (``sentinel_tpu_torch.adapters``).
 """
 
 from sentinel_tpu_torch.core.clock import (

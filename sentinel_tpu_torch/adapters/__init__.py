@@ -1,0 +1,29 @@
+"""Integration adapters (reference ``sentinel-adapter/*``, SURVEY §2.6) —
+the PyTorch port of ``sentinel_tpu/adapters``.
+
+Every reference adapter reduces to the same shape: derive a resource name
+(+ parse the caller origin), ``ContextUtil.enter``, ``SphU.entry``, invoke,
+``Tracer.traceEntry`` on exception, ``entry.exit()``. These are the Python
+ecosystem's equivalents:
+
+- :mod:`.decorator` — ``@sentinel_resource`` with block_handler/fallback
+  (``sentinel-annotation-aspectj`` ``SentinelResourceAspect``)
+- :mod:`.wsgi` — WSGI middleware (``sentinel-web-servlet`` ``CommonFilter``)
+- :mod:`.asgi` — ASGI 3 middleware, async (``sentinel-spring-webflux-adapter``)
+- :mod:`.asyncio_support` — async entry helper (``sentinel-reactor-adapter``
+  ``AsyncEntry`` analog for asyncio)
+
+Each guards calls through the :class:`~sentinel_tpu_torch.runtime.Sentinel`
+it is given (on ``cuda`` unless built otherwise). The HTTP-client, aiohttp,
+gRPC and gateway adapters are not ported yet (ROADMAP A12).
+"""
+
+from sentinel_tpu_torch.adapters.decorator import sentinel_resource
+from sentinel_tpu_torch.adapters.wsgi import SentinelWSGIMiddleware
+from sentinel_tpu_torch.adapters.asgi import SentinelASGIMiddleware
+from sentinel_tpu_torch.adapters.asyncio_support import async_entry
+
+__all__ = [
+    "sentinel_resource", "SentinelWSGIMiddleware", "SentinelASGIMiddleware",
+    "async_entry",
+]

@@ -2,8 +2,9 @@
 server, and client SDK (SURVEY §2.3, sentinel-cluster-*) — the PyTorch
 port of ``sentinel_tpu/cluster``. The server fronts a
 :class:`~sentinel_tpu_torch.parallel.cluster.ClusterEngine` on the GPU;
-``coordinator`` switches an app between client and embedded server. The
-command handlers, gRPC and Envoy RLS are not ported yet (ROADMAP A12)."""
+``coordinator`` switches an app between client and embedded server, and
+``commands`` holds the ``cluster/server/*`` command handlers. gRPC and
+Envoy RLS are not ported yet (ROADMAP A12)."""
 
 from sentinel_tpu_torch.cluster.codec import (  # noqa: F401
     MSG_TYPE_PING, MSG_TYPE_FLOW, MSG_TYPE_PARAM_FLOW,

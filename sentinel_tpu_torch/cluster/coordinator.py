@@ -20,9 +20,7 @@ Mode transitions:
 - ``NOT_STARTED`` (-1): stop whichever is running, uninstall.
 
 The PyTorch port of ``sentinel_tpu/cluster/coordinator.py``: the embedded
-server's engine lives on the Sentinel's device. The ``cluster/server/*``
-management commands come with the transport's command center (ROADMAP
-A12): :meth:`ClusterCoordinator.bind` refuses a ``command_center``.
+server's engine lives on the Sentinel's device.
 """
 
 from __future__ import annotations
@@ -123,12 +121,7 @@ class ClusterCoordinator:
         transport's ``CommandCenter`` also registers the ten
         ``cluster/server/*`` management commands (rules/config/metrics —
         reference ``sentinel-cluster-server-default`` handlers), resolved
-        live against whichever engine/server this coordinator is running —
-        not ported yet: a ``command_center`` raises NotImplementedError."""
-        if command_center is not None:
-            raise NotImplementedError(
-                "the cluster/server/* commands come with the transport's "
-                "command center, not ported yet: ROADMAP A12")
+        live against whichever engine/server this coordinator is running."""
         cluster_state.add_observer(self.on_mode_change)
         cluster_state.add_config_observer(
             lambda cfg: self.configure_client(
@@ -136,6 +129,12 @@ class ClusterCoordinator:
                 int(cfg["requestTimeout"])
                 if "requestTimeout" in cfg else None))
         cluster_state.info_provider = self.info
+        if command_center is not None:
+            from sentinel_tpu_torch.cluster.commands import (
+                register_cluster_server_handlers,
+            )
+            register_cluster_server_handlers(command_center,
+                                             coordinator=self)
 
     def info(self) -> dict:
         # lock-free snapshot: a mode change can hold the lock for seconds

@@ -35,6 +35,19 @@ def current_context() -> Context:
     return ctx if ctx is not None else _DEFAULT
 
 
+def snapshot_context() -> Context:
+    """Copy of the current context for asynchronous continuation — the
+    ``AsyncEntry.java`` context snapshot. Restore with
+    :func:`restore_context` from whatever task or thread completes the
+    work."""
+    cur = current_context()
+    return Context(name=cur.name, origin=cur.origin)
+
+
+def restore_context(ctx: Context) -> None:
+    _ctx_var.set(Context(name=ctx.name, origin=ctx.origin))
+
+
 class ContextScope:
     """``with ContextScope("entrance", origin="app-a"): ...`` — the
     ``ContextUtil.enter``/``exit`` pair, restored by token on exit."""

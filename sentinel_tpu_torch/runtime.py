@@ -570,6 +570,16 @@ class Sentinel:
         self._staging: Dict[int, _StagingRing] = {}
         self._staging_depth = max(4, 2 * pipeline_depth() + 2)
 
+        # SPI-discovered slots (SlotChainProvider.newSlotChain analog):
+        # every registered ``processor_slot`` provider, a fresh instance
+        # for each Sentinel — slot state must not leak across engines
+        from sentinel_tpu_torch.core.spi import (
+            SERVICE_PROCESSOR_SLOT, SpiLoader,
+        )
+        for slot in SpiLoader.of(
+                SERVICE_PROCESSOR_SLOT).load_new_instance_list_sorted():
+            self.register_slot(slot)
+
     # ------------------------------------------------------------------
     # Rule management (XxxRuleManager.loadRules analog)
     # ------------------------------------------------------------------
@@ -2699,11 +2709,11 @@ class Sentinel:
         with self._lock:
             counters, rt = bucket_snapshot(self.spec.minute,
                                            self._state.minute, idx)
-            counters = counters.cpu().numpy()
-            rt = rt.cpu().numpy()
-            threads = self._state.threads.cpu().numpy()
+            host, event = start_host_copy(
+                (counters, rt, self._state.threads.clone()))
             items = self.resources.items()
             rtypes = dict(self.resource_types)
+        counters, rt, threads = wait_host_copy(host, event)
         sec_ms = (time_ms // 1000) * 1000
         nodes = []
         for name, row in items:
@@ -2750,9 +2760,11 @@ class Sentinel:
                                stamps=w.stamps[sel], rt_sum=w.rt_sum[sel],
                                min_rt=w.min_rt[sel])
                 threads = threads[sel]
-            tot = rolling_totals(self.spec.second, w, idx_s).cpu().numpy()
-            rt = rt_totals(self.spec.second, w, idx_s).cpu().numpy()
-            threads = threads.cpu().numpy()
+            # one wait for all three copies, off the engine lock
+            host, event = start_host_copy((
+                rolling_totals(self.spec.second, w, idx_s),
+                rt_totals(self.spec.second, w, idx_s), threads.clone()))
+        tot, rt, threads = wait_host_copy(host, event)
         return tot, rt, threads
 
     @staticmethod
@@ -2790,9 +2802,10 @@ class Sentinel:
         with self._lock:
             touched = set(self._alt_rows_by_row.get(row, ()))
             origins = self.origins.items()
-            tot = rolling_totals(self.spec.second, self._state.alt_second,
-                                 idx_s).cpu().numpy()
-            threads = self._state.alt_threads.cpu().numpy()
+            host, event = start_host_copy((
+                rolling_totals(self.spec.second, self._state.alt_second,
+                               idx_s), self._state.alt_threads.clone()))
+        tot, threads = wait_host_copy(host, event)
         out = []
         for name, oid in origins:
             if not name:

@@ -448,12 +448,26 @@ def test_coordinator_scenario_matches_reference(scenario, tmp_path):
 
 
 def test_bind_with_a_command_center_names_roadmap_a12():
-    class _State:
-        def add_observer(self, fn):
-            raise AssertionError("bind must refuse before wiring")
+    """ROADMAP A12's command half is ported: ``bind`` with a command
+    center wires the mode and config observers and registers the ten
+    ``cluster/server/*`` commands, as the reference's does."""
+    from sentinel_tpu.cluster import commands as jcmd
+    from sentinel_tpu_torch.transport import CommandCenter
+    from sentinel_tpu_torch.transport.handlers import ClusterModeState
 
     sph = make(stt, stt.ManualClock(start_ms=T0))
     coord = tcoord.ClusterCoordinator(sph)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        coord.bind(_State(), command_center=object())
+    state, center = ClusterModeState(), CommandCenter()
+    coord.bind(state, command_center=center)
+    assert state.info_provider == coord.info
+    names = sorted(n for n in center.names()
+                   if n.startswith("cluster/server/"))
+    assert len(names) == 10
+    from sentinel_tpu.transport import CommandCenter as JCenter
+    jcenter = JCenter()
+    jcmd.register_cluster_server_handlers(jcenter)
+    assert names == sorted(jcenter.names())
+    state.set_mode(tcoord.CLUSTER_SERVER)
+    assert coord.mode == tcoord.CLUSTER_SERVER and coord.server is not None
+    coord.stop()
     sph.close()

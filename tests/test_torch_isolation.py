@@ -71,6 +71,30 @@ import sentinel_tpu_torch.cluster.codec
 import sentinel_tpu_torch.cluster.client
 import sentinel_tpu_torch.cluster.server
 import sentinel_tpu_torch.cluster.coordinator
+import sentinel_tpu_torch.rules.codec
+import sentinel_tpu_torch.core.spi
+import sentinel_tpu_torch.core.initexec
+import sentinel_tpu_torch.transport
+import sentinel_tpu_torch.transport.command
+import sentinel_tpu_torch.transport.http_server
+import sentinel_tpu_torch.transport.async_http_server
+import sentinel_tpu_torch.transport.mounted
+import sentinel_tpu_torch.transport.heartbeat
+import sentinel_tpu_torch.transport.handlers
+import sentinel_tpu_torch.transport.bootstrap
+import sentinel_tpu_torch.datasource
+import sentinel_tpu_torch.datasource.base
+import sentinel_tpu_torch.datasource.registry
+import sentinel_tpu_torch.datasource.converters
+import sentinel_tpu_torch.datasource.http
+import sentinel_tpu_torch.datasource.named
+import sentinel_tpu_torch.cluster.commands
+import sentinel_tpu_torch.api
+import sentinel_tpu_torch.adapters
+import sentinel_tpu_torch.adapters.decorator
+import sentinel_tpu_torch.adapters.wsgi
+import sentinel_tpu_torch.adapters.asgi
+import sentinel_tpu_torch.adapters.asyncio_support
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "sentinel_tpu")
@@ -145,6 +169,31 @@ CLUSTER_MODULES = [
 ]
 
 
+#: the command plane (rule JSON codec, SPI loader and init hooks, command
+#: center and its HTTP frontends, heartbeat, datasources, cluster server
+#: commands, the static facade and the web adapters), imported the same way
+COMMAND_MODULES = [
+    "sentinel_tpu_torch.rules.codec", "sentinel_tpu_torch.core.spi",
+    "sentinel_tpu_torch.core.initexec", "sentinel_tpu_torch.transport",
+    "sentinel_tpu_torch.transport.command",
+    "sentinel_tpu_torch.transport.http_server",
+    "sentinel_tpu_torch.transport.async_http_server",
+    "sentinel_tpu_torch.transport.mounted",
+    "sentinel_tpu_torch.transport.heartbeat",
+    "sentinel_tpu_torch.transport.handlers",
+    "sentinel_tpu_torch.transport.bootstrap", "sentinel_tpu_torch.datasource",
+    "sentinel_tpu_torch.datasource.base",
+    "sentinel_tpu_torch.datasource.registry",
+    "sentinel_tpu_torch.datasource.converters",
+    "sentinel_tpu_torch.datasource.http",
+    "sentinel_tpu_torch.datasource.named",
+    "sentinel_tpu_torch.cluster.commands", "sentinel_tpu_torch.api",
+    "sentinel_tpu_torch.adapters", "sentinel_tpu_torch.adapters.decorator",
+    "sentinel_tpu_torch.adapters.wsgi", "sentinel_tpu_torch.adapters.asgi",
+    "sentinel_tpu_torch.adapters.asyncio_support",
+]
+
+
 def _import_blocked(*modules):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -156,7 +205,8 @@ def _import_blocked(*modules):
 
 
 @pytest.mark.parametrize("module", OBS_MODULES + SERVING_MODULES
-                         + TIER_CONTROL_MODULES + CLUSTER_MODULES)
+                         + TIER_CONTROL_MODULES + CLUSTER_MODULES
+                         + COMMAND_MODULES)
 def test_module_imports_with_jax_blocked(module):
     _import_blocked(module)
 
