@@ -131,21 +131,41 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
 12. drives the command plane: ``Sentinel(device="cuda")`` at 1M rows
    (default configuration) behind ``start_transport(port=0)``; over
    loopback HTTP ``setRules`` of 4096 flow, 1024 degrade, 1 system and 64
-   authority rules and ``setParamFlowRules`` of 512; 8192
+   authority rules and ``setParamFlowRules`` of 512; 4096
    ``api.entry``+exit calls, 2048 ``@sentinel_resource`` calls and 2048
    WSGI requests; 16 fused full-width steps (2^19 events) with a second
    thread polling ``metric``, ``clusterNode`` and ``obs`` over HTTP and a
    ``setRules`` reload half way through a writable file datasource that a
    file datasource brings back; ``setClusterMode`` to the embedded token
-   server, ``cluster/server/modifyFlowRules``, 4096 cluster-ruled
+   server, ``cluster/server/modifyFlowRules``, 1024 cluster-ruled
    ``entry()``+exit and ``cluster/server/metricList``; the same session
    at 16k rows on the card, with the plain seam and on the CPU (each in
    a process of its own, ``--cp-twin``, beside the 1M run) must give the
    same verdicts and response bodies (the twins the same state); then,
    alone, the round trips, rule loads, per-call and per-step times with
    polls on and off, in turns;
-13. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-   line (``launches`` summed over the runs of phases 3-12), and as the last
+13. drives the API gateway, the Prometheus exporter and the native
+   interning tables: ``Sentinel(device="cuda")`` at 1M rows (default
+   configuration: the C++ tables; the scalar fixture's flow rules and a
+   system rule) behind ``start_transport(port=0, gateway_manager=,
+   api_definition_manager=, exporter_port=9464)``; over loopback HTTP 16
+   API groups and 256 gateway rules on 64 routes and those groups (route
+   QPS, client IP, header, URL param, cookie, host; intervals, bursts,
+   RATE_LIMITER, THREAD); 4096 requests through
+   ``SentinelGatewayASGIMiddleware`` on an asyncio loop (Zipf(1.1)
+   routes and client IPs, 20% in an API group; every request inbound,
+   so each entry a device decide through the param slot); one exporter
+   scrape. The same session at 16k rows on the card, with the plain seam
+   and on the CPU (``--gw-twin``, processes of their own) must give the
+   same statuses, pacing waits, bodies and samples. Then alone: µs a
+   request, the rule push, ms a scrape, and the native tables against
+   the Python ones in turns (an intern of 2^16 names, ``entry_batch`` of
+   2^16 fresh names, phase 7's 2^19-event pair resolution; equal rows
+   and verdicts). Phases 9 and 10 run under ``SENTINEL_TPU_NATIVE=0``
+   (the Python tables, as before), but for one churn turn of phase 10
+   with the native tables;
+14. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
+   line (``launches`` summed over the runs of phases 3-13), and as the last
    line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --find-syncs`` runs 3-5 steps of each engine phase
@@ -557,6 +577,23 @@ def phase_kernels(sa, hist_buckets: int, dev="cuda", R=1 << 20,
          rint(0, 3, (PARAM_KEYS + 1, 1)), whole,
          torch.where(paired, zipf, PARAM_KEYS).contiguous(), None,
          torch.where(consume, 1, 0).int()[:, None].contiguous())
+    # the same two scatters on the gateway's path (phase 13): a request's
+    # entry is a batch of one event, padded to 8, with PV pairs each (N =
+    # 8·PV); its client IP, header, cookie or host values on three key
+    # rows, every other lane at the padding row
+    gw_n = 8 * PARAM_PAIRS
+    gw_live = torch.zeros(gw_n, dtype=torch.bool, device=dev)
+    gw_live[:3] = True
+    gw_rows = torch.where(gw_live, rint(0, 61_440, (gw_n,)), PARAM_KEYS)
+    case("gateway param tokens f32 [PK+1,1], payload E=1, N=8*PV", 1,
+         torch.randint(0, 8, (PARAM_KEYS + 1, 1), device=dev,
+                       generator=g).float(), whole,
+         torch.where(gw_live, gw_rows, PARAM_KEYS + 1).int().contiguous(),
+         None, torch.where(gw_live, -1, 0).int()[:, None].contiguous())
+    case("gateway param threads int32 [PK+1,1], payload E=1, N=8*PV", 2,
+         rint(0, 3, (PARAM_KEYS + 1, 1)), whole,
+         gw_rows.int().contiguous(), None,
+         gw_live.int()[:, None].contiguous())
     # the cluster token step's three window records (phase 11's geometry:
     # S = 8 shards), each one payload launch (E = 8) into the current
     # bucket slice of a 10-bucket window; the rest of the lanes at the
@@ -2123,6 +2160,54 @@ def _drive_param(stt, sph, clock, calls: int = 900) -> tuple:
     return obs, timing
 
 
+def _pair_runtime(stt, R: int, dev, t0: int):
+    """``Sentinel(device=dev)`` at ``R`` rows (default configuration)
+    with one QPS param rule on each of p0..p255 → (runtime, the rows of
+    those and of 60,000 rule-free names)."""
+    big = stt.Sentinel(config=stt.load_config(max_resources=R),
+                       clock=stt.ManualClock(start_ms=t0), device=dev)
+    ruled = [f"p{i}" for i in range(PARAM_RESOURCES)]
+    big.load_param_flow_rules([stt.ParamFlowRule(resource=r, param_idx=0,
+                                                 count=3.0) for r in ruled])
+    return big, big.intern_resources(ruled + [f"u{i}" for i in range(60_000)])
+
+
+def _pair_batch(rng, pool, B: int):
+    """``B`` rows (1/8 param-ruled) and 2-D int args, Zipf(1.1) over
+    ``PARAM_VALUES`` user ids."""
+    p = 1.0 / np.arange(1, PARAM_VALUES + 1) ** 1.1
+    rows = np.where(rng.random(B) < 0.125,
+                    pool[rng.integers(0, PARAM_RESOURCES, B)],
+                    pool[rng.integers(0, pool.shape[0], B)])
+    args = rng.choice(PARAM_VALUES, (B, 1), p=p / p.sum()).astype(np.int64)
+    return rows, args
+
+
+class _timed_resolution:
+    """Within the block every ``resolve_pairs_many`` call appends its
+    host seconds to ``spent``."""
+
+    def __init__(self, trt, spent: list):
+        self.trt, self.spent = trt, spent
+        self.real = trt.pf_mod.resolve_pairs_many
+
+    def __enter__(self):
+        real, spent = self.real, self.spent
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            try:
+                return real(*a, **k)
+            finally:
+                spent.append(time.perf_counter() - t)
+        self.trt.pf_mod.resolve_pairs_many = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.trt.pf_mod.resolve_pairs_many = self.real
+        return False
+
+
 def phase_param_runtime(stt, sa, dev="cuda", R=1 << 20,
                         B=1 << 19) -> dict:
     """:func:`_drive_param` on ``Sentinel(device="cuda")`` with the default
@@ -2173,40 +2258,19 @@ def phase_param_runtime(stt, sa, dev="cuda", R=1 << 20,
              f"pins after the reload {obs['pins_after_reload']}")
 
     # 1M resources on the card: one 2^19-event batch, vector resolution
-    big = stt.Sentinel(config=stt.load_config(max_resources=R),
-                       clock=stt.ManualClock(start_ms=t0), device=dev)
-    ruled = [f"p{i}" for i in range(PARAM_RESOURCES)]
-    big.load_param_flow_rules([stt.ParamFlowRule(resource=r, param_idx=0,
-                                                 count=3.0) for r in ruled])
-    pool = big.intern_resources(ruled + [f"u{i}" for i in range(60_000)])
+    big, pool = _pair_runtime(stt, R, dev, t0)
     rng = np.random.default_rng(22)
-    p = 1.0 / np.arange(1, PARAM_VALUES + 1) ** 1.1
     spent = []
-    real = trt.pf_mod.resolve_pairs_many
-
-    def timed(*a, **k):
-        t = time.perf_counter()
-        try:
-            return real(*a, **k)
-        finally:
-            spent.append(time.perf_counter() - t)
-    trt.pf_mod.resolve_pairs_many = timed
     call_s = []
     sa.LAUNCHES.clear()
-    try:
+    with _timed_resolution(trt, spent):
         for _ in range(3):
-            rows = np.where(rng.random(B) < 0.125,
-                            pool[rng.integers(0, PARAM_RESOURCES, B)],
-                            pool[rng.integers(0, pool.shape[0], B)])
-            args = rng.choice(PARAM_VALUES, (B, 1),
-                              p=p / p.sum()).astype(np.int64)
+            rows, args = _pair_batch(rng, pool, B)
             sync()
             t = time.perf_counter()
             v = big.entry_batch(rows, args_list=args)
             call_s.append(time.perf_counter() - t)
             big.clock.advance_ms(3)
-    finally:
-        trt.pf_mod.resolve_pairs_many = real
     launches += sa.LAUNCHES["scatter_add"]
     denied = int((v.reason == 5).sum())
     if denied == 0 or int(v.allow.sum()) == 0:
@@ -2245,6 +2309,27 @@ def _evil_gate(stt):
     return EvilGate()
 
 
+class _knobs:
+    """Within the block the ``SENTINEL_*`` knobs in ``env`` are set; they
+    are restored after it."""
+
+    def __init__(self, **env):
+        self.env = {k: str(v) for k, v in env.items()}
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
 def _obs_runtime(stt, R: int, clock, dev, obs_on: bool = True,
                  staging: bool = True):
     """``Sentinel(device=dev)`` with the default configuration at ``R``
@@ -2252,19 +2337,10 @@ def _obs_runtime(stt, R: int, clock, dev, obs_on: bool = True,
     1024 exception-ratio breakers; ``obs_on``/``staging`` set the
     ``SENTINEL_OBS_DISABLE``/``SENTINEL_HOST_STAGING`` knobs for its
     construction."""
-    env = {"SENTINEL_OBS_DISABLE": "0" if obs_on else "1",
-           "SENTINEL_HOST_STAGING": "1" if staging else "0"}
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
+    with _knobs(SENTINEL_OBS_DISABLE=int(not obs_on),
+                SENTINEL_HOST_STAGING=int(staging)):
         sph = stt.Sentinel(config=stt.load_config(max_resources=R),
                            clock=clock, device=dev)
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     sph.load_flow_rules([stt.FlowRule(resource=f"r{i}", count=50.0)
                          for i in range(OBS_RULED)])
     sph.load_degrade_rules([stt.DegradeRule(
@@ -3262,16 +3338,8 @@ TIER_PRIO = 0.25         # prioritized share (bookings ride demote/promote)
 def _tier_runtime(stt, R: int, clock, dev, **env):
     """:func:`_obs_runtime` (default configuration, the scalar fixture's
     rules) constructed with the ``SENTINEL_*`` knobs in ``env`` set."""
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update({k: str(v) for k, v in env.items()})
-    try:
+    with _knobs(**env):
         return _obs_runtime(stt, R, clock, dev)
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
 
 
 def _tier_stream(universe: int, B: int, batches: int, seed: int):
@@ -3313,13 +3381,16 @@ def _cold_bytes(cold) -> int:
 
 
 def _tier_churn(stt, sa, dev, R, B, batches, hot_rows, universe, seed,
-                names=("tiered", "tiered_sd0", "resident")):
+                names=("tiered", "tiered_sd0", "resident", "tiered_native")):
     """(a)/(c) the churn legs: the same seeded traffic through
     ``entry_batch_nowait`` on twin runtimes in turns — ``tiered``
     (``SENTINEL_HOT_ROWS=hot_rows``), ``tiered_sd0`` (the same with
     ``SENTINEL_SINGLE_DISPATCH=0``) and ``resident``
-    (``SENTINEL_TIERING_DISABLE=1``; ``universe`` must fit its table) —
-    a flow-rule reload half way, ``TIER_STEP_MS`` a batch, each runtime's
+    (``SENTINEL_TIERING_DISABLE=1``; ``universe`` must fit its table) and
+    ``tiered_native`` (``tiered`` with the native C++ tables, which have
+    no targeted eviction: no proactive demotion, a run of its own, not a
+    faster one; the others run the Python tables, the phase sets
+    ``SENTINEL_TPU_NATIVE=0``) — a flow-rule reload half way, ``TIER_STEP_MS`` a batch, each runtime's
     ``CadenceScheduler`` armed (telemetry 1 s, tiering ``TIER_TICK_MS``)
     and polled after every batch. Verdicts equal every batch, the
     count-min tables of the two tiered twins equal after every batch,
@@ -3328,7 +3399,9 @@ def _tier_churn(stt, sa, dev, R, B, batches, hot_rows, universe, seed,
     envs = {"tiered": dict(SENTINEL_HOT_ROWS=hot_rows),
             "tiered_sd0": dict(SENTINEL_HOT_ROWS=hot_rows,
                                SENTINEL_SINGLE_DISPATCH=0),
-            "resident": dict(SENTINEL_TIERING_DISABLE=1)}
+            "resident": dict(SENTINEL_TIERING_DISABLE=1),
+            "tiered_native": dict(SENTINEL_HOT_ROWS=hot_rows,
+                                  SENTINEL_TPU_NATIVE=1)}
     sph, sched = {}, {}
     for n in names:
         sph[n] = _tier_runtime(stt, R, stt.ManualClock(start_ms=t0), dev,
@@ -3709,8 +3782,13 @@ def phase_tiering(stt, sa, dev="cuda", R=1 << 20, B=1 << 16, batches=32,
     (c) the (a) traffic with ``SENTINEL_SINGLE_DISPATCH=0`` in turns with
     the tiered runtime (equal verdicts and count-min tables every batch),
     then :func:`_tier_fused`;
-    (d) :func:`_tier_controller`."""
+    (d) :func:`_tier_controller`.
+
+    :func:`main` runs it under ``SENTINEL_TPU_NATIVE=0`` (the Python
+    interning tables, as before the C++ tables were ported, so its record
+    stays comparable) but for (a)'s ``tiered_native`` turn."""
     from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch.native import NativeRegistry
     t_phase = time.perf_counter()
     res = {}
     launches = 0
@@ -3718,6 +3796,10 @@ def phase_tiering(stt, sa, dev="cuda", R=1 << 20, B=1 << 16, batches=32,
                                      R - OBS_RULED, seed=1501)
     launches += sum(churn["launches"]["tiered"])
     lps = sorted(set(churn["launches"]["tiered"]))
+    tables = {n: type(s.resources).__name__ for n, s in sph.items()}
+    if [n for n, t in tables.items()
+            if (t == NativeRegistry.__name__) != (n == "tiered_native")]:
+        fail(f"tiering phase: interning tables {tables}")
     snap = {n: _tier_snapshot(s) for n, s in sph.items()}
     t, t0_ = snap["tiered"], snap["tiered_sd0"]
     if snap["resident"]["demoted"] or not (t["demoted"] > 0
@@ -3752,7 +3834,11 @@ def phase_tiering(stt, sa, dev="cuda", R=1 << 20, B=1 << 16, batches=32,
         f"{t['cold']} entries, {t['cold_bytes'] / 2**20:.1f} MiB on the "
         f"host; host ms a batch tiered "
         f"{res['churn']['host_ms']['tiered']['median']:.2f}, resident "
-        f"{res['churn']['host_ms']['resident']['median']:.2f}, poll "
+        f"{res['churn']['host_ms']['resident']['median']:.2f}, tiered "
+        f"with the native tables (no proactive demotion: promoted "
+        f"{snap['tiered_native']['promoted']}, demoted "
+        f"{snap['tiered_native']['demoted']}) "
+        f"{res['churn']['host_ms']['tiered_native']['median']:.2f}, poll "
         f"{res['churn']['poll_ms']['tiered']['median']:.2f}; dispatches "
         f"{res['churn']['dispatches']}")
     if profile and dev == "cuda":
@@ -4407,7 +4493,8 @@ def phase_cluster(stt, sa, dev="cuda", B=1 << 16, steps=40,
     """The cluster token tier: (a) :func:`_cluster_engine_leg` at 2^16
     requests a step and the kernel run alone at 2^18; (b)
     :func:`_cluster_server_leg`; (c) :func:`_cluster_runtime_leg` (1024
-    calls: phase 12 sends 4096 cluster-ruled calls through the facade)."""
+    calls: phase 12 sends 1024 more cluster-ruled calls through the
+    facade)."""
     import tempfile
     from sentinel_tpu_torch.parallel import cluster as tcl
     t_phase = time.perf_counter()
@@ -4932,8 +5019,8 @@ def _cp_twin_main(spec_path: str, out_path: str) -> int:
 
 def phase_command_plane(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
                         steps: int = 16, twin_rows: int = 1 << 14,
-                        calls: int = 8192, deco_calls: int = 2048,
-                        wsgi_calls: int = 2048, cluster_calls: int = 4096,
+                        calls: int = 4096, deco_calls: int = 2048,
+                        wsgi_calls: int = 2048, cluster_calls: int = 1024,
                         rtt_n: int = 32, turns: int = 4) -> dict:
     """An operator drives a live agent over HTTP while its application
     admits traffic through the facade and the adapters:
@@ -5097,6 +5184,599 @@ def phase_command_plane(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the API gateway, the Prometheus exporter and the native tables
+# ---------------------------------------------------------------------------
+
+GW_T0 = 1_820_000_000_000
+GW_APP = "chip-smoke-gw"
+GW_ROUTES = 64
+GW_GROUPS = 16
+GW_RULES = 256              # 224 on the routes (3 or 4 each), 32 on groups
+GW_IPS = 1 << 16
+#: what a rule throttles by, in eighths: 1/4 the route's QPS ($D), 1/4
+#: the client IP, 1/8 each a header (exact pattern), a URL param (regex
+#: or contains), a cookie, the host
+GW_KINDS = ("route", "route", "ip", "ip", "header", "url", "cookie", "host")
+#: scrape families left out of the comparison: no source in the port
+#: (the reference's compiled-program cache and autotuner)
+GW_EXCLUDED = ("sentinel_compile_cache_", "sentinel_tune")
+#: scraped samples that follow the table's geometry (see phase_gateway)
+GW_GEOMETRY = ("sentinel_split_route_total",)
+#: the command that runs one twin session in a process of its own
+GW_TWIN_CMD = [sys.executable, os.path.abspath(__file__), "--gw-twin"]
+
+
+def _gw_docs(tgw, tpf, gcodec) -> tuple:
+    """(API groups JSON, gateway rules JSON) as a dashboard pushes them:
+    16 groups (exact, prefix and regex predicates; the odd ones also an
+    exact path shared by 4 groups) and 256 rules on 64 routes and those
+    groups (every fifth rule a 2 s interval, every seventh a burst of 2,
+    every ninth RATE_LIMITER at 200 ms, a few THREAD grade)."""
+    g = tgw
+    strategies = (g.URL_MATCH_STRATEGY_EXACT, g.URL_MATCH_STRATEGY_PREFIX,
+                  g.URL_MATCH_STRATEGY_REGEX)
+    defs = []
+    for i in range(GW_GROUPS):
+        pattern = (f"/api/g{i}/items", f"/api/g{i}/**", rf"/api/g{i}/\d+")
+        items = [g.ApiPathPredicateItem(pattern[i % 3], strategies[i % 3])]
+        if i % 2:
+            items.append(g.ApiPathPredicateItem(f"/api/shared{i % 4}"))
+        defs.append(g.ApiDefinition(f"grp{i}", tuple(items)))
+    on_routes = GW_RULES - 2 * GW_GROUPS
+    rules = []
+    for k in range(GW_RULES):
+        if k < on_routes:
+            res, mode = f"route{k % GW_ROUTES}", g.RESOURCE_MODE_ROUTE_ID
+            kind = GW_KINDS[(k // GW_ROUTES + k) % 8]
+        else:
+            res, mode = f"grp{k % GW_GROUPS}", g.RESOURCE_MODE_CUSTOM_API_NAME
+            kind = GW_KINDS[k % 8]
+        item = {
+            "route": None,
+            "ip": g.GatewayParamFlowItem(
+                parse_strategy=g.PARAM_PARSE_STRATEGY_CLIENT_IP),
+            "header": g.GatewayParamFlowItem(
+                parse_strategy=g.PARAM_PARSE_STRATEGY_HEADER,
+                field_name="X-Tenant", pattern="t1",
+                match_strategy=g.PARAM_MATCH_STRATEGY_EXACT),
+            "url": g.GatewayParamFlowItem(
+                parse_strategy=g.PARAM_PARSE_STRATEGY_URL_PARAM,
+                field_name="uid",
+                pattern=r"\d{1,2}" if k % 2 == 0 else "7",
+                match_strategy=(g.PARAM_MATCH_STRATEGY_REGEX if k % 2 == 0
+                                else g.PARAM_MATCH_STRATEGY_CONTAINS)),
+            "cookie": g.GatewayParamFlowItem(
+                parse_strategy=g.PARAM_PARSE_STRATEGY_COOKIE,
+                field_name="sid"),
+            "host": g.GatewayParamFlowItem(
+                parse_strategy=g.PARAM_PARSE_STRATEGY_HOST),
+        }[kind]
+        paced = k % 9 == 4
+        rules.append(g.GatewayFlowRule(
+            resource=res, resource_mode=mode,
+            grade=(tpf.GRADE_THREAD if k % 13 == 6 and not paced
+                   else tpf.GRADE_QPS),
+            count={"route": 40.0, "ip": 3.0, "header": 5.0, "url": 4.0,
+                   "cookie": 6.0, "host": 30.0}[kind],
+            interval_sec=2 if k % 5 == 0 else 1,
+            control_behavior=(tpf.BEHAVIOR_RATE_LIMITER if paced
+                              else tpf.BEHAVIOR_DEFAULT),
+            burst=2 if k % 7 == 0 else 0, max_queueing_timeout_ms=200,
+            param_item=item))
+    return gcodec.api_definitions_to_json(defs), \
+        gcodec.gateway_rules_to_json(rules)
+
+
+def _gw_requests(n: int, seed: int) -> list:
+    """``n`` ASGI http scopes: routes Zipf(1.1) over 64 (the route id in
+    the scope, as a gateway's route table resolves it), client IPs
+    Zipf(1.1) over 2^16, tenants Zipf(1.1) over 16 (1 in 4 requests
+    without the header), session cookies Zipf(1.1) over 1024, 4 hosts,
+    ``uid`` URL params; 20% of the paths in an API group."""
+    from sentinel_tpu_torch.frontend.workloads import _zipf_ranks
+    rng = np.random.default_rng(seed)
+    routes = _zipf_ranks(rng, n, 1.1, GW_ROUTES) - 1
+    ips = _zipf_ranks(rng, n, 1.1, GW_IPS) - 1
+    tenants = _zipf_ranks(rng, n, 1.1, 16) - 1
+    sids = _zipf_ranks(rng, n, 1.1, 1024)
+    in_group = rng.random(n) < 0.2
+    groups = rng.integers(0, GW_GROUPS, n)
+    uids = rng.integers(0, 200, n)
+    form = rng.integers(0, 4, n)
+    out = []
+    for i in range(n):
+        g, uid = int(groups[i]), int(uids[i])
+        if in_group[i]:
+            path = (f"/api/g{g}/items", f"/api/g{g}/x/{i % 7}",
+                    f"/api/g{g}/{uid}")[g % 3]
+            if g % 2 and form[i] == 0:
+                path = f"/api/shared{g % 4}"
+        else:
+            path = f"/svc/route{int(routes[i])}/item{i % 50}"
+        ip = int(ips[i])
+        headers = [(b"host", f"h{i % 4}.example.com".encode()),
+                   (b"cookie", f"theme=dark; sid=s{int(sids[i])}".encode())]
+        if form[i] != 3:
+            headers.append((b"x-tenant", f"t{int(tenants[i])}".encode()))
+        out.append({"type": "http", "method": "GET", "path": path,
+                    "query_string": f"uid={uid}&page={i % 3}".encode(),
+                    "headers": headers,
+                    "client": (f"10.{ip >> 8}.{ip & 255}.1", 40000 + i % 997),
+                    "route": f"route{int(routes[i])}"})
+    return out
+
+
+def _gw_scrape(sph) -> dict:
+    """One exporter scrape (``generate_latest`` on a private registry) →
+    its families and samples (the excluded families' samples left out)
+    and, timed, five more: ms, bytes and samples; None without
+    ``prometheus_client``."""
+    try:
+        from prometheus_client import CollectorRegistry, generate_latest
+    except ImportError:
+        return None
+    from sentinel_tpu_torch.metrics.exporter import PrometheusExporter
+    reg = CollectorRegistry()
+    exp = PrometheusExporter(sph, registry=reg)
+    try:
+        fams = list(reg.collect())
+        out = {"families": sorted(f.name for f in fams),
+               "samples": sorted(
+                   (s.name, tuple(sorted(s.labels.items())), s.value)
+                   for f in fams if not f.name.startswith(GW_EXCLUDED)
+                   for s in f.samples),
+               "n_samples": sum(len(f.samples) for f in fams), "ms": []}
+        for _ in range(5):
+            t = time.perf_counter()
+            text = generate_latest(reg)
+            out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["bytes"] = len(text)
+    finally:
+        exp.close()
+    return out
+
+
+def _gw_session(stt, sa, dev, R: int, tmp: str, requests: int,
+                timing: bool, timing_requests: int = 512, tag: str = "",
+                before_timing=None) -> dict:
+    """One gateway session on ``Sentinel(device=dev)`` at ``R`` rows
+    (default configuration) behind ``start_transport(port=0,
+    gateway_manager=, api_definition_manager=, exporter_port=9464)`` (see
+    :func:`phase_gateway`) → its observations: every response, every
+    request's status and pacing wait, the scrape, the tables' classes
+    and the engine state. With ``timing`` it then (after
+    ``before_timing()``) times the rule push again and
+    ``timing_requests`` more requests."""
+    import asyncio
+    import types
+    from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch import gateway as tgw
+    from sentinel_tpu_torch.adapters import SentinelGatewayASGIMiddleware
+    from sentinel_tpu_torch.adapters import asgi_gateway
+    from sentinel_tpu_torch.core.logs import BlockStatLogger
+    from sentinel_tpu_torch.gateway import codec as gcodec
+    from sentinel_tpu_torch.rules import codec
+    from sentinel_tpu_torch.rules import param_flow as tpf
+    from sentinel_tpu_torch.transport import start_transport
+    os.makedirs(tmp, exist_ok=True)
+    clock = stt.ManualClock(start_ms=GW_T0)
+    sph = stt.Sentinel(config=stt.load_config(
+        max_resources=R, max_flow_rules=2 * CP_RULED, app_name=GW_APP,
+        metric_log_dir=os.path.join(tmp, "metrics")), clock=clock,
+        device=dev)
+    sph._cpu.sample = lambda: (0.5, 0.25)
+    sph.block_log.close()
+    sph.block_log = BlockStatLogger(clock, base_dir=os.path.join(tmp, "bl"))
+    mgr = tgw.GatewayRuleManager(sph)
+    api_mgr = tgw.GatewayApiDefinitionManager()
+    rt = start_transport(sph, host="127.0.0.1", port=0,
+                         gateway_manager=mgr, api_definition_manager=api_mgr,
+                         exporter_port=9464)
+    rt.metric_timer.stop()
+    if rt.cadence is not None:
+        rt.cadence.stop()
+    res = {"http": [], "timing": {}, "section_s": {}}
+    t_sec = [time.perf_counter()]
+
+    def section(name):
+        now = time.perf_counter()
+        res["section_s"][name] = now - t_sec[0]
+        t_sec[0] = now
+        log(f"[gateway] {tag} {name}: {res['section_s'][name]:.1f} s")
+
+    def call(method, cmd, params=None, record=True):
+        status, text, us = _cp_http(rt.port, method, cmd, params)
+        if record:
+            res["http"].append((cmd, status, _cp_body(text)))
+        if status != 200:
+            fail(f"gateway phase: {cmd} answered {status}: {text[:300]}")
+        return us
+
+    async def app(scope, receive, send):
+        await send({"type": "http.response.start", "status": 200,
+                    "headers": []})
+        await send({"type": "http.response.body", "body": b"ok"})
+    guarded = SentinelGatewayASGIMiddleware(
+        app, sph, mgr, api_mgr, route_resolver=lambda scope: scope["route"])
+    waits = []
+
+    async def virtual_sleep(seconds):
+        # the run's clock is a ManualClock: a pacing wait is recorded as
+        # part of the verdict, not slept on the wall clock
+        waits.append(seconds)
+
+    def drive(reqs, lat_us=None) -> list:
+        out = []
+
+        async def run():
+            async def receive():
+                return {"type": "http.request", "body": b"",
+                        "more_body": False}
+            for k, scope in enumerate(reqs):
+                sent = []
+
+                async def send(msg, sent=sent):
+                    sent.append(msg)
+                del waits[:]
+                t = time.perf_counter()
+                await guarded(scope, receive, send)
+                if lat_us is not None:
+                    lat_us.append((time.perf_counter() - t) * 1e6)
+                out.append((sent[0]["status"], tuple(waits)))
+                if k % 8 == 7:
+                    clock.advance_ms(1)
+        real_asyncio = asgi_gateway.asyncio
+        asgi_gateway.asyncio = types.SimpleNamespace(sleep=virtual_sleep)
+        try:
+            asyncio.run(run())
+        finally:
+            asgi_gateway.asyncio = real_asyncio
+        return out
+
+    try:
+        docs = _cp_docs(stt, codec)
+        for rtype in ("flow", "system"):
+            call("POST", "setRules", {"type": rtype, "data": docs[rtype]})
+        apis_json, rules_json = _gw_docs(tgw, tpf, gcodec)
+        call("POST", "gateway/updateApiDefinitions", {"data": apis_json})
+        res["timing"]["update_rules_ms_first"] = call(
+            "POST", "gateway/updateRules", {"data": rules_json}) / 1e3
+        for cmd in ("gateway/getRules", "gateway/getApiDefinitions",
+                    "getParamFlowRules"):
+            call("GET", cmd)
+        section("rules")
+        reqs = _gw_requests(requests, seed=131)
+        sa.LAUNCHES.clear()
+        res["requests"] = drive(reqs)
+        res["launches"] = sa.LAUNCHES["scatter_add"]
+        section("requests")
+        for cmd in ("gateway/getRules", "gateway/getApiDefinitions"):
+            call("GET", cmd)
+        info = json.loads(_cp_http(rt.port, "GET", "basicInfo")[1])
+        res["exporter_port"] = info.get("exporterPort")
+        res["totals"] = {n: sph.node_totals(n) for n in
+                         [f"route{i}" for i in range(GW_ROUTES)]
+                         + [f"grp{i}" for i in range(GW_GROUPS)]}
+        res["scrape"] = _gw_scrape(sph)
+        res["tables"] = {k: type(getattr(sph, k)).__name__ for k in (
+            "resources", "origins", "contexts", "param_key_registry")}
+        res["state"] = convert.engine_to_numpy(sph)
+        section("reads")
+        if timing:
+            if before_timing is not None:
+                before_timing()     # the measurements below run alone
+            t = res["timing"]
+            t["update_rules_ms"] = [call("POST", "gateway/updateRules",
+                                         {"data": rules_json},
+                                         record=False) / 1e3
+                                    for _ in range(5)]
+            lat = []
+            drive(_gw_requests(timing_requests, seed=137), lat)
+            t["request_us"] = lat
+            t["scrape"] = _gw_scrape(sph)
+            section("timing")
+    finally:
+        rt.stop()
+        sph.close()
+    return res
+
+
+def _gw_twin_main(spec_path: str, out_path: str) -> int:
+    """``chip_smoke.py --gw-twin SPEC OUT``: one twin session of phase 13
+    in a process of its own → its observations, pickled to OUT."""
+    import pickle
+    import sentinel_tpu_torch as stt
+    from sentinel_tpu_torch.ops import scatter_add as sa
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    if spec.pop("plain"):
+        sa.scatter_add = sa.scatter_add_reference       # the plain seam
+    res = _gw_session(stt, sa, timing=False, **spec)
+    with open(out_path, "wb") as fh:
+        pickle.dump(res, fh)
+    return 0
+
+
+def _gw_native_legs(stt, sa, dev, R: int, names_B: int, pair_B: int,
+                    turns: int) -> dict:
+    """The native C++ interning tables against the Python ones, in turns
+    (each on a table or runtime of its own, the same input each turn):
+    (1) an intern of ``names_B`` fresh names into a table of ``R`` rows
+    (one batch call against a Python loop); (2) ``entry_batch`` of
+    ``names_B`` fresh names on ``R``-row runtimes (the scalar fixture's
+    rules); (3) phase 7's ``pair_B``-event param batch (the pair
+    resolution's host ms). Equal rows and verdicts in every pair."""
+    from sentinel_tpu_torch import runtime as trt
+    from sentinel_tpu_torch.core import registry as treg
+    from sentinel_tpu_torch.native import NativeRegistry
+    kinds = ("native", "python")
+    out = {"intern_ms": {k: [] for k in kinds},
+           "entry_batch_ms": {k: [] for k in kinds},
+           "resolve_ms": {k: [] for k in kinds},
+           "pair_call_ms": {k: [] for k in kinds}}
+
+    def order(turn):
+        return kinds if turn % 2 == 0 else kinds[::-1]
+
+    for turn in range(turns):
+        names = [f"i{turn}-{k}" for k in range(names_B)]
+        rows = {}
+        for n in order(turn):
+            if n == "native":
+                reg = NativeRegistry(R, reserved=(treg.ENTRY_NODE_NAME,))
+                t = time.perf_counter()
+                rows[n] = reg.get_or_create_batch(names)
+            else:
+                reg = treg.Registry(R, reserved=(treg.ENTRY_NODE_NAME,))
+                t = time.perf_counter()
+                rows[n] = np.fromiter((reg.get_or_create(x) for x in names),
+                                      np.int32, count=names_B)
+            out["intern_ms"][n].append((time.perf_counter() - t) * 1e3)
+            del reg
+        if not np.array_equal(rows["native"], rows["python"]):
+            fail("gateway phase: the native and Python tables interned "
+                 "to different rows")
+
+    def pair_of_runtimes(build):
+        """``build()`` under ``SENTINEL_TPU_NATIVE=1`` and ``=0`` → its
+        two results by kind (a runtime first in each)."""
+        out = {}
+        for n in kinds:
+            with _knobs(SENTINEL_TPU_NATIVE=int(n == "native")):
+                out[n] = build()
+            sph_n = out[n][0] if isinstance(out[n], tuple) else out[n]
+            if isinstance(sph_n.resources, NativeRegistry) != (n == "native"):
+                fail(f"gateway phase: the {n} runtime interns through "
+                     f"{type(sph_n.resources).__name__}")
+        return out
+
+    def same(got, what, turn):
+        a, b = got["native"], got["python"]
+        for f in ("allow", "reason", "wait_ms"):
+            if not np.array_equal(np.asarray(getattr(a, f)),
+                                  np.asarray(getattr(b, f))):
+                fail(f"gateway phase: {what} {f} differ between the native "
+                     f"and the Python tables at turn {turn}")
+
+    sph = pair_of_runtimes(lambda: _obs_runtime(
+        stt, R, stt.ManualClock(start_ms=GW_T0), dev))
+    for turn in range(turns):
+        names = [f"f{turn}-{k}" for k in range(names_B)]
+        got = {}
+        for n in order(turn):
+            sync()
+            t = time.perf_counter()
+            got[n] = sph[n].entry_batch(names)
+            out["entry_batch_ms"][n].append((time.perf_counter() - t) * 1e3)
+            sph[n].clock.advance_ms(25)
+        same(got, "entry_batch verdicts", turn)
+    for s in sph.values():
+        s.close()
+    del sph
+
+    built = pair_of_runtimes(lambda: _pair_runtime(stt, R, dev, GW_T0))
+    sph = {n: b[0] for n, b in built.items()}
+    pool = built["native"][1]
+    if not np.array_equal(pool, built["python"][1]):
+        fail("gateway phase: the param runtimes' pools differ")
+    rng = np.random.default_rng(22)
+    spent = []
+    with _timed_resolution(trt, spent):
+        for turn in range(turns):
+            rows, args = _pair_batch(rng, pool, pair_B)
+            got = {}
+            for n in order(turn):
+                sync()
+                t = time.perf_counter()
+                got[n] = sph[n].entry_batch(rows, args_list=args)
+                out["pair_call_ms"][n].append(
+                    (time.perf_counter() - t) * 1e3)
+                out["resolve_ms"][n].append(spent[-1] * 1e3)
+                sph[n].clock.advance_ms(3)
+            same(got, "param batch verdicts", turn)
+    for s in sph.values():
+        s.close()
+    return out
+
+
+def phase_gateway(stt, sa, dev="cuda", R=1 << 20, twin_rows=1 << 14,
+                  requests: int = 4096, timing_requests: int = 512,
+                  names_B: int = 1 << 16, pair_B: int = 1 << 19,
+                  turns: int = 4) -> dict:
+    """An API gateway in front of a service, driven as its users drive
+    it: ``Sentinel(device="cuda")`` at ``R`` rows (default configuration,
+    the scalar fixture's 4096 QPS rules and a system rule, as in phase
+    12) behind ``start_transport(port=0, gateway_manager=,
+    api_definition_manager=, exporter_port=9464)``; over loopback HTTP
+    ``gateway/updateApiDefinitions`` with 16 API groups and
+    ``gateway/updateRules`` with 256 gateway rules on 64 routes and those
+    groups; ``requests`` requests through ``SentinelGatewayASGIMiddleware``
+    on an asyncio loop (routes Zipf(1.1) over 64, client IPs Zipf(1.1)
+    over 2^16, 20% of the paths in an API group; every request is
+    inbound, so each of its entries is a device decide through the param
+    slot); then one exporter scrape. The same session at ``twin_rows``
+    on the card, with the plain seam and on the CPU (processes of their
+    own, beside the 1M run) must give the same statuses and pacing
+    waits, response bodies and scraped samples (and the twins the same
+    state). Then, alone: the rule push, µs a request, ms a scrape, and
+    :func:`_gw_native_legs`."""
+    import pickle
+    import tempfile
+    from sentinel_tpu_torch import convert
+    t_phase = time.perf_counter()
+    kw = dict(requests=requests)
+    twins = (("card_twin", dev, False), ("plain_twin", dev, True),
+             ("cpu_twin", "cpu", False))
+    runs, procs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gw_") as tmp:
+        for tag, d, plain in twins:
+            spec = os.path.join(tmp, f"{tag}.json")
+            with open(spec, "w") as fh:
+                json.dump(dict(kw, dev=d, R=twin_rows, plain=plain,
+                               tmp=os.path.join(tmp, tag), tag=tag), fh)
+            out = open(os.path.join(tmp, f"{tag}.log"), "w")
+            procs[tag] = (subprocess.Popen(
+                GW_TWIN_CMD + [spec, os.path.join(tmp, f"{tag}.pkl")],
+                stdout=out, stderr=subprocess.STDOUT), out)
+
+        def join_twins():
+            for tag, (proc, out) in procs.items():
+                try:
+                    rc = proc.wait(timeout=600)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+                    rc = "timeout"
+                out.close()
+                if rc != 0:
+                    with open(os.path.join(tmp, f"{tag}.log")) as fh:
+                        tail = fh.read()[-3000:]
+                    fail(f"gateway phase: the {tag} process ended with "
+                         f"{rc}:\n{tail}")
+                with open(os.path.join(tmp, f"{tag}.pkl"), "rb") as fh:
+                    runs[tag] = pickle.load(fh)
+            log(f"[gateway] twins done at "
+                f"{time.perf_counter() - t_phase:.1f} s: " + ", ".join(
+                    f"{t} {sum(r['section_s'].values()):.1f} s"
+                    for t, r in runs.items()))
+
+        try:
+            runs["card"] = _gw_session(
+                stt, sa, dev, R, os.path.join(tmp, "card"), timing=True,
+                timing_requests=timing_requests, tag="card",
+                before_timing=join_twins, **kw)
+        finally:
+            for proc, out in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                out.close()
+    card = runs["card"]
+    for tag, run in runs.items():
+        if run["requests"] != card["requests"]:
+            bad = [k for k, (a, b) in enumerate(zip(run["requests"],
+                                                    card["requests"]))
+                   if a != b]
+            fail(f"gateway phase: {tag} statuses or waits differ from the "
+                 f"1M card run at {len(bad)} requests, first {bad[:5]}")
+        if run["http"] != card["http"]:
+            fail(f"gateway phase: {tag} response bodies differ")
+        if run["totals"] != card["totals"]:
+            fail(f"gateway phase: {tag} node totals differ")
+        if run["scrape"] is not None and card["scrape"] is not None:
+            # the route a decide takes follows the table's geometry (the
+            # fast route where the context key fits 16k rows, the general
+            # one at 1M): the split_route family is held among the twins
+            ref = runs["cpu_twin"] if tag != "card" else card
+            for key in ("families", "samples"):
+                mine = run["scrape"][key]
+                want = card["scrape"][key]
+                if key == "samples":
+                    mine = [x for x in mine if x[0] not in GW_GEOMETRY]
+                    want = [x for x in want if x[0] not in GW_GEOMETRY]
+                    if run["scrape"][key] != ref["scrape"][key]:
+                        fail(f"gateway phase: {tag} scraped samples differ "
+                             f"from the CPU twin's")
+                if mine != want:
+                    a, b = set(mine), set(want)
+                    fail(f"gateway phase: {tag} scraped {key} differ: "
+                         f"{sorted(a - b)[:4]} vs {sorted(b - a)[:4]}")
+        if run["exporter_port"] != 9464:
+            fail(f"gateway phase: {tag} basicInfo exporterPort "
+                 f"{run['exporter_port']}")
+        natives = {"resources": "NativeRegistry", "origins": "NativeRegistry",
+                   "contexts": "NativeRegistry",
+                   "param_key_registry": "NativeParamKeyRegistry"}
+        if run["tables"] != natives:
+            fail(f"gateway phase: {tag} interning tables {run['tables']}")
+    for tag in ("card_twin", "plain_twin"):
+        bad = convert.leaf_diff(runs["cpu_twin"]["state"], runs[tag]["state"])
+        if bad:
+            fail(f"gateway phase: {tag} state differs from the CPU twin: "
+                 f"{bad}")
+    if not card["launches"] or not runs["card_twin"]["launches"]:
+        fail("gateway phase: the requests launched no kernel")
+    if runs["plain_twin"]["launches"]:
+        fail("gateway phase: the plain-seam run launched the kernel")
+    statuses = collections.Counter(s for s, _w in card["requests"])
+    paced = sum(1 for _s, w in card["requests"] if w)
+    if not statuses.get(200) or not statuses.get(429) or not paced:
+        fail(f"gateway phase: statuses {dict(statuses)}, paced {paced}: "
+             f"the requests must pass, block and wait")
+    if card["scrape"] is None:
+        log("[exporter] prometheus_client not installed: scrape leg not run")
+    t = card["timing"]
+    res = {"launches": card["launches"], "R": R, "requests": requests,
+           "statuses": dict(statuses), "paced": paced,
+           "update_rules_ms_first": t["update_rules_ms_first"],
+           "update_rules_ms": t["update_rules_ms"],
+           "request_us": {"p50": float(np.percentile(t["request_us"], 50)),
+                          "p99": float(np.percentile(t["request_us"], 99)),
+                          "n": len(t["request_us"])},
+           "section_s": {tag: r["section_s"] for tag, r in runs.items()}}
+    if t["scrape"] is not None:
+        res["scrape"] = {"ms": t["scrape"]["ms"],
+                         "samples": t["scrape"]["n_samples"],
+                         "bytes": t["scrape"]["bytes"],
+                         "twin_samples": runs["card_twin"]["scrape"][
+                             "n_samples"]}
+    log(f"[gateway] {requests} requests at {R} rows: {dict(statuses)}, "
+        f"{paced} paced; statuses, waits, {len(card['http'])} response "
+        f"bodies, node totals and the scrape equal at {twin_rows} rows on "
+        f"the card, with the plain seam and on the CPU; state equal across "
+        f"the twins; kernel launches {card['launches']}")
+    log(f"[gateway] us a gateway request (alone, {len(t['request_us'])}): "
+        f"p50 {res['request_us']['p50']:.1f}, p99 "
+        f"{res['request_us']['p99']:.1f}; gateway/updateRules of "
+        f"{GW_RULES} rules {np.median(t['update_rules_ms']):.2f} ms "
+        f"(median of 5; first {t['update_rules_ms_first']:.2f})")
+    if "scrape" in res:
+        log(f"[exporter] scrape at {R} rows: "
+            f"{np.median(res['scrape']['ms']):.2f} ms (median of 5), "
+            f"{res['scrape']['samples']} samples, {res['scrape']['bytes']} "
+            f"bytes; basicInfo exporterPort 9464")
+    res["native"] = nat = _gw_native_legs(stt, sa, dev, R, names_B, pair_B,
+                                          turns)
+    med = {k: {n: float(np.median(v)) for n, v in d.items()}
+           for k, d in nat.items()}
+    res["native_median"] = med
+    log(f"[native] tables of the 1M runtime: {card['tables']}")
+    log(f"[native] ms, native / Python (medians of {turns} turns): intern "
+        f"of {names_B} names {med['intern_ms']['native']:.2f} / "
+        f"{med['intern_ms']['python']:.2f}; entry_batch of {names_B} fresh "
+        f"names {med['entry_batch_ms']['native']:.2f} / "
+        f"{med['entry_batch_ms']['python']:.2f}; pair resolution of "
+        f"{pair_B} events {med['resolve_ms']['native']:.2f} / "
+        f"{med['resolve_ms']['python']:.2f} (whole call "
+        f"{med['pair_call_ms']['native']:.2f} / "
+        f"{med['pair_call_ms']['python']:.2f}); equal rows and verdicts")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[gateway] phase 13 took {res['seconds']:.1f} s; kernel launches "
+        f"{card['launches']}")
+    return res
+
+
 def find_syncs(stt, sa) -> int:
     """``--find-syncs``: every place where a kernel-run engine step waits
     on the device, with the port's frames of its stack (the sync debug
@@ -5130,11 +5810,13 @@ def find_syncs(stt, sa) -> int:
     phase_param_engine(stt, sa, steps=3)
     phase_origin_engine(stt, sa, "general", steps=3, param=True)
     phase_obs_runtime(stt, sa, steps=3)
-    phase_serving(stt, sa, turns=2, per_turn=3, requests=1 << 12,
-                  duration_ms=300, runs=(("steady", 20_000),),
-                  batch_maxes=(256,), tel_ticks=3)
-    phase_tiering(stt, sa, batches=8, requests=1 << 16, serve_hot=1 << 13,
-                  fused_steps=12, turns=2, per_turn=2, ctl_turns=2)
+    with _knobs(SENTINEL_TPU_NATIVE=0):
+        phase_serving(stt, sa, turns=2, per_turn=3, requests=1 << 12,
+                      duration_ms=300, runs=(("steady", 20_000),),
+                      batch_maxes=(256,), tel_ticks=3)
+        phase_tiering(stt, sa, batches=8, requests=1 << 16,
+                      serve_hot=1 << 13, fused_steps=12, turns=2,
+                      per_turn=2, ctl_turns=2)
     # (fewer steps never reach ns0's 30,000/s limit, fewer calls see no
     # ParamFlowException: the phase requires both)
     phase_cluster(stt, sa, steps=6, big_steps=2, singles=64, batches=2,
@@ -5165,6 +5847,8 @@ def main() -> int:
         fail("the port imported JAX or the JAX package")
     if sys.argv[1:2] == ["--cp-twin"]:
         return _cp_twin_main(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--gw-twin"]:
+        return _gw_twin_main(sys.argv[2], sys.argv[3])
     # the runtimes' block logs and record log go to a directory of this
     # run, removed at exit
     import tempfile
@@ -5206,10 +5890,18 @@ def main() -> int:
     report["fast_path"] = phase_fast_path_runtime(stt, sa)
     report["param_runtime"] = phase_param_runtime(stt, sa)
     report["obs_runtime"] = phase_obs_runtime(stt, sa, profile=profile)
-    report["serving"] = phase_serving(stt, sa, timer=timer, profile=profile)
-    report["tiering"] = phase_tiering(stt, sa, timer=timer, profile=profile)
+    # phases 9 and 10 keep the Python interning tables (their records
+    # stay comparable; phase 9's twins compare the pipeline's in-flight
+    # counts, and the C++ intern, which runs without the GIL, moves the
+    # dispatch threads' interleaving): phase 13 drives the C++ tables
+    with _knobs(SENTINEL_TPU_NATIVE=0):
+        report["serving"] = phase_serving(stt, sa, timer=timer,
+                                          profile=profile)
+        report["tiering"] = phase_tiering(stt, sa, timer=timer,
+                                          profile=profile)
     report["cluster"] = phase_cluster(stt, sa, profile=profile)
     report["command_plane"] = phase_command_plane(stt, sa)
+    report["gateway"] = phase_gateway(stt, sa)
     report["seconds"] = time.perf_counter() - t_all
 
     decide = report["kernel_cases"][0]
@@ -5218,7 +5910,7 @@ def main() -> int:
         "engine", "prio", "prio_mixed", "general", "general_occupy", "fast",
         "scalar_param", "general_param", "runtime", "fast_path",
         "param_runtime", "obs_runtime", "serving", "tiering", "cluster",
-        "command_plane"))
+        "command_plane", "gateway"))
     kernels = [{
         "name": "scatter_add", "route": "cuda",
         "source": "sentinel_tpu_torch/csrc/scatter_add.cu",

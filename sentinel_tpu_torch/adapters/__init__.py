@@ -12,18 +12,24 @@ ecosystem's equivalents:
 - :mod:`.asgi` — ASGI 3 middleware, async (``sentinel-spring-webflux-adapter``)
 - :mod:`.asyncio_support` — async entry helper (``sentinel-reactor-adapter``
   ``AsyncEntry`` analog for asyncio)
+- :mod:`.asgi_gateway` — gateway ASGI middleware: route and API-group
+  resources with gateway param rules (``sentinel-spring-cloud-gateway-
+  adapter`` ``SentinelGatewayFilter``)
 
 Each guards calls through the :class:`~sentinel_tpu_torch.runtime.Sentinel`
-it is given (on ``cuda`` unless built otherwise). The HTTP-client, aiohttp,
-gRPC and gateway adapters are not ported yet (ROADMAP A12).
+it is given (on ``cuda`` unless built otherwise). The HTTP-client, aiohttp
+and gRPC adapters are not ported yet (ROADMAP A12).
 """
 
 from sentinel_tpu_torch.adapters.decorator import sentinel_resource
 from sentinel_tpu_torch.adapters.wsgi import SentinelWSGIMiddleware
 from sentinel_tpu_torch.adapters.asgi import SentinelASGIMiddleware
 from sentinel_tpu_torch.adapters.asyncio_support import async_entry
+from sentinel_tpu_torch.adapters.asgi_gateway import (
+    AsgiRequestItemParser, SentinelGatewayASGIMiddleware,
+)
 
 __all__ = [
     "sentinel_resource", "SentinelWSGIMiddleware", "SentinelASGIMiddleware",
-    "async_entry",
+    "async_entry", "AsgiRequestItemParser", "SentinelGatewayASGIMiddleware",
 ]

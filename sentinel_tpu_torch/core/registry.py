@@ -17,10 +17,11 @@ resource's live counters.
 Row 0 is reserved for the global inbound aggregate (reference
 ``Constants.ENTRY_NODE``), used by the system-adaptive slot.
 
-The PyTorch port's own copy of the pure-Python registries of
-``sentinel_tpu/core/registry.py`` (the native C++ table is a later slice).
-Allocation order is identical, so the same name sequence interned into
-either package yields the same rows.
+The PyTorch port's own copy of ``sentinel_tpu/core/registry.py``: the
+pure-Python registries and the factories that pick the native C++ table
+(:mod:`sentinel_tpu_torch.native`) when it builds. Allocation order is
+identical in all four tables, so the same name sequence interned into
+either package, native or not, yields the same rows.
 """
 
 from __future__ import annotations
@@ -156,3 +157,22 @@ class OriginRegistry(Registry):
 
     def __init__(self, capacity: int):
         super().__init__(capacity, reserved=("",))
+
+
+def make_registry(capacity: int, reserved: Iterable[str] = ()):
+    """Registry factory: the C++ table when it builds (``g++``, cached in
+    ``_build/``), else the pure-Python implementation — identical
+    semantics either way. ``SENTINEL_TPU_NATIVE=0`` forces Python; a
+    failed build is logged once in the record log."""
+    from sentinel_tpu_torch.native import NativeRegistry, native_available
+    if native_available():
+        return NativeRegistry(capacity, reserved)
+    return Registry(capacity, reserved)
+
+
+def make_resource_registry(capacity: int):
+    return make_registry(capacity, reserved=(ENTRY_NODE_NAME,))
+
+
+def make_origin_registry(capacity: int):
+    return make_registry(capacity, reserved=("",))

@@ -1,4 +1,4 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels (and its host C++).
 
 Each ``csrc/<name>.cu`` is compiled by plain ``nvcc`` into a shared
 library with a C interface and loaded with :mod:`ctypes` (no PyTorch
@@ -27,6 +27,8 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: flags of the host C++ libraries (``native/src``)
+HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -53,38 +55,59 @@ def nvcc_path() -> str:
     return found
 
 
+def _hashed(src: str, stem: str, flags) -> str:
+    """The library path for ``src`` built with ``flags``: a hash of both
+    in its name, so an edited source is rebuilt."""
+    with open(src, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(flags).encode())
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
+
+
 def library_path(name: str) -> Tuple[str, str]:
     """(source path, library path) for ``csrc/<name>.cu``."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
-    return src, os.path.join(BUILD_DIR,
-                             f"lib{name}-{digest.hexdigest()[:12]}.so")
+    return src, _hashed(src, name, NVCC_FLAGS)
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists →
-    its path. The output is written to a temporary name and renamed, so
-    concurrent builders never load a half-written file."""
-    src, lib = library_path(name)
-    if os.path.isfile(lib):
-        build_seconds.setdefault(name, 0.0)
-        return lib
+def _compile(argv, lib: str) -> subprocess.CompletedProcess:
+    """Run ``argv + ["-o", tmp]`` and rename ``tmp`` to ``lib``: concurrent
+    builders (processes too) never load a half-written file."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    t0 = time.perf_counter()
     try:
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
+        proc = subprocess.run([*argv, "-o", tmp], capture_output=True,
+                              text=True, timeout=600)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+            raise RuntimeError(f"{os.path.basename(argv[0])} failed for "
+                               f"{argv[-1]}:\n{proc.stderr}")
         os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    return proc
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists →
+    its path."""
+    src, lib = library_path(name)
+    if os.path.isfile(lib):
+        build_seconds.setdefault(name, 0.0)
+        return lib
+    t0 = time.perf_counter()
+    proc = _compile([nvcc_path(), *NVCC_FLAGS, src], lib)
     build_seconds[name] = time.perf_counter() - t0
     ptxas_report[name] = proc.stderr
+    return lib
+
+
+def build_host(src: str, stem: str) -> str:
+    """Compile the host C++ source ``src`` (C interface) with ``g++``
+    into ``_build/lib<stem>-<hash>.so`` unless it is there → its path."""
+    lib = _hashed(src, stem, HOST_FLAGS)
+    if not os.path.isfile(lib):
+        _compile(["g++", *HOST_FLAGS, src], lib)
     return lib
 
 

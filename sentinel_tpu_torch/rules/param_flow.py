@@ -360,6 +360,221 @@ class ParamKeyRegistry:
             return len(self._map)
 
 
+class NativeParamKeyRegistry:
+    """:class:`ParamKeyRegistry` backed by the C++ table
+    (:mod:`sentinel_tpu_torch.native`). Same observable behavior: row
+    assignment order, LRU eviction skipping counted-pinned rows,
+    evicted-row drain, override-on-create with cancel-on-evict (held row
+    for row against both packages in ``tests/test_torch_native.py``).
+
+    Key canonicalization mirrors the Python dict's equality semantics for
+    the dominant types: ``bool``/integral ``float`` collapse onto ``int``
+    (``True == 1``, ``1.0 == 1`` in a dict), int64-range ints take the
+    13-byte binary form the C++ ``i64_get_or_create_batch`` fast path
+    writes, strings are utf-8; anything else canonicalizes via ``repr``
+    (exotic equal-but-different-repr keys may stay distinct — bounded
+    divergence, same class as the reference's Object.equals vs our repr).
+    """
+
+    def __init__(self, capacity: int):
+        import ctypes
+
+        from sentinel_tpu_torch.native import load_native
+        lib = load_native()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        self._ct = ctypes
+        self._lib = lib
+        self._cap = capacity
+        self._h = ctypes.c_void_p(lib.str_new(capacity))
+        if not self._h:
+            raise MemoryError("str_new failed")
+        self._lock = threading.Lock()    # guards _evicted/_pending lists
+        self._evicted: List[int] = []
+        self._pending_override: List[Tuple[int, float]] = []
+        self._drain_buf = np.empty(512, np.int32)
+
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h:
+            self._lib.str_free(h)
+
+    @property
+    def capacity(self) -> int:
+        return self._cap
+
+    # -- encoding ----------------------------------------------------------
+    @staticmethod
+    def _canon(kf):
+        # numpy scalars hash/compare equal to their Python counterparts in
+        # the dict-backed registry (np.int64(5) == 5), so they must
+        # collapse to the same canonical form here too
+        if isinstance(kf, (bool, np.bool_)):
+            return int(kf)
+        if isinstance(kf, np.integer):
+            kf = int(kf)
+        elif isinstance(kf, np.floating):
+            kf = float(kf)
+        if isinstance(kf, float) and kf.is_integer() \
+                and -(2 ** 63) <= kf < 2 ** 63:
+            return int(kf)
+        if isinstance(kf, int) and not (-(2 ** 63) <= kf < 2 ** 63):
+            return repr(kf)              # bigint → repr form
+        return kf
+
+    def _encode(self, slot: int, kf) -> bytes:
+        import struct
+        kf = self._canon(kf)
+        if isinstance(kf, int):
+            return struct.pack("<i", slot) + b"i" + struct.pack("<q", kf)
+        if isinstance(kf, str):
+            return struct.pack("<i", slot) + b"s" + kf.encode("utf-8")
+        if isinstance(kf, float):
+            return struct.pack("<i", slot) + b"f" + struct.pack("<d", kf)
+        return struct.pack("<i", slot) + b"r" + repr(kf).encode("utf-8")
+
+    # -- native plumbing ---------------------------------------------------
+    def _ptr(self, arr, typ):
+        return arr.ctypes.data_as(self._ct.POINTER(typ))
+
+    def _drain_native_locked(self) -> None:
+        """Pull freshly evicted rows out of the C++ queue and cancel any
+        queued override targeting them — the Python registry cancels AT
+        eviction; draining immediately after every intern call restores
+        that ordering exactly (batches are chunked at override
+        boundaries)."""
+        buf = self._drain_buf
+        while True:
+            n = self._lib.str_drain(self._h, self._ptr(buf, self._ct.c_int32),
+                                    buf.shape[0])
+            if n <= 0:
+                break
+            rows = buf[:n].tolist()
+            self._evicted.extend(rows)
+            if self._pending_override:
+                rs = set(rows)
+                self._pending_override = [
+                    (r, v) for r, v in self._pending_override
+                    if r not in rs]
+            if n < buf.shape[0]:
+                break
+
+    def _raise_if_full(self, rows: np.ndarray) -> None:
+        if (rows == -2).any():
+            raise RuntimeError(
+                "all hot-param key rows are pinned by live entries; "
+                "raise param_table_slots")
+
+    def _intern_encoded_locked(self, encoded: List[bytes],
+                               overrides) -> np.ndarray:
+        n = len(encoded)
+        offsets = np.zeros(n + 1, np.int32)
+        np.cumsum([len(b) for b in encoded], out=offsets[1:])
+        data = b"".join(encoded)
+        out = np.empty(n, np.int32)
+        created = np.empty(n, np.uint8)
+        self._lib.str_get_or_create_batch2(
+            self._h, data, self._ptr(offsets, self._ct.c_int32), n,
+            self._ptr(out, self._ct.c_int32),
+            self._ptr(created, self._ct.c_uint8))
+        self._drain_native_locked()
+        self._raise_if_full(out)
+        if overrides is not None:
+            for i, ov in overrides:
+                if ov is not None and created[i]:
+                    self._pending_override.append((int(out[i]), float(ov)))
+        return out
+
+    # -- ParamKeyRegistry interface ---------------------------------------
+    def get_or_create(self, rule_slot: int, value, override=None) -> int:
+        with self._lock:
+            out = self._intern_encoded_locked(
+                [self._encode(rule_slot, value)],
+                [(0, override)] if override is not None else None)
+            return int(out[0])
+
+    def get_or_create_batch(self, items) -> List[int]:
+        out: List[int] = []
+        chunk: List[bytes] = []
+        with self._lock:
+            for rule_slot, kf, override in items:
+                if override is None:
+                    chunk.append(self._encode(rule_slot, kf))
+                    continue
+                # override items chunk-flush so cancel-on-evict ordering
+                # matches the Python registry call-for-call
+                if chunk:
+                    out.extend(self._intern_encoded_locked(chunk, None)
+                               .tolist())
+                    chunk = []
+                one = self._intern_encoded_locked(
+                    [self._encode(rule_slot, kf)], [(0, override)])
+                out.append(int(one[0]))
+            if chunk:
+                out.extend(self._intern_encoded_locked(chunk, None)
+                           .tolist())
+        return out
+
+    def get_or_create_int_batch(self, packed: np.ndarray) -> np.ndarray:
+        """Fast path for the vector resolution tier: ``packed`` is the
+        int64 combine-key ``slot * 2**32 + (value + 2**31)`` — key bytes
+        are produced in C++, one FFI call for the whole distinct set."""
+        packed = np.ascontiguousarray(packed, np.int64)
+        n = packed.shape[0]
+        out = np.empty(n, np.int32)
+        created = np.empty(n, np.uint8)
+        with self._lock:
+            self._lib.i64_get_or_create_batch(
+                self._h, self._ptr(packed, self._ct.c_int64), n,
+                self._ptr(out, self._ct.c_int32),
+                self._ptr(created, self._ct.c_uint8))
+            self._drain_native_locked()
+            self._raise_if_full(out)
+        return out
+
+    def pin_rows(self, rows) -> None:
+        arr = np.ascontiguousarray(np.asarray(rows, np.int32).ravel())
+        arr = arr[(arr >= 0) & (arr < self._cap)]
+        if arr.size:
+            arr = np.ascontiguousarray(arr)
+            self._lib.str_pin_rows(self._h,
+                                   self._ptr(arr, self._ct.c_int32),
+                                   arr.shape[0])
+
+    def unpin_rows(self, rows) -> None:
+        arr = np.ascontiguousarray(np.asarray(rows, np.int32).ravel())
+        arr = arr[(arr >= 0) & (arr < self._cap)]
+        if arr.size:
+            arr = np.ascontiguousarray(arr)
+            self._lib.str_unpin_rows(self._h,
+                                     self._ptr(arr, self._ct.c_int32),
+                                     arr.shape[0])
+
+    def drain_updates(self) -> Tuple[List[int], List[Tuple[int, float]]]:
+        with self._lock:
+            self._drain_native_locked()
+            ev_, ov = self._evicted, self._pending_override
+            self._evicted, self._pending_override = [], []
+            return ev_, ov
+
+    def live_pin_count(self) -> int:
+        """Total counted pins held by in-flight entries (observability)."""
+        return int(self._lib.str_pin_total(self._h))
+
+    def __len__(self) -> int:
+        return int(self._lib.str_len(self._h))
+
+
+def make_param_key_registry(capacity: int):
+    """The native table when it builds, else the Python registry —
+    identical semantics either way (``SENTINEL_TPU_NATIVE=0`` forces
+    Python, same switch as the resource registry)."""
+    from sentinel_tpu_torch.native import native_available
+    if native_available():
+        return NativeParamKeyRegistry(capacity)
+    return ParamKeyRegistry(capacity)
+
+
 _PIN_NOOP = 2 ** 31 - 1       # >= any registry capacity: pin/unpin no-op
 
 
@@ -451,10 +666,16 @@ def _resolve_pairs_vector(compiled: CompiledParamRules,
         return None
     comb = slots.astype(np.int64) * (2 ** 32) + (vals + 2 ** 31)
     uniq, inv = np.unique(comb[valid], return_inverse=True)
-    u_slot = (uniq // (2 ** 32)).tolist()
-    u_val = (uniq % (2 ** 32) - 2 ** 31).tolist()
-    rows_out = np.asarray(keys.get_or_create_batch(
-        [(s, v, None) for s, v in zip(u_slot, u_val)]), np.int32)
+    goc_int = getattr(keys, "get_or_create_int_batch", None)
+    if goc_int is not None:
+        # the native table: the packed keys go through one call, the key
+        # bytes made in C++
+        rows_out = goc_int(uniq)
+    else:
+        u_slot = (uniq // (2 ** 32)).tolist()
+        u_val = (uniq % (2 ** 32) - 2 ** 31).tolist()
+        rows_out = np.asarray(keys.get_or_create_batch(
+            [(s, v, None) for s, v in zip(u_slot, u_val)]), np.int32)
     vi = np.nonzero(valid)[0]
     pr[vi, 0] = slots[valid].astype(np.int32)
     pk[vi, 0] = rows_out[inv.reshape(-1)]

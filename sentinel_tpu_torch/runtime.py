@@ -34,7 +34,8 @@ lands their statistics through the device steps in batches.
 Hot-parameter rules (:meth:`Sentinel.load_param_flow_rules`) take each
 call's arguments (``entry(..., args=...)``, ``entry_batch(...,
 args_list=...)``): the values are interned on the host into key rows
-(:class:`~sentinel_tpu_torch.rules.param_flow.ParamKeyRegistry`) and the
+(:class:`~sentinel_tpu_torch.rules.param_flow.ParamKeyRegistry`, or
+its C++ twin when ``g++`` builds it, as for the names) and the
 param slot checks them on the device. User processor slots
 (:meth:`Sentinel.register_slot`) are host gates, checked before the
 dispatch, and device slots, run inside the engine step.
@@ -116,7 +117,8 @@ from sentinel_tpu_torch.core.pending import (
 )
 from sentinel_tpu_torch.core.property import SentinelProperty
 from sentinel_tpu_torch.core.registry import (
-    ENTRY_NODE_ROW, OriginRegistry, Registry, ResourceRegistry,
+    ENTRY_NODE_ROW, make_origin_registry, make_registry,
+    make_resource_registry,
 )
 from sentinel_tpu_torch.engine import fastpath as fp_mod
 from sentinel_tpu_torch.engine import slots as slots_mod
@@ -442,9 +444,11 @@ class Sentinel:
         self.mesh = None            # one GPU; meshes are ROADMAP A11
         self.clock = clock or global_clock()
 
-        self.resources = ResourceRegistry(cfg.max_resources)
-        self.origins = OriginRegistry(cfg.max_origins)
-        self.contexts = Registry(2048, reserved=(DEFAULT_CONTEXT_NAME,))
+        # the factories pick the native C++ interning table when it builds
+        self.resources = make_resource_registry(cfg.max_resources)
+        self.origins = make_origin_registry(cfg.max_origins)
+        self.contexts = make_registry(2048,
+                                      reserved=(DEFAULT_CONTEXT_NAME,))
         self.spec = EngineSpec(
             rows=cfg.max_resources,
             alt_rows=max(2 * cfg.max_resources, 1024),
@@ -458,7 +462,7 @@ class Sentinel:
             param_keys=cfg.param_table_slots,
             param_pairs=cfg.param_pairs_per_event,
         )
-        self.param_key_registry = pf_mod.ParamKeyRegistry(
+        self.param_key_registry = pf_mod.make_param_key_registry(
             cfg.param_table_slots)
         self._user_param_rules: List[pf_mod.ParamFlowRule] = []
         self._gateway_param_rules: List[pf_mod.ParamFlowRule] = []
@@ -875,7 +879,7 @@ class Sentinel:
             self._param = compiled
             self._ruleset = self._build_ruleset()
             # rule slots changed meaning: fresh interning, cold key state
-            self.param_key_registry = pf_mod.ParamKeyRegistry(
+            self.param_key_registry = pf_mod.make_param_key_registry(
                 self.cfg.param_table_slots)
             self._param_gen += 1
             self._state = self._state._replace(
@@ -1880,9 +1884,14 @@ class Sentinel:
                          if (self._host_gates or self._cluster_rules_by_row
                              or self._cluster_param_rules_by_row) else None)
         else:
-            rows = np.fromiter(
-                (self.resources.get_or_create(r) for r in resources),
-                np.int32, count=n)
+            batch_intern = getattr(self.resources, "get_or_create_batch",
+                                   None)
+            if batch_intern is not None:  # native table: one call, no GIL
+                rows = batch_intern(resources)
+            else:
+                rows = np.fromiter(
+                    (self.resources.get_or_create(r) for r in resources),
+                    np.int32, count=n)
             # tiering: classify hot hits / cold misses and queue the
             # promotions (restored in this dispatch's eviction drain)
             self.tiering.note_interned(resources, rows)
@@ -1996,11 +2005,20 @@ class Sentinel:
             if denied.size:
                 reasons = np.asarray(verdicts.reason)
                 grouped: Dict[tuple, int] = {}
+                # one name lookup a distinct row (a C++ table's name_of
+                # is a foreign call with a buffer of its own)
+                names: Dict[int, str] = {}
                 for i in denied.tolist():
                     if pre_blocked is not None and pre_blocked[i]:
                         continue
-                    res_i = (resources[i] if resources is not None
-                             else self.resources.name_of(int(rows[i])) or "")
+                    if resources is not None:
+                        res_i = resources[i]
+                    else:
+                        row = int(rows[i])
+                        res_i = names.get(row)
+                        if res_i is None:
+                            res_i = names[row] = (
+                                self.resources.name_of(row) or "")
                     key = (res_i, int(reasons[i]),
                            (origins[i] if origins is not None
                             and origins[i] else ""))

@@ -67,17 +67,11 @@ def start_transport(sentinel, *, host: str = "0.0.0.0", port: int = 8719,
     polls for the realtime charts. Pass an explicit ``metric_searcher`` (or
     ``metric_log=False``) to manage the pipeline yourself.
 
-    The Prometheus exporter and the gateway are not ported yet:
-    ``exporter_port``, ``gateway_manager`` and ``api_definition_manager``
-    raise NotImplementedError."""
-    if exporter_port:
-        raise NotImplementedError(
-            "the Prometheus exporter (metrics/exporter.py) is not ported "
-            "yet: ROADMAP A12")
-    if gateway_manager is not None or api_definition_manager is not None:
-        raise NotImplementedError(
-            "the gateway commands come with the gateway, not ported yet: "
-            "ROADMAP A12")
+    ``gateway_manager`` / ``api_definition_manager`` add the four
+    ``gateway/*`` commands. ``exporter_port`` is advertised as
+    ``exporterPort`` in ``basicInfo`` and the heartbeat; the exporter's
+    own HTTP server is the caller's (``PrometheusExporter.serve``), as in
+    the JAX package."""
     center = CommandCenter()
     extra: dict = {}
     metric_timer = None
@@ -132,6 +126,8 @@ def start_transport(sentinel, *, host: str = "0.0.0.0", port: int = 8719,
         http = SimpleHttpCommandCenter(center, host=host, port=port)
     bound = http.start()
     extra["apiPort"] = bound          # basicInfo reflects the bound port
+    if exporter_port:
+        extra["exporterPort"] = exporter_port
 
     hb = None
     if dashboard_addr:
@@ -139,7 +135,8 @@ def start_transport(sentinel, *, host: str = "0.0.0.0", port: int = 8719,
             dashboard_addr, app_name=sentinel.cfg.app_name,
             app_type=sentinel.cfg.app_type, api_port=bound,
             interval_ms=heartbeat_interval_ms,
-            clock=clock if clock is not None else sentinel.clock)
+            clock=clock if clock is not None else sentinel.clock,
+            exporter_port=exporter_port)
         hb.start()
     return TransportRuntime(center=center, http=http, heartbeat=hb,
                             cluster_state=cstate, port=bound,

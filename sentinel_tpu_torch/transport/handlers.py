@@ -79,15 +79,10 @@ def register_default_handlers(
     gateway_manager=None,
     api_definition_manager=None,
 ) -> ClusterModeState:
-    """Bind the full default command surface for one Sentinel instance.
-    The gateway commands (``gateway_manager``/``api_definition_manager``)
-    are not ported yet: passing either raises NotImplementedError."""
+    """Bind the full default command surface for one Sentinel instance
+    (the gateway commands too when ``gateway_manager`` /
+    ``api_definition_manager`` are given)."""
     from sentinel_tpu_torch.datasource.registry import default_registry
-
-    if gateway_manager is not None or api_definition_manager is not None:
-        raise NotImplementedError(
-            "the gateway commands come with the gateway, not ported yet: "
-            "ROADMAP A12")
 
     s = sentinel
     cstate = cluster_state or ClusterModeState()
@@ -401,6 +396,55 @@ def register_default_handlers(
             return CommandResponse.of_failure("invalid mode", 400)
         cstate.set_mode(mode, s.clock.now_ms())
         return CommandResponse.of_success("success")
+
+    # ---- gateway (sentinel-api-gateway-adapter-common command handlers,
+    # registered only when the app wired up the gateway managers) --------
+
+    def _body_or_data(req: CommandRequest) -> str:
+        data = req.param("data")
+        if not data and req.body:
+            data = req.body.decode("utf-8")    # UnicodeDecodeError ⊂ ValueError
+        return data or "[]"
+
+    def cmd_gateway_get_rules(req: CommandRequest) -> CommandResponse:
+        from sentinel_tpu_torch.gateway.codec import gateway_rules_to_json
+        return CommandResponse.of_success(
+            gateway_rules_to_json(gateway_manager.all_rules()))
+
+    def cmd_gateway_update_rules(req: CommandRequest) -> CommandResponse:
+        from sentinel_tpu_torch.gateway.codec import gateway_rules_from_json
+        try:
+            rules = gateway_rules_from_json(_body_or_data(req))
+        except (ValueError, KeyError, TypeError) as exc:
+            return CommandResponse.of_failure(f"decode rules error: {exc}", 400)
+        gateway_manager.load_rules(rules)
+        return CommandResponse.of_success("success")
+
+    def cmd_gateway_get_apis(req: CommandRequest) -> CommandResponse:
+        from sentinel_tpu_torch.gateway.codec import api_definitions_to_json
+        return CommandResponse.of_success(api_definitions_to_json(
+            api_definition_manager.get_api_definitions()))
+
+    def cmd_gateway_update_apis(req: CommandRequest) -> CommandResponse:
+        from sentinel_tpu_torch.gateway.codec import api_definitions_from_json
+        try:
+            defs = api_definitions_from_json(_body_or_data(req))
+        except (ValueError, KeyError, TypeError) as exc:
+            return CommandResponse.of_failure(f"decode apis error: {exc}", 400)
+        api_definition_manager.load_api_definitions(defs)
+        return CommandResponse.of_success("success")
+
+    if gateway_manager is not None:
+        center.register(cmd_gateway_get_rules, "gateway/getRules",
+                        "get gateway flow rules")
+        center.register(cmd_gateway_update_rules, "gateway/updateRules",
+                        "set gateway flow rules")
+    if api_definition_manager is not None:
+        center.register(cmd_gateway_get_apis, "gateway/getApiDefinitions",
+                        "get gateway api groups")
+        center.register(cmd_gateway_update_apis,
+                        "gateway/updateApiDefinitions",
+                        "set gateway api groups")
 
     for name, desc, fn in [
         ("version", "get sentinel version", cmd_version),

@@ -6,9 +6,10 @@ scenario runs on both packages (twin ManualClocks; the port's runtime on
 the CPU) through ``api.entry``/``try_entry``/``exit``/``trace*``, the
 ``@sentinel_resource`` decorator, the WSGI and ASGI middlewares and
 ``async_entry``. Verdicts, handler results, traced exceptions, node
-totals and engine state must agree exactly. The reference's gRPC and
-HTTP-client adapter cases have no counterpart: those adapters are not
-ported yet (ROADMAP A12).
+totals and engine state must agree exactly. The reference's gRPC,
+HTTP-client and aiohttp adapter cases have no counterpart: those
+adapters are not ported yet (ROADMAP A12). The gateway's ASGI adapter
+is twinned in ``tests/test_torch_gateway.py``.
 """
 
 import asyncio
@@ -480,5 +481,7 @@ def test_adapter_scenario_matches_reference(scenario):
 
 def test_adapters_export_what_is_ported():
     assert set(tad.__all__) == {"sentinel_resource", "SentinelWSGIMiddleware",
-                                "SentinelASGIMiddleware", "async_entry"}
+                                "SentinelASGIMiddleware", "async_entry",
+                                "AsgiRequestItemParser",
+                                "SentinelGatewayASGIMiddleware"}
     assert set(tad.__all__) <= set(jad.__all__)

@@ -95,6 +95,16 @@ import sentinel_tpu_torch.adapters.decorator
 import sentinel_tpu_torch.adapters.wsgi
 import sentinel_tpu_torch.adapters.asgi
 import sentinel_tpu_torch.adapters.asyncio_support
+import sentinel_tpu_torch.gateway
+import sentinel_tpu_torch.gateway.api
+import sentinel_tpu_torch.gateway.codec
+import sentinel_tpu_torch.gateway.param
+import sentinel_tpu_torch.gateway.rules
+import sentinel_tpu_torch.adapters.asgi_gateway
+import sentinel_tpu_torch.metrics.exporter
+import sentinel_tpu_torch.native
+import sentinel_tpu_torch.core.registry
+sentinel_tpu_torch.native.native_available()
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "sentinel_tpu")
@@ -194,6 +204,18 @@ COMMAND_MODULES = [
 ]
 
 
+#: the gateway, the Prometheus exporter and the native interning tables,
+#: imported the same way
+GATEWAY_EXPORTER_NATIVE_MODULES = [
+    "sentinel_tpu_torch.gateway", "sentinel_tpu_torch.gateway.api",
+    "sentinel_tpu_torch.gateway.codec", "sentinel_tpu_torch.gateway.param",
+    "sentinel_tpu_torch.gateway.rules",
+    "sentinel_tpu_torch.adapters.asgi_gateway",
+    "sentinel_tpu_torch.metrics.exporter", "sentinel_tpu_torch.native",
+    "sentinel_tpu_torch.core.registry",
+]
+
+
 def _import_blocked(*modules):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -206,7 +228,8 @@ def _import_blocked(*modules):
 
 @pytest.mark.parametrize("module", OBS_MODULES + SERVING_MODULES
                          + TIER_CONTROL_MODULES + CLUSTER_MODULES
-                         + COMMAND_MODULES)
+                         + COMMAND_MODULES
+                         + GATEWAY_EXPORTER_NATIVE_MODULES)
 def test_module_imports_with_jax_blocked(module):
     _import_blocked(module)
 
@@ -254,6 +277,17 @@ def _sources():
     yield os.path.join(REPO, "chip_smoke.py")
     # the card's test file runs where there is no JAX
     yield os.path.join(REPO, "tests", "test_torch_gpu_kernels.py")
+
+
+def test_scan_covers_the_gateway_exporter_and_native_sources():
+    """The AST scan below walks the whole package: the gateway, the ASGI
+    gateway adapter, the exporter and the native tables among it."""
+    scanned = {os.path.relpath(p, PORT) for p in _sources()}
+    for rel in ("gateway/__init__.py", "gateway/api.py", "gateway/codec.py",
+                "gateway/param.py", "gateway/rules.py",
+                "adapters/asgi_gateway.py", "metrics/exporter.py",
+                "native/__init__.py"):
+        assert rel in scanned, rel
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),

@@ -27,8 +27,9 @@ Also here: port auto-increment, a heartbeat to a stub dashboard (the
 messages byte-equal), the JAX package's own dashboard client
 (``sentinel_tpu.dashboard.client.SentinelApiClient``) reading the same
 rules, metrics, nodes and cluster info from the port's center as from the
-JAX one, the ``metric_log`` wiring of ``start_transport`` and the paths
-that are not ported yet. Every server binds an ephemeral port.
+JAX one, the ``metric_log`` wiring of ``start_transport`` and its
+gateway and exporter wiring (the gateway commands over HTTP,
+``exporterPort``). Every server binds an ephemeral port.
 """
 
 import asyncio
@@ -53,10 +54,12 @@ from sentinel_tpu.core import logs as jlogs
 from sentinel_tpu.metrics import searcher as jsearcher
 from sentinel_tpu.metrics import timer as jtimer
 from sentinel_tpu.metrics import writer as jwriter
+from sentinel_tpu import gateway as jgw
 from sentinel_tpu.rules import codec as jcodec
 from sentinel_tpu.transport import async_http_server as jasync
 from sentinel_tpu_torch import control as tcontrol
 from sentinel_tpu_torch import convert
+from sentinel_tpu_torch import gateway as tgw
 from sentinel_tpu_torch import datasource as tds
 from sentinel_tpu_torch import transport as ttr
 from sentinel_tpu_torch.core import logs as tlogs
@@ -702,7 +705,7 @@ def test_reference_dashboard_client_reads_the_same(tmp_path):
     assert want["mode"]["mode"] == 1 and want["mode"]["effectiveMode"] == 1
 
 
-# ------------------------------------------------ wiring and unported paths
+# ----------------------------------------------------------------- wiring
 
 def test_start_transport_metric_log_wiring(tmp_path):
     """``metric_log=True`` starts the metric timer and the cadence
@@ -729,22 +732,75 @@ def test_start_transport_metric_log_wiring(tmp_path):
     assert got["torch"][0] == "MetricTimerListener"
 
 
-def test_unported_paths_raise_naming_the_roadmap():
-    agent_sph = stt.Sentinel(stt.load_config(max_resources=32),
-                             device="cpu")
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            ttr.start_transport(agent_sph, host="127.0.0.1", port=0,
-                                exporter_port=9464)
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            ttr.start_transport(agent_sph, host="127.0.0.1", port=0,
-                                gateway_manager=object())
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            ttr.register_default_handlers(
-                ttr.CommandCenter(), agent_sph,
-                api_definition_manager=object())
-    finally:
-        agent_sph.close()
+def test_unported_paths_raise_naming_the_roadmap(tmp_path):
+    """Once the raising paths, now the gateway and exporter wiring of
+    ``start_transport`` in both packages: the four ``gateway/*`` commands
+    over HTTP (bodies equal byte for byte), ``exporterPort`` in
+    ``basicInfo`` and the heartbeat, ``register_default_handlers`` with
+    an API manager alone; and no ``NotImplementedError`` naming A12 is
+    left in the port's transport."""
+    import os
+    got = {}
+    rules = json.dumps([
+        {"resource": "route-a", "count": 2.0,
+         "paramItem": {"parseStrategy": 0}},
+        {"resource": "route-a", "count": 5.0, "intervalSec": 2}])
+    apis = json.dumps([{"apiName": "g", "predicateItems": [
+        {"pattern": "/g/**", "matchStrategy": 1}]}])
+    for name in PKGS:
+        agent = Agent(name, tmp_path)
+        gw = jgw if name == "jax" else tgw
+        tr = agent.mods["tr"]
+        mgr = gw.GatewayRuleManager(agent.sph)
+        api_mgr = gw.GatewayApiDefinitionManager()
+        rt = tr.start_transport(agent.sph, host="127.0.0.1", port=0,
+                                metric_log=False, gateway_manager=mgr,
+                                api_definition_manager=api_mgr,
+                                exporter_port=9464,
+                                dashboard_addr="127.0.0.1:1",
+                                heartbeat_interval_ms=60_000)
+        try:
+            out = []
+            for cmd, data in (("gateway/updateRules", rules),
+                              ("gateway/getRules", None),
+                              ("gateway/updateApiDefinitions", apis),
+                              ("gateway/getApiDefinitions", None),
+                              ("gateway/updateRules", "{bad")):
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{rt.port}/{cmd}",
+                    data=(urllib.parse.urlencode({"data": data}).encode()
+                          if data else None),
+                    method="POST" if data else "GET")
+                try:
+                    with urllib.request.urlopen(req, timeout=30) as r:
+                        out.append((cmd, r.status, r.read()))
+                except urllib.error.HTTPError as exc:
+                    out.append((cmd, exc.code, exc.read()[:40]))
+            info = json.loads(rt.center.handle(
+                "basicInfo", tr.CommandRequest()).result)
+            out += [info["exporterPort"],
+                    rt.heartbeat.message()["exporterPort"],
+                    sorted(rt.center.names()),
+                    [str(r) for r in agent.sph.get_param_flow_rules()]]
+            center = tr.CommandCenter()
+            tr.register_default_handlers(center, agent.sph,
+                                         api_definition_manager=api_mgr)
+            out.append(sorted(n for n in center.names() if "gateway" in n))
+            got[name] = out
+        finally:
+            rt.stop()
+            agent.close()
+    assert got["torch"] == got["jax"]
+    body = json.loads(got["torch"][1][2])
+    assert got["torch"][1][1] == 200 and [r["count"] for r in body] \
+        == [2.0, 5.0] and body[0]["paramItem"]["parseStrategy"] == 0
+    assert got["torch"][4][1] == 400
+    assert got["torch"][5:7] == [9464, "9464"]
+    assert got["torch"][-1] == ["gateway/getApiDefinitions",
+                                "gateway/updateApiDefinitions"]
+    for mod in (ttr.bootstrap, ttr.handlers):
+        with open(mod.__file__) as fh:
+            assert "NotImplementedError" not in fh.read(), mod.__name__
 
 
 def test_start_transport_without_a_card_raises():
