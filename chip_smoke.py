@@ -164,8 +164,35 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    and verdicts). Phases 9 and 10 run under ``SENTINEL_TPU_NATIVE=0``
    (the Python tables, as before), but for one churn turn of phase 10
    with the native tables;
-14. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-   line (``launches`` summed over the runs of phases 3-13), and as the last
+14. drives the dashboard and the outbound, aiohttp and gRPC adapters:
+   ``Sentinel(device="cuda")`` at 1M rows (default configuration) behind
+   ``start_transport(port=0, metric_log=True, dashboard_addr=,
+   gateway_manager=, api_definition_manager=)``, registered by its
+   heartbeat with the port's ``DashboardServer(port=0)``, which runs with
+   a password in a process of its own (``--dashboard``); over the
+   dashboard's REST API, as its single-page app sends them: a login, the
+   CRUD of 256 flow, 64 degrade, 1 system, 16 authority, 64 param, 64
+   gateway flow and 8 API-group rules through ``/v1/{type}/rule`` (every
+   change republishes the app's full set to the agent); 512
+   ``entry()``+exit calls and 6 fused full-width steps (2^19 events);
+   a fetch into the metric repository and every route the app reads
+   (metrics, machine resources, the node tree, origins, system status,
+   telemetry, the hot resources with a device tick, the controller,
+   traces, cluster state, the one-click token-server assignment and its
+   server config), a machine removed and re-registered by a heartbeat;
+   then ``guarded_urlopen``, ``SentinelSession``, the gRPC interceptors
+   and the aiohttp middleware and session on the same runtime (each
+   package's legs where it is installed; the absent ones are named).
+   The same session at 16k rows on the card, with the plain seam and on
+   the CPU (``--db-twin``, processes of their own) must give the same
+   verdicts, response bodies, repositories and adapter totals (the
+   twins the same state). Then, alone: µs per route, ms per rule push
+   with 4096 flow rules held, and host ms per fused step with the
+   dashboard at its real cadence (the fetcher every 6 s, browsers on the
+   Resources view every 3 s and on Hot Resources every 5 s, the app list
+   every 10 s) and stopped, in turns;
+15. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
+   line (``launches`` summed over the runs of phases 3-14), and as the last
    line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --find-syncs`` runs 3-5 steps of each engine phase
@@ -5777,6 +5804,1107 @@ def phase_gateway(stt, sa, dev="cuda", R=1 << 20, twin_rows=1 << 14,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the dashboard and the outbound, aiohttp and gRPC adapters
+# ---------------------------------------------------------------------------
+
+DB_T0 = 1_830_000_000_000
+DB_APP = "chip-smoke-db"
+DB_PASSWORD = "chip-smoke"
+#: rules created one by one over the dashboard's /v1/{type}/rule, by
+#: family (each family one more, updated and deleted again)
+DB_RULES = (("flow", 256), ("degrade", 64), ("system", 1), ("authority", 16),
+            ("paramFlow", 64), ("gatewayFlow", 64), ("gatewayApi", 8))
+DB_POOL = 8192               # rule-free names of the fused steps
+#: the dashboard's deadline for an agent call
+#: (``SENTINEL_DASH_AGENT_TIMEOUT_S``, the reference's knob): the client's
+#: 3 s default does not hold for the first rule push into a cold agent on
+#: the card while the twins start beside it (the push's ms are reported)
+DB_AGENT_TIMEOUT_S = 30.0
+DB_HELD = 4096               # flow rules held when a rule push is timed
+#: the dashboard at its real cadence: (poller, period s, first firing s)
+#: — the metric fetcher every 6 s (``fetcher.FETCH_INTERVAL_S``), one
+#: browser on the Resources view (3 s) and on Hot Resources (5 s), and the
+#: SPA's app list (10 s)
+DB_CADENCE = (("fetch", 6.0, 1.0), ("resources", 3.0, 0.5),
+              ("hot", 5.0, 1.5), ("apps", 10.0, 0.2))
+#: body fields that follow the wall clock, dropped by name before the
+#: bodies are compared: the dashboard stamps a heartbeat when it lands
+#: and the agent when its thread sends it; latency histograms and span
+#: durations are host times
+DB_WALL = ("lastHeartbeat", "heartbeatVersion", "hist", "spans")
+#: body fields that follow the table's geometry, held among the twins
+#: only: the telemetry's rows a shard, and the counters of the route a
+#: decide takes (where the context key fits 16k rows it takes the fast
+#: route, at 1M the general one)
+DB_GEOMETRY = ("rows_per_shard", "split_route.", "sortfree.")
+#: the command that runs one twin session in a process of its own
+DB_TWIN_CMD = [sys.executable, os.path.abspath(__file__), "--db-twin"]
+#: the command that runs a session's dashboard in a process of its own
+DB_DASH_CMD = [sys.executable, os.path.abspath(__file__), "--dashboard"]
+
+
+class _DbClock:
+    """The dashboard process's clock: set by the session to its agent's
+    ManualClock time, or, for the timed turns, running on the wall clock
+    from the agent's time at the switch."""
+
+    def __init__(self, ms: int):
+        self._ms, self._follow = ms, None
+
+    def now_ms(self) -> int:
+        if self._follow is None:
+            return self._ms
+        base, t0 = self._follow
+        return base + int((time.perf_counter() - t0) * 1e3)
+
+    def set_ms(self, ms: int) -> None:
+        self._ms, self._follow = ms, None
+
+    def follow(self, ms: int) -> None:
+        self._follow = (ms, time.perf_counter())
+
+
+def _db_request(port: int, method: str, path: str, body=None, cookie=None,
+                timeout: float = 120):
+    """One REST call to a dashboard as the SPA sends it (JSON body, the
+    session cookie) → (status, parsed body or text, µs, headers)."""
+    import urllib.error
+    import urllib.request
+    headers = {"Content-Type": "application/json"}
+    if cookie:
+        headers["Cookie"] = cookie
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method=method, headers=headers,
+        data=json.dumps(body).encode() if body is not None else None)
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, text, hdrs = r.status, r.read().decode("utf-8"), r.headers
+    except urllib.error.HTTPError as exc:
+        status, text, hdrs = exc.code, exc.read().decode("utf-8"), exc.headers
+    us = (time.perf_counter() - t) * 1e6
+    try:
+        doc = json.loads(text)
+    except ValueError:
+        doc = text
+    return status, doc, us, hdrs
+
+
+class _DbCadence:
+    """The dashboard's pollers at their real cadence (:data:`DB_CADENCE`),
+    each a thread of the dashboard's process: the metric fetcher's loop
+    body (``fetch_all_once``) and three browser views over the REST API
+    (the Resources view, Hot Resources, the app list)."""
+
+    def __init__(self, dash, port: int, cookie: str, ip: str,
+                 agent_port: int):
+        import threading
+        self.dash, self.port, self.cookie = dash, port, cookie
+        q = f"ip={ip}&port={agent_port}"
+        self.paths = {"resources": f"/resource/machineResource.json?{q}",
+                      "hot": f"/obs/topk.json?{q}&timeline=60",
+                      "apps": "/app/names.json"}
+        self.us = {name: [] for name, _p, _f in DB_CADENCE}
+        self.bad = []
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run, args=c,
+                                          daemon=True, name=f"cadence-{c[0]}")
+                         for c in DB_CADENCE]
+        for t in self._threads:
+            t.start()
+
+    def _run(self, name: str, period: float, first: float) -> None:
+        t0, k = time.perf_counter(), 0
+        while not self._stop.wait(max(0.0, t0 + first + k * period
+                                      - time.perf_counter())):
+            k += 1
+            t = time.perf_counter()
+            try:
+                if name == "fetch":
+                    self.dash.fetcher.fetch_all_once()
+                else:
+                    status, doc, _us, _h = _db_request(
+                        self.port, "GET", self.paths[name],
+                        cookie=self.cookie)
+                    if status != 200 or not doc.get("success"):
+                        self.bad.append((name, status, str(doc)[:200]))
+            except Exception as exc:        # noqa: BLE001 — reported
+                self.bad.append((name, repr(exc)))
+            self.us[name].append((time.perf_counter() - t) * 1e6)
+
+    def close(self) -> dict:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=120)
+        return {"us": self.us, "bad": self.bad}
+
+
+def _db_repo(d) -> dict:
+    """A dashboard's repositories: every rule entity by family, every
+    fetched metric entity, every machine (less :data:`DB_WALL`)."""
+    now = d._now_ms()
+    return {
+        "rules": {t: [e.to_dict() for e in sorted(repo._by_id.values(),
+                                                  key=lambda e: e.id)]
+                  for t, repo in d.rules.items()},
+        "metrics": {app: {res: [e.to_dict() for e in ring.values()]
+                          for res, ring in rings.items()}
+                    for app, rings in d.metrics._data.items()},
+        "machines": {app: [_db_drop(m.to_dict(now), DB_WALL)
+                           for m in d.apps.machines(app)]
+                     for app in d.apps.app_names()}}
+
+
+def _db_drop(doc, names: tuple):
+    """``doc`` less every field whose name starts with one of ``names``
+    (:data:`DB_WALL`, :data:`DB_GEOMETRY`), at any depth."""
+    if isinstance(doc, dict):
+        return {k: _db_drop(v, names) for k, v in doc.items()
+                if not k.startswith(names)}
+    if isinstance(doc, (list, tuple)):
+        return [_db_drop(v, names) for v in doc]
+    return doc
+
+
+def _db_dash_main(spec_path: str) -> int:
+    """``chip_smoke.py --dashboard SPEC``: a session's dashboard in a
+    process of its own — ``DashboardServer(port=0)`` with a password on
+    a :class:`_DbClock` — with a control server beside it through which
+    the session sets the clock, runs a fetch, reads the repositories and
+    switches the real cadence on and off. Writes both ports to the spec's
+    ``out`` file; ends on ``/quit`` or when its parent is gone."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    from sentinel_tpu_torch.dashboard import Dashboard, DashboardServer
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    clock = _DbClock(spec["t0"])
+    server = DashboardServer(Dashboard(
+        password=spec["password"], clock=clock,
+        agent_timeout_s=spec["agent_timeout_s"]), host="127.0.0.1", port=0)
+    port = server.start(fetch=False)
+    d = server.dashboard
+    state = {"cadence": None}
+    done = threading.Event()
+
+    def handle(path: str, p: dict) -> dict:
+        if path == "/clock":
+            clock.set_ms(p["ms"])
+            return {}
+        if path == "/fetch":
+            clock.set_ms(p["ms"])
+            return {"saved": d.fetcher.fetch_once(p["app"])}
+        if path == "/repo":
+            return _db_repo(d)
+        if path == "/cadence/on":
+            clock.follow(p["ms"])
+            state["cadence"] = _DbCadence(d, port, p["cookie"], p["ip"],
+                                          p["port"])
+            return {}
+        if path == "/cadence/off":
+            out = state["cadence"].close()
+            state["cadence"] = None
+            clock.set_ms(clock.now_ms())
+            return out
+        if path == "/quit":
+            done.set()
+            return {}
+        raise ValueError(path)
+
+    class Ctl(BaseHTTPRequestHandler):
+        def do_POST(self):  # noqa: N802
+            n = int(self.headers.get("Content-Length") or 0)
+            try:
+                out, status = handle(self.path, json.loads(
+                    self.rfile.read(n) or b"{}")), 200
+            except Exception as exc:        # noqa: BLE001 — reported
+                out, status = {"error": repr(exc)}, 500
+            body = json.dumps(out).encode()
+            self.send_response(status)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    ctl = ThreadingHTTPServer(("127.0.0.1", 0), Ctl)
+    ctl.daemon_threads = True
+    threading.Thread(target=ctl.serve_forever, daemon=True).start()
+    tmp = spec["out"] + ".tmp"
+    with open(tmp, "w") as fh:
+        json.dump({"port": port, "ctl": ctl.server_address[1]}, fh)
+    os.replace(tmp, spec["out"])
+    parent = os.getppid()
+    while not done.wait(0.5):
+        if os.getppid() != parent:
+            break
+    if state["cadence"] is not None:
+        state["cadence"].close()
+    ctl.shutdown()
+    ctl.server_close()
+    server.stop()
+    return 0
+
+
+def _db_ctl(port: int, path: str, body=None) -> dict:
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method="POST",
+        data=json.dumps(body or {}).encode())
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read().decode())
+
+
+def _db_rule(family: str, k: int) -> dict:
+    """Rule ``k`` of a family as the SPA's editor sends it: QPS rules on
+    ``f0``.. (every ninth THREAD grade), exception-ratio breakers and
+    ``evil``-blacklists on the same names, param rules on ``p0``.. (every
+    fourth with a per-item override), gateway rules on 32 routes (half by
+    client IP) and API groups by path prefix."""
+    if family == "flow":
+        return {"resource": f"f{k}", "grade": 0 if k % 9 == 4 else 1,
+                "count": 4.0 if k % 9 == 4 else 20.0 + k % 7}
+    if family == "degrade":
+        return {"resource": f"f{k}", "grade": 1, "count": 0.5,
+                "timeWindow": 10, "minRequestAmount": 5}
+    if family == "system":
+        return {"qps": 1e12, "maxThread": 1e9 + k}
+    if family == "authority":
+        return {"resource": f"f{k}", "limitApp": "evil", "strategy": 1}
+    if family == "paramFlow":
+        rule = {"resource": f"p{k}", "paramIdx": 0, "grade": 1,
+                "count": 3.0 + k % 3, "durationInSec": 1}
+        if k % 4 == 0:
+            rule["paramFlowItemList"] = [{"object": "7", "count": 1,
+                                          "classType": "int"}]
+        return rule
+    if family == "gatewayFlow":
+        rule = {"resource": f"route{k % 32}", "resourceMode": 0,
+                "count": 10.0 + k % 5, "intervalSec": 1}
+        if k % 2:
+            rule["paramItem"] = {"parseStrategy": 0}
+        return rule
+    return {"apiName": f"grp{k}", "predicateItems": [
+        {"pattern": f"/api/g{k}/**", "matchStrategy": 1}]}
+
+
+def _db_norm(obj, ports: dict):
+    """``obj`` with every bound port replaced by its role."""
+    if isinstance(obj, bool):
+        return obj
+    if isinstance(obj, int):
+        return ports.get(obj, obj)
+    if isinstance(obj, str):
+        for port, role in ports.items():
+            obj = obj.replace(f":{port}", f":{role}").replace(
+                f"port={port}", f"port={role}")
+        return obj
+    if isinstance(obj, dict):
+        return {k: _db_norm(v, ports) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_db_norm(v, ports) for v in obj]
+    return obj
+
+
+def _db_calls(stt, sph, clock, calls: int, seed: int) -> list:
+    """``entry``+exit calls on the ruled names, 1 ms of virtual time every
+    8 calls → outcomes: inbound on the hot set ``f0``..``f15`` (3% from
+    the blacklisted origin; business errors on ``f0``..``f7``, so their
+    breakers trip, and ``f8``..``f15`` run past their QPS), outbound on
+    ``p0``..``p3`` with Zipf(1.3) user ids as the param, and inbound on
+    the gateway routes as gateway resources."""
+    from sentinel_tpu_torch.metrics.node import TYPE_GATEWAY
+    rng = np.random.default_rng(seed)
+    out = []
+    picks = rng.integers(0, 100, calls).tolist()
+    keys = rng.integers(0, 1 << 16, calls).tolist()
+    users = (rng.zipf(1.3, calls) % 16).tolist()
+    for k in range(calls):
+        pick, key = picks[k], keys[k]
+        try:
+            if pick < 60:
+                e = sph.entry(f"f{key % 16}", entry_type=stt.ENTRY_TYPE_IN,
+                              origin="evil" if pick < 3 else "")
+                if key % 16 < 8 and key % 5 < 3:
+                    e.trace(RuntimeError("business error"))
+                e.exit()
+            elif pick < 85:
+                with sph.entry(f"p{key % 4}", args=(int(users[k]),),
+                               entry_type=stt.ENTRY_TYPE_OUT):
+                    pass
+            else:
+                with sph.entry(f"route{key % 32}", entry_type=stt.ENTRY_TYPE_IN,
+                               resource_type=TYPE_GATEWAY):
+                    pass
+            out.append("pass")
+        except stt.BlockException as exc:
+            out.append(type(exc).__name__)
+        if k % 8 == 7:
+            clock.advance_ms(1)
+    return out
+
+
+def _db_stream(sph, B: int, steps: int, seed: int = 143):
+    """``steps`` fused-step batches over the flow-ruled names (1/4) and a
+    rule-free pool (3/4), as rows; the exits of ``f0``..``f7`` fail."""
+    ruled = sph.intern_resources([f"f{i}" for i in range(256)])
+    pool = sph.intern_resources([f"u{i}" for i in range(DB_POOL)])
+    rng = np.random.default_rng(seed)
+    batches = [np.where(rng.random(B) < 0.25, ruled[rng.integers(0, 256, B)],
+                        pool[rng.integers(0, DB_POOL, B)]).astype(np.int32)
+               for _ in range(steps)]
+    return batches, set(ruled[:8].tolist())
+
+
+class _DbUpstream:
+    """A loopback ``http.server``: ``/.../ok`` answers 200 ``hi``,
+    ``/.../flaky`` 503, anything else 404."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.0"
+
+            def do_GET(self):  # noqa: N802
+                status, body = ((200, b"hi") if self.path.endswith("/ok")
+                                else (503, b"down")
+                                if self.path.endswith("/flaky")
+                                else (404, b"none"))
+                self.send_response(status)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        self.host = f"127.0.0.1:{self.server.server_address[1]}"
+        self._t = threading.Thread(target=self.server.serve_forever,
+                                   daemon=True)
+        self._t.start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self._t.join(timeout=60)
+
+
+def _db_adapters(stt, sph) -> dict:
+    """The outbound, aiohttp and gRPC adapters on the session's runtime:
+    ``guarded_urlopen`` against a loopback ``http.server`` (pass, block
+    before connecting, a 5xx and a dead port traced), ``SentinelSession``
+    the same way if ``requests`` is installed, the gRPC server and client
+    interceptors on a loopback grpc server if ``grpc`` is, and
+    ``sentinel_middleware`` and ``SentinelAiohttpSession`` if ``aiohttp``
+    is → verdicts by leg, node totals of the adapters' resources (the
+    upstream's port replaced) and the absent packages."""
+    import importlib
+    import socket
+    import urllib.request
+    from sentinel_tpu_torch.adapters import SentinelSession, guarded_urlopen
+    up = _DbUpstream()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        dead = s.getsockname()[1]
+    out = {"absent": [], "verdicts": {}}
+    names = []
+    hosts = {up.host: "<upstream>", f"127.0.0.1:{dead}": "<dead>"}
+
+    def outcome(fn):
+        try:
+            r = fn()
+            status = getattr(r, "status", None) or getattr(
+                r, "status_code", None)
+            if hasattr(r, "close"):
+                r.close()
+            return ("ok", status)
+        except stt.BlockException as exc:
+            return ("block", type(exc).__name__)
+        except Exception as exc:            # noqa: BLE001 — compared
+            return ("raise", type(exc).__name__)
+
+    def rules(*extra):
+        sph.load_flow_rules(sph.get_flow_rules() + [
+            stt.FlowRule(resource=r, count=c) for r, c in extra])
+
+    try:
+        base = f"http://{up.host}"
+        ok, gone = f"httpclient:GET:{up.host}/u/ok", "httpclient:GET:127.0.0.1:1/x"
+        rules((ok, 3), (gone, 0))
+        names += [ok, f"httpclient:GET:{up.host}/u/flaky", gone,
+                  f"httpclient:GET:127.0.0.1:{dead}/gone"]
+        out["verdicts"]["urlopen"] = [outcome(lambda: guarded_urlopen(
+            sph, f"{base}/u/ok", timeout=30)) for _ in range(4)] + [
+            outcome(lambda: guarded_urlopen(sph, f"{base}/u/flaky",
+                                            timeout=30)),
+            outcome(lambda: guarded_urlopen(sph, "http://127.0.0.1:1/x",
+                                            timeout=0.2)),
+            outcome(lambda: guarded_urlopen(
+                sph, urllib.request.Request(
+                    f"http://127.0.0.1:{dead}/gone"), timeout=5))]
+        try:
+            import requests  # noqa: F401
+        except ImportError:
+            out["absent"].append("requests")
+        else:
+            ok = f"httpclient:GET:{up.host}/s/ok"
+            rules((ok, 2))
+            names += [ok, f"httpclient:GET:{up.host}/s/flaky"]
+            session = SentinelSession(sph)
+            try:
+                out["verdicts"]["session"] = [outcome(lambda: session.get(
+                    f"{base}/s/ok", timeout=30)) for _ in range(3)] + [
+                    outcome(lambda: session.get(f"{base}/s/flaky",
+                                                timeout=30)),
+                    outcome(lambda: session.get(
+                        f"http://127.0.0.1:{dead}/gone", timeout=5))]
+            finally:
+                session.close()
+        try:
+            import grpc
+        except ImportError:
+            out["absent"].append("grpc")
+        else:
+            gi = importlib.import_module(
+                "sentinel_tpu_torch.adapters.grpc_interceptor")
+            out["verdicts"]["grpc"] = _db_grpc(grpc, gi, sph, rules, names)
+        try:
+            import aiohttp  # noqa: F401
+        except ImportError:
+            out["absent"].append("aiohttp")
+        else:
+            out["verdicts"]["aiohttp"], aio_host = _db_aiohttp(
+                stt, sph, rules, names)
+            hosts[aio_host] = "<aiohttp-upstream>"
+    finally:
+        up.close()
+
+    def rename(n):
+        for h, role in hosts.items():
+            n = n.replace(h, role)
+        return n
+    totals = {}
+    for n in names:
+        t = dict(sph.node_totals(n))
+        t.pop("avg_rt", None)
+        totals[rename(n)] = t
+    out["totals"] = totals
+    return out
+
+
+def _db_grpc(grpc, gi, sph, rules, names) -> list:
+    """The gRPC legs: 3 calls through ``SentinelServerInterceptor`` on a
+    QPS-2 method, one whose handler raises; 3 calls through
+    ``SentinelClientInterceptor`` to a QPS-2 method, one answered
+    INTERNAL."""
+    from concurrent import futures
+
+    def boom(request, context):
+        raise RuntimeError("handler broke")
+
+    def internal(request, context):
+        context.abort(grpc.StatusCode.INTERNAL, "nope")
+
+    def serve(interceptors, methods):
+        server = grpc.server(futures.ThreadPoolExecutor(max_workers=2),
+                             interceptors=interceptors)
+        server.add_generic_rpc_handlers((grpc.method_handlers_generic_handler(
+            "smoke.Echo", {m: grpc.unary_unary_rpc_method_handler(
+                fn, request_deserializer=lambda b: b,
+                response_serializer=lambda b: b)
+                for m, fn in methods.items()}),))
+        port = server.add_insecure_port("127.0.0.1:0")
+        server.start()
+        return server, port
+
+    def call(ch, method, req):
+        try:
+            return ("ok", ch.unary_unary(
+                method, request_serializer=lambda b: b,
+                response_deserializer=lambda b: b)(req, timeout=60).decode())
+        except grpc.RpcError as exc:
+            return ("rpc", str(exc.code()), exc.details())
+
+    rules(("/smoke.Echo/In", 2), ("/smoke.Echo/Out", 2))
+    names += ["/smoke.Echo/In", "/smoke.Echo/Boom", "/smoke.Echo/Out",
+              "/smoke.Echo/Fail"]
+    echo = {"In": lambda r, c: r + b"!", "Boom": boom,
+            "Out": lambda r, c: r + b"?", "Fail": internal}
+    inbound, iport = serve([gi.SentinelServerInterceptor(sph)], echo)
+    plain, pport = serve([], echo)
+    out = []
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{iport}") as ch:
+            out += [call(ch, "/smoke.Echo/In", b"x") for _ in range(3)]
+            out.append(call(ch, "/smoke.Echo/Boom", b"x")[:2])
+        with grpc.insecure_channel(f"127.0.0.1:{pport}") as raw:
+            ch = grpc.intercept_channel(raw,
+                                        gi.SentinelClientInterceptor(sph))
+            out += [call(ch, "/smoke.Echo/Out", b"y") for _ in range(3)]
+            out.append(call(ch, "/smoke.Echo/Fail", b"y"))
+    finally:
+        inbound.stop(None).wait(60)
+        plain.stop(None).wait(60)
+    return out
+
+
+def _db_aiohttp(stt, sph, rules, names) -> list:
+    """The aiohttp legs on one event loop: 3 requests through
+    ``sentinel_middleware`` on a QPS-2 route and one whose handler
+    raises; 3 through ``SentinelAiohttpSession`` to a QPS-2 upstream path
+    and one answered 503."""
+    import asyncio
+    import importlib
+    import aiohttp
+    from aiohttp import web
+    from aiohttp.test_utils import TestServer
+    from sentinel_tpu_torch.adapters import SentinelAiohttpSession
+    mw = importlib.import_module("sentinel_tpu_torch.adapters.aiohttp_server")
+
+    async def api(request):
+        return web.Response(text="api")
+
+    async def boom(request):
+        raise web.HTTPInternalServerError(text="boom")
+
+    async def flaky(request):
+        return web.Response(status=503)
+
+    async def run():
+        guarded = web.Application(middlewares=[mw.sentinel_middleware(sph)])
+        guarded.router.add_get("/aio/api", api)
+        guarded.router.add_get("/aio/boom", boom)
+        upstream = web.Application()
+        upstream.router.add_get("/aio/ok", api)
+        upstream.router.add_get("/aio/flaky", flaky)
+        s1, s2 = TestServer(guarded), TestServer(upstream)
+        await s1.start_server()
+        await s2.start_server()
+        host = f"{s2.host}:{s2.port}"
+        ok = f"httpclient:GET:{host}/aio/ok"
+        rules(("GET:/aio/api", 2), (ok, 2))
+        names.extend(["GET:/aio/api", "GET:/aio/boom"])
+        session = SentinelAiohttpSession(sph)
+        res = []
+        try:
+            async with aiohttp.ClientSession() as plain:
+                for path in ("/aio/api",) * 3 + ("/aio/boom",):
+                    async with plain.get(
+                            f"http://{s1.host}:{s1.port}{path}") as r:
+                        res.append(("in", r.status, await r.text()))
+            for path in ("/aio/ok",) * 3 + ("/aio/flaky",):
+                try:
+                    r = await session.get(f"http://{host}{path}")
+                    res.append(("out", r.status, await r.text()))
+                except stt.BlockException as exc:
+                    res.append(("out", type(exc).__name__))
+        finally:
+            await session.close()
+            await s1.close()
+            await s2.close()
+        return host, res
+
+    host, res = asyncio.run(asyncio.wait_for(run(), 120))
+    names.extend([f"httpclient:GET:{host}/aio/ok",
+                  f"httpclient:GET:{host}/aio/flaky"])
+    return res, host
+
+
+def _db_session(stt, sa, dev, R: int, tmp: str, B: int, steps: int,
+                calls: int, timing: bool, route_n: int = 16, push_n: int = 8,
+                turns: int = 4, turn_s: float = 10.0, tag: str = "",
+                plain: bool = False, before_timing=None) -> dict:
+    """One dashboard session (see :func:`phase_dashboard`) on
+    ``Sentinel(device=dev)`` at ``R`` rows → its observations: every
+    dashboard response (method, path, parsed body, ports by role), every
+    verdict, the dashboard's repositories, the adapters' verdicts and
+    totals, the launches and the engine state. With ``timing`` it then
+    (after ``before_timing()``) times every route, the rule push at
+    :data:`DB_HELD` flow rules held and the fused steps with the
+    dashboard at its real cadence and stopped, in turns."""
+    from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch import gateway as tgw
+    from sentinel_tpu_torch.cluster.coordinator import ClusterCoordinator
+    from sentinel_tpu_torch.control import ControlLoop
+    from sentinel_tpu_torch.core.logs import BlockStatLogger
+    from sentinel_tpu_torch.metrics.timer import MetricTimerListener
+    from sentinel_tpu_torch.transport import start_transport
+    os.makedirs(tmp, exist_ok=True)
+    res = {"http": [], "timing": {}, "section_s": {}}
+    t_sec = [time.perf_counter()]
+
+    def section(name):
+        now = time.perf_counter()
+        res["section_s"][name] = now - t_sec[0]
+        t_sec[0] = now
+        log(f"[dashboard] {tag} {name}: {res['section_s'][name]:.1f} s")
+
+    # the dashboard, in a process of its own
+    spec = os.path.join(tmp, "dashboard.json")
+    portfile = os.path.join(tmp, "dashboard.ports")
+    if os.path.exists(portfile):
+        os.remove(portfile)
+    with open(spec, "w") as fh:
+        json.dump({"t0": DB_T0, "password": DB_PASSWORD, "out": portfile,
+                   "agent_timeout_s": DB_AGENT_TIMEOUT_S}, fh)
+    dlog = open(os.path.join(tmp, "dashboard.log"), "w")
+    dproc = subprocess.Popen(DB_DASH_CMD + [spec], stdout=dlog,
+                             stderr=subprocess.STDOUT)
+    rt = coord = sph = None
+    try:
+        deadline = time.monotonic() + 180
+        while not os.path.exists(portfile):
+            if dproc.poll() is not None or time.monotonic() > deadline:
+                fail(f"dashboard phase: {tag} dashboard process did not "
+                     f"start (rc {dproc.poll()})")
+            time.sleep(0.05)
+        with open(portfile) as fh:
+            dports = json.load(fh)
+        dport, cport = dports["port"], dports["ctl"]
+        ports = {dport: "<dashboard>"}
+        clock = stt.ManualClock(start_ms=DB_T0)
+        sph = stt.Sentinel(config=stt.load_config(
+            max_resources=R, max_flow_rules=2 * DB_HELD, app_name=DB_APP,
+            metric_log_dir=os.path.join(tmp, "metrics")), clock=clock,
+            device=dev)
+        sph._cpu.sample = lambda: (0.5, 0.25)
+        sph.block_log.close()
+        sph.block_log = BlockStatLogger(clock,
+                                        base_dir=os.path.join(tmp, "bl"))
+        ControlLoop(sph)            # attaches as sph.control
+        mgr = tgw.GatewayRuleManager(sph)
+        api_mgr = tgw.GatewayApiDefinitionManager()
+        # 0.0.0.0: the heartbeat advertises the machine's interface IP and
+        # the dashboard connects back to it
+        rt = start_transport(sph, host="0.0.0.0", port=0, metric_log=True,
+                             dashboard_addr=f"127.0.0.1:{dport}",
+                             gateway_manager=mgr,
+                             api_definition_manager=api_mgr)
+        # the twins must agree: the metric timer and the cadence scheduler
+        # do not tick on the wall clock here; the session ticks the timer
+        rt.metric_timer.stop()
+        if rt.cadence is not None:
+            rt.cadence.stop()
+        timer = MetricTimerListener(sph)
+        coord = ClusterCoordinator(sph, flows_per_shard=16,
+                                   param_keys_per_shard=64, clock=clock)
+        coord.bind(rt.cluster_state, rt.center)
+        aport = rt.port
+        ports[aport] = "<agent>"
+        cookie = [None]
+
+        def api(method, path, body=None, record=True, ok=True):
+            status, doc, us, hdrs = _db_request(dport, method, path, body,
+                                                cookie[0])
+            if record:
+                res["http"].append((method, path, status,
+                                    _db_drop(doc, DB_WALL)))
+            if ok and (status != 200 or (isinstance(doc, dict)
+                                         and not doc.get("success"))):
+                fail(f"dashboard phase: {tag} {method} {path} answered "
+                     f"{status}: {str(doc)[:300]}")
+            return doc, us, hdrs
+
+        # (a) log in, see the agent's heartbeat land, the rule CRUD
+        api("GET", "/app/names.json", ok=False)       # the 401 envelope
+        doc, _us, hdrs = api("POST", "/auth/login", {
+            "username": "sentinel", "password": DB_PASSWORD})
+        cookie[0] = hdrs["Set-Cookie"].split(";")[0]
+        deadline = time.monotonic() + 60
+        while DB_APP not in api("GET", "/app/names.json",
+                                record=False)[0]["data"]:
+            if time.monotonic() > deadline:
+                fail(f"dashboard phase: {tag} the agent's heartbeat never "
+                     f"registered it")
+            time.sleep(0.05)
+        machines = api("GET", f"/app/{DB_APP}/machines.json")[0]["data"]
+        ip = machines[0]["ip"]
+        res["agent_ip"] = ip
+        q = f"ip={ip}&port={aport}"
+        push_us = collections.defaultdict(list)
+        for family, n in DB_RULES:
+            ids = []
+            for k in range(n + 1):
+                doc, us, _h = api("POST", f"/v1/{family}/rule",
+                                  {"app": DB_APP, **_db_rule(family, k)})
+                ids.append(doc["data"]["id"])
+                push_us[family].append(us)
+            edit = {"count": 7.0} if family not in ("system", "gatewayApi") \
+                else {"qps": 5e11} if family == "system" else {
+                    "predicateItems": [{"pattern": "/api/g0/x",
+                                        "matchStrategy": 0}]}
+            api("PUT", f"/v1/{family}/rule/{ids[0]}", edit)
+            api("DELETE", f"/v1/{family}/rule/{ids[-1]}")
+        for family, _n in DB_RULES:
+            api("GET", f"/v1/{family}/rules?app={DB_APP}")
+        res["push_us"] = dict(push_us)
+        section("rules")
+        # the traffic: entry calls, then full-width fused steps
+        sa.LAUNCHES.clear()
+        res["calls"] = _db_calls(stt, sph, clock, calls, seed=141)
+        batches, failing = _db_stream(sph, B, steps)
+        prev = [np.empty(0, np.int32)]
+        res["steps"] = _cp_steps(sph, dev, batches, failing, prev,
+                                 dev == "cuda" and not plain)
+        clock.advance_ms(4000)
+        res["ticked"] = timer.tick()
+        res["fetched"] = _db_ctl(cport, "/fetch", {"ms": clock.now_ms(),
+                                                  "app": DB_APP})["saved"]
+        section("traffic")
+        # every route the SPA reads
+        for path in (f"/metric/resources.json?app={DB_APP}",
+                     f"/metric/queryByAppAndResource.json?app={DB_APP}"
+                     f"&identity=f1&startTime={DB_T0 - 1000}"
+                     f"&endTime={DB_T0 + 60_000}",
+                     f"/resource/machineResource.json?{q}",
+                     f"/resource/jsonTree.json?{q}",
+                     f"/resource/origin.json?{q}&id=f1",
+                     f"/systemStatus.json?{q}",
+                     f"/obs/telemetry.json?{q}&spans=16&events=16",
+                     f"/obs/topk.json?{q}&timeline=60&tick=1",
+                     f"/obs/control.json?{q}&actions=32",
+                     f"/obs/traces.json?{q}",
+                     f"/cluster/state.json?app={DB_APP}"):
+            api("GET", path)
+        doc, _us, _h = api("POST", "/cluster/assign", {
+            "app": DB_APP, "serverIp": ip, "serverPort": aport})
+        ports[doc["data"]["tokenPort"]] = "<token>"
+        if coord.server is None:
+            fail(f"dashboard phase: {tag} /cluster/assign started no token "
+                 f"server")
+        api("GET", f"/cluster/state.json?app={DB_APP}")
+        api("GET", f"/cluster/serverConfig.json?{q}")
+        api("POST", "/cluster/serverConfig", {
+            "ip": ip, "port": aport, "namespaces": DB_APP,
+            "namespace": DB_APP, "maxAllowedQps": 5000.0})
+        api("GET", f"/cluster/serverConfig.json?{q}&namespace={DB_APP}")
+        api("GET", f"/cluster/metrics.json?app={DB_APP}&{q}")
+        api("POST", "/cluster/mode", {"app": DB_APP, "ip": ip, "port": aport,
+                                      "mode": -1})
+        res["page"] = _db_request(dport, "GET", "/")[1]
+        res["app_js"] = _db_request(dport, "GET", "/static/app.js")[1]
+        section("routes")
+        # (d) the adapters on the same runtime
+        res["adapters"] = _db_adapters(stt, sph)
+        section("adapters")
+        res["launches"] = sa.LAUNCHES["scatter_add"]
+        res["repo"] = _db_ctl(cport, "/repo")
+        api("POST", f"/app/{DB_APP}/machine/remove.json",
+            {"ip": ip, "port": aport})
+        api("GET", "/app/names.json")
+        if not rt.heartbeat.send_once():         # a real beat re-registers
+            fail(f"dashboard phase: {tag} the heartbeat did not land")
+        api("GET", "/app/names.json")
+        res["state"] = convert.engine_to_numpy(sph)
+        # the bound ports by role, the token server's known only now
+        res["http"] = [_db_norm(h, ports) for h in res["http"]]
+        res["repo"] = _db_norm(res["repo"], ports)
+        res["totals"] = {n: sph.node_totals(n) for n in
+                         [f"f{i}" for i in range(0, 256, 17)]
+                         + [f"p{i}" for i in range(0, 64, 9)]
+                         + [f"route{i}" for i in range(0, 32, 5)]}
+        section("reads")
+        if timing:
+            if before_timing is not None:
+                before_timing()     # the measurements below run alone
+            res["timing"] = _db_timing(stt, sph, clock, timer, dev, api,
+                                       cport, cookie[0], ip, aport, q, B,
+                                       failing, prev, route_n, push_n,
+                                       turns, turn_s)
+            section("timing")
+    finally:
+        try:
+            _db_ctl(cport, "/quit")
+        except Exception:               # noqa: BLE001 — killed below
+            pass
+        try:
+            dproc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            dproc.kill()
+            dproc.wait()
+        dlog.close()
+        if coord is not None:
+            coord.stop()
+        if rt is not None:
+            rt.stop()
+        if sph is not None:
+            sph.close()
+    return res
+
+
+def _db_timing(stt, sph, clock, timer, dev, api, cport, cookie, ip, aport,
+               q, B, failing, prev, route_n, push_n, turns, turn_s) -> dict:
+    """The 1M run's measurements, alone: µs per route (round-robin,
+    ``route_n`` each); ms per rule push (``POST /v1/flow/rule``, which
+    republishes the app's full set) with :data:`DB_HELD` flow rules
+    held; host ms per fused step with the dashboard at its real cadence
+    and stopped, in turns of ``turn_s`` seconds, the agent's clock
+    following the wall clock and its metric timer ticking each second."""
+    from sentinel_tpu_torch.rules import codec
+    t = {}
+    routes = ("/app/names.json", f"/app/{DB_APP}/machines.json",
+              f"/metric/resources.json?app={DB_APP}",
+              f"/metric/queryByAppAndResource.json?app={DB_APP}&identity=f1"
+              f"&startTime={DB_T0 - 1000}&endTime={DB_T0 + 60_000}",
+              f"/resource/machineResource.json?{q}",
+              f"/resource/jsonTree.json?{q}",
+              f"/resource/origin.json?{q}&id=f1", f"/systemStatus.json?{q}",
+              f"/obs/telemetry.json?{q}", f"/obs/topk.json?{q}&timeline=60",
+              f"/obs/topk.json?{q}&timeline=60&tick=1",
+              f"/obs/control.json?{q}", f"/obs/traces.json?{q}",
+              f"/cluster/state.json?app={DB_APP}",
+              f"/cluster/serverConfig.json?{q}", f"/v1/flow/rules?app={DB_APP}")
+    us = {p: [] for p in routes}
+    for _ in range(route_n):
+        for p in routes:
+            us[p].append(api("GET", p, record=False)[1])
+    t["route_us"] = us
+    # the rule push with DB_HELD flow rules held: the agent takes them
+    # over its command port, the dashboard pulls them into its repository
+    held = [stt.FlowRule(resource=f"h{i}", count=50.0) for i in range(DB_HELD)]
+    status, text, _us = _cp_http(aport, "POST", "setRules", {
+        "type": "flow", "data": codec.rules_to_json("flow", held)})
+    if status != 200:
+        fail(f"dashboard phase: setRules of {DB_HELD} answered {status}")
+    n_held = len(api("GET", f"/v1/flow/rules?app={DB_APP}",
+                     record=False)[0]["data"])
+    if n_held != DB_HELD:
+        fail(f"dashboard phase: the repository holds {n_held} flow rules")
+    t["push_held_ms"] = [api("POST", "/v1/flow/rule", {
+        "app": DB_APP, **_db_rule("flow", k)}, record=False)[1] / 1e3
+        for k in range(push_n)]
+    if len(sph.get_flow_rules()) != DB_HELD + push_n:
+        fail("dashboard phase: the timed pushes did not reach the agent")
+    # host ms per fused step, the dashboard at its real cadence or stopped
+    extra, _f = _db_stream(sph, B, 8, seed=147)
+    per = {"on": [], "off": []}
+    polls = {"us": {name: [] for name, _p, _f in DB_CADENCE}, "bad": []}
+    k = 0
+    for turn in range(turns):
+        flag = "on" if turn % 4 in (1, 2) else "off"
+        if flag == "on":
+            _db_ctl(cport, "/cadence/on", {"ms": clock.now_ms(),
+                                           "cookie": cookie, "ip": ip,
+                                           "port": aport})
+        t0 = last = time.perf_counter()
+        tick_at = t0 + 1.0
+        while time.perf_counter() - t0 < turn_s:
+            now = time.perf_counter()
+            clock.advance_ms(max(1, int((now - last) * 1e3)))
+            last = now
+            _cp_steps(sph, dev, extra[k % 8:k % 8 + 1], failing, prev,
+                      False, host_ms=per[flag])
+            k += 1
+            if time.perf_counter() >= tick_at:
+                timer.tick()
+                tick_at += 1.0
+        if flag == "on":
+            got = _db_ctl(cport, "/cadence/off")
+            for name, v in got["us"].items():
+                polls["us"][name] += v
+            polls["bad"] += got["bad"]
+    if polls["bad"]:
+        fail(f"dashboard phase: polls at the real cadence failed: "
+             f"{polls['bad'][:3]}")
+    t["step_ms"] = per
+    t["polls"] = polls
+    return t
+
+
+def _db_twin_main(spec_path: str, out_path: str) -> int:
+    """``chip_smoke.py --db-twin SPEC OUT``: one twin session of phase 14
+    in a process of its own → its observations, pickled to OUT."""
+    import pickle
+    import sentinel_tpu_torch as stt
+    from sentinel_tpu_torch.ops import scatter_add as sa
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    if spec["plain"]:
+        sa.scatter_add = sa.scatter_add_reference       # the plain seam
+    res = _db_session(stt, sa, timing=False, **spec)
+    with open(out_path, "wb") as fh:
+        pickle.dump(res, fh)
+    return 0
+
+
+def phase_dashboard(stt, sa, dev="cuda", R=1 << 20, twin_rows=1 << 14,
+                    B=1 << 19, steps: int = 6, calls: int = 512,
+                    route_n: int = 16, push_n: int = 8, turns: int = 4,
+                    turn_s: float = 10.0) -> dict:
+    """An operator's dashboard on a live agent, as deployments run it:
+    ``Sentinel(device="cuda")`` at ``R`` rows (default configuration:
+    the C++ tables) behind ``start_transport(port=0, metric_log=True,
+    dashboard_addr=, gateway_manager=, api_definition_manager=)``; a
+    ``DashboardServer(port=0)`` with a password in a process of its own,
+    which the agent registers with by its heartbeat. Over the dashboard's
+    REST API, as the SPA sends them: a login; rule CRUD of all seven
+    families through ``/v1/{type}/rule`` (:data:`DB_RULES`; every change
+    republishes the app's full set); after ``calls`` ``entry()``+exit
+    calls and ``steps`` full-width fused steps of ``B`` events, a fetch
+    into the repository and every route the SPA reads, the one-click
+    token-server assignment and its server config, a machine removed and
+    re-registered by a heartbeat; then the outbound, aiohttp and gRPC
+    adapters on the same runtime (:func:`_db_adapters`). The same session
+    at ``twin_rows`` on the card, with the plain seam and on the CPU
+    (``--db-twin``, processes of their own beside the 1M run) must give
+    the same verdicts, bodies (less :data:`DB_WALL`), repositories and
+    adapter totals, the twins the same engine state. Then, alone:
+    :func:`_db_timing`."""
+    import pickle
+    import tempfile
+    from sentinel_tpu_torch import convert
+    t_phase = time.perf_counter()
+    kw = dict(B=B, steps=steps, calls=calls)
+    twins = (("card_twin", dev, False), ("plain_twin", dev, True),
+             ("cpu_twin", "cpu", False))
+    runs, procs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_db_") as tmp:
+        for tag, d, plain in twins:
+            spec = os.path.join(tmp, f"{tag}.json")
+            with open(spec, "w") as fh:
+                json.dump(dict(kw, dev=d, R=twin_rows, plain=plain,
+                               tmp=os.path.join(tmp, tag), tag=tag), fh)
+            out = open(os.path.join(tmp, f"{tag}.log"), "w")
+            procs[tag] = (subprocess.Popen(
+                DB_TWIN_CMD + [spec, os.path.join(tmp, f"{tag}.pkl")],
+                stdout=out, stderr=subprocess.STDOUT), out)
+
+        def join_twins():
+            for tag, (proc, out) in procs.items():
+                try:
+                    rc = proc.wait(timeout=600)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+                    rc = "timeout"
+                out.close()
+                if rc != 0:
+                    with open(os.path.join(tmp, f"{tag}.log")) as fh:
+                        tail = fh.read()[-3000:]
+                    fail(f"dashboard phase: the {tag} process ended with "
+                         f"{rc}:\n{tail}")
+                with open(os.path.join(tmp, f"{tag}.pkl"), "rb") as fh:
+                    runs[tag] = pickle.load(fh)
+            log(f"[dashboard] twins done at "
+                f"{time.perf_counter() - t_phase:.1f} s: " + ", ".join(
+                    f"{t} {sum(r['section_s'].values()):.1f} s"
+                    for t, r in runs.items()))
+
+        try:
+            runs["card"] = _db_session(
+                stt, sa, dev, R, os.path.join(tmp, "card"), timing=True,
+                route_n=route_n, push_n=push_n, turns=turns, turn_s=turn_s,
+                tag="card", before_timing=join_twins, **kw)
+        finally:
+            for proc, out in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                out.close()
+    card = runs["card"]
+    for tag, run in runs.items():
+        for key in ("calls", "steps", "ticked", "fetched", "repo", "totals",
+                    "page", "app_js"):
+            if run[key] != card[key]:
+                fail(f"dashboard phase: {tag} {key} differ from the 1M "
+                     f"card run")
+        if len(run["http"]) != len(card["http"]):
+            fail(f"dashboard phase: {tag} made {len(run['http'])} calls")
+        for a, b, c in zip(run["http"], card["http"],
+                           runs["cpu_twin"]["http"]):
+            if _db_drop(a, DB_GEOMETRY) != _db_drop(b, DB_GEOMETRY):
+                fail(f"dashboard phase: {tag} {a[0]} {a[1]} body differs "
+                     f"from the 1M card run's: {str(a[3])[:200]} vs "
+                     f"{str(b[3])[:200]}")
+            if tag != "card" and a != c:
+                fail(f"dashboard phase: {tag} {a[0]} {a[1]} body differs "
+                     f"from the CPU twin's: {str(a[3])[:200]} vs "
+                     f"{str(c[3])[:200]}")
+        ad, cad = run["adapters"], card["adapters"]
+        if (ad["verdicts"], ad["totals"], ad["absent"]) != (
+                cad["verdicts"], cad["totals"], cad["absent"]):
+            fail(f"dashboard phase: {tag} adapter verdicts or totals "
+                 f"differ: {ad['verdicts']} vs {cad['verdicts']}")
+    for tag in ("card_twin", "plain_twin"):
+        bad = convert.leaf_diff(runs["cpu_twin"]["state"], runs[tag]["state"])
+        if bad:
+            fail(f"dashboard phase: {tag} state differs from the CPU twin: "
+                 f"{bad}")
+    if not card["launches"] or not runs["card_twin"]["launches"]:
+        fail("dashboard phase: the drive launched no kernel")
+    if runs["plain_twin"]["launches"]:
+        fail("dashboard phase: the plain-seam run launched the kernel")
+    outcomes = collections.Counter(card["calls"])
+    for want in ("pass", "FlowException", "AuthorityException",
+                 "DegradeException", "ParamFlowException"):
+        if not outcomes.get(want):
+            fail(f"dashboard phase: the calls never saw {want}: "
+                 f"{dict(outcomes)}")
+    if not sum(v.count(False) for v in card["steps"]):
+        fail("dashboard phase: no fused step denied an event")
+    if not card["fetched"]:
+        fail("dashboard phase: the fetch saved no metric entity")
+    t = card["timing"]
+    absent = card["adapters"]["absent"]
+    res = {"launches": card["launches"], "R": R, "B": B, "steps": steps,
+           "agent_ip": card["agent_ip"], "outcomes": dict(outcomes),
+           "fetched": card["fetched"], "http_bodies": len(card["http"]),
+           "absent": absent, "adapter_verdicts": card["adapters"]["verdicts"],
+           "push_ms": {f: summary([u / 1e3 for u in v])
+                       for f, v in card["push_us"].items()},
+           "route_us": {p: {"p50": float(np.percentile(v, 50)),
+                            "p99": float(np.percentile(v, 99)), "n": len(v)}
+                        for p, v in t["route_us"].items()},
+           "push_held_ms": t["push_held_ms"],
+           "step_host_ms": {f: dict(summary(v),
+                                    p99=float(np.percentile(v, 99)))
+                            for f, v in t["step_ms"].items()},
+           "polls_us": {n: summary(v) if v else None
+                        for n, v in t["polls"]["us"].items()},
+           "section_s": {tag: r["section_s"] for tag, r in runs.items()}}
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[dashboard] agent registered by heartbeat as {card['agent_ip']}; "
+        f"{res['http_bodies']} dashboard bodies, {sum(n + 1 for _f, n in DB_RULES)} "
+        f"rule creations, the repositories, {res['fetched']} fetched "
+        f"metric entities and every verdict equal at {R} rows and at "
+        f"{twin_rows} on the card, with the plain seam and on the CPU; "
+        f"state equal across the twins; outcomes {dict(outcomes)}")
+    log("[dashboard] us a dashboard route at {} rows, agent round trip "
+        "included (p50/p99): {}".format(R, ", ".join(
+            f"{p.split('?')[0]}{'+tick' if 'tick=1' in p else ''} "
+            f"{v['p50']:.0f}/{v['p99']:.0f}"
+            for p, v in res["route_us"].items())))
+    first = {tag: r["push_us"]["flow"][0] / 1e3 for tag, r in runs.items()}
+    res["first_push_ms"] = first
+    log(f"[dashboard] ms of the first rule push into a cold agent (agent "
+        f"deadline {DB_AGENT_TIMEOUT_S:.0f} s, the client's default 3): "
+        + ", ".join(f"{t} {v:.1f}" for t, v in first.items()))
+    log(f"[dashboard] ms a rule push (POST /v1/flow/rule, full republish) "
+        f"with {DB_HELD} flow rules held: median "
+        f"{np.median(t['push_held_ms']):.2f}, max "
+        f"{max(t['push_held_ms']):.2f} ({push_n}); during the CRUD (256 "
+        f"held at most) flow median {res['push_ms']['flow']['median']:.2f}")
+    sm = res["step_host_ms"]
+    log(f"[dashboard] host ms a fused step of {B} events, dashboard "
+        f"stopped / at its real cadence (in turns of {turn_s:.0f} s): "
+        f"median {sm['off']['median']:.2f} / {sm['on']['median']:.2f}, "
+        f"p99 {sm['off']['p99']:.2f} / {sm['on']['p99']:.2f} "
+        f"({sm['off']['n']} / {sm['on']['n']} steps); polls "
+        + ", ".join(f"{n} {len(v)}" for n, v in t["polls"]["us"].items()))
+    log(f"[adapters] verdicts equal to the twins: "
+        + "; ".join(f"{k} {v}" for k, v in card["adapters"]["verdicts"].items()))
+    log(f"[adapters] absent optional packages: "
+        f"{', '.join(absent) if absent else 'none'}")
+    log(f"[dashboard] phase 14 took {res['seconds']:.1f} s; kernel launches "
+        f"{card['launches']}")
+    return res
+
+
 def find_syncs(stt, sa) -> int:
     """``--find-syncs``: every place where a kernel-run engine step waits
     on the device, with the port's frames of its stack (the sync debug
@@ -5849,6 +6977,10 @@ def main() -> int:
         return _cp_twin_main(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--gw-twin"]:
         return _gw_twin_main(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--db-twin"]:
+        return _db_twin_main(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--dashboard"]:
+        return _db_dash_main(sys.argv[2])
     # the runtimes' block logs and record log go to a directory of this
     # run, removed at exit
     import tempfile
@@ -5902,6 +7034,7 @@ def main() -> int:
     report["cluster"] = phase_cluster(stt, sa, profile=profile)
     report["command_plane"] = phase_command_plane(stt, sa)
     report["gateway"] = phase_gateway(stt, sa)
+    report["dashboard"] = phase_dashboard(stt, sa)
     report["seconds"] = time.perf_counter() - t_all
 
     decide = report["kernel_cases"][0]
@@ -5910,7 +7043,7 @@ def main() -> int:
         "engine", "prio", "prio_mixed", "general", "general_occupy", "fast",
         "scalar_param", "general_param", "runtime", "fast_path",
         "param_runtime", "obs_runtime", "serving", "tiering", "cluster",
-        "command_plane", "gateway"))
+        "command_plane", "gateway", "dashboard"))
     kernels = [{
         "name": "scatter_add", "route": "cuda",
         "source": "sentinel_tpu_torch/csrc/scatter_add.cu",

@@ -10,6 +10,12 @@ ecosystem's equivalents:
   (``sentinel-annotation-aspectj`` ``SentinelResourceAspect``)
 - :mod:`.wsgi` — WSGI middleware (``sentinel-web-servlet`` ``CommonFilter``)
 - :mod:`.asgi` — ASGI 3 middleware, async (``sentinel-spring-webflux-adapter``)
+- :mod:`.grpc_interceptor` — gRPC server/client interceptors
+  (``sentinel-grpc-adapter``)
+- :mod:`.http_client` — ``requests`` session + ``urllib`` opener guards
+  (``sentinel-okhttp-adapter`` / ``sentinel-apache-httpclient-adapter``)
+- :mod:`.aiohttp_server` — aiohttp server middleware
+  (``sentinel-spring-webmvc-adapter`` ``SentinelWebInterceptor`` shape)
 - :mod:`.asyncio_support` — async entry helper (``sentinel-reactor-adapter``
   ``AsyncEntry`` analog for asyncio)
 - :mod:`.asgi_gateway` — gateway ASGI middleware: route and API-group
@@ -17,19 +23,26 @@ ecosystem's equivalents:
   adapter`` ``SentinelGatewayFilter``)
 
 Each guards calls through the :class:`~sentinel_tpu_torch.runtime.Sentinel`
-it is given (on ``cuda`` unless built otherwise). The HTTP-client, aiohttp
-and gRPC adapters are not ported yet (ROADMAP A12).
+it is given (on ``cuda`` unless built otherwise). ``grpc_interceptor`` and
+``aiohttp_server`` import ``grpc`` and ``aiohttp`` at module top, so this
+package does not import them; ``http_client`` imports ``requests`` and
+``aiohttp`` only inside the session it builds.
 """
 
 from sentinel_tpu_torch.adapters.decorator import sentinel_resource
 from sentinel_tpu_torch.adapters.wsgi import SentinelWSGIMiddleware
 from sentinel_tpu_torch.adapters.asgi import SentinelASGIMiddleware
 from sentinel_tpu_torch.adapters.asyncio_support import async_entry
+from sentinel_tpu_torch.adapters.http_client import (
+    SentinelAiohttpSession, SentinelSession, guarded_urlopen,
+)
 from sentinel_tpu_torch.adapters.asgi_gateway import (
     AsgiRequestItemParser, SentinelGatewayASGIMiddleware,
 )
 
 __all__ = [
     "sentinel_resource", "SentinelWSGIMiddleware", "SentinelASGIMiddleware",
-    "async_entry", "AsgiRequestItemParser", "SentinelGatewayASGIMiddleware",
+    "async_entry", "SentinelAiohttpSession", "SentinelSession",
+    "guarded_urlopen",
+    "AsgiRequestItemParser", "SentinelGatewayASGIMiddleware",
 ]

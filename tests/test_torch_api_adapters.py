@@ -6,16 +6,26 @@ scenario runs on both packages (twin ManualClocks; the port's runtime on
 the CPU) through ``api.entry``/``try_entry``/``exit``/``trace*``, the
 ``@sentinel_resource`` decorator, the WSGI and ASGI middlewares and
 ``async_entry``. Verdicts, handler results, traced exceptions, node
-totals and engine state must agree exactly. The reference's gRPC,
-HTTP-client and aiohttp adapter cases have no counterpart: those
-adapters are not ported yet (ROADMAP A12). The gateway's ASGI adapter
-is twinned in ``tests/test_torch_gateway.py``.
+totals and engine state must agree exactly. The outbound HTTP guards
+(``guarded_urlopen`` against a loopback ``http.server``, and
+``SentinelSession`` where ``requests`` is installed) and the gRPC server
+and client interceptors (where ``grpc`` is installed, on a loopback grpc
+server) are twinned here too: pass, block before connecting, a 5xx or a
+non-OK status traced, a transport error traced and re-raised. The aiohttp
+middleware and session are twinned in
+``tests/test_torch_aiohttp_adapter.py``, the gateway's ASGI adapter in
+``tests/test_torch_gateway.py``.
 """
 
 import asyncio
 import functools
+import http.server
+import importlib
 import io
+import socket
+import threading
 import types
+import urllib.request
 
 import numpy as np
 import pytest
@@ -482,6 +492,248 @@ def test_adapter_scenario_matches_reference(scenario):
 def test_adapters_export_what_is_ported():
     assert set(tad.__all__) == {"sentinel_resource", "SentinelWSGIMiddleware",
                                 "SentinelASGIMiddleware", "async_entry",
-                                "AsgiRequestItemParser",
+                                "SentinelAiohttpSession", "SentinelSession",
+                                "guarded_urlopen", "AsgiRequestItemParser",
                                 "SentinelGatewayASGIMiddleware"}
-    assert set(tad.__all__) <= set(jad.__all__)
+    assert set(tad.__all__) == set(jad.__all__)
+    for name in tad.__all__:
+        assert getattr(tad, name).__module__.startswith("sentinel_tpu_torch.")
+
+
+# ------------------------------------------------------------- HTTP client
+
+class _Upstream(http.server.BaseHTTPRequestHandler):
+    """``/ok`` answers 200 ``hi``, ``/flaky`` 503, anything else 404."""
+    protocol_version = "HTTP/1.0"
+
+    def do_GET(self):  # noqa: N802
+        status, body = {"/ok": (200, b"hi"),
+                        "/flaky": (503, b"down")}.get(self.path,
+                                                       (404, b"none"))
+        self.send_response(status)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, *a):
+        pass
+
+
+@pytest.fixture(scope="module")
+def upstream():
+    """One loopback server for both packages' scenarios (the resource
+    names carry its port, so both sides see the same names)."""
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), _Upstream)
+    server.daemon_threads = True
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    yield f"127.0.0.1:{server.server_address[1]}"
+    server.shutdown()
+    server.server_close()
+    t.join(30)
+    assert not t.is_alive()
+
+
+def _dead_port() -> int:
+    """A loopback port with nothing listening."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http_outcome(x, fn):
+    """``_outcome`` of an HTTP call, a response as (status, body)."""
+    def call():
+        resp = fn()
+        status = getattr(resp, "status", None) or resp.status_code
+        body = resp.read() if hasattr(resp, "read") else resp.content
+        resp.close()
+        return status, body.decode()
+    return _outcome(x, call)
+
+
+def test_guarded_urlopen_blocks_before_connecting():
+    """Twin of the reference's test of that name: denied before any
+    socket opens, so the caller sees BlockException, not URLError."""
+    def scenario(x):
+        url = "http://127.0.0.1:1/x"
+        x.sph.load_flow_rules([x.pkg.FlowRule(
+            resource="httpclient:GET:127.0.0.1:1/x", count=0)])
+        out = _outcome(x, lambda: x.ad.guarded_urlopen(x.sph, url,
+                                                        timeout=0.2))
+        assert out == ("block", "FlowException")
+        return [out, _totals(x.sph, "httpclient:GET:127.0.0.1:1/x")]
+    assert twin(scenario)[1]["httpclient:GET:127.0.0.1:1/x"]["block"] == 1
+
+
+def test_guarded_urlopen_pass_block_5xx_and_exception(upstream):
+    dead = _dead_port()
+
+    def scenario(x):
+        ok = f"httpclient:GET:{upstream}/ok"
+        x.sph.load_flow_rules([x.pkg.FlowRule(resource=ok, count=2)])
+        out = [_http_outcome(x, lambda: x.ad.guarded_urlopen(
+            x.sph, f"http://{upstream}/ok", timeout=30)) for _ in range(3)]
+        # a 5xx raises HTTPError from urlopen: traced, then re-raised
+        out.append(_outcome(x, lambda: x.ad.guarded_urlopen(
+            x.sph, f"http://{upstream}/flaky", timeout=30)))
+        out.append(_outcome(x, lambda: x.ad.guarded_urlopen(
+            x.sph, f"http://127.0.0.1:{dead}/gone", timeout=5))[:2])
+        req = urllib.request.Request(f"http://{upstream}/ok", method="GET")
+        out.append(_http_outcome(x, lambda: x.ad.guarded_urlopen(
+            x.sph, req, timeout=30,
+            resource_extractor=lambda m, u: f"custom:{m}")))
+        return out + [_totals(x.sph, ok, f"httpclient:GET:{upstream}/flaky",
+                              f"httpclient:GET:127.0.0.1:{dead}/gone",
+                              "custom:GET")]
+    out = twin(scenario)
+    assert [o[0] for o in out[:6]] == ["ok", "ok", "block", "raise",
+                                       "raise", "ok"]
+    assert out[6][f"httpclient:GET:{upstream}/flaky"]["exception"] == 1
+
+
+def test_sentinel_session_pass_block_5xx_and_exception(upstream):
+    pytest.importorskip("requests")
+    dead = _dead_port()
+
+    def scenario(x):
+        ok = f"httpclient:GET:{upstream}/ok"
+        flaky = f"httpclient:GET:{upstream}/flaky"
+        x.sph.load_flow_rules([x.pkg.FlowRule(resource=ok, count=2)])
+        session = x.ad.SentinelSession(x.sph)
+        try:
+            out = [_http_outcome(x, lambda: session.get(
+                f"http://{upstream}/ok", timeout=30)) for _ in range(3)]
+            # a 5xx is returned to the caller and traced
+            out.append(_http_outcome(x, lambda: session.get(
+                f"http://{upstream}/flaky", timeout=30)))
+            out.append(_outcome(x, lambda: session.get(
+                f"http://127.0.0.1:{dead}/gone", timeout=5))[:2])
+        finally:
+            session.close()
+        named = x.ad.SentinelSession(
+            x.sph, resource_extractor=lambda m, u: f"custom:{m}")
+        try:
+            out.append(_http_outcome(x, lambda: named.get(
+                f"http://{upstream}/ok", timeout=30)))
+        finally:
+            named.close()
+        return out + [_totals(x.sph, ok, flaky,
+                              f"httpclient:GET:127.0.0.1:{dead}/gone",
+                              "custom:GET")]
+    out = twin(scenario)
+    assert [o[0] for o in out[:6]] == ["ok", "ok", "block", "ok", "raise",
+                                       "ok"]
+    assert out[3][1][0] == 503
+    assert out[6][f"httpclient:GET:{upstream}/flaky"]["exception"] == 1
+
+
+# -------------------------------------------------------------------- gRPC
+
+def _grpc_server(grpc, interceptors, methods):
+    from concurrent import futures
+    server = grpc.server(futures.ThreadPoolExecutor(max_workers=2),
+                         interceptors=interceptors)
+    server.add_generic_rpc_handlers((grpc.method_handlers_generic_handler(
+        "test.Echo", {name: grpc.unary_unary_rpc_method_handler(
+            fn, request_deserializer=lambda b: b,
+            response_serializer=lambda b: b)
+            for name, fn in methods.items()}),))
+    port = server.add_insecure_port("127.0.0.1:0")
+    server.start()
+    return server, port
+
+
+def _grpc_outcome(x, grpc, fn):
+    try:
+        return ("ok", fn())
+    except x.pkg.BlockException as exc:
+        return ("block", type(exc).__name__)
+    except grpc.RpcError as exc:
+        return ("rpc", str(exc.code()), exc.details())
+
+
+def test_grpc_server_interceptor_blocks():
+    """Twin of the reference's test of that name, plus a handler that
+    raises (traced, exited) and the caller's origin from metadata."""
+    grpc = pytest.importorskip("grpc")
+
+    def scenario(x):
+        gi = importlib.import_module(x.pkg.__name__
+                                     + ".adapters.grpc_interceptor")
+        method = "/test.Echo/Say"
+        x.sph.load_flow_rules([x.pkg.FlowRule(resource=method, count=2)])
+        x.sph.load_authority_rules([x.pkg.AuthorityRule(
+            resource="/test.Echo/Who", limit_app="evil",
+            strategy=x.pkg.STRATEGY_BLACK)])
+
+        def boom(request, context):
+            raise RuntimeError("handler broke")
+        server, port = _grpc_server(
+            grpc, [gi.SentinelServerInterceptor(x.sph)],
+            {"Say": lambda req, ctx: req + b"!", "Boom": boom,
+             "Who": lambda req, ctx: b"you"})
+        out = []
+        try:
+            with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+                def stub(name):
+                    return ch.unary_unary(f"/test.Echo/{name}",
+                                          request_serializer=lambda b: b,
+                                          response_deserializer=lambda b: b)
+                for req in (b"hi", b"yo", b"third"):
+                    out.append(_grpc_outcome(x, grpc,
+                                             lambda: stub("Say")(req)))
+                out.append(_grpc_outcome(x, grpc,
+                                         lambda: stub("Boom")(b"x"))[:2])
+                for origin in ("good", "evil"):
+                    out.append(_grpc_outcome(x, grpc, lambda: stub("Who")(
+                        b"?", metadata=(("sentinel-origin", origin),))))
+        finally:
+            server.stop(None).wait(30)
+        return out + [_totals(x.sph, method, "/test.Echo/Boom",
+                              "/test.Echo/Who")]
+    out = twin(scenario)
+    assert out[2] == ("rpc", "StatusCode.RESOURCE_EXHAUSTED",
+                      "Blocked by Sentinel (flow limiting)")
+    assert out[-1]["/test.Echo/Say"]["pass"] == 2
+    assert out[-1]["/test.Echo/Say"]["block"] == 1
+    assert out[-1]["/test.Echo/Boom"]["exception"] == 1
+    assert out[5][0] == "rpc"
+
+
+def test_grpc_client_interceptor_guards_outbound():
+    grpc = pytest.importorskip("grpc")
+
+    def scenario(x):
+        gi = importlib.import_module(x.pkg.__name__
+                                     + ".adapters.grpc_interceptor")
+
+        def fail(request, context):
+            context.abort(grpc.StatusCode.INTERNAL, "nope")
+        server, port = _grpc_server(
+            grpc, [], {"Say": lambda req, ctx: req + b"!", "Fail": fail})
+        x.sph.load_flow_rules([x.pkg.FlowRule(resource="/test.Echo/Say",
+                                              count=2)])
+        out = []
+        try:
+            with grpc.insecure_channel(f"127.0.0.1:{port}") as raw:
+                ch = grpc.intercept_channel(
+                    raw, gi.SentinelClientInterceptor(x.sph))
+
+                def stub(name):
+                    return ch.unary_unary(f"/test.Echo/{name}",
+                                          request_serializer=lambda b: b,
+                                          response_deserializer=lambda b: b)
+                for req in (b"a", b"b", b"c"):
+                    out.append(_grpc_outcome(x, grpc,
+                                             lambda: stub("Say")(req)))
+                out.append(_grpc_outcome(x, grpc, lambda: stub("Fail")(b"")))
+        finally:
+            server.stop(None).wait(30)
+        return out + [_totals(x.sph, "/test.Echo/Say", "/test.Echo/Fail")]
+    out = twin(scenario)
+    # a blocked outbound call surfaces as the adapter's RpcError
+    assert out[2] == ("rpc", "StatusCode.RESOURCE_EXHAUSTED",
+                      "Blocked by Sentinel (flow limiting)")
+    assert out[3] == ("rpc", "StatusCode.INTERNAL", "nope")
+    assert out[-1]["/test.Echo/Fail"]["exception"] == 1

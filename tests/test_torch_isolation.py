@@ -105,6 +105,15 @@ import sentinel_tpu_torch.metrics.exporter
 import sentinel_tpu_torch.native
 import sentinel_tpu_torch.core.registry
 sentinel_tpu_torch.native.native_available()
+import sentinel_tpu_torch.dashboard
+import sentinel_tpu_torch.dashboard.auth
+import sentinel_tpu_torch.dashboard.client
+import sentinel_tpu_torch.dashboard.discovery
+import sentinel_tpu_torch.dashboard.fetcher
+import sentinel_tpu_torch.dashboard.repository
+import sentinel_tpu_torch.dashboard.rulepipeline
+import sentinel_tpu_torch.dashboard.server
+import sentinel_tpu_torch.adapters.http_client
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "sentinel_tpu")
@@ -216,6 +225,21 @@ GATEWAY_EXPORTER_NATIVE_MODULES = [
 ]
 
 
+#: the dashboard and the outbound HTTP-client adapter, imported the same
+#: way (the aiohttp and gRPC adapters, which import those packages at
+#: module top, have cases of their own below)
+DASHBOARD_ADAPTER_MODULES = [
+    "sentinel_tpu_torch.dashboard", "sentinel_tpu_torch.dashboard.auth",
+    "sentinel_tpu_torch.dashboard.client",
+    "sentinel_tpu_torch.dashboard.discovery",
+    "sentinel_tpu_torch.dashboard.fetcher",
+    "sentinel_tpu_torch.dashboard.repository",
+    "sentinel_tpu_torch.dashboard.rulepipeline",
+    "sentinel_tpu_torch.dashboard.server",
+    "sentinel_tpu_torch.adapters.http_client",
+]
+
+
 def _import_blocked(*modules):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -229,7 +253,8 @@ def _import_blocked(*modules):
 @pytest.mark.parametrize("module", OBS_MODULES + SERVING_MODULES
                          + TIER_CONTROL_MODULES + CLUSTER_MODULES
                          + COMMAND_MODULES
-                         + GATEWAY_EXPORTER_NATIVE_MODULES)
+                         + GATEWAY_EXPORTER_NATIVE_MODULES
+                         + DASHBOARD_ADAPTER_MODULES)
 def test_module_imports_with_jax_blocked(module):
     _import_blocked(module)
 
@@ -241,13 +266,27 @@ def test_frontend_server_imports_with_jax_blocked():
     _import_blocked("sentinel_tpu_torch.frontend.server")
 
 
+@pytest.mark.parametrize("module,package", [
+    ("sentinel_tpu_torch.adapters.aiohttp_server", "aiohttp"),
+    ("sentinel_tpu_torch.adapters.grpc_interceptor", "grpc")])
+def test_optional_adapter_imports_with_jax_blocked(module, package):
+    """The aiohttp and gRPC adapters import their packages at module
+    top, as the reference's do; they import where those are installed."""
+    pytest.importorskip(package)
+    _import_blocked(module)
+
+
 def test_package_and_runtime_never_import_aiohttp_server():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     probe = ("import sys, sentinel_tpu_torch, sentinel_tpu_torch.frontend, "
+             "sentinel_tpu_torch.adapters, sentinel_tpu_torch.dashboard, "
              "chip_smoke\n"
-             "print(sorted(m for m in sys.modules if m == "
-             "'sentinel_tpu_torch.frontend.server' or m.startswith('aiohttp')))")
+             "print(sorted(m for m in sys.modules if m in ("
+             "'sentinel_tpu_torch.frontend.server', "
+             "'sentinel_tpu_torch.adapters.aiohttp_server', "
+             "'sentinel_tpu_torch.adapters.grpc_interceptor') "
+             "or m.startswith(('aiohttp', 'grpc', 'requests'))))")
     proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -288,6 +327,33 @@ def test_scan_covers_the_gateway_exporter_and_native_sources():
                 "adapters/asgi_gateway.py", "metrics/exporter.py",
                 "native/__init__.py"):
         assert rel in scanned, rel
+
+
+def test_scan_covers_the_dashboard_and_adapter_sources():
+    """The AST scan below walks the dashboard and the three outbound
+    adapters too, function-level imports included: the dashboard server's
+    imports of the record log and the two codecs, made where they are
+    used, name the port's modules."""
+    scanned = {os.path.relpath(p, PORT) for p in _sources()}
+    for rel in ("dashboard/__init__.py", "dashboard/auth.py",
+                "dashboard/client.py", "dashboard/discovery.py",
+                "dashboard/fetcher.py", "dashboard/repository.py",
+                "dashboard/rulepipeline.py", "dashboard/server.py",
+                "adapters/http_client.py", "adapters/aiohttp_server.py",
+                "adapters/grpc_interceptor.py"):
+        assert rel in scanned, rel
+    with open(os.path.join(PORT, "dashboard", "server.py")) as fh:
+        tree = ast.parse(fh.read())
+    local = sorted(
+        node.module for fn in ast.walk(tree)
+        if isinstance(fn, ast.FunctionDef)
+        for node in ast.walk(fn)
+        if isinstance(node, ast.ImportFrom) and node.module
+        and node.module.startswith("sentinel_tpu"))
+    assert local == ["sentinel_tpu_torch.core.logs",
+                     "sentinel_tpu_torch.gateway",
+                     "sentinel_tpu_torch.gateway",
+                     "sentinel_tpu_torch.rules"]
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),
