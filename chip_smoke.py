@@ -191,8 +191,36 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    dashboard at its real cadence (the fetcher every 6 s, browsers on the
    Resources view every 3 s and on Hot Resources every 5 s, the app list
    every 10 s) and stopped, in turns;
-15. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-   line (``launches`` summed over the runs of phases 3-14), and as the last
+15. drives the autotuner, warm-restart snapshots, the build cache and the
+   gRPC token and Envoy RLS servers (``tune_snapshot_grpc``): (a)
+   ``tune.run_sweep`` at the reference's defaults (pipeline depth x
+   frontend batch, the zoo's ``steady`` at 2000 req/s, SLO p99 50 ms,
+   rungs 150/450 ms) writes ``TUNED.json`` under the card's fingerprint,
+   then runtimes at 1M rows start on it (``tune.config_loaded``,
+   ``frontend()`` and ``DispatchPipeline`` take its values), on a copy
+   fingerprinted ``TPU v5 lite`` (``tune.fingerprint_fallback``, defaults)
+   and with a typo'd knob (``tune.knob_rejected``), each against a CPU
+   twin at 16k rows; (b) a 1M-row runtime after 8 fused steps of 512k
+   events whose breakers trip is saved and restored (same rules
+   ``"full"``, the next 8 steps' verdicts and state equal to the
+   original's; changed rules ``"partial"``, windows equal; another
+   geometry ``False``; 256k rows if the temporary disk holds less than
+   twice the state), and a 16k-row snapshot written on the card restores
+   on the CPU with the same following verdicts and state; (c) the
+   runtime's ``compile_cache.*``, and two processes on a fresh
+   ``SENTINEL_COMPILE_CACHE``: the second compiles nothing (ms to the
+   first launch each); (d) phase 11's engine behind ``TokenGrpcServer``:
+   64 mixed batches of 256 equal to a CPU twin engine, round trips of 1
+   and 256 items from one client without a deadline, then 8 client
+   threads for 10 s (round trips, decided items a second, STATUS_FAIL at
+   the 20 ms deadline), and ``entry()`` through a ``Sentinel`` whose token
+   service is the gRPC client; (e) ``SentinelRlsGrpcServer`` with rules
+   on 16 domains: 4096 ``ShouldRateLimit`` frames, Zipf(1.1) over the
+   descriptors, some with an undeclared field, every code equal to a CPU
+   twin service (legs (d) and (e) are reported, not run, without
+   ``grpc`` or ``google.protobuf``);
+16. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
+   line (``launches`` summed over the runs of phases 3-15), and as the last
    line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --find-syncs`` runs 3-5 steps of each engine phase
@@ -2376,13 +2404,15 @@ def _obs_runtime(stt, R: int, clock, dev, obs_on: bool = True,
     return sph
 
 
-def _scalar_stream(sph, B: int, steps: int, seed: int = 41):
+def _scalar_stream(sph, B: int, steps: int, seed: int = 41,
+                   pool: int = 60_000):
     """``steps`` batches of the headline's scalar traffic as pre-interned
-    rows (1/4 of the events on the ruled resources) and each step's exit
-    error column generator: the exits of ``r0``..``r31`` always fail, so
-    their breakers trip."""
+    rows (1/4 of the events on the ruled resources, the rest over
+    ``pool`` rule-free names) and each step's exit error column
+    generator: the exits of ``r0``..``r31`` always fail, so their
+    breakers trip."""
     ruled = sph.intern_resources([f"r{i}" for i in range(OBS_RULED)])
-    pool = sph.intern_resources([f"u{i}" for i in range(60_000)])
+    pool = sph.intern_resources([f"u{i}" for i in range(pool)])
     rng = np.random.default_rng(seed)
     batches = [np.where(rng.random(B) < 0.25,
                         ruled[rng.integers(0, OBS_RULED, B)],
@@ -5225,9 +5255,6 @@ GW_IPS = 1 << 16
 #: the client IP, 1/8 each a header (exact pattern), a URL param (regex
 #: or contains), a cookie, the host
 GW_KINDS = ("route", "route", "ip", "ip", "header", "url", "cookie", "host")
-#: scrape families left out of the comparison: no source in the port
-#: (the reference's compiled-program cache and autotuner)
-GW_EXCLUDED = ("sentinel_compile_cache_", "sentinel_tune")
 #: scraped samples that follow the table's geometry (see phase_gateway)
 GW_GEOMETRY = ("sentinel_split_route_total",)
 #: the command that runs one twin session in a process of its own
@@ -5336,9 +5363,8 @@ def _gw_requests(n: int, seed: int) -> list:
 
 def _gw_scrape(sph) -> dict:
     """One exporter scrape (``generate_latest`` on a private registry) →
-    its families and samples (the excluded families' samples left out)
-    and, timed, five more: ms, bytes and samples; None without
-    ``prometheus_client``."""
+    its families and samples and, timed, five more: ms, bytes and
+    samples; None without ``prometheus_client``."""
     try:
         from prometheus_client import CollectorRegistry, generate_latest
     except ImportError:
@@ -5351,8 +5377,7 @@ def _gw_scrape(sph) -> dict:
         out = {"families": sorted(f.name for f in fams),
                "samples": sorted(
                    (s.name, tuple(sorted(s.labels.items())), s.value)
-                   for f in fams if not f.name.startswith(GW_EXCLUDED)
-                   for s in f.samples),
+                   for f in fams for s in f.samples),
                "n_samples": sum(len(f.samples) for f in fams), "ms": []}
         for _ in range(5):
             t = time.perf_counter()
@@ -6905,6 +6930,709 @@ def phase_dashboard(stt, sa, dev="cuda", R=1 << 20, twin_rows=1 << 14,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the autotuner, warm-restart snapshots with the compile-cache
+# counters, and the gRPC token and Envoy RLS servers
+# ---------------------------------------------------------------------------
+
+TS_T0 = 1_790_000_000_000
+TS_STEP_MS = 40              # virtual time between the snapshot leg's steps
+#: the reference sweep's defaults (``python -m sentinel_tpu.tune``)
+TS_KNOBS = ("SENTINEL_PIPELINE_DEPTH", "SENTINEL_FRONTEND_BATCH")
+TS_GRIDS = {"SENTINEL_PIPELINE_DEPTH": (1, 2, 4, 8),
+            "SENTINEL_FRONTEND_BATCH": (64, 128, 256, 512)}
+RLS_DOMAINS = 16
+RLS_DESCRIPTORS = 16         # limited descriptors a domain
+#: the command that times one cold start against a build directory
+CC_CHILD_CMD = [sys.executable, os.path.abspath(__file__), "--cc-child"]
+
+
+def _tune_view(sph) -> dict:
+    """What the startup twins compare: the resolved overrides, the
+    ``tune.*`` counters, the knobs a new batcher and pipeline take."""
+    from sentinel_tpu_torch.serving import DispatchPipeline
+    fe = sph.frontend()
+    try:
+        view = {"tuned": dict(sph._tuned),
+                "counters": {k: v for k, v in
+                             sph.obs.counters.snapshot().items()
+                             if k.startswith("tune.")},
+                "batch_max": fe.batch_max, "frontend_depth": fe.depth,
+                "pipeline_depth": DispatchPipeline(sph).depth}
+    finally:
+        fe.close()
+    return view
+
+
+def _tune_leg(stt, sa, dev, R: int, twin_rows: int, grids: dict,
+              rungs, rate: float, tmp: str) -> dict:
+    """(a) ``run_sweep`` at the reference's defaults on the card, the
+    artifact written, then three startups at ``R`` rows — on the
+    artifact, on a copy fingerprinted ``TPU v5 lite``, with a typo'd knob
+    — each against a CPU twin at ``twin_rows`` under the same
+    environment (its artifact carries the CPU's fingerprint)."""
+    from sentinel_tpu_torch.tune import artifact as art
+    from sentinel_tpu_torch.tune.runner import run_sweep
+    sa.LAUNCHES.clear()
+    t = time.perf_counter()
+    path = os.path.join(tmp, "TUNED.json")
+    out = run_sweep(envs=TS_KNOBS, grids=grids, workload="steady", seed=11,
+                    rate_rps=rate, slo_p99_ms=50.0, rung_ms=rungs, eta=2,
+                    passes=1, out_path=path, device=dev)
+    sweep_s = time.perf_counter() - t
+    launches = sa.LAUNCHES["scatter_add"]
+    res = out["result"]
+    if not res.converged or out["artifact"] is None:
+        fail(f"tune leg: the sweep did not converge ({out['counters']})")
+    doc = out["artifact"]
+    rep = {"sweep_s": sweep_s, "fingerprint": doc["fingerprint"],
+           "trials": out["trials"], "parity_checks": out["parity_checks"],
+           "counters": out["counters"], "best": res.best_config,
+           "best_decisions_per_s": res.best_outcome.decisions_per_s,
+           "best_p99_ms": res.best_outcome.p99_ms,
+           "baseline_decisions_per_s": res.baseline_outcome.decisions_per_s,
+           "baseline_p99_ms": res.baseline_outcome.p99_ms,
+           "history": [{"config": r.config, "episode_ms": r.episode_ms,
+                        "decisions_per_s": r.outcome.decisions_per_s,
+                        "p99_ms": r.outcome.p99_ms, "score": r.score}
+                       for r in res.history]}
+    log(f"[tune] fingerprint {json.dumps(doc['fingerprint'])}")
+    log(f"[tune] sweep {sweep_s:.1f} s: {out['trials']} trials, "
+        f"{out['parity_checks']} parity checks; baseline "
+        f"{rep['baseline_decisions_per_s']:.0f} decisions/s p99 "
+        f"{rep['baseline_p99_ms']} ms; best {res.best_config} "
+        f"{rep['best_decisions_per_s']:.0f} decisions/s p99 "
+        f"{rep['best_p99_ms']} ms")
+    cpu_doc = dict(doc, fingerprint=art.fingerprint("cpu"))
+    tpu_doc = dict(doc, fingerprint=dict(doc["fingerprint"],
+                                         device_kind="TPU v5 lite"))
+    paths = {}
+    for tag, d in (("cpu", cpu_doc), ("tpu", tpu_doc)):
+        paths[tag] = os.path.join(tmp, f"TUNED_{tag}.json")
+        with open(paths[tag], "w") as fh:
+            json.dump(d, fh)
+    starts = {}
+    tuned = {k: doc["knobs"][k] for k in TS_KNOBS}
+    for tag, card_env, cpu_env in (
+            ("artifact", {art.TUNED_CONFIG_ENV: path},
+             {art.TUNED_CONFIG_ENV: paths["cpu"]}),
+            ("tpu_copy", {art.TUNED_CONFIG_ENV: paths["tpu"]},
+             {art.TUNED_CONFIG_ENV: paths["tpu"]}),
+            ("typo", {"SENTINEL_PIPLINE_DEPTH": "4"},
+             {"SENTINEL_PIPLINE_DEPTH": "4"})):
+        views = {}
+        for where, rows, d, env in (("card", R, dev, card_env),
+                                    ("cpu", twin_rows, "cpu", cpu_env)):
+            t = time.perf_counter()
+            with _knobs(**env):
+                sph = stt.Sentinel(config=stt.load_config(
+                    max_resources=rows), device=d)
+            try:
+                views[where] = _tune_view(sph)
+            finally:
+                sph.close()
+            views[where]["start_s"] = time.perf_counter() - t
+        card, cpu = views["card"], views["cpu"]
+        for k in ("tuned", "counters", "batch_max", "frontend_depth",
+                  "pipeline_depth"):
+            if card[k] != cpu[k]:
+                fail(f"tune leg ({tag}): {k} {card[k]} on the card, "
+                     f"{cpu[k]} on the CPU twin")
+        c = card["counters"]
+        if tag == "artifact" and not (
+                c.get("tune.config_loaded") == 1 and card["tuned"] == tuned
+                and card["batch_max"] == tuned["SENTINEL_FRONTEND_BATCH"]
+                and card["pipeline_depth"] == card["frontend_depth"]
+                == tuned["SENTINEL_PIPELINE_DEPTH"]):
+            fail(f"tune leg: the artifact did not apply: {card}")
+        if tag == "tpu_copy" and not (
+                c.get("tune.fingerprint_fallback") == 1
+                and card["tuned"] == {} and card["batch_max"] == 256
+                and card["pipeline_depth"] == 2):
+            fail(f"tune leg: the TPU copy did not fall back: {card}")
+        if tag == "typo" and c.get("tune.knob_rejected", 0) < 1:
+            fail(f"tune leg: the typo'd knob was not rejected: {card}")
+        starts[tag] = views
+        log(f"[tune] startup {tag}: {card['counters']}, batch_max "
+            f"{card['batch_max']}, depth {card['pipeline_depth']} "
+            f"({card['start_s']:.1f} s at {R} rows; CPU twin equal)")
+    rep["startups"] = starts
+    if not launches:
+        fail("tune leg: the sweep launched no kernel")
+    rep["launches"] = launches
+    return rep
+
+
+def _state_bytes(sph) -> int:
+    from sentinel_tpu_torch.core.snapshot import _leaves
+    return sum(t.numel() * t.element_size() for t in _leaves(sph._state))
+
+
+def _snap_runtime(stt, R: int, dev, flow_count: float = 50.0,
+                  start_ms: int = TS_T0):
+    """Phase 8's fixture (4096 QPS rules of ``flow_count``, 1024
+    exception-ratio breakers), default configuration, under a
+    ManualClock."""
+    clock = stt.ManualClock(start_ms=start_ms)
+    sph = _obs_runtime(stt, R, clock, dev)
+    if flow_count != 50.0:
+        sph.load_flow_rules([stt.FlowRule(resource=f"r{i}", count=flow_count)
+                             for i in range(OBS_RULED)])
+    return sph, clock
+
+
+def _snap_steps(sph, clock, batches, failing, prev):
+    """Fused steps over ``batches`` (exits of the step before), the clock
+    ``TS_STEP_MS`` a step → (verdict arrays, the last batch)."""
+    out = []
+    for rows in batches:
+        v = _fused_step(sph, rows, prev, failing).result()
+        out.append((np.asarray(v.allow).copy(), np.asarray(v.reason).copy(),
+                    np.asarray(v.wait_ms).copy()))
+        prev = rows
+        clock.advance_ms(TS_STEP_MS)
+    return out, prev
+
+
+def _verdicts_equal(a, b) -> bool:
+    return len(a) == len(b) and all(
+        all(np.array_equal(x, y) for x, y in zip(p, q)) for p, q in zip(a, b))
+
+
+#: leaves a restore does not carry: the live thread gauges (as the
+#: reference specifies) and the tiering sketch (not in the snapshot)
+_NOT_RESTORED = ("threads", "alt_threads", "tiering.sketch")
+
+
+def _snap_leaves(sph, keep=None) -> dict:
+    from sentinel_tpu_torch import convert
+    d = convert.engine_to_numpy(sph)
+    return {k: v for k, v in d.items() if k not in _NOT_RESTORED
+            and (keep is None or k.split(".")[0] in keep)}
+
+
+def _snapshot_leg(stt, sa, dev, R: int, B: int, steps: int, twin_rows: int,
+                  twin_B: int, tmp: str) -> dict:
+    """(b) save a ``R``-row runtime after ``steps`` fused steps of ``B``
+    events whose breakers trip, restore it (same rules: ``"full"``, the
+    next ``steps`` steps equal to the original's; changed rules:
+    ``"partial"``, windows equal; another geometry: ``False``), and a
+    ``twin_rows`` snapshot written on the card restored in a CPU twin."""
+    from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch.core.snapshot import load_state, save_state
+    import shutil
+    rep = {"R": R, "B": B, "steps": steps}
+    sa.LAUNCHES.clear()
+    a, ca = _snap_runtime(stt, R, dev)
+    need = 2 * _state_bytes(a)
+    free = shutil.disk_usage(tmp).free
+    rep["free_bytes"], rep["state_bytes"] = free, need // 2
+    log(f"[snapshot] {R} rows: {need // 2} state bytes, {free} bytes free "
+        f"in {tmp}")
+    if free < need:
+        a.close()
+        R = 1 << 18
+        rep["cut_to_rows"] = R
+        log(f"[snapshot] CUT: less than twice the state free on the "
+            f"temporary disk; this leg runs at {R} rows")
+        a, ca = _snap_runtime(stt, R, dev)
+    batches, failing = _scalar_stream(a, B, 2 * steps, seed=151)
+    before, prev = _snap_steps(a, ca, batches[:steps], failing,
+                               np.zeros(0, np.int32))
+    trips = sum(1 for s in a.breaker_states() if s)
+    path = os.path.join(tmp, "snap")
+    t = time.perf_counter()
+    save_state(a, path)
+    rep["save_ms"] = (time.perf_counter() - t) * 1e3
+    rep["file_bytes"] = (os.path.getsize(path + ".npz")
+                         + os.path.getsize(path + ".meta.json"))
+    b, cb = _snap_runtime(stt, R, dev, start_ms=ca.now_ms())
+    t = time.perf_counter()
+    got = load_state(b, path)
+    rep["restore_ms"] = (time.perf_counter() - t) * 1e3
+    if got != "full":
+        fail(f"snapshot leg: same-rules restore gave {got!r}")
+    windows = _snap_leaves(b, keep=("second", "minute", "alt_second"))
+    after_a, _ = _snap_steps(a, ca, batches[steps:], failing, prev)
+    after_b, _ = _snap_steps(b, cb, batches[steps:], failing, prev)
+    rep["launches"] = sa.LAUNCHES["scatter_add"]
+    if not _verdicts_equal(after_a, after_b):
+        fail("snapshot leg: the restored runtime's verdicts differ")
+    bad = convert.leaf_diff(_snap_leaves(b), _snap_leaves(a))
+    if bad:
+        fail(f"snapshot leg: restored state differs in {bad[:8]}")
+    rep["cache"] = {k: v for k, v in a.obs.counters.snapshot().items()
+                    if k.startswith("compile_cache.")}
+    a.close()
+    b.close()
+    c, _ = _snap_runtime(stt, R, dev, flow_count=60.0, start_ms=ca.now_ms())
+    got_c = load_state(c, path)
+    bad = convert.leaf_diff(_snap_leaves(c, keep=("second", "minute",
+                                                  "alt_second")), windows)
+    c.close()
+    if got_c != "partial" or bad:
+        fail(f"snapshot leg: changed-rules restore gave {got_c!r}, "
+             f"windows differ in {bad[:8]}")
+    d, _ = _snap_runtime(stt, 1 << 14, dev)
+    got_d = load_state(d, path)
+    d.close()
+    if got_d is not False:
+        fail(f"snapshot leg: another geometry restored {got_d!r}")
+    os.unlink(path + ".npz")
+    # the 2^14-row snapshot written on the card, restored on the CPU
+    e, ce = _snap_runtime(stt, twin_rows, dev)
+    tb, tf = _scalar_stream(e, twin_B, 2 * steps, seed=152, pool=8192)
+    _, tprev = _snap_steps(e, ce, tb[:steps], tf, np.zeros(0, np.int32))
+    tpath = os.path.join(tmp, "snap16k")
+    save_state(e, tpath)
+    twins = {}
+    for tag, sph_dev in (("card", dev), ("cpu", "cpu")):
+        f, cf = _snap_runtime(stt, twin_rows, sph_dev, start_ms=ce.now_ms())
+        if load_state(f, tpath) != "full":
+            fail(f"snapshot leg: the {tag} twin did not restore full")
+        v, _ = _snap_steps(f, cf, tb[steps:], tf, tprev)
+        twins[tag] = (v, _snap_leaves(f))
+        f.close()
+    e.close()
+    rep["launches"] = sa.LAUNCHES["scatter_add"]
+    if not _verdicts_equal(twins["card"][0], twins["cpu"][0]):
+        fail("snapshot leg: the CPU twin's verdicts differ")
+    bad = convert.leaf_diff(twins["cpu"][1], twins["card"][1])
+    if bad:
+        fail(f"snapshot leg: the CPU twin's state differs in {bad[:8]}")
+    rep["breakers_open_at_save"] = trips
+    if not trips:
+        fail("snapshot leg: no breaker was open at the save")
+    log(f"[snapshot] {R} rows: save {rep['save_ms']:.0f} ms, restore "
+        f"{rep['restore_ms']:.0f} ms, {rep['file_bytes']} file bytes; "
+        f"full / partial / False as required; next {steps} steps equal; "
+        f"{twin_rows}-row card snapshot restores on the CPU equal; "
+        f"compile_cache {rep['cache']}")
+    return rep
+
+
+def _cc_child_main(out_path: str, dev: str = "cuda") -> int:
+    """One cold start on ``dev`` against ``SENTINEL_COMPILE_CACHE``: ms
+    from here to the first kernel launch's verdicts, and which compilers
+    ran."""
+    t0 = time.perf_counter()
+    from sentinel_tpu_torch.ops import _build
+    calls = []
+    compile_fn = _build._compile
+
+    def counted(argv, lib):
+        calls.append(os.path.basename(argv[0]))
+        return compile_fn(argv, lib)
+
+    _build._compile = counted
+    import sentinel_tpu_torch as stt
+    from sentinel_tpu_torch.ops import scatter_add as sa
+    sph = stt.Sentinel(config=stt.load_config(max_resources=1 << 14),
+                       device=dev)
+    sph.load_flow_rules([stt.FlowRule(resource="x", count=5.0)])
+    v = sph.entry_batch(["x"] * 1024)
+    ms = (time.perf_counter() - t0) * 1e3
+    out = {"first_launch_ms": ms, "compiled": calls,
+           "launches": sa.LAUNCHES["scatter_add"],
+           "allowed": int(np.asarray(v.allow).sum()),
+           "native": type(sph.resources).__name__,
+           "build_s": dict(_build.build_seconds)}
+    sph.close()
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def _cache_leg(tmp: str, dev: str) -> dict:
+    """(c) two processes on ``dev``, one after the other, on a fresh
+    ``SENTINEL_COMPILE_CACHE``: the first builds the kernel and the C++
+    tables, the second finds both and compiles nothing."""
+    cache = os.path.join(tmp, "build-cache")
+    runs = []
+    for i in range(2):
+        out = os.path.join(tmp, f"cc{i}.json")
+        env = dict(os.environ, SENTINEL_COMPILE_CACHE=cache)
+        env.pop("SENTINEL_TPU_NATIVE", None)
+        proc = subprocess.run(CC_CHILD_CMD + [out, dev], env=env,
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            fail(f"cache leg: start {i} ended with {proc.returncode}:\n"
+                 f"{proc.stderr[-3000:]}")
+        with open(out) as fh:
+            runs.append(json.load(fh))
+    cold, warm = runs
+    want = ["g++", "nvcc"] if dev == "cuda" else ["g++"]
+    if sorted(cold["compiled"]) != want or warm["compiled"]:
+        fail(f"cache leg: compilers run {cold['compiled']} then "
+             f"{warm['compiled']}")
+    launched = dev != "cuda" or (cold["launches"] and warm["launches"])
+    if not launched or cold["allowed"] != 5 or warm["allowed"] != 5:
+        fail(f"cache leg: {cold} / {warm}")
+    log(f"[cache] first launch {cold['first_launch_ms']:.0f} ms cold "
+        f"(compiled {cold['compiled']}), {warm['first_launch_ms']:.0f} ms "
+        f"warm (nothing compiled; {sorted(os.listdir(cache))})")
+    return {"cold": cold, "warm": warm, "entries": sorted(os.listdir(cache))}
+
+
+def _pct_us(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def _grpc_stream(n_flow, batches: int, n: int, seed: int) -> list:
+    """``batches`` mixed batches of ``n`` token requests (phase 11's
+    stream: 3/4 flow, 1/4 param with 1-4 Zipf user ids) as the gRPC
+    service's rows, in a seeded order."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for ids, acq, prio, pids, pacq, vals in _cluster_stream(n_flow, n,
+                                                            batches, seed):
+        rows = [(int(f), int(a), bool(p), ()) for f, a, p in
+                zip(ids.tolist(), acq.tolist(), prio.tolist())]
+        rows += [(int(f), int(a), False, [str(u) for u in v])
+                 for f, a, v in zip(pids, pacq, vals)]
+        out.append([rows[i] for i in rng.permutation(len(rows))])
+    return out
+
+
+def _grpc_leg(stt, sa, dev, batches: int, batch_n: int, threads: int,
+              seconds: float, entries: int) -> dict:
+    """(d) phase 11's engine behind ``TokenGrpcServer`` on loopback:
+    ``batches`` mixed batches from one client against a CPU twin engine
+    fed the same rows; one client alone (no deadline) for the service
+    round trip of 1 and of ``batch_n`` items; then ``threads`` clients
+    for ``seconds`` (half sending single requests, half batches of
+    ``batch_n``) at the reference's 20 ms deadline; then
+    ``entry()``+exit through a ``Sentinel`` whose token service is the
+    gRPC client (its RPCs' statuses counted: a FAIL falls back to the
+    local rule)."""
+    import threading
+    from sentinel_tpu_torch.cluster.grpc_token import (
+        GrpcTokenClient, TokenGrpcServer, TokenGrpcService)
+    from sentinel_tpu_torch.core.clock import Clock
+    from sentinel_tpu_torch.parallel import cluster as tcl
+    rules = _cluster_rules(tcl)
+    eng = _cluster_engine(tcl, dev, rules)
+    twin = _cluster_engine(tcl, "cpu", rules)
+    clock = stt.ManualClock(start_ms=CLUSTER_T0)
+    twin_clock = stt.ManualClock(start_ms=CLUSTER_T0)
+    twin_svc = TokenGrpcService(twin, clock=twin_clock)
+    stream = _grpc_stream(rules[0], batches, batch_n, seed=171)
+    sa.LAUNCHES.clear()
+    rep = {}
+    srv = TokenGrpcServer(eng, host="127.0.0.1", port=0, clock=clock)
+    port = srv.start()
+    try:
+        cli = GrpcTokenClient(f"127.0.0.1:{port}", namespace="ns0",
+                              timeout_ms=60_000)
+        got, want = [], []
+        try:
+            for rows in stream:
+                got.append([(r.status, r.wait_ms, r.remaining)
+                            for r in cli._batch(rows)])
+                want.append(twin_svc.request_tokens(rows))
+                clock.advance_ms(CLUSTER_STEP_MS)
+                twin_clock.advance_ms(CLUSTER_STEP_MS)
+        finally:
+            cli.close()
+    finally:
+        srv.stop()
+    if got != want:
+        bad = sum(g != w for g, w in zip(got, want))
+        fail(f"grpc leg: {bad} of {len(got)} batches differ from the CPU "
+             f"twin")
+    counts = collections.Counter(s for b in got for s, _, _ in b)
+    rep["parity"] = {"batches": batches, "n": batch_n,
+                     "statuses": dict(counts)}
+    log(f"[grpc] {batches} batches of {batch_n} equal to the CPU twin: "
+        f"{dict(counts)}")
+    # timing on the wall clock: one client alone, then the reference
+    # client's 20 ms deadline under ``threads`` clients
+    srv = TokenGrpcServer(eng, host="127.0.0.1", port=0, clock=Clock())
+    port = srv.start()
+    singles = [[r] for b in stream for r in b[:64]]
+    alone = {1: [], batch_n: []}
+    cli = GrpcTokenClient(f"127.0.0.1:{port}", namespace="ns0",
+                          timeout_ms=60_000)
+    try:
+        for k in range(256):
+            rows = singles[k % len(singles)] if k % 4 else \
+                stream[k % len(stream)]
+            t = time.perf_counter_ns()
+            res = cli._batch(rows)
+            alone[len(rows)].append((time.perf_counter_ns() - t) / 1e3)
+            if any(r.status == tcl.STATUS_FAIL for r in res):
+                fail("grpc leg: a request without a deadline failed")
+    finally:
+        cli.close()
+    rep["alone"] = {f"b{n}": {"rtt_p50_us": _pct_us(v, 50),
+                              "rtt_p99_us": _pct_us(v, 99), "calls": len(v)}
+                    for n, v in alone.items()}
+    log(f"[grpc] one client, no deadline: batch 1 p50/p99 "
+        f"{rep['alone']['b1']['rtt_p50_us']:.0f}/"
+        f"{rep['alone']['b1']['rtt_p99_us']:.0f} us, batch {batch_n} "
+        f"{rep['alone'][f'b{batch_n}']['rtt_p50_us']:.0f}/"
+        f"{rep['alone'][f'b{batch_n}']['rtt_p99_us']:.0f} us")
+    lat = {1: [], batch_n: []}
+    fails = collections.Counter()
+    items = collections.Counter()
+    lock = threading.Lock()
+    stop = time.perf_counter() + seconds
+
+    def drive_grpc(i: int):
+        n = 1 if i % 2 == 0 else batch_n
+        c = GrpcTokenClient(f"127.0.0.1:{port}", namespace="ns0")
+        mine, nf, ni, k = [], 0, 0, i
+        try:
+            while time.perf_counter() < stop:
+                rows = (singles[k % len(singles)] if n == 1
+                        else stream[k % len(stream)])
+                k += threads
+                t = time.perf_counter_ns()
+                res = c._batch(rows)
+                mine.append((time.perf_counter_ns() - t) / 1e3)
+                ni += len(res)
+                nf += sum(r.status == tcl.STATUS_FAIL for r in res)
+        finally:
+            c.close()
+        with lock:
+            lat[n].extend(mine)
+            fails[n] += nf
+            items[n] += ni
+
+    try:
+        workers = [threading.Thread(target=drive_grpc, args=(i,),
+                                    daemon=True) for i in range(threads)]
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=seconds + 120)
+        wall = time.perf_counter() - t0
+        if any(w.is_alive() for w in workers):
+            fail("grpc leg: a client thread did not finish")
+    finally:
+        srv.stop()
+    rep["timing"] = {
+        "threads": threads, "seconds": wall,
+        "items_per_s": sum(items.values()) / wall,
+        "decisions_per_s": (sum(items.values()) - sum(fails.values()))
+        / wall,
+        **{f"b{n}": {"rtt_p50_us": _pct_us(lat[n], 50),
+                     "rtt_p99_us": _pct_us(lat[n], 99), "calls": len(lat[n]),
+                     "items": items[n], "fail_items": fails[n]}
+           for n in lat}}
+    tm = rep["timing"]
+    log(f"[grpc] {threads} threads {wall:.1f} s: "
+        f"{tm['items_per_s']:.0f} items/s, {tm['decisions_per_s']:.0f} "
+        f"decided (not FAIL)/s; batch 1 p50/p99 "
+        f"{tm['b1']['rtt_p50_us']:.0f}/{tm['b1']['rtt_p99_us']:.0f} us, "
+        f"batch {batch_n} "
+        f"{tm[f'b{batch_n}']['rtt_p50_us']:.0f}/"
+        f"{tm[f'b{batch_n}']['rtt_p99_us']:.0f} us; STATUS_FAIL at 20 ms: "
+        f"{fails[1]} + {fails[batch_n]} items")
+    # entry()+exit through a Sentinel on the card whose token service is
+    # the gRPC client (a cluster-mode rule on a flow of namespace ns1)
+    srv = TokenGrpcServer(eng, host="127.0.0.1", port=0, clock=Clock())
+    port = srv.start()
+    sph = stt.Sentinel(config=stt.load_config(), device=dev)
+    cli = GrpcTokenClient(f"127.0.0.1:{port}", namespace="ns1")
+    try:
+        sph.load_flow_rules([stt.FlowRule(
+            resource="grpc-svc", count=1e6, cluster_mode=True,
+            cluster_flow_id=5, cluster_fallback_to_local=True)])
+        statuses = collections.Counter()
+        rpc = cli._batch
+
+        def counted_rpc(rows):
+            out = rpc(rows)
+            statuses.update(r.status for r in out)
+            return out
+
+        cli._batch = counted_rpc
+        sph.set_token_service(cli)
+        us, passed = [], 0
+        for _ in range(entries):
+            t = time.perf_counter_ns()
+            try:
+                with sph.entry("grpc-svc"):
+                    passed += 1
+            except stt.BlockException:
+                pass
+            us.append((time.perf_counter_ns() - t) / 1e3)
+    finally:
+        cli.close()
+        sph.close()
+        srv.stop()
+    rep["entry"] = {"n": entries, "passed": passed,
+                    "p50_us": _pct_us(us, 50), "p99_us": _pct_us(us, 99),
+                    "rpc_statuses": dict(statuses)}
+    if not passed or sum(statuses.values()) != entries:
+        fail(f"grpc leg: {passed} entries passed, RPC statuses "
+             f"{dict(statuses)}")
+    rep["launches"] = sa.LAUNCHES["scatter_add"]
+    log(f"[grpc] entry()+exit via the gRPC token service: p50 "
+        f"{rep['entry']['p50_us']:.0f} us, p99 {rep['entry']['p99_us']:.0f}"
+        f" us ({passed}/{entries} passed; RPC statuses {dict(statuses)}, "
+        f"{tcl.STATUS_FAIL} = FAIL, checked locally)")
+    return rep
+
+
+def _rls_rules(rls):
+    rules = []
+    for d in range(RLS_DOMAINS):
+        descs = []
+        for k in range(RLS_DESCRIPTORS):
+            entries = [("generic_key", f"k{k}")]
+            if k % 4 == 3:
+                entries.append(("dest", f"svc{k}"))
+            descs.append(rls.RlsDescriptorRule(entries=entries,
+                                               count=float(2 + (k * 7) % 40)))
+        rules.append(rls.EnvoyRlsRule(domain=f"dom{d}", descriptors=descs))
+    return rules
+
+
+def _rls_requests(n: int, seed: int) -> list:
+    """``n`` requests: a domain, 1-3 descriptors Zipf(1.1) over the
+    limited ones (1 in 16 unknown), an addend 0-2, and whether the frame
+    carries an undeclared field."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        dom = f"dom{int((rng.zipf(1.1) - 1) % RLS_DOMAINS)}"
+        descs = []
+        for _ in range(int(rng.integers(1, 4))):
+            k = int((rng.zipf(1.1) - 1) % RLS_DESCRIPTORS)
+            e = [("generic_key", f"k{k}")]
+            if k % 4 == 3:
+                e.append(("dest", f"svc{k}"))
+            if rng.random() < 1 / 16:
+                e = [("generic_key", f"unknown{k}")]
+            descs.append(e)
+        out.append((dom, descs, int(rng.integers(0, 3)),
+                    bool(rng.random() < 0.125)))
+    return out
+
+
+def _rls_leg(stt, sa, dev, requests: int) -> dict:
+    """(e) ``SentinelRlsGrpcServer`` over a card engine with rules on
+    :data:`RLS_DOMAINS` domains: ``requests`` ``ShouldRateLimit`` frames
+    over a real channel, every code equal to a CPU twin service fed the
+    same requests under the same virtual clock."""
+    import grpc
+    from sentinel_tpu_torch.cluster import envoy_rls as rls
+    from sentinel_tpu_torch.cluster.proto import envoy_rls_pb2 as pb
+    from sentinel_tpu_torch.parallel import cluster as tcl
+    spec = tcl.ClusterSpec(n_shards=CLUSTER_SHARDS, flows_per_shard=64,
+                           namespaces=RLS_DOMAINS)
+    clock = stt.ManualClock(start_ms=CLUSTER_T0)
+    svc = rls.EnvoyRlsService(tcl.ClusterEngine(spec, device=dev),
+                              clock=clock)
+    twin_clock = stt.ManualClock(start_ms=CLUSTER_T0)
+    twin = rls.EnvoyRlsService(tcl.ClusterEngine(spec, device="cpu"),
+                               clock=twin_clock)
+    for s in (svc, twin):
+        s.rules.load_rules(_rls_rules(rls))
+    reqs = _rls_requests(requests, seed=181)
+    sa.LAUNCHES.clear()
+    server = rls.SentinelRlsGrpcServer(svc, host="127.0.0.1", port=0)
+    port = server.start()
+    got, want, us = [], [], []
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+            rpc = ch.unary_unary(rls.RLS_METHOD,
+                                 request_serializer=lambda b: b,
+                                 response_deserializer=
+                                 pb.RateLimitResponse.FromString)
+            for dom, descs, addend, unknown in reqs:
+                req = pb.RateLimitRequest(domain=dom, hits_addend=addend)
+                for e in descs:
+                    d = req.descriptors.add()
+                    for k, v in e:
+                        ent = d.entries.add()
+                        ent.key, ent.value = k, v
+                raw = req.SerializeToString()
+                if unknown:
+                    raw += bytes([0x78, 0x2A])   # field 15: skipped
+                t = time.perf_counter_ns()
+                resp = rpc(raw, timeout=60)
+                us.append((time.perf_counter_ns() - t) / 1e3)
+                got.append((resp.overall_code,
+                            [s.code for s in resp.statuses]))
+                overall, st = twin.should_rate_limit(dom, descs, addend or 1)
+                want.append((overall, [s.code for s in st]))
+                clock.advance_ms(1)
+                twin_clock.advance_ms(1)
+    finally:
+        server.stop()
+    if got != want:
+        bad = sum(g != w for g, w in zip(got, want))
+        fail(f"rls leg: {bad} of {len(got)} responses differ from the CPU "
+             f"twin")
+    over = sum(g[0] == rls.CODE_OVER_LIMIT for g in got)
+    if not (0 < over < len(got)):
+        fail(f"rls leg: {over} of {len(got)} requests over the limit")
+    rep = {"requests": requests, "over_limit": over,
+           "p50_us": _pct_us(us, 50), "p99_us": _pct_us(us, 99),
+           "launches": sa.LAUNCHES["scatter_add"]}
+    log(f"[rls] {requests} ShouldRateLimit over gRPC equal to the CPU twin "
+        f"({over} OVER_LIMIT): p50 {rep['p50_us']:.0f} us, p99 "
+        f"{rep['p99_us']:.0f} us a request")
+    return rep
+
+
+def phase_tune_snapshot_grpc(stt, sa, dev="cuda", R=1 << 20,
+                             twin_rows=1 << 14, grids=None,
+                             rungs=(150, 450), rate: float = 2000.0,
+                             B=1 << 19, steps: int = 8, twin_B=1 << 12,
+                             grpc_batches: int = 64, grpc_n: int = 256,
+                             grpc_threads: int = 8, grpc_s: float = 10.0,
+                             grpc_entries: int = 256,
+                             rls_requests: int = 4096) -> dict:
+    """Phase 15 (``tune_snapshot_grpc``), all on ``Sentinel(device=dev)``:
+    (a) :func:`_tune_leg`; (b) :func:`_snapshot_leg`; (c) the runtime's
+    ``compile_cache.*`` after (b) and :func:`_cache_leg`; (d)
+    :func:`_grpc_leg`; (e) :func:`_rls_leg`. Without ``grpc`` or
+    ``google.protobuf``, (d) and (e) are reported as not run, naming the
+    package."""
+    import tempfile
+    t_phase = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ts_") as tmp:
+        res["tune"] = _tune_leg(stt, sa, dev, R, twin_rows,
+                                grids or TS_GRIDS, rungs, rate, tmp)
+        log(f"[phase15] (a) done at {time.perf_counter() - t_phase:.1f} s")
+        res["snapshot"] = _snapshot_leg(stt, sa, dev, R, B, steps,
+                                        twin_rows, twin_B, tmp)
+        log(f"[phase15] (b) done at {time.perf_counter() - t_phase:.1f} s")
+        res["cache"] = _cache_leg(tmp, dev)
+        log(f"[phase15] (c) done at {time.perf_counter() - t_phase:.1f} s")
+    missing = []
+    for mod in ("grpc", "google.protobuf"):
+        try:
+            __import__(mod)
+        except ImportError:
+            missing.append(mod)
+    launches = res["tune"]["launches"] + res["snapshot"]["launches"]
+    if missing:
+        res["grpc"] = res["rls"] = {"not_run": missing}
+        log(f"[phase15] (d)-(e) not run: {', '.join(missing)} not installed")
+    else:
+        res["grpc"] = _grpc_leg(stt, sa, dev, grpc_batches, grpc_n,
+                                grpc_threads, grpc_s, grpc_entries)
+        log(f"[phase15] (d) done at {time.perf_counter() - t_phase:.1f} s")
+        res["rls"] = _rls_leg(stt, sa, dev, rls_requests)
+        launches += res["grpc"]["launches"] + res["rls"]["launches"]
+        for leg in ("grpc", "rls"):
+            if not res[leg]["launches"]:
+                fail(f"phase 15: the {leg} leg launched no kernel")
+    if not res["snapshot"]["launches"]:
+        fail("phase 15: the snapshot leg launched no kernel")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase15] took {res['seconds']:.1f} s; kernel launches {launches}")
+    return res
+
+
 def find_syncs(stt, sa) -> int:
     """``--find-syncs``: every place where a kernel-run engine step waits
     on the device, with the port's frames of its stack (the sync debug
@@ -6981,6 +7709,8 @@ def main() -> int:
         return _db_twin_main(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--dashboard"]:
         return _db_dash_main(sys.argv[2])
+    if sys.argv[1:2] == ["--cc-child"]:
+        return _cc_child_main(sys.argv[2], sys.argv[3])
     # the runtimes' block logs and record log go to a directory of this
     # run, removed at exit
     import tempfile
@@ -7035,6 +7765,7 @@ def main() -> int:
     report["command_plane"] = phase_command_plane(stt, sa)
     report["gateway"] = phase_gateway(stt, sa)
     report["dashboard"] = phase_dashboard(stt, sa)
+    report["tune_snapshot_grpc"] = phase_tune_snapshot_grpc(stt, sa)
     report["seconds"] = time.perf_counter() - t_all
 
     decide = report["kernel_cases"][0]
@@ -7043,7 +7774,7 @@ def main() -> int:
         "engine", "prio", "prio_mixed", "general", "general_occupy", "fast",
         "scalar_param", "general_param", "runtime", "fast_path",
         "param_runtime", "obs_runtime", "serving", "tiering", "cluster",
-        "command_plane", "gateway", "dashboard"))
+        "command_plane", "gateway", "dashboard", "tune_snapshot_grpc"))
     kernels = [{
         "name": "scatter_add", "route": "cuda",
         "source": "sentinel_tpu_torch/csrc/scatter_add.cu",

@@ -3,8 +3,10 @@ server, and client SDK (SURVEY §2.3, sentinel-cluster-*) — the PyTorch
 port of ``sentinel_tpu/cluster``. The server fronts a
 :class:`~sentinel_tpu_torch.parallel.cluster.ClusterEngine` on the GPU;
 ``coordinator`` switches an app between client and embedded server, and
-``commands`` holds the ``cluster/server/*`` command handlers. gRPC and
-Envoy RLS are not ported yet (ROADMAP A12)."""
+``commands`` holds the ``cluster/server/*`` command handlers;
+``grpc_token`` serves the engine over a batched gRPC API and
+``envoy_rls`` as an Envoy Rate Limit Service (both import ``grpc`` and
+``google.protobuf`` only when a server or client is built)."""
 
 from sentinel_tpu_torch.cluster.codec import (  # noqa: F401
     MSG_TYPE_PING, MSG_TYPE_FLOW, MSG_TYPE_PARAM_FLOW,

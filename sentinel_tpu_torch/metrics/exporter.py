@@ -63,9 +63,10 @@ is bounded by construction (top-K ≤ 128 labels).
 Every key in the fixed counter CATALOG (obs/counters.py) has a family
 here — tests/test_obs.py walks the catalog against the rendered scrape
 so a key added without an export shows up as a test failure, not a
-silent observability gap. The port has no source for the
-``compile_cache.*`` and ``tune.*`` counters (no program cache, no
-autotuner): those families export 0.
+silent observability gap. ``compile_cache.*`` counts first against
+repeat dispatches of each program key (core/compile_cache.py) and
+``tune.*`` the autotuner's startup events (tune/), as in the
+reference.
 
 ``prometheus_client`` is optional: without it, constructing the
 collector or the exporter raises an ImportError naming the package.

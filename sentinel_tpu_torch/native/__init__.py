@@ -6,7 +6,8 @@ path worth native code: ``src/registry.cpp`` (the JAX package's
 ``sentinel_tpu/native/src/registry.cpp``, copied; host C++ with a C
 interface, loaded with :mod:`ctypes`, so every call runs without the
 GIL). It is compiled with ``g++`` at first use into the git-ignored
-``sentinel_tpu_torch/_build/`` (:func:`ops._build.build_host`: a hashed
+``sentinel_tpu_torch/_build/``, or ``SENTINEL_COMPILE_CACHE``
+(:func:`ops._build.build_host`: a hashed
 name, a temporary file renamed into place). Everything here has a
 pure-Python twin with the same row assignment; ``SENTINEL_TPU_NATIVE=0``
 selects it, and a failed build falls back to it after one line in the

@@ -6,7 +6,9 @@ headers, so a build takes seconds). The library lands in
 ``sentinel_tpu_torch/_build/`` (git-ignored) under a name that carries a
 hash of its source and flags, so an edited source is rebuilt and an
 unchanged one is reused. Nothing is built when a module is imported: the
-first launch builds.
+first launch builds. ``SENTINEL_COMPILE_CACHE`` moves the directory
+(:func:`sentinel_tpu_torch.core.compile_cache.cache_dir`; ``0``/``off``
+builds into a fresh directory for the process).
 """
 
 from __future__ import annotations
@@ -21,9 +23,10 @@ import threading
 import time
 from typing import Dict, Optional, Tuple
 
+from sentinel_tpu_torch.core.compile_cache import cache_dir
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -32,8 +35,8 @@ HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-#: seconds each library took to build in this process (0.0 when an
-#: earlier process's build was reused)
+#: seconds each library (CUDA by source name, host C++ by stem) took to
+#: build in this process (0.0 when an earlier process's build was reused)
 build_seconds: Dict[str, float] = {}
 #: nvcc's -Xptxas -v report per library (registers, spills)
 ptxas_report: Dict[str, str] = {}
@@ -60,7 +63,8 @@ def _hashed(src: str, stem: str, flags) -> str:
     in its name, so an edited source is rebuilt."""
     with open(src, "rb") as fh:
         digest = hashlib.sha256(fh.read() + " ".join(flags).encode())
-    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
+    return os.path.join(cache_dir(),
+                        f"lib{stem}-{digest.hexdigest()[:12]}.so")
 
 
 def library_path(name: str) -> Tuple[str, str]:
@@ -72,8 +76,9 @@ def library_path(name: str) -> Tuple[str, str]:
 def _compile(argv, lib: str) -> subprocess.CompletedProcess:
     """Run ``argv + ["-o", tmp]`` and rename ``tmp`` to ``lib``: concurrent
     builders (processes too) never load a half-written file."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    out_dir = os.path.dirname(lib)
+    os.makedirs(out_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     try:
         proc = subprocess.run([*argv, "-o", tmp], capture_output=True,
@@ -106,8 +111,12 @@ def build_host(src: str, stem: str) -> str:
     """Compile the host C++ source ``src`` (C interface) with ``g++``
     into ``_build/lib<stem>-<hash>.so`` unless it is there → its path."""
     lib = _hashed(src, stem, HOST_FLAGS)
-    if not os.path.isfile(lib):
-        _compile(["g++", *HOST_FLAGS, src], lib)
+    if os.path.isfile(lib):
+        build_seconds.setdefault(stem, 0.0)
+        return lib
+    t0 = time.perf_counter()
+    _compile(["g++", *HOST_FLAGS, src], lib)
+    build_seconds[stem] = time.perf_counter() - t0
     return lib
 
 

@@ -91,6 +91,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import logging
 import os
 import threading
@@ -479,6 +480,26 @@ class Sentinel:
         self._device_slots: Tuple[slots_mod.DeviceSlot, ...] = ()
         # process epoch: wraparound-safe int32 relative time base
         self.epoch_ms = self.clock.now_ms()
+        # tuned-config startup resolution + knob-registry validation
+        # (tune/): a fingerprint-matching ``SENTINEL_TUNED_CONFIG``
+        # artifact fills every knob whose env var is UNSET (env wins per
+        # knob); a mismatch resolves to {} and serving runs on defaults.
+        # The events (artifact load/fallback, unknown or out-of-clamp
+        # SENTINEL_* keys) go to RecordLog and the tune.* counters once
+        # self.obs exists below.
+        from sentinel_tpu_torch.tune import artifact as tune_art
+        self._tuned, self._tune_events = tune_art.resolve_startup(
+            device=self.device)
+        # SORTFREE_BITS/CHUNK have no injection path (ops/sortfree reads
+        # the env at every step), so a tuned value pins the unset env var
+        # for this process; first engine wins, and the pin is logged
+        for _env in ("SENTINEL_SORTFREE_BITS", "SENTINEL_SORTFREE_CHUNK"):
+            if _env in self._tuned and _env not in os.environ:
+                os.environ[_env] = str(self._tuned[_env])
+                self._tune_events.append((
+                    None,   # log-only: the artifact load already ticked
+                    f"pinned {_env}={self._tuned[_env]} from tuned "
+                    f"config (trace-time knob, applied via env)"))
         self._lock = threading.RLock()
         self._state = init_state(self.spec, cfg.max_flow_rules,
                                  cfg.max_degrade_rules, device=self.device)
@@ -536,6 +557,15 @@ class Sentinel:
         # self-telemetry: spans, decision counters, latency histograms,
         # sampled block events; every site guards on ``obs.enabled``
         self.obs = RuntimeObs(clock=self.clock)
+        # the startup tune events: a RecordLog line and one counter tick
+        # each (key None = log only)
+        if self._tune_events:
+            rl = record_log()
+            for _key, _msg in self._tune_events:
+                (rl.info if _key == obs_keys.TUNE_LOADED
+                 else rl.warning)("tune: %s", _msg)
+                if _key is not None:
+                    self.obs.counters.add(_key)
         # services stopped by close(), LIFO, each once
         self._shutdown_hooks: list = []
         self._closed = False
@@ -552,8 +582,16 @@ class Sentinel:
         # ticker starts with tiering.start() or a CadenceScheduler.
         # SENTINEL_TIERING_DISABLE reverts to the lossy eviction.
         self.tiering = TierManager(self)
-        # the sketch update (and the carried ticks) ride the decide call
-        self._single_dispatch = single_dispatch_enabled()
+        # the sketch update (and the carried ticks) ride the decide call.
+        # self._tuned only carries knobs whose env var is UNSET, so the
+        # get() fallback to the env helper keeps env precedence
+        self._single_dispatch = bool(self._tuned.get(
+            "SENTINEL_SINGLE_DISPATCH", single_dispatch_enabled()))
+        # first-dispatch accounting (core/compile_cache.py): the program
+        # keys already dispatched, and the step generation they carry
+        self._fetched_programs: set = set()
+        self._program_gens = itertools.count()
+        self._renew_programs_locked()
         self.callbacks = StatisticCallbackRegistry()
         # breaker transition observers: the [ND] state column rides each
         # step's verdict readback and is diffed against ONE shared
@@ -570,9 +608,11 @@ class Sentinel:
         self._breaker_firing = False
         # padded batch size → _StagingRing; the depth covers the deepest
         # dispatch pipeline plus a split's two builds
-        self._staging_on = host_staging_enabled()
+        self._staging_on = bool(self._tuned.get("SENTINEL_HOST_STAGING",
+                                                host_staging_enabled()))
         self._staging: Dict[int, _StagingRing] = {}
-        self._staging_depth = max(4, 2 * pipeline_depth() + 2)
+        self._staging_depth = max(4, 2 * int(self._tuned.get(
+            PIPELINE_DEPTH_ENV, pipeline_depth())) + 2)
 
         # SPI-discovered slots (SlotChainProvider.newSlotChain analog):
         # every registered ``processor_slot`` provider, a fresh instance
@@ -643,7 +683,8 @@ class Sentinel:
             and r.grade == flow_mod.GRADE_QPS for r in self._flow.rules)
         self._skip_auth = self._auth.num_active == 0
         self._skip_sys = not self._sys_rules
-        self._sortfree = sortfree_enabled()
+        self._sortfree = bool(getattr(self, "_tuned", {}).get(
+            "SENTINEL_SORTFREE", sortfree_enabled()))
         prev_skip = getattr(self, "_skip_threads", None)
         # nothing loaded READS live concurrency → the gauge scatters are
         # elided (readers: THREAD-grade flow and param rules, system rules)
@@ -953,16 +994,22 @@ class Sentinel:
                 self._host_gates = tuple(
                     g for g in self._host_gates if g is not slot)
 
-    def _reset_custom_states_locked(self) -> None:
+    def _custom_init_states(self) -> tuple:
         """Every registered device slot's initial state, on the engine's
-        device (a (un)registration resets them all, as the reference's
-        re-jit does)."""
+        device."""
         def place(x):
             if isinstance(x, tuple):
                 return tuple(place(v) for v in x)
             return torch.as_tensor(x).to(self.device)
-        self._state = self._state._replace(custom=tuple(
-            place(s.init_state(self.spec)) for s in self._device_slots))
+        return tuple(place(s.init_state(self.spec))
+                     for s in self._device_slots)
+
+    def _reset_custom_states_locked(self) -> None:
+        """Reset every device slot's state (a (un)registration resets
+        them all and renews the program keys, as the reference's re-jit
+        does)."""
+        self._state = self._state._replace(custom=self._custom_init_states())
+        self._renew_programs_locked()
 
     @staticmethod
     def _slot_code(kind: str, index: int) -> int:
@@ -2267,11 +2314,15 @@ class Sentinel:
                         and self.tiering.observe_locked(batch.rows,
                                                         batch.valid))
             use_occ = self._note_dispatch_locked(now, any_prio)
+            flags = self._flags(route, not no_alt, use_occ, any_prio)
+            self._first_dispatch_locked(
+                "decide" if sd_sketch is None else "decide_sd",
+                (2 if no_alt else 0) + int(use_occ), route, (batch,),
+                times, sys_scalars, flags, tr)
             with obs.annotate("sentinel_tpu.decide"):
                 self._state, verdicts = decide_entries(
                     self.spec, self._ruleset, self._state, batch, times,
-                    sys_scalars, **self._flags(route, not no_alt, use_occ,
-                                               any_prio))
+                    sys_scalars, **flags)
                 if sd_sketch is not None:
                     self.tiering.set_sketch_locked(sk_mod.update_sketch(
                         sd_sketch, batch.rows, batch.valid)[0])
@@ -2288,6 +2339,79 @@ class Sentinel:
                 on_read=(self._obs_settled(tr, t_disp, n, "decide.device",
                                            prio_np if any_prio else None)
                          if obs_on else None))
+
+    def _renew_programs_locked(self) -> None:
+        """A new step generation for the program keys, wherever the
+        reference rebuilds its jitted steps: shared by geometry without
+        device slots (its steps are cached per ``EngineSpec``), fresh
+        with them (its slot steps are built anew)."""
+        self._program_gen = (self.spec if not self._device_slots
+                             else next(self._program_gens))
+
+    def _program_statics(self, route: str) -> dict:
+        """The step flags the reference specializes a jitted step on for
+        ``route`` (the statics of its program key)."""
+        st = {"skip_auth": self._skip_auth, "skip_sys": self._skip_sys,
+              "skip_threads": self._skip_threads}
+        if self._sortfree:
+            st["sortfree"] = True
+        if route in ("scalar", "fast"):
+            st[route + "_flow"] = True
+            st["scalar_has_rl"] = self._scalar_has_rl
+        return st
+
+    def _first_dispatch_locked(self, kind: str, variant: int, route: str,
+                               batches, times, sys_scalars, flags,
+                               trace_id: int) -> None:
+        """First-dispatch accounting of one step (the reference's
+        ``_warm_first_fetch_key_locked``): ``compile_cache.hit`` /
+        ``.miss`` count first against repeat dispatches of its program
+        key — ``kind``, the step generation and ``variant`` (the
+        reference's ``(2 if no alt rows) + (1 if occupy-aware)`` step
+        index), the padded geometry of ``batches`` and the route's
+        statics. With ``SENTINEL_FIRST_LOAD_TIMEOUT_S`` set, a key's first
+        dispatch is preceded by a throwaway execution of the same step
+        (fresh state, all-invalid copies of ``batches``) under
+        :func:`~sentinel_tpu_torch.core.compile_cache.guarded_first_fetch`,
+        each retry counting ``compile_cache.first_fetch_retry`` and a
+        traced batch recording a ``decide.first_fetch`` span."""
+        from sentinel_tpu_torch.core import compile_cache as cc
+        key = cc.program_key(kind, (self._program_gen, variant),
+                             tuple(int(b.rows.shape[0]) for b in batches),
+                             self._program_statics(route))
+        obs = self.obs
+        hit = key in self._fetched_programs
+        if obs.enabled:
+            obs.counters.add(obs_keys.CACHE_HIT if hit
+                             else obs_keys.CACHE_MISS)
+        if hit:
+            return
+        timeout_s, retries = cc.first_fetch_policy()
+        if timeout_s > 0:
+            def attempt():
+                state = init_state(self.spec, self.cfg.max_flow_rules,
+                                   self.cfg.max_degrade_rules,
+                                   device=self.device)
+                state = state._replace(custom=self._custom_init_states())
+                warm = [b._replace(valid=torch.zeros_like(b.valid))
+                        for b in batches]
+                step = (decide_entries if len(warm) == 1
+                        else decide_and_record_exits)
+                out = step(self.spec, self._ruleset, state, *warm, times,
+                           sys_scalars, **flags)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                return out
+
+            t0 = obs.spans.now_ns() if trace_id else 0
+            cc.guarded_first_fetch(
+                attempt, f"{kind} step (B={key[2]})", timeout_s, retries,
+                on_retry=((lambda: obs.counters.add(obs_keys.CACHE_RETRY))
+                          if obs.enabled else None))
+            if trace_id:
+                obs.spans.record(trace_id, "decide.first_fetch", t0,
+                                 obs.spans.now_ns(), n=key[2][0])
+        self._fetched_programs.add(key)
 
     def _sd_sketch_locked(self):
         """The sketch a single-dispatch decide call updates itself, or
@@ -2396,14 +2520,22 @@ class Sentinel:
                 observed += int(self.tiering.observe_locked(bg.rows,
                                                             bg.valid))
             use_occ = self._note_dispatch_locked(now, any_prio)
+            fl_s = self._flags("scalar", False, use_occ)
+            fl_g = self._flags("fast", not no_alt_g, use_occ,
+                               bool(prio_g.any()))
+            kind = "decide" if sd_sketch is None else "decide_sd"
+            self._first_dispatch_locked(kind, 2 + int(use_occ), "scalar",
+                                        (bs,), times, sys_scalars, fl_s, tr)
+            self._first_dispatch_locked(
+                kind, (2 if no_alt_g else 0) + int(use_occ), "fast", (bg,),
+                times, sys_scalars, fl_g, tr)
             with obs.annotate("sentinel_tpu.decide_split"):
                 state, v1 = decide_entries(
                     self.spec, self._ruleset, self._state, bs, times,
-                    sys_scalars, **self._flags("scalar", False, use_occ))
+                    sys_scalars, **fl_s)
                 self._state, v2 = decide_entries(
                     self.spec, self._ruleset, state, bg, times, sys_scalars,
-                    **self._flags("fast", not no_alt_g, use_occ,
-                                  bool(prio_g.any())))
+                    **fl_g)
                 if sd_sketch is not None:
                     sk1, _ = sk_mod.update_sketch(sd_sketch, bs.rows,
                                                   bs.valid)
@@ -2489,13 +2621,26 @@ class Sentinel:
                         and self.tiering.observe_locked(batch.rows,
                                                         batch.valid))
             use_occ = self._note_dispatch_locked(now, any_prio)
+            flags = self._flags(route, not no_alt, use_occ, any_prio)
+            # the carries due on this call are claimed before it, as the
+            # reference claims them for its epilogue program
+            tel_prep = tier_due = None
+            kind = "fused"
+            if sd_sketch is not None:
+                tel_prep = self.telemetry.carry_due_locked(now)
+                tier_due = self.tiering.carry_due_locked(now)
+                kind = ("fused_sd_epi" if tel_prep is not None or tier_due
+                        else "fused_sd")
+            self._first_dispatch_locked(
+                kind, (2 if no_alt else 0) + int(use_occ), route,
+                (batch, xbatch), times, sys_scalars, flags, tr)
             with obs.annotate("sentinel_tpu.fused"):
                 self._state, verdicts = decide_and_record_exits(
                     self.spec, self._ruleset, self._state, batch, xbatch,
-                    times, sys_scalars, **self._flags(route, not no_alt,
-                                                      use_occ, any_prio))
+                    times, sys_scalars, **flags)
                 if sd_sketch is not None:
-                    self._fused_epilogue_locked(sd_sketch, batch, now)
+                    self._fused_epilogue_locked(sd_sketch, batch, tel_prep,
+                                                tier_due)
             self.routes["fused"] += 1
             routed = "fast_occupy" if route == "fast" and use_occ else route
             t_disp = self._obs_dispatched(
@@ -2510,18 +2655,16 @@ class Sentinel:
                                            prio_np if any_prio else None)
                          if obs_on else None))
 
-    def _fused_epilogue_locked(self, sketch, batch: EntryBatch,
-                               now: int) -> None:
+    def _fused_epilogue_locked(self, sketch, batch: EntryBatch, tel_prep,
+                               tier_due: bool) -> None:
         """The single-dispatch tail of a fused decide+exit call, in the
         reference's order: the sketch update over the batch's rows, then
-        — when a carry cadence claims this call's slot — the telemetry
-        tick over the post-step windows and the sketch decay + estimate
-        of every row, their readbacks queued with the services. Which
-        parts run is known on the host (the claims), so each is a Python
-        branch."""
+        — when a carry cadence claimed this call's slot (``tel_prep``,
+        ``tier_due``) — the telemetry tick over the post-step windows and
+        the sketch decay + estimate of every row, their readbacks queued
+        with the services. Which parts run is known on the host (the
+        claims), so each is a Python branch."""
         tel = self.telemetry
-        tel_prep = tel.carry_due_locked(now)
-        tier_due = self.tiering.carry_due_locked(now)
         sketch, _overflow = sk_mod.update_sketch(sketch, batch.rows,
                                                  batch.valid)
         if tel_prep is not None or tier_due:
@@ -2614,7 +2757,7 @@ class Sentinel:
         cold-reset at the new geometry; the minute ring, the gauges, the
         breakers and the param state carry over; the host fast path's
         leases are dropped. No step or plan of the port is cached by
-        geometry, so nothing else is rebuilt."""
+        geometry; the program keys take the new geometry's generation."""
         sc = int(sample_count if sample_count is not None
                  else self.cfg.second_sample_count)
         iv = int(interval_ms if interval_ms is not None
@@ -2639,6 +2782,7 @@ class Sentinel:
                 flow_dyn=flow_mod.init_flow_dyn(
                     self.cfg.max_flow_rules, new_second.buckets,
                     self.spec.rows, device=dev))
+            self._renew_programs_locked()
             self._occupy_live_until_ms = -1
             self._seen_idx = -(2 ** 62)
             self._fast.win_ms = max(1, new_second.win_ms)
@@ -2697,11 +2841,16 @@ class Sentinel:
         deadline_ms, budget_ms, idle_ms, queue_max, depth,
         record_flushes). The batcher registers with
         :meth:`register_shutdown`, so :meth:`close` tears it down. One
-        batcher per event loop. Unset kwargs take the
-        ``SENTINEL_FRONTEND_*`` knobs and then the batcher's defaults (the
-        reference also fills them from a tuned-config artifact: ROADMAP
-        A12)."""
+        batcher per event loop. An unset kwarg takes its
+        ``SENTINEL_FRONTEND_*`` (or ``SENTINEL_PIPELINE_DEPTH``) knob when
+        that is set, else the ``SENTINEL_TUNED_CONFIG`` artifact's value
+        resolved at construction, else the batcher's default (explicit
+        kwarg > explicit env > artifact > default)."""
         from sentinel_tpu_torch.frontend import AdaptiveBatcher
+        from sentinel_tpu_torch.tune.knobs import FRONTEND_KWARG_ENVS
+        for kw, env in FRONTEND_KWARG_ENVS:
+            if kw not in kwargs and env in self._tuned:
+                kwargs[kw] = self._tuned[env]
         return AdaptiveBatcher(self, **kwargs)
 
     def __enter__(self) -> "Sentinel":

@@ -97,7 +97,11 @@ class DispatchPipeline:
         # pipeline.meshed_dispatch
         self._meshed = getattr(sentinel, "mesh", None) is not None
         if depth is None:
-            depth = pipeline_depth()
+            # the engine's tuned-config resolution (Sentinel._tuned only
+            # holds knobs whose env var is unset, so env still wins);
+            # getattr: pipelines are also built over test doubles
+            tuned = getattr(sentinel, "_tuned", None) or {}
+            depth = tuned.get(PIPELINE_DEPTH_ENV, pipeline_depth())
         self.depth = max(1, int(depth))
         self._lock = threading.Lock()
         # (seq, PendingVerdicts, trace id) in submission order

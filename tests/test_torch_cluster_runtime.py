@@ -10,8 +10,8 @@ dashboard (an embedded server serving its own rules, mode off, a client
 talking to a server on loopback). Each side gets its own package's
 service: the same scripted fake, or its package's coordinator, server and
 engine. The observations (verdicts, exceptions, waits, node totals, the
-service's calls), the block-log lines, the ``obs`` counters less
-``compile_cache.*`` / ``tune.*`` and the engine state must agree — and
+service's calls), the block-log lines, every ``obs`` counter and the
+engine state must agree — and
 for the coordinator the embedded engines' windows too.
 """
 
@@ -40,7 +40,6 @@ COORD = {"jax": jcoord, "torch": tcoord}
 CLUSTER = {"jax": jcl, "torch": tcl}
 #: counter families the comparison leaves out: the reference's compiled-
 #: program accounting and its autotuner, which the port does not have
-EXCLUDED = ("compile_cache.", "tune.")
 
 
 @pytest.fixture(autouse=True)
@@ -71,8 +70,7 @@ def twin(scenario, tmp_path):
         sph.block_log = LOGS[name].BlockStatLogger(
             clk, base_dir=str(tmp_path / name))
         obs = scenario(name, pkg, sph, clk)
-        counters = {k: v for k, v in sph.obs.counters.snapshot().items()
-                    if not k.startswith(EXCLUDED)}
+        counters = sph.obs.counters.snapshot()
         sph.block_log.flush()
         path = tmp_path / name / sph.block_log.FILE_NAME
         lines[name] = path.read_text().splitlines() if path.exists() else []

@@ -12,8 +12,8 @@ through a bound ``ClusterCoordinator``), manages it with the
 ``cluster/server/*`` commands, sends cluster-ruled traffic and reads
 ``metric`` after the metric timer wrote its seconds. Every verdict, every
 response (status and body; JSON compared parsed, less the token
-server's ephemeral port and the reference's ``compile_cache.*``/``tune.*``
-counters), the runtime's engine state and the embedded engine's windows
+server's ephemeral port), the runtime's engine state and the embedded
+engine's windows
 must agree.
 """
 
@@ -58,7 +58,6 @@ SIDES = {
     "torch": dict(pkg=stt, api=tapi, ad=tad, ds=tds, tr=ttr, coord=tcoord,
                   timer=ttimer, searcher=tsearcher, writer=twriter),
 }
-EXCLUDED = ("compile_cache.", "tune.")
 
 
 @pytest.fixture(autouse=True)
@@ -90,12 +89,8 @@ def _http(port, method, name, params=None, body=None):
 
 def _strip(name, doc):
     if isinstance(doc, dict):
-        out = {k: _strip(name, v) for k, v in doc.items()
-               if k not in ("port", "serverPort")}
-        if name == "obs" and "counters" in out:
-            out["counters"] = {k: v for k, v in out["counters"].items()
-                               if not k.startswith(EXCLUDED)}
-        return out
+        return {k: _strip(name, v) for k, v in doc.items()
+                if k not in ("port", "serverPort")}
     if isinstance(doc, list):
         return [_strip(name, v) for v in doc]
     return doc

@@ -8,10 +8,8 @@ heartbeat tests of ``tests/test_obs.py`` (``test_prometheus_obs_families``,
 Each scenario runs on twin runtimes (twin ManualClocks; the port on the
 CPU), each scraped through its own package's exporter into a private
 ``CollectorRegistry``. The scrapes must name the same families and carry
-the same samples, exactly, less the families of the ``compile_cache.*``
-and ``tune.*`` counters: the reference's XLA program cache and autotuner,
-which the port does not have (its families export 0; the same two
-families ``tests/test_torch_obs.py`` leaves out). There is no tolerance.
+the same samples, exactly, ``sentinel_compile_cache_*`` and
+``sentinel_tune`` included. There is no tolerance.
 """
 
 import urllib.request
@@ -36,8 +34,6 @@ torch.set_num_threads(2)
 
 T0 = 1_785_000_000_000
 PKGS = {"jax": (stpu, jexp, jck), "torch": (stt, texp, tck)}
-#: the families the comparison leaves out (see the module docstring)
-EXCLUDED = ("sentinel_compile_cache_", "sentinel_tune")
 CFG = dict(max_resources=64, max_flow_rules=16, max_degrade_rules=16,
            max_authority_rules=16)
 
@@ -57,20 +53,16 @@ def _make(name, **over):
 
 
 def samples(registry):
-    """(family names, samples) of one scrape, less the excluded
-    families' samples."""
+    """(family names, samples) of one scrape."""
     fams = list(registry.collect())
     return (sorted(f.name for f in fams),
             sorted((s.name, tuple(sorted(s.labels.items())), s.value)
-                   for f in fams if not f.name.startswith(EXCLUDED)
-                   for s in f.samples))
+                   for f in fams for s in f.samples))
 
 
 def _text(registry) -> str:
-    """The exposition text, less the excluded families' lines."""
-    return "\n".join(
-        ln for ln in generate_latest(registry).decode("utf-8").splitlines()
-        if not any(f" {x}" in ln or ln.startswith(x) for x in EXCLUDED))
+    """The exposition text."""
+    return generate_latest(registry).decode("utf-8")
 
 
 def twin(scenario, **over):

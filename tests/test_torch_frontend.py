@@ -8,7 +8,7 @@ against ``sentinel_tpu.frontend``.
   batcher == a sequential ``entry_batch`` replay of its flush log; shed;
   close and re-entrant close) run on twin runtimes (``host_fast_path``
   off, the reference's tiering off, twin ManualClocks): verdicts, flush
-  logs, counters (less ``compile_cache.*`` / ``tune.*``), histograms,
+  logs, counters, histograms,
   spans (less the worker thread's id, which differs run to run) and
   engine state equal to the reference's.
 * Every workload's request list equals the reference's for three seeds.
@@ -32,7 +32,7 @@ from sentinel_tpu_torch.frontend import batcher as tfe
 from sentinel_tpu_torch.frontend import workloads as twl
 from sentinel_tpu_torch.obs import counters as ck
 
-from test_torch_obs import EXCLUDED, T0, make
+from test_torch_obs import T0, make
 
 PKGS = {"jax": stpu, "torch": stt}
 FE = {"jax": jfe, "torch": tfe}
@@ -58,8 +58,7 @@ def _fe_view(sph) -> dict:
     links = sorted((e["src"], e["dst"], e["kind"], e["ts_ns"])
                    for e in o.spans.links_snapshot())
     return dict(
-        counters={k: v for k, v in o.counters.snapshot().items()
-                  if not k.startswith(EXCLUDED)},
+        counters=o.counters.snapshot(),
         spans=spans, links=links,
         hist={h: getattr(o, h).snapshot()
               for h in ("hist_entry", "hist_dispatch", "hist_request")},

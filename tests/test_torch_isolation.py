@@ -114,6 +114,17 @@ import sentinel_tpu_torch.dashboard.repository
 import sentinel_tpu_torch.dashboard.rulepipeline
 import sentinel_tpu_torch.dashboard.server
 import sentinel_tpu_torch.adapters.http_client
+import sentinel_tpu_torch.tune
+import sentinel_tpu_torch.tune.knobs
+import sentinel_tpu_torch.tune.search
+import sentinel_tpu_torch.tune.artifact
+import sentinel_tpu_torch.tune.episode
+import sentinel_tpu_torch.tune.runner
+import sentinel_tpu_torch.tune.__main__
+import sentinel_tpu_torch.core.snapshot
+import sentinel_tpu_torch.core.compile_cache
+import sentinel_tpu_torch.cluster.grpc_token
+import sentinel_tpu_torch.cluster.envoy_rls
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "sentinel_tpu")
@@ -240,6 +251,21 @@ DASHBOARD_ADAPTER_MODULES = [
 ]
 
 
+#: the autotuner, warm-restart snapshots, the build cache and the gRPC
+#: token and Envoy RLS servers, imported the same way (the ``_pb2``
+#: modules, which need protobuf, have a case of their own below)
+TUNE_SNAPSHOT_GRPC_MODULES = [
+    "sentinel_tpu_torch.tune", "sentinel_tpu_torch.tune.knobs",
+    "sentinel_tpu_torch.tune.search", "sentinel_tpu_torch.tune.artifact",
+    "sentinel_tpu_torch.tune.episode", "sentinel_tpu_torch.tune.runner",
+    "sentinel_tpu_torch.tune.__main__", "sentinel_tpu_torch.core.snapshot",
+    "sentinel_tpu_torch.core.compile_cache", "sentinel_tpu_torch.ops._build",
+    "sentinel_tpu_torch.cluster.grpc_token",
+    "sentinel_tpu_torch.cluster.envoy_rls",
+    "sentinel_tpu_torch.cluster.proto",
+]
+
+
 def _import_blocked(*modules):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -254,9 +280,36 @@ def _import_blocked(*modules):
                          + TIER_CONTROL_MODULES + CLUSTER_MODULES
                          + COMMAND_MODULES
                          + GATEWAY_EXPORTER_NATIVE_MODULES
-                         + DASHBOARD_ADAPTER_MODULES)
+                         + DASHBOARD_ADAPTER_MODULES
+                         + TUNE_SNAPSHOT_GRPC_MODULES)
 def test_module_imports_with_jax_blocked(module):
     _import_blocked(module)
+
+
+@pytest.mark.parametrize("module", [
+    "sentinel_tpu_torch.cluster.proto.token_service_pb2",
+    "sentinel_tpu_torch.cluster.proto.envoy_rls_pb2"])
+def test_proto_modules_import_with_jax_blocked(module):
+    """The committed ``_pb2`` copies import protobuf at module top; they
+    import where it is installed."""
+    pytest.importorskip("google.protobuf")
+    _import_blocked(module)
+
+
+def test_grpc_servers_import_neither_grpc_nor_protobuf():
+    """``grpc_token`` and ``envoy_rls`` import ``grpc`` and the ``_pb2``
+    modules only where a server or client is built."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    probe = ("import sys, sentinel_tpu_torch.cluster.grpc_token, "
+             "sentinel_tpu_torch.cluster.envoy_rls, sentinel_tpu_torch.tune\n"
+             "print(sorted(m for m in sys.modules if m.startswith(("
+             "'grpc', 'google.protobuf', "
+             "'sentinel_tpu_torch.cluster.proto.'))))")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
 
 
 def test_frontend_server_imports_with_jax_blocked():
@@ -354,6 +407,36 @@ def test_scan_covers_the_dashboard_and_adapter_sources():
                      "sentinel_tpu_torch.gateway",
                      "sentinel_tpu_torch.gateway",
                      "sentinel_tpu_torch.rules"]
+
+
+def test_scan_covers_the_tune_snapshot_and_grpc_sources():
+    """The AST scan below walks the tune package, the snapshot and build
+    cache modules and the two gRPC servers, function-level imports
+    included: those imports (grpc, the ``_pb2`` copies, the runtime a
+    fingerprint or a trial needs) name the port's modules."""
+    scanned = {os.path.relpath(p, PORT) for p in _sources()}
+    rels = ("tune/__init__.py", "tune/__main__.py", "tune/knobs.py",
+            "tune/search.py", "tune/artifact.py", "tune/runner.py",
+            "tune/episode.py", "core/snapshot.py", "core/compile_cache.py",
+            "cluster/grpc_token.py", "cluster/envoy_rls.py",
+            "cluster/proto/__init__.py", "cluster/proto/token_service_pb2.py",
+            "cluster/proto/envoy_rls_pb2.py")
+    local = set()
+    for rel in rels:
+        assert rel in scanned, rel
+        with open(os.path.join(PORT, rel)) as fh:
+            tree = ast.parse(fh.read())
+        for fn in ast.walk(tree):
+            if isinstance(fn, ast.FunctionDef):
+                for node in ast.walk(fn):
+                    if isinstance(node, ast.ImportFrom) and node.module:
+                        local.add(node.module)
+                    elif isinstance(node, ast.Import):
+                        local |= {a.name for a in node.names}
+    ours = {m for m in local if m.startswith("sentinel_tpu")}
+    assert ours and all(m.startswith("sentinel_tpu_torch") for m in ours)
+    assert {"grpc", "sentinel_tpu_torch.cluster.proto",
+            "sentinel_tpu_torch.runtime"} <= local
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),

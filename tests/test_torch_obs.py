@@ -7,14 +7,10 @@ bare recorders and histograms take the same inputs in both; twin
 runtimes (``host_fast_path=False``) under twin ManualClocks take the same
 rule loads and numpy-seeded batches, and their counters, spans (by name
 and virtual time), histogram snapshots, sampled block events, flight
-records, block-log lines and engine state must agree exactly.
-
-Left out of the counter comparison, and only these:
-
-* ``compile_cache.*`` — the reference's first-dispatch accounting of its
-  compiled XLA programs; the port compiles no programs;
-* ``tune.*`` — the reference's autotuner (startup artifact and
-  ``SENTINEL_*`` knob validation); the port has no tuner.
+records, block-log lines and engine state must agree exactly. Every
+counter is compared, ``compile_cache.*`` (first against repeat
+dispatches of each program key) and ``tune.*`` (startup artifact and
+``SENTINEL_*`` knob validation) included.
 
 Both packages' tiering is switched off in these twins
 (``SENTINEL_TIERING_DISABLE``): their counter expectations predate it
@@ -58,8 +54,6 @@ MODS = {"jax": dict(spans=jspans, hist=jhist, eventlog=jeventlog, ck=jck,
                     logs=jlogs),
         "torch": dict(spans=tspans, hist=thist, eventlog=teventlog, ck=ck,
                       logs=tlogs)}
-#: counter families the comparison leaves out (see the module docstring)
-EXCLUDED = ("compile_cache.", "tune.")
 BASE_CFG = dict(max_resources=64, max_origins=32, max_flow_rules=32,
                 max_degrade_rules=16, max_authority_rules=16,
                 host_fast_path=False, minute_enabled=True)
@@ -102,8 +96,7 @@ def obs_view(sph) -> dict:
     """What the twins must agree on in ``sph.obs``."""
     o = sph.obs
     return dict(
-        counters={k: v for k, v in o.counters.snapshot().items()
-                  if not k.startswith(EXCLUDED)},
+        counters=o.counters.snapshot(),
         spans=o.spans.snapshot(), links=o.spans.links_snapshot(),
         hist={h: getattr(o, h).snapshot()
               for h in ("hist_entry", "hist_dispatch", "hist_request")},

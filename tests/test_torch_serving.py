@@ -3,8 +3,8 @@
 
 Twins of ``tests/test_dispatch_pipeline.py``: every scenario runs on both
 packages under twin ManualClocks (the shared harness of
-``test_torch_obs.py``: observations, counters less ``compile_cache.*`` /
-``tune.*``, spans, flight records and engine state compared exactly), and
+``test_torch_obs.py``: observations, counters, spans, flight records and
+engine state compared exactly), and
 inside each package the pipelined run is held against a sequential twin
 runtime of its own. Covered: pipelined == sequential at depths 1, 2 and 4
 (interacting QPS depletion, prioritized bookings), origin batches, the

@@ -7,8 +7,8 @@ tiering sketch itself, and a fused decide+exit call also runs a due
 telemetry tick and sketch decay+estimate in the reference's order; off,
 the sketch update is a call of its own. What the twins hold equal to the
 reference, bit for bit: verdicts, the count-min table, the engine state,
-``pipeline.dispatches``, ``split_route.single_dispatch`` and the other
-counters (less ``compile_cache.*`` / ``tune.*``), the services' tick
+``pipeline.dispatches``, ``split_route.single_dispatch`` and every other
+counter, the services' tick
 counts and the carried estimates.
 """
 
@@ -30,7 +30,6 @@ torch.set_num_threads(2)
 
 T0 = 1_785_000_000_000
 PKGS = {"jax": stpu, "torch": stt}
-EXCLUDED = ("compile_cache.", "tune.")
 
 
 @pytest.fixture(autouse=True)
@@ -51,8 +50,7 @@ def make(pkg, clk, **over):
 
 
 def _counters(sph) -> dict:
-    return {k: v for k, v in sph.obs.counters.snapshot().items()
-            if not k.startswith(EXCLUDED)}
+    return sph.obs.counters.snapshot()
 
 
 def twin(scenario, **over):

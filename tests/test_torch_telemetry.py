@@ -12,9 +12,8 @@ on one device.
   ManualClocks): the hot set against the host recompute and the
   reference, determinism, the ring wrap, one append a second, the
   readback drop, the knobs, stop/close, the ``<app>-metric`` lines and the
-  flight recorder's pinned hot set. Counters (less ``compile_cache.*`` and
-  ``tune.*``), flight records and state are compared by the shared twin
-  harness of ``test_torch_obs.py``.
+  flight recorder's pinned hot set. Counters, flight records and state
+  are compared by the shared twin harness of ``test_torch_obs.py``.
 
 Exact everywhere; every RT histogram row total here is far below 2^24.
 The reference's meshed (8-device) top-K waits for ROADMAP A11.

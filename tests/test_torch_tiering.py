@@ -9,8 +9,7 @@ packages' window settle; twin runtimes under twin ManualClocks must
 agree on verdicts, engine state with the sketch table
 (``convert.engine_to_numpy``), the cold tier's names and entries
 (``convert.cold_tier_to_numpy``), ``tiering.snapshot()`` (less the
-wall-clock migration times) and the counters (less ``compile_cache.*``
-and ``tune.*``, which the port has no source for). Inside the port, a
+wall-clock migration times) and every counter. Inside the port, a
 small tiered engine must equal a large all-resident one under churn.
 
 Also here, with no counterpart in the reference's file: the dead-lane
@@ -48,7 +47,6 @@ torch.set_num_threads(2)
 
 T0 = 1_785_000_000_000
 PKGS = {"jax": stpu, "torch": stt}
-EXCLUDED = ("compile_cache.", "tune.")
 NEVER = twin_mod.NEVER
 INT32_MAX = twin_mod.INT32_MAX
 
@@ -326,8 +324,7 @@ SMALL = dict(max_resources=32, max_flow_rules=8, max_degrade_rules=8,
 
 
 def _counters(sph) -> dict:
-    return {k: v for k, v in sph.obs.counters.snapshot().items()
-            if not k.startswith(EXCLUDED)}
+    return sph.obs.counters.snapshot()
 
 
 def _tier_view(sph) -> dict:
