@@ -151,7 +151,7 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    api_definition_manager=, exporter_port=9464)``; over loopback HTTP 16
    API groups and 256 gateway rules on 64 routes and those groups (route
    QPS, client IP, header, URL param, cookie, host; intervals, bursts,
-   RATE_LIMITER, THREAD); 4096 requests through
+   RATE_LIMITER, THREAD); 2048 requests through
    ``SentinelGatewayASGIMiddleware`` on an asyncio loop (Zipf(1.1)
    routes and client IPs, 20% in an API group; every request inbound,
    so each entry a device decide through the param slot); one exporter
@@ -219,8 +219,18 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    descriptors, some with an undeclared field, every code equal to a CPU
    twin service (legs (d) and (e) are reported, not run, without
    ``grpc`` or ``google.protobuf``);
-16. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-   line (``launches`` summed over the runs of phases 3-15), and as the last
+16. runs the port's analyzer and its SPI demos (``analysis_demos``): (a)
+   ``python -m sentinel_tpu_torch.analysis`` over the port's lint scope
+   (``sentinel_tpu_torch/``, this script, ``tests/test_torch_*.py``,
+   ``demos/torch/``; ``docs/LINT_TORCH.md``) with its baseline at
+   ``--jobs 1`` and ``--jobs 4``: 0 unsuppressed findings, the same
+   findings from both, the wall seconds and the suppressed count by rule;
+   (b) ``demos/torch/slot_spi.py``, ``command_handler_spi.py`` and
+   ``plugin_spi.py`` on the card and with ``--device cpu``, each in a
+   process of its own (``--demo``): equal stdout and equal device-slot
+   state, the card runs' kernel launches counted;
+17. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
+   line (``launches`` summed over the runs of phases 3-16), and as the last
    line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --find-syncs`` runs 3-5 steps of each engine phase
@@ -7633,6 +7643,162 @@ def phase_tune_snapshot_grpc(stt, sa, dev="cuda", R=1 << 20,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the port's analyzer and its SPI demos
+# ---------------------------------------------------------------------------
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+#: the port's lint scope and gate (docs/LINT_TORCH.md)
+LINT_EXCLUDE = os.path.join("tests", "fixtures", "graftlint")
+LINT_BASELINE = "graftlint-torch-baseline.json"
+#: the port's SPI demos (each runs in a process of its own, as a user
+#: runs it: the plugin demo sets the process-wide SPI state)
+DEMOS = ("slot_spi", "command_handler_spi", "plugin_spi")
+DEMO_CHILD_CMD = [sys.executable, os.path.abspath(__file__), "--demo"]
+
+
+def _lint_scope() -> list:
+    tests = sorted(os.path.join("tests", f)
+                   for f in os.listdir(os.path.join(HERE, "tests"))
+                   if f.startswith("test_torch_") and f.endswith(".py"))
+    return (["sentinel_tpu_torch", "chip_smoke.py"] + tests
+            + [os.path.join("demos", "torch")])
+
+
+def _lint_leg(jobs: int, tmp: str) -> dict:
+    """``python -m sentinel_tpu_torch.analysis`` over the port's scope at
+    ``--jobs`` ``jobs``, with its baseline → the wall seconds, the JSON
+    report (written under ``tmp``) and the summary line; fails on a
+    non-zero exit or any unsuppressed finding."""
+    report = os.path.join(tmp, f"graftlint_torch_j{jobs}.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sentinel_tpu_torch.analysis",
+         *_lint_scope(), "--exclude", LINT_EXCLUDE, "--baseline",
+         LINT_BASELINE, "--jobs", str(jobs), "--budget-s", "120",
+         "--json-out", report], cwd=HERE, capture_output=True, text=True,
+        timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 16: graftlint at --jobs {jobs} exited "
+             f"{proc.returncode}:\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    with open(report) as fh:
+        doc = json.load(fh)
+    if doc["unsuppressed_count"] != 0:
+        fail(f"phase 16: graftlint at --jobs {jobs} reports "
+             f"{doc['unsuppressed_count']} finding(s)")
+    return {"wall_s": wall, "doc": doc, "summary": proc.stdout.strip()}
+
+
+def _demo_child_main(name: str, dev: str, out_path: str) -> int:
+    """The port's demo ``name`` on ``dev`` in this process, as a user runs
+    it (``main(["--device", dev])``): its stdout, its scatter-add launches
+    (counted from 0 just before it) and its device slots' state read
+    back."""
+    import contextlib
+    import importlib.util
+    import io
+    from sentinel_tpu_torch.ops import scatter_add as sa
+    path = os.path.join(HERE, "demos", "torch", name + ".py")
+    spec = importlib.util.spec_from_file_location(f"demo_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    sa.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        sph = mod.main(["--device", dev])
+    if dev == "cuda":
+        sync()
+    out = {"stdout": buf.getvalue(), "seconds": time.perf_counter() - t0,
+           "launches": sa.LAUNCHES["scatter_add"],
+           "slots": [s.name for s in sph._device_slots],
+           "slot_state": [t.cpu().tolist()
+                          for _p, t in _leaves(sph._state.custom)]}
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def phase_analysis_demos(stt, sa, dev="cuda") -> dict:
+    """Phase 16 (``analysis_demos``): (a) the port's graftlint over the
+    port's scope at ``--jobs 1`` and ``--jobs 4`` — 0 unsuppressed
+    findings and the same findings from both; (b) the three port demos on
+    ``dev`` and with ``--device cpu``, each run in a process of its own
+    (all six at once): equal stdout, equal device-slot state, and the
+    card runs' scatter-add launches counted into the kernel line."""
+    import tempfile
+    t_phase = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lint_") as tmp:
+        for jobs in (1, 4):
+            res[f"lint_j{jobs}"] = _lint_leg(jobs, tmp)
+    one, four = res["lint_j1"]["doc"], res["lint_j4"]["doc"]
+    if one["findings"] != four["findings"]:
+        fail("phase 16: graftlint's findings at --jobs 1 and --jobs 4 "
+             "differ")
+    suppressed = collections.Counter(
+        f["rule"] for f in one["findings"] if f["suppressed"])
+    res["suppressed_by_rule"] = dict(sorted(suppressed.items()))
+    res["files_scanned"] = one["files_scanned"]
+    for jobs in (1, 4):
+        res[f"lint_j{jobs}"] = {"wall_s": res[f"lint_j{jobs}"]["wall_s"],
+                                "summary": res[f"lint_j{jobs}"]["summary"]}
+    log(f"[analysis] graftlint over {one['files_scanned']} files: "
+        f"{res['lint_j1']['summary']} | wall {res['lint_j1']['wall_s']:.2f} "
+        f"s at --jobs 1, {res['lint_j4']['wall_s']:.2f} s at --jobs 4; "
+        f"suppressed by rule {res['suppressed_by_rule']}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_demos_") as tmp:
+        procs = {}
+        for d in (dev, "cpu"):
+            for name in DEMOS:
+                out = os.path.join(tmp, f"{name}_{d}.json")
+                procs[d, name] = (subprocess.Popen(
+                    DEMO_CHILD_CMD + [name, d, out], cwd=tmp,
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True), out)
+        runs = {dev: {}, "cpu": {}}
+        for (d, name), (proc, out) in procs.items():
+            log_text, _ = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                fail(f"phase 16: demo {name} on {d} exited "
+                     f"{proc.returncode}:\n{log_text[-2000:]}")
+            with open(out) as fh:
+                runs[d][name] = json.load(fh)
+    card, cpu = runs[dev], runs["cpu"]
+    for name in DEMOS:
+        if not card[name]["stdout"].strip():
+            fail(f"phase 16: demo {name} printed nothing")
+        if card[name]["stdout"] != cpu[name]["stdout"]:
+            fail(f"phase 16: demo {name} on {dev} printed otherwise than on "
+                 f"the CPU:\n{card[name]['stdout']}\n--\n"
+                 f"{cpu[name]['stdout']}")
+        if (card[name]["slots"], card[name]["slot_state"]) != \
+                (cpu[name]["slots"], cpu[name]["slot_state"]):
+            fail(f"phase 16: demo {name}'s device slot state differs: "
+                 f"{card[name]['slot_state']} against "
+                 f"{cpu[name]['slot_state']}")
+        if cpu[name]["launches"]:
+            fail(f"phase 16: demo {name} launched the kernel on the CPU")
+    if not card["slot_spi"]["slot_state"]:
+        fail("phase 16: the slot demo's device slot has no state")
+    launches = sum(card[n]["launches"] for n in DEMOS)
+    if not launches:
+        fail("phase 16: the demos launched no kernel on the card")
+    res["demos"] = {n: {k: card[n][k] for k in
+                        ("launches", "seconds", "slots", "slot_state")}
+                    for n in DEMOS}
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    state = card["slot_spi"]["slot_state"]
+    log("[demos] " + ", ".join(
+        f"{n}: {card[n]['launches']} launches, {card[n]['seconds']:.2f} s"
+        for n in DEMOS) + f"; stdout and slot state {state} equal on "
+        f"{dev} and the CPU")
+    log(f"[phase16] took {res['seconds']:.1f} s; kernel launches {launches}")
+    return res
+
+
 def find_syncs(stt, sa) -> int:
     """``--find-syncs``: every place where a kernel-run engine step waits
     on the device, with the port's frames of its stack (the sync debug
@@ -7711,6 +7877,8 @@ def main() -> int:
         return _db_dash_main(sys.argv[2])
     if sys.argv[1:2] == ["--cc-child"]:
         return _cc_child_main(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--demo"]:
+        return _demo_child_main(sys.argv[2], sys.argv[3], sys.argv[4])
     # the runtimes' block logs and record log go to a directory of this
     # run, removed at exit
     import tempfile
@@ -7763,9 +7931,12 @@ def main() -> int:
                                           profile=profile)
     report["cluster"] = phase_cluster(stt, sa, profile=profile)
     report["command_plane"] = phase_command_plane(stt, sa)
-    report["gateway"] = phase_gateway(stt, sa)
+    # phase 13 cut in depth to leave the script's time limit room for
+    # phase 16: 2048 gateway requests (were 4096)
+    report["gateway"] = phase_gateway(stt, sa, requests=2048)
     report["dashboard"] = phase_dashboard(stt, sa)
     report["tune_snapshot_grpc"] = phase_tune_snapshot_grpc(stt, sa)
+    report["analysis_demos"] = phase_analysis_demos(stt, sa)
     report["seconds"] = time.perf_counter() - t_all
 
     decide = report["kernel_cases"][0]
@@ -7774,7 +7945,8 @@ def main() -> int:
         "engine", "prio", "prio_mixed", "general", "general_occupy", "fast",
         "scalar_param", "general_param", "runtime", "fast_path",
         "param_runtime", "obs_runtime", "serving", "tiering", "cluster",
-        "command_plane", "gateway", "dashboard", "tune_snapshot_grpc"))
+        "command_plane", "gateway", "dashboard", "tune_snapshot_grpc",
+        "analysis_demos"))
     kernels = [{
         "name": "scatter_add", "route": "cuda",
         "source": "sentinel_tpu_torch/csrc/scatter_add.cu",

@@ -1,0 +1,156 @@
+"""SPMD001 — collectives reachable under rank-divergent branches.
+
+A ``torch.distributed`` collective — ``all_reduce``, ``all_gather``,
+``broadcast``, ``barrier`` ... and the process-group lifecycle calls
+``init_process_group`` / ``destroy_process_group``, which rendezvous
+too — is a meeting point: every rank in the group must execute it, in
+the same order, or the group hangs (NCCL waits forever; gloo times out
+after 30 minutes). Any collective that is only reachable when a branch
+on ``get_rank()`` / coordinator-ness / environment variables (``RANK``,
+``LOCAL_RANK``) goes one way is therefore a deadlock wired in and
+waiting for traffic. The port runs no collective yet; the rule holds its
+fixtures and guards placement across cards when it comes.
+
+Two shapes are detected, as in the reference:
+
+1. **Lexical**: a collective call inside the body (or else-branch) of an
+   ``if``/``while``/ternary/short-circuit whose test is rank-divergent.
+2. **Guard-return**: a rank-divergent ``if`` whose body leaves the
+   function (``return``/``raise``/``continue``/``break``) followed — later
+   in the same suite — by a collective call. Only the surviving ranks
+   reach the rendezvous.
+"""
+
+from __future__ import annotations
+
+import ast
+from typing import Iterator, List
+
+from sentinel_tpu_torch.analysis.core import Finding, ModuleContext, Rule
+from sentinel_tpu_torch.analysis.rules import _shared
+
+_DIST = "torch.distributed."
+
+#: Fully-qualified collective entry points (exact names).
+COLLECTIVE_EXACT = frozenset(_DIST + n for n in (
+    "all_reduce", "all_gather", "all_gather_into_tensor",
+    "all_gather_object", "reduce_scatter", "reduce_scatter_tensor",
+    "broadcast", "broadcast_object_list", "barrier", "monitored_barrier",
+    "all_to_all", "all_to_all_single", "gather", "gather_object",
+    "scatter", "scatter_object_list", "reduce",
+    "init_process_group", "destroy_process_group", "new_group",
+))
+
+#: Bare names distinctive enough to be collectives whatever their
+#: receiver (``broadcast`` / ``gather`` / ``scatter`` / ``reduce`` are
+#: not: tensors and functools have methods of those names).
+_COLLECTIVE_LEAVES = frozenset({
+    "all_reduce", "all_gather", "all_gather_into_tensor",
+    "reduce_scatter_tensor", "barrier", "monitored_barrier",
+    "all_to_all_single", "init_process_group", "destroy_process_group",
+})
+
+#: Rank-divergent signals inside a branch test.
+_DIVERGENT_SUFFIXES = (".get_rank", ".get_node_local_rank",
+                       ".is_coordinator")
+_DIVERGENT_EXACT = frozenset({
+    "torch.distributed.get_rank", "torch.distributed.get_node_local_rank",
+    "get_rank", "is_coordinator",
+    "socket.gethostname", "platform.node", "os.getpid",
+})
+_DIVERGENT_PREFIXES = ("os.environ", "os.getenv")
+
+
+class SpmdRule(Rule):
+    id = "SPMD001"
+    name = "collective-under-divergent-branch"
+    rationale = (
+        "collectives are rendezvous points: every rank must execute "
+        "them in lockstep, so one reachable only under a per-rank "
+        "branch deadlocks the process group")
+
+    def check(self, ctx: ModuleContext) -> Iterator[Finding]:
+        yield from self._lexical(ctx)
+        yield from self._guard_return(ctx)
+
+    # ------------------------------------------------------------------
+    def _lexical(self, ctx: ModuleContext) -> Iterator[Finding]:
+        seen = set()
+        for node in ast.walk(ctx.tree):
+            branches: List[ast.AST] = []
+            if isinstance(node, (ast.If, ast.While)):
+                if _divergent(node.test, ctx):
+                    branches = list(node.body) + list(getattr(node, "orelse", []))
+            elif isinstance(node, ast.IfExp):
+                if _divergent(node.test, ctx):
+                    branches = [node.body, node.orelse]
+            elif isinstance(node, ast.BoolOp):
+                if any(_divergent(v, ctx) for v in node.values[:-1]):
+                    branches = list(node.values[1:])
+            for b in branches:
+                for call in ast.walk(b):
+                    if isinstance(call, ast.Call) and id(call) not in seen:
+                        name = ctx.call_name(call)
+                        if _collective(name):
+                            seen.add(id(call))
+                            yield self.finding(
+                                ctx, call,
+                                "collective '%s' reachable only under a "
+                                "rank-divergent branch (test involves "
+                                "get_rank/coordinator/env); every rank "
+                                "must reach this rendezvous or the "
+                                "process group deadlocks" % name)
+
+    def _guard_return(self, ctx: ModuleContext) -> Iterator[Finding]:
+        for fn in _shared.iter_functions(ctx.tree):
+            yield from self._scan_suite(ctx, fn.body, gated=False)
+
+    def _scan_suite(self, ctx: ModuleContext, stmts, gated: bool
+                    ) -> Iterator[Finding]:
+        for stmt in stmts:
+            if gated:
+                for call in ast.walk(stmt):
+                    if isinstance(call, ast.Call):
+                        name = ctx.call_name(call)
+                        if _collective(name):
+                            yield self.finding(
+                                ctx, call,
+                                "collective '%s' follows a rank-"
+                                "divergent early exit above it: ranks "
+                                "that took the exit never reach this "
+                                "rendezvous and the rest hang" % name)
+            if (isinstance(stmt, ast.If) and _divergent(stmt.test, ctx)
+                    and _shared.terminates_block(stmt.body)
+                    and not stmt.orelse):
+                gated = True
+                continue
+            # recurse into nested suites with the current gating state
+            for attr in ("body", "orelse", "finalbody"):
+                sub = getattr(stmt, attr, None)
+                if sub and not isinstance(stmt, _shared.FUNC_NODES):
+                    # findings inside nested suites of a gated region were
+                    # already reported by the blanket walk above
+                    if not gated:
+                        yield from self._scan_suite(ctx, sub, gated=False)
+
+
+def _collective(name) -> bool:
+    return _shared.name_matches(name, exact=COLLECTIVE_EXACT) or (
+        name is not None and name.split(".")[-1] in _COLLECTIVE_LEAVES
+        and not name.startswith(("self.", "cls.")))
+
+
+def _divergent(test: ast.AST, ctx: ModuleContext) -> bool:
+    for node in ast.walk(test):
+        name = None
+        if isinstance(node, (ast.Attribute, ast.Name)):
+            name = ctx.dotted(node)
+        elif isinstance(node, ast.Call):
+            name = ctx.call_name(node)
+        if name is None:
+            continue
+        if (name in _DIVERGENT_EXACT
+                or name.startswith(_DIVERGENT_PREFIXES)
+                or any(name.endswith(s) for s in _DIVERGENT_SUFFIXES)):
+            return True
+    return False

@@ -258,8 +258,7 @@ class HostFastPath:
             return True
         # bucket rotation: flush BEFORE buffering into a new window slice so
         # each flush group shares one time stamp (exact window attribution)
-        # (read without the lock: a stale read delays a flush by one call)
-        if self.bucket_of(now_ms) != self._buf_bucket:
+        if self.bucket_of(now_ms) != self._buf_bucket:  # graftlint: disable=LOCK002 -- stale-tolerant flush heuristic; a missed rotation is caught by the next due() call
             return True
         return now_ms - self._last_flush_ms >= self.flush_ms
 

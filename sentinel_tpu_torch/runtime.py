@@ -996,7 +996,9 @@ class Sentinel:
 
     def _custom_init_states(self) -> tuple:
         """Every registered device slot's initial state, on the engine's
-        device."""
+        device. Callers hold ``_lock`` (the slot (un)registration's reset,
+        and the first-dispatch warm-up, whose caller holds it), so the
+        slot tuple cannot change under the states it builds."""
         def place(x):
             if isinstance(x, tuple):
                 return tuple(place(v) for v in x)
@@ -1023,11 +1025,11 @@ class Sentinel:
         code = int(code)
         if code >= BlockReason.CUSTOM_GATE_BASE:
             i = code - int(BlockReason.CUSTOM_GATE_BASE)
-            return (self._host_gates[i].name if i < len(self._host_gates)
-                    else "unknown-slot")
+            return (self._host_gates[i].name  # graftlint: disable=LOCK002 -- diagnostic lookup over append-only slot lists; a stale read names the previous slot
+                    if i < len(self._host_gates) else "unknown-slot")  # graftlint: disable=LOCK002 -- diagnostic lookup over append-only slot lists; a stale read names the previous slot
         i = code - int(BlockReason.CUSTOM_BASE)
-        return (self._device_slots[i].name if i < len(self._device_slots)
-                else "unknown-slot")
+        return (self._device_slots[i].name  # graftlint: disable=LOCK002 -- diagnostic lookup over append-only slot lists; a stale read names the previous slot
+                if i < len(self._device_slots) else "unknown-slot")  # graftlint: disable=LOCK002 -- diagnostic lookup over append-only slot lists; a stale read names the previous slot
 
     def _exception_for(self, code: int, resource: str,
                        origin: str) -> BlockException:
@@ -1041,7 +1043,7 @@ class Sentinel:
                             is_in: bool) -> None:
         """The registered gates for one entry; a denial is recorded on the
         device and raised (a gate's own BlockException propagates)."""
-        for gi, gate in enumerate(self._host_gates):
+        for gi, gate in enumerate(self._host_gates):  # graftlint: disable=LOCK002 -- gate list is append-only and published whole; iterating a stale snapshot is the SPI contract
             exc = None
             try:
                 ok = gate.check(resource, origin, acquire, args)
@@ -1059,7 +1061,7 @@ class Sentinel:
         here and recorded on the device by the caller in one batch."""
         blocked = np.zeros(n, np.bool_)
         reasons = np.zeros(n, np.int32)
-        for gi, gate in enumerate(self._host_gates):
+        for gi, gate in enumerate(self._host_gates):  # graftlint: disable=LOCK002 -- gate list is append-only and published whole; iterating a stale snapshot is the SPI contract
             oks = np.asarray(gate.check_batch(resources, origins, acq,
                                               args_list), np.bool_)
             newly = ~oks & ~blocked
@@ -1361,7 +1363,7 @@ class Sentinel:
     def _key_fits(self) -> bool:
         """The fast path's composite key ``rule · (RA+1) + subrow`` fits
         int32 for the loaded rule capacity."""
-        nf1 = self._ruleset.flow_table.active.shape[0]
+        nf1 = self._ruleset.flow_table.active.shape[0]  # graftlint: disable=LOCK002 -- single atomic reference read; rule swaps publish a complete RuleSet under the lock
         return nf1 * (self.spec.alt_rows + 1) < 2 ** 31
 
     @staticmethod
@@ -1388,7 +1390,10 @@ class Sentinel:
     def _flags(self, route: str, record_alt: bool, use_occ: bool,
                any_prio: bool = False) -> dict:
         """The engine step's flags for ``route``; ``use_occ`` runs the
-        occupy-aware step, ``any_prio`` its occupy attempt."""
+        occupy-aware step, ``any_prio`` its occupy attempt. Callers hold
+        ``_lock``: the flags name the device slots the dispatch under it
+        runs, and ``register_slot`` swaps that tuple under the same
+        lock."""
         flags = dict(skip_auth=self._skip_auth, skip_sys=self._skip_sys,
                      skip_threads=self._skip_threads,
                      sortfree=self._sortfree, record_alt=record_alt,
@@ -1612,15 +1617,15 @@ class Sentinel:
         context_id = (self.contexts.get_or_create(ctx.name)
                       if c_row < self.spec.alt_rows else 0)
         is_in = entry_type == ENTRY_TYPE_IN
-        if self._host_gates:
+        if self._host_gates:  # graftlint: disable=LOCK002 -- hot-path feature gate: a stale read routes one call through the exact device path, never unsafely
             self._run_host_gates_one(resource, use_origin or "", acquire,
                                      args, row, o_row, c_row, is_in)
-        if self._fast_enabled and not prioritized:
+        if self._fast_enabled and not prioritized:  # graftlint: disable=LOCK002 -- hot-path feature gate: a stale read routes one call through the exact device path, never unsafely
             fe = self._fast_entry(resource, row, o_row, c_row, origin_id,
                                   use_origin or "", acquire, is_in, args)
             if fe is not None:
                 return fe
-        if self._fast_enabled and self._fast.due(self.clock.now_ms()):
+        if self._fast_enabled and self._fast.due(self.clock.now_ms()):  # graftlint: disable=LOCK002 -- hot-path feature gate: a stale read routes one call through the exact device path, never unsafely
             # buffered stats reach the device before this decide
             self._flush_fast()
         # cluster-mode rules: token-server delegation BEFORE the local
@@ -1928,7 +1933,8 @@ class Sentinel:
             # the block log needs them
             resources = ([self.resources.name_of(int(r)) or ""
                           for r in rows]
-                         if (self._host_gates or self._cluster_rules_by_row
+                         if (self._host_gates  # graftlint: disable=LOCK002 -- hot-path feature gate: a stale read routes one batch through the exact device path, never unsafely
+                             or self._cluster_rules_by_row
                              or self._cluster_param_rules_by_row) else None)
         else:
             batch_intern = getattr(self.resources, "get_or_create_batch",
@@ -1974,7 +1980,7 @@ class Sentinel:
         # the gates run before any key is pinned: a gate that raises
         # leaks no pin
         gate_blocked = gate_reasons = None
-        if self._host_gates:
+        if self._host_gates:  # graftlint: disable=LOCK002 -- hot-path feature gate: a stale read routes one batch through the exact device path, never unsafely
             t_g = obs.spans.now_ns() if tr else 0
             gate_blocked, gate_reasons = self._run_host_gates_batch(
                 resources, origins, acq, args_list, n)

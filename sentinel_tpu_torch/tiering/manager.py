@@ -611,7 +611,7 @@ class TierManager:
     def tick(self) -> bool:
         """One sketch decay + full-table estimate read under the engine
         lock, its copy to the host started, nothing waited on."""
-        if not self.enabled or self._closed or self._sketch is None:
+        if not self.enabled or self._closed or self._sketch is None:  # graftlint: disable=LOCK002 -- lock-free early-out; a stale read only skips one tick and the next tick re-reads
             return False
         sn = self._sentinel
         with sn._lock:

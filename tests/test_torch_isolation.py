@@ -1,6 +1,8 @@
-"""The port stands alone: ``sentinel_tpu_torch``, ``chip_smoke.py`` and
-``tests/test_torch_gpu_kernels.py`` import neither JAX nor the JAX
-package ``sentinel_tpu``.
+"""The port stands alone: ``sentinel_tpu_torch`` (its analyzer
+``sentinel_tpu_torch.analysis`` included), ``chip_smoke.py``,
+``tests/test_torch_gpu_kernels.py`` and the port's demos
+(``demos/torch/``) import neither JAX nor the JAX package
+``sentinel_tpu``.
 
 The test process already holds JAX (``conftest.py`` imports it), so the
 import check runs in a fresh subprocess; an AST scan of every source file
@@ -125,6 +127,14 @@ import sentinel_tpu_torch.core.snapshot
 import sentinel_tpu_torch.core.compile_cache
 import sentinel_tpu_torch.cluster.grpc_token
 import sentinel_tpu_torch.cluster.envoy_rls
+import sentinel_tpu_torch.analysis
+import sentinel_tpu_torch.analysis.__main__
+import sentinel_tpu_torch.analysis.project
+import sentinel_tpu_torch.analysis.reporting
+import sentinel_tpu_torch.analysis.rules
+import demos.torch.slot_spi
+import demos.torch.plugin_spi
+import demos.torch.command_handler_spi
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "sentinel_tpu")
@@ -266,6 +276,28 @@ TUNE_SNAPSHOT_GRPC_MODULES = [
 ]
 
 
+#: the port's analyzer (every module) and the port's demos, imported the
+#: same way
+ANALYSIS_DEMO_MODULES = [
+    "sentinel_tpu_torch.analysis", "sentinel_tpu_torch.analysis.__main__",
+    "sentinel_tpu_torch.analysis.core", "sentinel_tpu_torch.analysis.project",
+    "sentinel_tpu_torch.analysis.reporting",
+    "sentinel_tpu_torch.analysis.rules",
+    "sentinel_tpu_torch.analysis.rules._shared",
+    "sentinel_tpu_torch.analysis.rules.async_block",
+    "sentinel_tpu_torch.analysis.rules.device",
+    "sentinel_tpu_torch.analysis.rules.donate",
+    "sentinel_tpu_torch.analysis.rules.lockdiscipline",
+    "sentinel_tpu_torch.analysis.rules.locks",
+    "sentinel_tpu_torch.analysis.rules.order",
+    "sentinel_tpu_torch.analysis.rules.registry",
+    "sentinel_tpu_torch.analysis.rules.spmd",
+    "sentinel_tpu_torch.analysis.rules.trace",
+    "demos.torch.slot_spi", "demos.torch.plugin_spi",
+    "demos.torch.command_handler_spi",
+]
+
+
 def _import_blocked(*modules):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -281,7 +313,8 @@ def _import_blocked(*modules):
                          + COMMAND_MODULES
                          + GATEWAY_EXPORTER_NATIVE_MODULES
                          + DASHBOARD_ADAPTER_MODULES
-                         + TUNE_SNAPSHOT_GRPC_MODULES)
+                         + TUNE_SNAPSHOT_GRPC_MODULES
+                         + ANALYSIS_DEMO_MODULES)
 def test_module_imports_with_jax_blocked(module):
     _import_blocked(module)
 
@@ -369,6 +402,10 @@ def _sources():
     yield os.path.join(REPO, "chip_smoke.py")
     # the card's test file runs where there is no JAX
     yield os.path.join(REPO, "tests", "test_torch_gpu_kernels.py")
+    demos = os.path.join(REPO, "demos", "torch")
+    for f in sorted(os.listdir(demos)):
+        if f.endswith(".py"):
+            yield os.path.join(demos, f)
 
 
 def test_scan_covers_the_gateway_exporter_and_native_sources():
@@ -407,6 +444,19 @@ def test_scan_covers_the_dashboard_and_adapter_sources():
                      "sentinel_tpu_torch.gateway",
                      "sentinel_tpu_torch.gateway",
                      "sentinel_tpu_torch.rules"]
+
+
+def test_scan_covers_the_analyzer_and_the_demos():
+    """The AST scan below walks every module of the port's analyzer (its
+    16 modules) and every port demo."""
+    scanned = {os.path.relpath(p, REPO) for p in _sources()}
+    analysis = sorted(p for p in scanned
+                      if p.startswith(os.path.join("sentinel_tpu_torch",
+                                                   "analysis")))
+    assert len(analysis) == 16, analysis
+    for name in ("slot_spi.py", "plugin_spi.py", "command_handler_spi.py"):
+        assert os.path.join("demos", "torch", name) in scanned
+    assert len(ANALYSIS_DEMO_MODULES) == len(analysis) + 3
 
 
 def test_scan_covers_the_tune_snapshot_and_grpc_sources():
