@@ -229,8 +229,29 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    ``plugin_spi.py`` on the card and with ``--device cpu``, each in a
    process of its own (``--demo``): equal stdout and equal device-slot
    state, the card runs' kernel launches counted;
-17. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-   line (``launches`` summed over the runs of phases 3-16), and as the last
+17. drives the multi-process fabric (``multihost``) through the port's
+   launcher, every child on this run's build directory (none compiles):
+   (a) the parity worker (``multihost/_parity_worker.py``: the reference
+   worker's rules and seeded stream through ``MultihostIngest``) in 1
+   process x 8 shards on the card, 2 x 4 with both ranks on the one card
+   (gloo, host-staged collectives) and 2 x 4 on the CPU — equal
+   decisions, gathered flow windows and ``flow_metrics``, every status
+   present, each rank's backend and device printed; (b) the cluster
+   engine at the JAX bench's config 5 geometry with flow requests only (S
+   = 8, 4096 flow rows, 2^16 Zipf requests a step, 40 steps), 2 x 4 on the
+   card against a 1 x 8 engine in turns: verdict digests equal step by
+   step, step p50/p99, grants/s, ms a step in the namespace
+   ``all_reduce`` and the verdict ``all_gather``, 2 launches a step a
+   rank; the kernel against its plain version at each rank's block shapes
+   (flows ``[2048,8]`` of ``[2048,10,8]``, namespaces ``[16,8]``), timed
+   cold and warm against ``index_add_``; (c) two processes each with
+   phase 8's 1M-row runtime for 4 fused steps of its own traffic, then
+   ``aggregate_counters``, ``aggregate_topk`` and
+   ``aggregate_resource_hist`` against a host-side merge (ms a call);
+   (d) with two cards or more, (a) and (b) on NCCL with a card a rank (on
+   one card it prints why not);
+18. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
+   line (``launches`` summed over the runs of phases 3-17), and as the last
    line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --find-syncs`` runs 3-5 steps of each engine phase
@@ -683,60 +704,67 @@ def phase_kernels(sa, hist_buckets: int, dev="cuda", R=1 << 20,
         case(name, 1, rint(0, 50, (rows, 10, 8)), lambda t: t[:, 7, :],
              ck.contiguous(), None, cpay)
 
-    results = []
-    for c in cases:
-        name, view_of = c["name"], c["view_of"]
-        keys, events, amounts = c["keys"], c["events"], c["amounts"]
-        table = c["table"]
-        view = view_of(table)
-        k_dim, e_dim = view.shape
-        plan = sa.plan_for(view, keys, events)
-        if c["path"] is not None and plan.path != c["path"]:
-            fail(f"{name}: planned the {plan.path} path, want {c['path']}")
-        want = table.clone()
-        sa.scatter_add_reference(view_of(want), keys, events, amounts)
-        got = table.clone()
-        sa.scatter_add_kernel(view_of(got), keys, events, amounts)
-        sync()
-        err = float((got.double() - want.double()).abs().max())
-        if err != 0.0 or not torch.equal(got, want):
-            fail(f"kernel disagrees with its plain version on {name}: "
-                 f"max |diff| = {err}")
-        del got, want
-        tk = table.clone()
-        tv = view_of(tk)
-        # turns: kernel, library, library, kernel, ...
-        fns = {"kernel": lambda: sa.scatter_add_kernel(tv, keys, events,
-                                                       amounts),
-               "library": _library_call(tk, tv, keys, events, amounts)}
-        cold = {n: summary(v) for n, v in timer.cold(fns, samples).items()}
-        warm = {n: summary(v) for n, v in timer.warm(fns).items()}
-        plain_ms = host_time_ms(
-            lambda: sa.scatter_add_reference(tv, keys, events, amounts), 3)
-        bound = _bound_ms(keys, events, amounts, k_dim, view.stride(0),
-                          e_dim, table.element_size())
-        share = bound / cold["kernel"]["median"]
-        log(f"[kernel] {name}: plan {plan.path}/E{plan.e_inst}/"
-            f"i{plan.index_bits} grid {plan.grid}x{plan.block} "
-            f"smem {plan.smem_bytes}; max_abs_err={err}")
-        for n in cold:
-            if n not in warm:
-                log(f"[kernel]   {n:12s} cold median {cold[n]['median']:.4f}"
-                    f" ms [{cold[n]['min']:.4f}, {cold[n]['max']:.4f}]")
-                continue
-            log(f"[kernel]   {n:12s} cold median {cold[n]['median']:.4f} ms "
-                f"[{cold[n]['min']:.4f}, {cold[n]['max']:.4f}]  warm "
-                f"{warm[n]['median']:.4f} ms [{warm[n]['min']:.4f}, "
-                f"{warm[n]['max']:.4f}]")
-        log(f"[kernel]   bound {bound:.4f} ms (bytes), share of bound "
-            f"(cold median) {share:.3f}, plain {plain_ms:.3f} ms")
-        results.append({"case": name, "launches_per_step": c["per_step"],
-                        "plan": dataclasses.asdict(plan),
-                        "max_abs_err": err, "bound_ms": bound,
-                        "plain_ms": plain_ms, "cold": cold, "warm": warm,
-                        "share_of_bound_cold": share})
-        del tk, tv, fns
-    return results
+    return [_kernel_case(sa, timer, c, samples) for c in cases]
+
+
+def _kernel_case(sa, timer, c: dict, samples: int = 31,
+                 timed: bool = True) -> dict:
+    """One launch shape: the kernel against its plain version on the same
+    inputs (exact, or the phase fails), then — ``timed`` — cold and warm
+    in turns with one ``index_add_``, the plain version's time and the
+    byte bound."""
+    name, view_of = c["name"], c["view_of"]
+    keys, events, amounts = c["keys"], c["events"], c["amounts"]
+    table = c["table"]
+    view = view_of(table)
+    k_dim, e_dim = view.shape
+    plan = sa.plan_for(view, keys, events)
+    if c["path"] is not None and plan.path != c["path"]:
+        fail(f"{name}: planned the {plan.path} path, want {c['path']}")
+    want = table.clone()
+    sa.scatter_add_reference(view_of(want), keys, events, amounts)
+    got = table.clone()
+    sa.scatter_add_kernel(view_of(got), keys, events, amounts)
+    sync()
+    err = float((got.double() - want.double()).abs().max())
+    if err != 0.0 or not torch.equal(got, want):
+        fail(f"kernel disagrees with its plain version on {name}: "
+             f"max |diff| = {err}")
+    del got, want
+    out = {"case": name, "launches_per_step": c["per_step"],
+           "plan": dataclasses.asdict(plan), "max_abs_err": err}
+    log(f"[kernel] {name}: plan {plan.path}/E{plan.e_inst}/"
+        f"i{plan.index_bits} grid {plan.grid}x{plan.block} "
+        f"smem {plan.smem_bytes}; max_abs_err={err}")
+    if not timed:
+        return out
+    tk = table.clone()
+    tv = view_of(tk)
+    # turns: kernel, library, library, kernel, ...
+    fns = {"kernel": lambda: sa.scatter_add_kernel(tv, keys, events,
+                                                   amounts),
+           "library": _library_call(tk, tv, keys, events, amounts)}
+    cold = {n: summary(v) for n, v in timer.cold(fns, samples).items()}
+    warm = {n: summary(v) for n, v in timer.warm(fns).items()}
+    plain_ms = host_time_ms(
+        lambda: sa.scatter_add_reference(tv, keys, events, amounts), 3)
+    bound = _bound_ms(keys, events, amounts, k_dim, view.stride(0),
+                      e_dim, table.element_size())
+    share = bound / cold["kernel"]["median"]
+    for n in cold:
+        if n not in warm:
+            log(f"[kernel]   {n:12s} cold median {cold[n]['median']:.4f}"
+                f" ms [{cold[n]['min']:.4f}, {cold[n]['max']:.4f}]")
+            continue
+        log(f"[kernel]   {n:12s} cold median {cold[n]['median']:.4f} ms "
+            f"[{cold[n]['min']:.4f}, {cold[n]['max']:.4f}]  warm "
+            f"{warm[n]['median']:.4f} ms [{warm[n]['min']:.4f}, "
+            f"{warm[n]['max']:.4f}]")
+    log(f"[kernel]   bound {bound:.4f} ms (bytes), share of bound "
+        f"(cold median) {share:.3f}, plain {plain_ms:.3f} ms")
+    out.update({"bound_ms": bound, "plain_ms": plain_ms, "cold": cold,
+                "warm": warm, "share_of_bound_cold": share})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -7799,6 +7827,412 @@ def phase_analysis_demos(stt, sa, dev="cuda") -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the multi-process fabric (``multihost/``) — the cluster token
+# engine over several processes, and the fleet aggregates
+# ---------------------------------------------------------------------------
+
+MH_PARITY = ["-m", "sentinel_tpu_torch.multihost._parity_worker"]
+MH_FLEET_ARGV = [os.path.abspath(__file__), "--mh-fleet"]
+#: OK, BLOCKED, BAD_REQUEST, NO_RULE_EXISTS: the parity stream's statuses
+MH_STATUSES = (0, 1, -4, 3)
+MH_FLEET_T0 = 1_820_000_000_000
+MH_FLEET_K = 16              # the fleet merge's top-K (both aggregates)
+
+
+def _mh_lines(results, tag: str) -> list:
+    return [json.loads(line.split(":", 1)[1]) for r in results
+            for line in r.stdout.splitlines() if line.startswith(tag)]
+
+
+def _mh_launch(argv, n: int, shards: int, platform: str, env: dict,
+               timeout_s: float = 300.0):
+    """The port's launcher → (worker results, wall s); a failed worker
+    fails the phase with every rank's log."""
+    import importlib
+    mh_launch = importlib.import_module("sentinel_tpu_torch.multihost.launch")
+    t0 = time.perf_counter()
+    try:
+        res = mh_launch.launch(argv, n, devices_per_process=shards, env=env,
+                               timeout_s=timeout_s, platform=platform)
+    except mh_launch.LaunchError as exc:
+        fail(f"phase 17: {' '.join(argv[-3:])} in {n} process(es) on "
+             f"{platform} failed:\n{str(exc)[-4000:]}")
+    return res, time.perf_counter() - t0
+
+
+def _mh_ranks(results, tag: str, n: int) -> list:
+    ranks = sorted(_mh_lines(results, tag), key=lambda r: r["process_index"])
+    if [r["process_index"] for r in ranks] != list(range(n)):
+        fail(f"phase 17: {len(ranks)} {tag} line(s) from {n} rank(s):\n"
+             + "\n".join(r.stdout[-1000:] + r.stderr[-1000:]
+                         for r in results))
+    return ranks
+
+
+def _mh_parity_run(tag: str, results, n: int, backend: str,
+                   devices: list) -> dict:
+    """One parity launch's payload, its ranks' backends, devices and
+    launches checked."""
+    payloads = _mh_lines(results, "PARITY_JSON:")
+    if len(payloads) != 1:
+        fail(f"phase 17 (a): {tag} printed {len(payloads)} PARITY_JSON")
+    ranks = _mh_ranks(results, "RANK_JSON:", n)
+    got = [(r["backend"], r["device"]) for r in ranks]
+    if got != [(backend, d) for d in devices]:
+        fail(f"phase 17 (a): {tag} ranks ran on {got}, want {backend} on "
+             f"{devices}")
+    out = dict(payloads[0], ranks=ranks,
+               launches=sum(r["launches"] for r in ranks))
+    log(f"[multihost] (a) {tag}: " + "; ".join(
+        f"rank {r['process_index']} {r['backend']} on {r['device']}, "
+        f"shards {r['local_shards']}, {r['launches']} launches"
+        for r in ranks))
+    return out
+
+
+def _mh_parity_equal(runs: dict, base: str) -> None:
+    ref = runs[base]
+    for tag, run in runs.items():
+        for key in ("decisions", "flow_window", "flow_metrics"):
+            if run[key] != ref[key]:
+                fail(f"phase 17 (a): {key} of {tag} differ from {base}'s")
+    statuses = {d[0] for d in ref["decisions"]}
+    if not set(MH_STATUSES) <= statuses:
+        fail(f"phase 17 (a): the stream's statuses {sorted(statuses)} miss "
+             f"some of {MH_STATUSES}: the parity proves nothing")
+
+
+def _mh_full_run(tag: str, results, steps: int, backend: str,
+                 devices: list) -> dict:
+    """(b): every rank's turns agree step by step with rank 0's first
+    mesh turn; each engine step launched 2 kernels a rank (flows and
+    namespaces) and ran one all_reduce and one all_gather → the step
+    times, grants/s and the collectives' ms a step."""
+    ranks = _mh_ranks(results, "FULL_JSON:", 2)
+    got = [(r["backend"], r["device"]) for r in ranks]
+    if got != [(backend, d) for d in devices]:
+        fail(f"phase 17 (b): {tag} ranks ran on {got}")
+    kinds = [[t["kind"] for t in r["turns"]] for r in ranks]
+    if kinds != [["mesh", "single", "single", "mesh"], ["mesh", "mesh"]]:
+        fail(f"phase 17 (b): {tag} turns {kinds}")
+    ref = ranks[0]["turns"][0]
+    for r in ranks:
+        for t in r["turns"]:
+            if t["digests"] != ref["digests"] or t["grants"] != ref["grants"]:
+                bad = next((i for i, (a, b) in enumerate(
+                    zip(t["digests"], ref["digests"])) if a != b), None)
+                fail(f"phase 17 (b): {tag} rank {r['process_index']}'s "
+                     f"{t['kind']} turn differs at step {bad}")
+            if t["launches"] != 2 * steps:
+                fail(f"phase 17 (b): {tag} rank {r['process_index']} "
+                     f"launched {t['launches']} in {steps} steps of a "
+                     f"{t['kind']} turn, want 2 a step")
+            want = steps if t["kind"] == "mesh" else 0
+            if (t["all_reduce_calls"], t["all_gather_calls"]) != (want,
+                                                                  want):
+                fail(f"phase 17 (b): {tag} {t['kind']} turn ran "
+                     f"{t['all_reduce_calls']} all_reduce and "
+                     f"{t['all_gather_calls']} all_gather in {steps} steps")
+    batch = ranks[0]["batch"]
+    out = {"batch": batch, "steps": steps, "grants_per_step":
+           ref["grants"] / steps, "launches": sum(
+               t["launches"] for r in ranks for t in r["turns"])}
+    for kind in ("mesh", "single"):
+        turns = [t for t in ranks[0]["turns"] if t["kind"] == kind]
+        ms = [x for t in turns for x in t["step_ms"]]
+        secs = sum(ms) / 1e3
+        out[kind] = {
+            "step_ms": summary(ms), "step_ms_p99": float(np.percentile(
+                ms, 99)),
+            "grants_per_s": ref["grants"] * len(turns) / secs,
+            "decisions_per_s": batch * steps * len(turns) / secs}
+    out["per_rank"] = [{
+        "process_index": r["process_index"],
+        "all_reduce_ms_per_step": float(np.mean(
+            [t["all_reduce_ms"] / steps for t in r["turns"]
+             if t["kind"] == "mesh"])),
+        "all_gather_ms_per_step": float(np.mean(
+            [t["all_gather_ms"] / steps for t in r["turns"]
+             if t["kind"] == "mesh"])),
+        "launches_per_step": 2} for r in ranks]
+    m, s = out["mesh"], out["single"]
+    log(f"[multihost] (b) {tag}: S=8 L=512 B={batch} x {steps} steps, "
+        f"verdict digests equal step by step (2x4 mesh on both ranks, "
+        f"1x8 on rank 0, in turns); 2x4 step p50 "
+        f"{m['step_ms']['median']:.2f} ms p99 {m['step_ms_p99']:.2f}, "
+        f"{m['grants_per_s']:.0f} grants/s; 1x8 p50 "
+        f"{s['step_ms']['median']:.2f} ms p99 {s['step_ms_p99']:.2f}, "
+        f"{s['grants_per_s']:.0f} grants/s; " + "; ".join(
+            f"rank {p['process_index']} all_reduce "
+            f"{p['all_reduce_ms_per_step']:.2f} ms, all_gather "
+            f"{p['all_gather_ms_per_step']:.2f} ms a step"
+            for p in out["per_rank"]) + "; 2 launches a step a rank")
+    return out
+
+
+def _mh_block_cases(sa, timer, cap: str) -> list:
+    """(b)'s per-process block shapes: each rank's captured scatter-adds
+    of one warm-up step, kernel against its plain version on the card
+    (every capture), timed on rank 0's."""
+    out = []
+    for rank in (0, 1):
+        for c in torch.load(f"{cap}.{rank}.pt"):
+            shape, stride, off = c["shape"], tuple(c["stride"]), c["offset"]
+            rows = c["table"].shape
+            name = (f"multihost block {list(shape)} slice of {list(rows)}, "
+                    f"payload E={shape[1]}, N={c['keys'].shape[0]} "
+                    f"(rank {rank} of 2)")
+            case = dict(
+                name=name, per_step=1, table=c["table"].cuda(),
+                view_of=(lambda t, shape=shape, stride=stride, off=off:
+                         t.as_strided(shape, stride, off)),
+                keys=c["keys"].cuda(), amounts=c["amounts"].cuda(),
+                events=(None if c["events"] is None
+                        else c["events"].cuda()), path=None)
+            out.append(_kernel_case(sa, timer, case, timed=rank == 0))
+    return out
+
+
+def _mh_fleet_main(out_dir: str) -> int:
+    """(c) one rank: phase 8's runtime at 1M rows on this rank's card,
+    a few fused steps of this rank's own traffic (phase 8's stream under
+    its own seed, with 1/32 of each batch on 8 resources hot on every rank
+    and 1/64 on 8 of this rank's own), a telemetry poll, then the three
+    fleet aggregates (each timed), written to ``out_dir/rank<p>.json``
+    with this rank's own counter vector and hot entries."""
+    import sentinel_tpu_torch as stt
+    from sentinel_tpu_torch import multihost
+    from sentinel_tpu_torch.multihost import obs_agg
+    from sentinel_tpu_torch.ops import scatter_add as sa
+    rows, batch, steps = (int(os.environ["MH_FLEET_ROWS"]),
+                          int(os.environ["MH_FLEET_BATCH"]),
+                          int(os.environ["MH_FLEET_STEPS"]))
+    with multihost.initialize() as rt:
+        p = rt.process_index
+        clock = stt.ManualClock(start_ms=MH_FLEET_T0)
+        sph = _obs_runtime(stt, rows, clock, rt.device)
+        batches, failing = _scalar_stream(sph, batch, steps, seed=41 + p)
+        ruled = sph.intern_resources([f"r{i}" for i in range(32)])
+        shared, own = batch // 32, batch // 64
+        for b in batches:
+            b[:shared] = ruled[np.arange(shared) % 8]
+            b[shared:shared + own] = ruled[8 + 8 * (p + 1)
+                                           + np.arange(own) % 8]
+        prev = np.empty(0, np.int32)
+        sa.LAUNCHES.clear()
+        for step_rows in batches:
+            clock.advance_ms(2)
+            v = _fused_step(sph, step_rows, prev, failing).result()
+            prev = step_rows[v.allow]
+        if rt.device.type == "cuda":
+            sync()
+        launches = sa.LAUNCHES["scatter_add"]
+        clock.advance_ms(50)
+        sph.telemetry.poll()
+        local = {"counters": obs_agg.local_counter_vector(sph).tolist(),
+                 "hot": sph.telemetry.hot_entries(MH_FLEET_K),
+                 "hist_buckets": int(sph.spec.hist_buckets)}
+        rt.barrier("fleet-ready")
+        aggs, ms = {}, {}
+        for name, fn in (
+                ("counters", lambda: obs_agg.aggregate_counters(sph)),
+                ("topk", lambda: obs_agg.aggregate_topk(sph, k=MH_FLEET_K)),
+                ("resource_hist", lambda: obs_agg.aggregate_resource_hist(
+                    sph, k=MH_FLEET_K))):
+            t0 = time.perf_counter()
+            aggs[name] = fn()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+        with open(os.path.join(out_dir, f"rank{p}.json"), "w") as fh:
+            json.dump({"process_index": p, "backend": rt.backend,
+                       "device": str(rt.device), "rows": rows,
+                       "launches": launches,
+                       "local": local, "aggregates": aggs, "ms": ms}, fh)
+        rt.barrier("fleet-done")
+        sph.close()
+    return 0
+
+
+def _mh_fleet_merge(ranks: list, k: int) -> dict:
+    """The host-side merge of each rank's own counter vector and hot
+    entries: what the three aggregates must equal."""
+    from sentinel_tpu_torch.obs import counters as ck
+    from sentinel_tpu_torch.obs.resource_hist import np_quantiles
+    vecs = np.asarray([r["local"]["counters"] for r in ranks], np.int64)
+    load, hosts, hist = {}, {}, {}
+    hb = ranks[0]["local"]["hist_buckets"]
+    for r in ranks:
+        for h in r["local"]["hot"][:k]:
+            name = h["resource"].encode("utf-8")[:64].decode(
+                "utf-8", errors="replace")
+            cur = load.setdefault(name, [0, 0, 0])
+            for i, key in enumerate(("load", "pass", "block")):
+                cur[i] += int(h[key])
+            hosts[name] = hosts.get(name, 0) + 1
+            if h.get("rt_hist") is not None and len(h["rt_hist"]) == hb:
+                hist[name] = hist.get(name, 0) + np.asarray(h["rt_hist"],
+                                                            np.int64)
+    top = sorted(load.items(), key=lambda it: (-it[1][0], it[0]))[:k]
+    hot = sorted(hist.items(), key=lambda it: (-int(it[1].sum()), it[0]))[:k]
+    return {
+        "counters": {"process_count": len(ranks),
+                     "per_process": [ck.vector_counts(v) for v in vecs],
+                     "total": ck.vector_counts(vecs.sum(0))},
+        "topk": [{"resource": n, "load": s[0], "pass": s[1], "block": s[2],
+                  "hosts": hosts[n]} for n, s in top],
+        "resource_hist": [
+            {"resource": n, "total": int(v.sum()), "hosts": hosts[n],
+             "rt_hist": [int(c) for c in v],
+             **{f"rt_p{q}_ms": round(float(x), 3) for q, x in zip(
+                 (50, 95, 99), np_quantiles(v))}} for n, v in hot]}
+
+
+def _mh_fleet_check(tmp: str) -> dict:
+    ranks = []
+    for p in (0, 1):
+        with open(os.path.join(tmp, f"rank{p}.json")) as fh:
+            ranks.append(json.load(fh))
+    want = _mh_fleet_merge(ranks, MH_FLEET_K)
+    for r in ranks:
+        a = r["aggregates"]
+        got = {"counters": {k: a["counters"][k] for k in
+                            ("process_count", "per_process", "total")},
+               "topk": a["topk"]["hot"], "resource_hist":
+               a["resource_hist"]["hot"]}
+        for key in want:
+            if got[key] != want[key]:
+                fail(f"phase 17 (c): rank {r['process_index']}'s "
+                     f"aggregate_{key} differs from the host-side merge")
+        if a["counters"]["process_index"] != r["process_index"]:
+            fail("phase 17 (c): aggregate_counters' process_index")
+    if not want["resource_hist"] or max(h["hosts"] for h in want["topk"]) < 2:
+        fail("phase 17 (c): the fleet's hot views never met on a resource")
+    if any(h["total"] >= 1 << 24 for h in want["resource_hist"]):
+        fail("phase 17 (c): a merged histogram row passed 2^24")
+    if not all(r["launches"] for r in ranks):
+        fail("phase 17 (c): a rank's fused steps launched no kernel")
+    out = {"launches": sum(r["launches"] for r in ranks),
+           "ms": {k: [r["ms"][k] for r in ranks] for k in ranks[0]["ms"]},
+           "ranks": [(r["backend"], r["device"]) for r in ranks],
+           "shared_hot": sum(1 for h in want["topk"] if h["hosts"] == 2),
+           "counter_keys": len(want["counters"]["total"])}
+    log(f"[multihost] (c) 2 x Sentinel({ranks[0]['rows']} rows) on "
+        f"{out['ranks']}: "
+        f"aggregate_counters ({out['counter_keys']} keys), aggregate_topk "
+        f"(k={MH_FLEET_K}, {out['shared_hot']} resources hot on both) and "
+        f"aggregate_resource_hist equal the host-side merge on both ranks; "
+        f"ms a call by rank " + ", ".join(
+            f"{k} {v[0]:.2f}/{v[1]:.2f}" for k, v in out["ms"].items())
+        + f"; launches {out['launches']}")
+    return out
+
+
+def phase_multihost(stt, sa, dev="cuda", timer=None, steps: int = 40,
+                    fleet_rows: int = 1 << 20, fleet_batch: int = 1 << 19,
+                    fleet_steps: int = 4) -> dict:
+    """Phase 17 (``multihost``), through the port's own launcher, every
+    child on one build directory (none compiles): (a) the parity worker
+    in 1 process x 8 shards on the card, 2 x 4 with both ranks on the one
+    card (gloo) and 2 x 4 on the CPU — equal decisions, flow windows and
+    ``flow_metrics``; (b) the config 5 engine at full width, 2 x 4 on the
+    card against 1 x 8 in turns (:func:`_mh_full_run`), and the kernel
+    against its plain version at the ranks' block shapes; (c) two 1M-row
+    runtimes on the card and the three fleet aggregates against a
+    host-side merge; (d) with two cards or more, (a) and (b) again with a
+    card a rank on NCCL. (a) and (c) run at once, (b) and (d) alone."""
+    import tempfile
+    from sentinel_tpu_torch.core.compile_cache import cache_dir
+    t_phase = time.perf_counter()
+    built = sorted(os.listdir(cache_dir()))
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    env = {"SENTINEL_COMPILE_CACHE": cache_dir()}
+    one_card = dict(env, CUDA_VISIBLE_DEVICES=first)
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mh_") as tmp:
+        fleet_env = dict(one_card, MH_FLEET_ROWS=str(fleet_rows),
+                         MH_FLEET_BATCH=str(fleet_batch),
+                         MH_FLEET_STEPS=str(fleet_steps))
+        jobs = {
+            "card_1x8": (MH_PARITY, 1, 8, dev, one_card),
+            "card_2x4": (MH_PARITY, 2, 4, dev, one_card),
+            "cpu_2x4": (MH_PARITY, 2, 4, "cpu", env),
+            "fleet": (MH_FLEET_ARGV + [tmp], 2, 1, dev, fleet_env)}
+        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+            futs = {k: pool.submit(_mh_launch, *a) for k, a in jobs.items()}
+            done = {k: f.result() for k, f in futs.items()}
+        res["wall_s"] = {k: v[1] for k, v in done.items()}
+        card = "cpu" if dev == "cpu" else "cuda:0"
+        runs = {
+            # one rank with a card of its own: the rule says nccl (no
+            # process group forms for one process)
+            "card_1x8": _mh_parity_run("1 x 8 on the card", done[
+                "card_1x8"][0], 1, "gloo" if dev == "cpu" else "nccl",
+                [card]),
+            "card_2x4": _mh_parity_run("2 x 4 on one card", done[
+                "card_2x4"][0], 2, "gloo", [card, card]),
+            "cpu_2x4": _mh_parity_run("2 x 4 on the CPU", done[
+                "cpu_2x4"][0], 2, "gloo", ["cpu", "cpu"])}
+        _mh_parity_equal(runs, "card_1x8")
+        if not runs["card_1x8"]["launches"] or \
+                not runs["card_2x4"]["launches"]:
+            fail("phase 17 (a): a card run launched no kernel")
+        if runs["cpu_2x4"]["launches"]:
+            fail("phase 17 (a): the CPU run launched the kernel")
+        res["parity"] = {k: {"launches": v["launches"], "ranks": [
+            (r["backend"], r["device"]) for r in v["ranks"]]}
+            for k, v in runs.items()}
+        res["parity"]["decisions"] = len(runs["card_1x8"]["decisions"])
+        log(f"[multihost] (a) {res['parity']['decisions']} decisions, the "
+            f"flow windows and flow_metrics equal on the card 1 x 8, the "
+            f"card 2 x 4 and the CPU 2 x 4")
+        res["fleet"] = _mh_fleet_check(tmp)
+
+        cap = os.path.join(tmp, "capture")
+        full, res["wall_s"]["full"] = _mh_launch(
+            MH_PARITY + ["--width", "full", "--steps", str(steps),
+                         "--capture", cap], 2, 4, dev, one_card)
+        res["full"] = _mh_full_run("2 x 4 on one card (gloo)", full, steps,
+                                   "gloo", [card, card])
+        res["block_cases"] = _mh_block_cases(sa, timer, cap)
+
+        cards = torch.cuda.device_count()
+        if cards >= 2:
+            nccl = _mh_parity_run("2 x 4 on two cards (NCCL)", _mh_launch(
+                MH_PARITY, 2, 4, dev, env)[0], 2, "nccl",
+                ["cuda:0", "cuda:1"])
+            _mh_parity_equal({"card_1x8": runs["card_1x8"], "nccl": nccl},
+                             "card_1x8")
+            full_nccl, _ = _mh_launch(
+                MH_PARITY + ["--width", "full", "--steps", str(steps)], 2,
+                4, dev, env)
+            res["nccl"] = {"parity_launches": nccl["launches"],
+                           "full": _mh_full_run(
+                               "2 x 4 on two cards (NCCL)", full_nccl,
+                               steps, "nccl", ["cuda:0", "cuda:1"])}
+            if res["nccl"]["full"]["mesh"]["grants_per_s"] <= 0:
+                fail("phase 17 (d): no grants")
+        else:
+            res["nccl"] = {"ran": False, "why": (
+                f"{cards} card: NCCL refuses two ranks on one GPU, so the "
+                f"one-rank-a-card legs need two cards")}
+            log(f"[multihost] (d) NCCL legs not run: {res['nccl']['why']}")
+    if sorted(os.listdir(cache_dir())) != built:
+        fail("phase 17: a child process compiled: the build directory "
+             "changed")
+    nccl_launches = (0 if "full" not in res["nccl"] else
+                     res["nccl"]["parity_launches"]
+                     + res["nccl"]["full"]["launches"])
+    res["launches"] = (runs["card_1x8"]["launches"]
+                       + runs["card_2x4"]["launches"]
+                       + res["fleet"]["launches"] + res["full"]["launches"]
+                       + nccl_launches)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase17] took {res['seconds']:.1f} s (launches at once "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in res["wall_s"].items())
+        + f"); kernel launches {res['launches']}")
+    return res
+
+
 def find_syncs(stt, sa) -> int:
     """``--find-syncs``: every place where a kernel-run engine step waits
     on the device, with the port's frames of its stack (the sync debug
@@ -7879,6 +8313,8 @@ def main() -> int:
         return _cc_child_main(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--demo"]:
         return _demo_child_main(sys.argv[2], sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--mh-fleet"]:
+        return _mh_fleet_main(sys.argv[2])
     # the runtimes' block logs and record log go to a directory of this
     # run, removed at exit
     import tempfile
@@ -7937,6 +8373,7 @@ def main() -> int:
     report["dashboard"] = phase_dashboard(stt, sa)
     report["tune_snapshot_grpc"] = phase_tune_snapshot_grpc(stt, sa)
     report["analysis_demos"] = phase_analysis_demos(stt, sa)
+    report["multihost"] = phase_multihost(stt, sa, timer=timer)
     report["seconds"] = time.perf_counter() - t_all
 
     decide = report["kernel_cases"][0]
@@ -7946,13 +8383,15 @@ def main() -> int:
         "scalar_param", "general_param", "runtime", "fast_path",
         "param_runtime", "obs_runtime", "serving", "tiering", "cluster",
         "command_plane", "gateway", "dashboard", "tune_snapshot_grpc",
-        "analysis_demos"))
+        "analysis_demos", "multihost"))
     kernels = [{
         "name": "scatter_add", "route": "cuda",
         "source": "sentinel_tpu_torch/csrc/scatter_add.cu",
         "replaces": REPLACES,
         "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in report["kernel_cases"]),
+        "max_abs_err": max(c["max_abs_err"] for c in
+                           report["kernel_cases"]
+                           + report["multihost"]["block_cases"]),
         "ms": decide["cold"]["kernel"]["median"],
         "plain_ms": decide["plain_ms"],
         "bound_ms": decide["bound_ms"], "bound_by": "bytes",

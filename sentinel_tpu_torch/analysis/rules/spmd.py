@@ -6,10 +6,13 @@ A ``torch.distributed`` collective — ``all_reduce``, ``all_gather``,
 too — is a meeting point: every rank in the group must execute it, in
 the same order, or the group hangs (NCCL waits forever; gloo times out
 after 30 minutes). Any collective that is only reachable when a branch
-on ``get_rank()`` / coordinator-ness / environment variables (``RANK``,
-``LOCAL_RANK``) goes one way is therefore a deadlock wired in and
-waiting for traffic. The port runs no collective yet; the rule holds its
-fixtures and guards placement across cards when it comes.
+on ``get_rank()`` / the port's ``process_index`` / coordinator-ness /
+environment variables (``RANK``, ``LOCAL_RANK``) goes one way is
+therefore a deadlock wired in and waiting for traffic. The port's own
+collective entry points count too: ``multihost.initialize``, the fleet
+aggregates of ``multihost/obs_agg``, and any ``barrier`` /
+``all_gather`` / ``all_reduce_sum`` (the runtime's and the mesh's
+methods, which run one ``torch.distributed`` collective each).
 
 Two shapes are detected, as in the reference:
 
@@ -39,6 +42,10 @@ COLLECTIVE_EXACT = frozenset(_DIST + n for n in (
     "all_to_all", "all_to_all_single", "gather", "gather_object",
     "scatter", "scatter_object_list", "reduce",
     "init_process_group", "destroy_process_group", "new_group",
+)) | frozenset("sentinel_tpu_torch.multihost." + n for n in (
+    "initialize", "bootstrap.initialize",
+    "obs_agg.aggregate_counters", "obs_agg.aggregate_topk",
+    "obs_agg.aggregate_resource_hist", "obs_agg.coordinator_report",
 ))
 
 #: Bare names distinctive enough to be collectives whatever their
@@ -48,14 +55,15 @@ _COLLECTIVE_LEAVES = frozenset({
     "all_reduce", "all_gather", "all_gather_into_tensor",
     "reduce_scatter_tensor", "barrier", "monitored_barrier",
     "all_to_all_single", "init_process_group", "destroy_process_group",
+    "all_reduce_sum",
 })
 
 #: Rank-divergent signals inside a branch test.
 _DIVERGENT_SUFFIXES = (".get_rank", ".get_node_local_rank",
-                       ".is_coordinator")
+                       ".is_coordinator", ".process_index")
 _DIVERGENT_EXACT = frozenset({
     "torch.distributed.get_rank", "torch.distributed.get_node_local_rank",
-    "get_rank", "is_coordinator",
+    "get_rank", "is_coordinator", "process_index",
     "socket.gethostname", "platform.node", "os.getpid",
 })
 _DIVERGENT_PREFIXES = ("os.environ", "os.getenv")
@@ -97,7 +105,8 @@ class SpmdRule(Rule):
                                 ctx, call,
                                 "collective '%s' reachable only under a "
                                 "rank-divergent branch (test involves "
-                                "get_rank/coordinator/env); every rank "
+                                "get_rank/process_index/coordinator/env); "
+                                "every rank "
                                 "must reach this rendezvous or the "
                                 "process group deadlocks" % name)
 

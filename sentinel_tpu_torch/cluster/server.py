@@ -74,10 +74,11 @@ class ClusterTokenServer:
         if getattr(engine, "_multiprocess", False):
             # Socket-driven stepping from ONE process would leave the
             # other processes out of the collective step; multi-process
-            # engines (ROADMAP A11) must be driven on every process.
+            # engines must be driven on every process (multihost/ingest),
+            # and the reference refuses them here too (ROADMAP A11).
             raise ValueError(
                 "ClusterTokenServer cannot front an engine spread over "
-                "several processes (ROADMAP A11)")
+                "several processes (as in the reference; ROADMAP A11)")
         self.engine = engine
         self.concurrent = concurrent or ConcurrentTokenManager()
         self.clock = clock or Clock()

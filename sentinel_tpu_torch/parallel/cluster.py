@@ -41,6 +41,20 @@ Every step records through the ported scatter-add (one payload launch
 per window: flows, namespaces and, with hot keys, params). The step runs
 eagerly on the engine's device without waiting on it; the state is
 updated in place under the engine lock (the reference donates it).
+
+**Across processes** (``mesh=`` a :mod:`sentinel_tpu_torch.multihost.mesh`
+mesh that spans processes; the reference's multi-process mesh): process
+*p* holds only its contiguous block of shards ``[lo, hi)`` — flows,
+namespaces, hot keys and its lanes ``[lo·Bl, hi·Bl)`` of each batch —
+and runs :func:`cluster_step` over that block alone. Everything in the
+step is shard-local but the namespace sum, which becomes the block's
+sum plus one ``all_reduce`` (the reference's ``psum``; integer counts
+below 2^24 in float32, so exact). The verdicts come back through one
+``all_gather`` of the blocks in shard order (the reference's tiled
+``process_allgather``), and a flow row's snapshot is a broadcast from
+its owner: every process calls each step and each readback, in the same
+order (SPMD). Rule loads, connected counts and namespace limits are
+replayed on every process, which keeps the host tables identical.
 """
 
 from __future__ import annotations
@@ -49,7 +63,8 @@ import dataclasses
 import functools
 import hashlib
 import threading
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -184,12 +199,15 @@ def _admit_segments(keys: torch.Tensor, base: torch.Tensor,
 def cluster_step(spec: ClusterSpec, table: ClusterRuleTable,
                  state: ClusterState, batch: TokenBatch,
                  connected: torch.Tensor, ns_limit: torch.Tensor,
-                 now_idx: int, in_win_ms: int
-                 ) -> Tuple[ClusterState, TokenVerdicts]:
+                 now_idx: int, in_win_ms: int,
+                 ns_sum: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                 = None) -> Tuple[ClusterState, TokenVerdicts]:
     """One token step over all S shards (the reference's ``_shard_step``
     under ``shard_map``) → (state, verdicts). ``connected`` and
     ``ns_limit`` are float32[NS]; ``now_idx`` and ``in_win_ms`` host ints.
-    ``state`` is updated in place."""
+    ``state`` is updated in place. ``ns_sum`` completes the namespace sum
+    over shards held elsewhere (a process's block: ``spec.n_shards`` is
+    then the block's shard count)."""
     w = spec.window
     dev = batch.local_rows.device
     S, L, NS = spec.n_shards, spec.flows_per_shard, spec.namespaces
@@ -209,6 +227,8 @@ def cluster_step(spec: ClusterSpec, table: ClusterRuleTable,
     # (the psum: a sum over the shard axis of integer counts < 2^24)
     ns_local = window_sum_all(w, state.ns, ev.PASS, now_idx).to(f32)
     ns_global = ns_local.view(S, NS).sum(0)
+    if ns_sum is not None:
+        ns_global = ns_sum(ns_global)
     ns_base = torch.cat([ns_global, ns_global.new_zeros(1)])
     ns_lim = torch.cat([ns_limit, ns_limit.new_full((1,), inf)])
     limiter_ok, _ = _admit_segments(
@@ -403,12 +423,39 @@ class ClusterEngine:
     collapsed onto dense tensors of S logical shards on one device
     (``device``: ``cuda`` unless the caller asks for another, as the
     runtime resolves it).
+
+    ``mesh`` (a :class:`~sentinel_tpu_torch.multihost.mesh.GlobalMesh` of
+    ``n_shards`` entries) places the shards: this process holds its own
+    contiguous block of them on its device, and a mesh that spans
+    processes makes the engine multi-process (module docstring).
     """
 
     def __init__(self, spec: ClusterSpec, device=None,
-                 default_ns_qps: float = 30_000.0):
+                 default_ns_qps: float = 30_000.0, *, mesh=None):
         self.spec = spec
+        self.mesh = mesh
+        lo, hi = 0, spec.n_shards
+        if mesh is not None:
+            if mesh.size != spec.n_shards:
+                raise ValueError(f"need {spec.n_shards} devices, mesh has "
+                                 f"{mesh.size}")
+            own = [i for i, d in enumerate(mesh.devices)
+                   if d.process_index == mesh.process_index]
+            if not own or own != list(range(own[0], own[-1] + 1)):
+                raise ValueError(f"process {mesh.process_index} must own "
+                                 f"one contiguous block of shards: {own}")
+            lo, hi = own[0], own[-1] + 1
+            if device is None:
+                device = mesh.local_device
         self.device = resolve_device(device)
+        # Multi-process mesh: this process holds shards [lo, hi) only;
+        # the namespace sum, verdict readback and row snapshots are
+        # collectives. Rule loads / connected counts MUST be replayed
+        # identically on every participating process, and every process
+        # executes every step (multihost/ingest.py drives this).
+        self._multiprocess = mesh is not None and mesh.process_count > 1
+        self._block = (lo, hi)
+        self._local_spec = dataclasses.replace(spec, n_shards=hi - lo)
 
         self._flow_to_row: Dict[int, int] = {}
         self._row_to_flow: Dict[int, int] = {}
@@ -434,7 +481,7 @@ class ClusterEngine:
         self._lock = threading.RLock()  # guards the in-place state,
         # routing tables, and rule reloads against concurrent server threads
 
-        self.state = init_cluster_state(spec, self.device)
+        self.state = init_cluster_state(self._local_spec, self.device)
         self._table = self._empty_table()
 
     # ------------------------------------------------------------------
@@ -454,7 +501,10 @@ class ClusterEngine:
             np.ones(n, np.float32), np.zeros(n, np.int32))
 
     def _table_from_numpy(self, *cols) -> ClusterRuleTable:
-        return ClusterRuleTable(*(self._put(c) for c in cols))
+        """The rule table's rows of this process's shard block."""
+        L = self.spec.flows_per_shard
+        lo, hi = self._block
+        return ClusterRuleTable(*(self._put(c[lo * L:hi * L]) for c in cols))
 
     # ------------------------------------------------------------------
     # Namespace / rule management
@@ -514,9 +564,12 @@ class ClusterEngine:
     def _forget_rows_locked(self, freed: List[int]) -> None:
         """Invalidate freed rows so a reused row can't inherit the dead
         flow's live counters."""
-        if freed:
+        L = self.spec.flows_per_shard
+        lo, hi = self._block
+        local = [r - lo * L for r in freed if lo * L <= r < hi * L]
+        if local:
             invalidate_rows(self.spec.window, self.state.flows,
-                            self._put(np.asarray(freed, np.int32)))
+                            self._put(np.asarray(local, np.int32)))
 
     def load_rules(self, namespace: str, rules: Sequence[ClusterFlowRule]) -> None:
         """Replace the namespace's rules (ClusterFlowRuleManager property path).
@@ -810,29 +863,81 @@ class ClusterEngine:
 
     def _step_locked(self, rows, acq, prio, valid, is_param, prow, pcnt,
                      now_ms: int):
-        """Copy one routed batch over, run :func:`cluster_step` and start
-        the verdict copy back → ``(host tensors, event)``."""
-        put = self._put
+        """Copy this process's lanes of one routed ``[S, Bl]`` batch over,
+        run :func:`cluster_step` on its shard block and start the verdict
+        copy back → ``(host tensors, event)``; multi-process, the device
+        verdicts (``_to_host`` gathers them)."""
+        S = self.spec.n_shards
+        lo, hi = self._block
+
+        def put(x, dtype):
+            x = np.asarray(x, dtype)
+            return self._put(x.reshape((S, -1) + x.shape[1:])[lo:hi]
+                             .reshape((-1,) + x.shape[1:]))
+
+        def put_lanes(x, dtype):
+            return put(np.asarray(x, dtype).reshape(-1), dtype)
+
         batch = TokenBatch(
-            local_rows=put(np.asarray(rows, np.int32).reshape(-1)),
-            acquire=put(np.asarray(acq, np.int32).reshape(-1)),
-            prioritized=put(np.asarray(prio, np.bool_).reshape(-1)),
-            valid=put(np.asarray(valid, np.bool_).reshape(-1)),
-            is_param=put(np.asarray(is_param, np.bool_).reshape(-1)),
-            param_rows=put(np.asarray(prow, np.int32)),
-            param_count=put(np.asarray(pcnt, np.float32)))
+            local_rows=put_lanes(rows, np.int32),
+            acquire=put_lanes(acq, np.int32),
+            prioritized=put_lanes(prio, np.bool_),
+            valid=put_lanes(valid, np.bool_),
+            is_param=put_lanes(is_param, np.bool_),
+            param_rows=put(prow, np.int32),
+            param_count=put(pcnt, np.float32))
         w = self.spec.window
         self.state, verdicts = cluster_step(
-            self.spec, self._table, self.state, batch,
-            put(self._connected.copy()), put(self._ns_limit.copy()),
-            w.index_of(now_ms), now_ms % w.win_ms)
+            self._local_spec, self._table, self.state, batch,
+            self._put(self._connected.copy()),
+            self._put(self._ns_limit.copy()),
+            w.index_of(now_ms), now_ms % w.win_ms,
+            self.mesh.all_reduce_sum if self._multiprocess else None)
+        if self._multiprocess:
+            return verdicts
         return start_host_copy(verdicts)
 
-    @staticmethod
-    def _to_host(pending) -> List[np.ndarray]:
-        """Wait for a step's verdict copy → ``[status, wait_ms,
-        remaining]`` numpy arrays."""
-        return wait_host_copy(*pending)
+    def _to_host(self, pending) -> List[np.ndarray]:
+        """Wait for a step's verdicts → ``[status, wait_ms, remaining]``
+        numpy arrays over all S shards. Multi-process this is collective:
+        one ``all_gather`` of every process's ``[3, lanes]`` block, in
+        shard order (under gloo the block is first copied to the host,
+        which waits for the step)."""
+        if not self._multiprocess:
+            return wait_host_copy(*pending)
+        blocks = self.mesh.all_gather(torch.stack(tuple(pending)))
+        return list(blocks.transpose(0, 1).reshape(3, -1).cpu().numpy())
+
+    def _to_host_rows(self, t: torch.Tensor) -> np.ndarray:
+        """A row-blocked state tensor (leading axis: this process's shard
+        block) → the whole ``[S·rows, ...]`` array in shard order
+        (collective when multi-process; a copy otherwise)."""
+        if not self._multiprocess:
+            return t.cpu().numpy().copy()
+        g = self.mesh.all_gather(t)
+        return g.reshape((-1,) + tuple(t.shape[1:])).cpu().numpy()
+
+    def _row_snapshot(self, row: int):
+        """``(counters[row], stamps[row])`` of the flow window state. In a
+        multi-process mesh only the owner holds the row: it is broadcast
+        from the owner, so every process must call this collectively
+        (SPMD), same as the step itself."""
+        L = self.spec.flows_per_shard
+        lo, hi = self._block
+        flows = self.state.flows
+        if not self._multiprocess:
+            return (flows.counters[row].cpu().numpy(),
+                    flows.stamps[row].cpu().numpy())
+        owner = self.mesh.devices[row // L].process_index
+        if lo * L <= row < hi * L:
+            c, st = flows.counters[row - lo * L], flows.stamps[row - lo * L]
+        else:
+            c, st = torch.zeros_like(flows.counters[0]), \
+                torch.zeros_like(flows.stamps[0])
+        packed = torch.cat([c.reshape(-1), st.reshape(-1)])
+        got = self.mesh.broadcast(packed, owner).cpu().numpy()
+        n = c.numel()
+        return got[:n].reshape(tuple(c.shape)), got[n:]
 
     def rows_for_flows(self, flow_ids) -> Optional[np.ndarray]:
         """Global row per flow id (``-1`` = unregistered), vectorized via
@@ -898,8 +1003,7 @@ class ClusterEngine:
                 return {}
             w = self.spec.window
             now_idx = w.index_of(now_ms)
-            counters = self.state.flows.counters[row].cpu().numpy()  # [B, E]
-            stamps = self.state.flows.stamps[row].cpu().numpy()      # [B]
+            counters, stamps = self._row_snapshot(row)    # [B, E], [B]
         delta = (now_idx - stamps.astype(np.int64)).astype(np.int32)
         live = (delta >= 0) & (delta < w.buckets)
         tot = np.where(live[:, None], counters, 0).sum(axis=0)

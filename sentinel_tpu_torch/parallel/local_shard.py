@@ -3,7 +3,8 @@
 Port of the parts of ``sentinel_tpu/parallel/local_shard.py`` the
 telemetry tick and the tiering ticker need. The port runs one engine on one GPU: its state is one shard
 that owns every row. Row-sharded engines over several GPUs are not ported
-yet (ROADMAP A11).
+yet (ROADMAP A11's second half; the cluster token engine's multi-process
+leg is :mod:`sentinel_tpu_torch.multihost`).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Tuple
 import numpy as np
 
 MESH_NOT_PORTED = ("meshes (row-sharded multi-GPU engines) are not ported "
-                   "yet: ROADMAP A11")
+                   "yet: ROADMAP A11, second half")
 
 
 def topk_layout(spec, mesh=None) -> Tuple[int, int]:

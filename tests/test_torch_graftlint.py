@@ -385,6 +385,23 @@ def test_spmd001_positive_and_negative():
         assert "tn_" not in torch_line("spmd_cases.py", f.line)
 
 
+def test_spmd001_multihost_entry_points():
+    """The port's own rendezvous (``multihost.initialize``, the fleet
+    aggregates, the runtime's and the mesh's collectives) under a branch
+    on the runtime's ``process_index`` or coordinator-ness."""
+    findings = lint_torch("spmd_multihost_cases.py")
+    hits = active(findings, "SPMD001")
+    msgs = [f.message for f in hits]
+    assert len(hits) == 4, msgs
+    assert any("rt.barrier" in m and "rank-divergent branch" in m
+               for m in msgs)
+    assert any("obs_agg.aggregate_counters" in m for m in msgs)
+    assert any("early exit" in m and "all_reduce_sum" in m for m in msgs)
+    assert any("multihost.initialize" in m for m in msgs)
+    for f in hits:
+        assert "tn_" not in torch_line("spmd_multihost_cases.py", f.line)
+
+
 # ----------------------------------------------------------------------
 # TRACE001 — host syncs in device-step code
 # ----------------------------------------------------------------------

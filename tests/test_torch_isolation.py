@@ -132,6 +132,14 @@ import sentinel_tpu_torch.analysis.__main__
 import sentinel_tpu_torch.analysis.project
 import sentinel_tpu_torch.analysis.reporting
 import sentinel_tpu_torch.analysis.rules
+import sentinel_tpu_torch.multihost
+import sentinel_tpu_torch.multihost.bootstrap
+import sentinel_tpu_torch.multihost.launch
+import sentinel_tpu_torch.multihost.mesh
+import sentinel_tpu_torch.multihost.ingest
+import sentinel_tpu_torch.multihost.obs_agg
+import sentinel_tpu_torch.multihost._parity_worker
+import sentinel_tpu_torch.multihost._topk_worker
 import demos.torch.slot_spi
 import demos.torch.plugin_spi
 import demos.torch.command_handler_spi
@@ -298,6 +306,17 @@ ANALYSIS_DEMO_MODULES = [
 ]
 
 
+#: the multi-process fabric and its workers, imported the same way
+MULTIHOST_MODULES = [
+    "sentinel_tpu_torch.multihost", "sentinel_tpu_torch.multihost.bootstrap",
+    "sentinel_tpu_torch.multihost.launch", "sentinel_tpu_torch.multihost.mesh",
+    "sentinel_tpu_torch.multihost.ingest",
+    "sentinel_tpu_torch.multihost.obs_agg",
+    "sentinel_tpu_torch.multihost._parity_worker",
+    "sentinel_tpu_torch.multihost._topk_worker",
+]
+
+
 def _import_blocked(*modules):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -314,7 +333,7 @@ def _import_blocked(*modules):
                          + GATEWAY_EXPORTER_NATIVE_MODULES
                          + DASHBOARD_ADAPTER_MODULES
                          + TUNE_SNAPSHOT_GRPC_MODULES
-                         + ANALYSIS_DEMO_MODULES)
+                         + ANALYSIS_DEMO_MODULES + MULTIHOST_MODULES)
 def test_module_imports_with_jax_blocked(module):
     _import_blocked(module)
 
