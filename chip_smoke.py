@@ -114,7 +114,7 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    p50/p99) and the ``Degrade`` actuator forcing a real breaker;
 11. drives the cluster token tier on the card: (a) ``ClusterEngine`` at
    the JAX bench's config 5 geometry (8 logical shards, 4096 flow rows over
-   4 namespaces, 2^16 hot-key rows, 4 values a param request), 40 steps of
+   4 namespaces, 2^16 hot-key rows, 4 values a param request), 16 steps of
    2^16 requests 10 ms apart (3/4 flow requests, Zipf(1.1) ids, 1/8
    prioritized; 1/4 param requests with 1–4 Zipf user ids) with the
    kernel, with the plain seam and on the CPU — equal verdicts, windows,
@@ -190,7 +190,7 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    with 4096 flow rules held, and host ms per fused step with the
    dashboard at its real cadence (the fetcher every 6 s, browsers on the
    Resources view every 3 s and on Hot Resources every 5 s, the app list
-   every 10 s) and stopped, in turns;
+   every 10 s) and stopped, in 2 turns;
 15. drives the autotuner, warm-restart snapshots, the build cache and the
    gRPC token and Envoy RLS servers (``tune_snapshot_grpc``): (a)
    ``tune.run_sweep`` at the reference's defaults (pipeline depth x
@@ -212,7 +212,7 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    first launch each); (d) phase 11's engine behind ``TokenGrpcServer``:
    64 mixed batches of 256 equal to a CPU twin engine, round trips of 1
    and 256 items from one client without a deadline, then 8 client
-   threads for 10 s (round trips, decided items a second, STATUS_FAIL at
+   threads for 5 s (round trips, decided items a second, STATUS_FAIL at
    the 20 ms deadline), and ``entry()`` through a ``Sentinel`` whose token
    service is the gRPC client; (e) ``SentinelRlsGrpcServer`` with rules
    on 16 domains: 4096 ``ShouldRateLimit`` frames, Zipf(1.1) over the
@@ -238,7 +238,7 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    decisions, gathered flow windows and ``flow_metrics``, every status
    present, each rank's backend and device printed; (b) the cluster
    engine at the JAX bench's config 5 geometry with flow requests only (S
-   = 8, 4096 flow rows, 2^16 Zipf requests a step, 40 steps), 2 x 4 on the
+   = 8, 4096 flow rows, 2^16 Zipf requests a step, 20 steps), 2 x 4 on the
    card against a 1 x 8 engine in turns: verdict digests equal step by
    step, step p50/p99, grants/s, ms a step in the namespace
    ``all_reduce`` and the verdict ``all_gather``, 2 launches a step a
@@ -250,8 +250,29 @@ the git-ignored ``sentinel_tpu_torch/_build/``), then:
    ``aggregate_resource_hist`` against a host-side merge (ms a call);
    (d) with two cards or more, (a) and (b) on NCCL with a card a rank (on
    one card it prints why not);
-18. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
-   line (``launches`` summed over the runs of phases 3-17), and as the last
+18. drives the row-sharded runtime (``meshed``): ``Sentinel(mesh=
+   local_mesh(devices=["cuda:0"] * 8))``, the windows, gauges, occupy ring
+   and RT histograms as 8 row blocks on the card: (a) phase 8's runtime
+   at full width (1M rows, 2M alt rows, thread gauges kept, fused
+   decide+exit steps of 2^19) on the scalar route and on the general
+   route (64 origins on half the events) against the one-block runtime
+   in turns: verdicts and every state leaf equal at every step (block by
+   block on the card), step p50/p99, launches a step (a meshed step that
+   launches none fails), device ms a step; (b) the kernel against its
+   plain version at every block shape of (a) (the window slices, the RT
+   columns and histogram, the gauges, the alt rows; N = 2^19 or 2^20
+   lanes, most not owned by the block), timed cold and warm against
+   ``index_add_`` over the owned lanes; (c) at 16k rows, on 8 blocks on
+   the card and on a CPU twin: ``DispatchPipeline`` at depth 2 and a
+   ``frontend()`` run (``pipeline.meshed_dispatch``,
+   ``split_route.meshed``), a telemetry tick (the top-K also equal to a
+   one-block runtime's), tiered churn whose proactive demotions spread
+   over the blocks, a snapshot restored into 8 blocks and into one, the
+   tune fingerprint's mesh block — every observation and the state
+   equal; (d) with two cards or more, 8 blocks spread over two cards
+   against (a)'s verdicts (on one card it prints why not);
+19. prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
+   line (``launches`` summed over the runs of phases 3-18), and as the last
    line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --find-syncs`` runs 3-5 steps of each engine phase
@@ -8233,6 +8254,536 @@ def phase_multihost(stt, sa, dev="cuda", timer=None, steps: int = 40,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the row-sharded runtime, Sentinel(mesh=) over N row blocks
+# ---------------------------------------------------------------------------
+
+MESH_BLOCKS = 8          # row blocks of the meshed runtimes
+MESH_ORIGINS = 64        # origins on half of the general route's events
+
+
+def _mesh_runtime(stt, R: int, clock, dev, mesh=None):
+    """Phase 8's runtime fixture (default configuration, ``R`` rows, the
+    scalar fixture's 4096 QPS rules and 1024 exception-ratio breakers,
+    RT histograms on) with the thread gauges kept (their block shape
+    runs), on ``mesh``'s row blocks or, without one, on ``dev``."""
+    cfg = stt.load_config(max_resources=R, thread_gauge_always=True)
+    where = {"mesh": mesh} if mesh is not None else {"device": dev}
+    sph = stt.Sentinel(config=cfg, clock=clock, **where)
+    sph.load_flow_rules([stt.FlowRule(resource=f"r{i}", count=50.0)
+                         for i in range(OBS_RULED)])
+    sph.load_degrade_rules([stt.DegradeRule(
+        resource=f"r{i}", grade=stt.GRADE_EXCEPTION_RATIO, count=0.5,
+        time_window=10, min_request_amount=5) for i in range(1024)])
+    return sph
+
+
+def _mesh_stream(sph, B: int, steps: int, route: str, seed: int = 61):
+    """``steps`` steps of phase 8's scalar traffic (interned in the same
+    order in every runtime), its rule-free names filling the table so the
+    rows spread over every block → ``[(rows, origin ids, origin rows)]``
+    and the failing set; ``general`` gives half the events one of 64
+    origins (at 2^21 alt rows the fast route's key does not fit: the
+    general route)."""
+    batches, failing = _scalar_stream(
+        sph, B, steps, seed=seed, pool=sph.spec.rows - 2 * OBS_RULED)
+    ra = sph.spec.alt_rows
+    oids = np.asarray([sph.origins.pin(f"o{i}")
+                       for i in range(MESH_ORIGINS)], np.int32)
+    rng = np.random.default_rng(seed + 1)
+    out = []
+    for rows in batches:
+        if route == "scalar":
+            out.append((rows, np.zeros(B, np.int32),
+                        np.full(B, ra, np.int32)))
+            continue
+        has = rng.random(B) < 0.5
+        oid = np.where(has, oids[rng.integers(0, MESH_ORIGINS, B)], 0)
+        orow = np.where(has, _alt_rows_np(rows, 0, oid, ra), ra)
+        out.append((rows, oid.astype(np.int32), orow.astype(np.int32)))
+    return out, failing
+
+
+def _mesh_step(sph, step, prev, failing):
+    """One fused decide+exit step: this step's events, the previous
+    step's admitted ones exiting (with their origin rows)."""
+    rows, oid, orow = step
+    n = rows.shape[0]
+    ra = sph.spec.alt_rows
+    p_rows, p_orow = prev
+    return sph.decide_and_exit_raw_nowait(
+        rows, oid, orow, np.zeros(n, np.int32), np.full(n, ra, np.int32),
+        np.ones(n, np.int32), np.ones(n, np.bool_), np.zeros(n, np.bool_),
+        exit_rows=p_rows, exit_origin_rows=p_orow,
+        exit_error=np.isin(p_rows, list(failing)),
+        exit_rt_ms=(p_rows % 97).astype(np.int32))
+
+
+def _mesh_state_diff(ms, os_) -> list:
+    """Leaves of a row-block state and a one-block state that differ,
+    compared block by block where they live: block ``i`` against the
+    one-block tensor's rows ``[i·per, (i+1)·per)`` (a view: nothing is
+    concatenated)."""
+    from sentinel_tpu_torch.parallel.row_blocks import RowBlocks
+    bad = []
+
+    def walk(a, b, path):
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                bad.append(path)
+            return
+        if isinstance(a, RowBlocks):
+            if a.rows != b.shape[0]:
+                bad.append(path)
+                return
+            for i, blk in enumerate(a.blocks):
+                part = b[i * a.per:(i + 1) * a.per]
+                if (blk.shape != part.shape or blk.dtype != part.dtype
+                        or not torch.equal(blk, part.to(blk.device))):
+                    bad.append(f"{path}[block {i}]")
+            return
+        if isinstance(a, torch.Tensor):
+            if (a.shape != b.shape or a.dtype != b.dtype
+                    or not torch.equal(a, b.to(a.device))):
+                bad.append(path)
+            return
+        names = getattr(a, "_fields", None) or range(len(a))
+        for name, x, y in zip(names, a, b):
+            walk(x, y, f"{path}{name}.")
+
+    walk(ms, os_, "")
+    return bad
+
+
+def _verdict_digest(v) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for col in (v.allow, v.reason, v.wait_ms):
+        h.update(np.ascontiguousarray(np.asarray(col)).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _capture_blocks(sa, run, seen: dict, state, block: int = 1) -> None:
+    """``run()`` with the scatter seam recording, into ``seen``, the
+    first launch into each block shape of block ``block`` of ``state``'s
+    row blocks not seen yet (the table it views, its view geometry, the
+    lanes) for phase 2's per-shape table. Block 1 is a typical one: block
+    0 also holds the ENTRY row and the ruled rows."""
+    from sentinel_tpu_torch.parallel.row_blocks import RowBlocks
+    real = sa.scatter_add
+    blocks = set()
+
+    def walk(x):
+        if isinstance(x, RowBlocks):
+            blocks.add(x.blocks[block].untyped_storage().data_ptr())
+        elif isinstance(x, tuple):
+            for v in x:
+                walk(v)
+    walk(state)
+
+    def capture(table, keys, events, amounts):
+        base = table._base if table._base is not None else table
+        sig = (tuple(table.shape), tuple(table.stride()), tuple(base.shape),
+               str(table.dtype), events is None, int(keys.shape[0]))
+        if sig not in seen and \
+                base.untyped_storage().data_ptr() in blocks:
+            seen[sig] = dict(
+                table=base.clone(), shape=tuple(table.shape),
+                stride=tuple(table.stride()),
+                offset=table.storage_offset() - base.storage_offset(),
+                keys=keys.clone(),
+                events=None if events is None else events.clone(),
+                amounts=amounts.clone())
+        return real(table, keys, events, amounts)
+
+    sa.scatter_add = capture
+    try:
+        run()
+    finally:
+        sa.scatter_add = real
+
+
+def _mesh_block_cases(sa, timer, caps) -> list:
+    """(b): the kernel against its plain version at every captured block
+    shape — timed cold and warm against ``index_add_`` over the owned
+    lanes (``_library_call`` drops the others) when ``timer`` is given."""
+    out = []
+    for c in caps:
+        shape, stride, off = c["shape"], c["stride"], c["offset"]
+        owned = int(((c["keys"] >= 0) & (c["keys"] < shape[0])).sum())
+        mode = (f"payload E={shape[1]}" if c["events"] is None
+                else "event mode")
+        name = (f"meshed block {list(shape)} of {list(c['table'].shape)} "
+                f"{str(c['table'].dtype).split('.')[-1]}, {mode}, "
+                f"N={c['keys'].shape[0]} ({owned} owned)")
+        case = dict(
+            name=name, per_step=1, table=c["table"],
+            view_of=(lambda t, shape=shape, stride=stride, off=off:
+                     t.as_strided(shape, stride, off)),
+            keys=c["keys"], amounts=c["amounts"], events=c["events"],
+            path=None)
+        out.append(_kernel_case(sa, timer, case, timed=timer is not None))
+    return out
+
+
+def _mesh_run(stt, sa, dev, meshes: dict, R, B, steps, route, seen=None,
+              profile_steps: int = 0) -> dict:
+    """One route on runtimes built by ``meshes`` (name → mesh, None for
+    one block), the same stream in turns: verdicts equal to the first's
+    and — against a one-block runtime — every state leaf equal at every
+    step, compared block by block on the card. ``seen`` collects the
+    block shapes of the meshed step's second launch round."""
+    t0 = 1_800_000_000_000
+    engines = {name: _mesh_runtime(stt, R, stt.ManualClock(start_ms=t0),
+                                   dev, mesh)
+               for name, mesh in meshes.items()}
+    names = list(engines)
+    streams = {n: _mesh_stream(sph, B, steps, route)
+               for n, sph in engines.items()}
+    stream, failing = streams[names[0]]
+    for n in names[1:]:
+        if not all(np.array_equal(a[0], b[0]) and np.array_equal(a[2], b[2])
+                   for a, b in zip(stream, streams[n][0])):
+            fail(f"phase 18 {route}: the runtimes interned apart")
+    host_ms = {n: [] for n in names}
+    launches = {n: [] for n in names}
+    digests = {n: [] for n in names}
+    prev = {n: (np.empty(0, np.int32), np.empty(0, np.int32))
+            for n in names}
+    for i in range(steps):
+        got = {}
+        for name in (names if i % 2 == 0 else names[::-1]):
+            sph = engines[name]
+            sph.clock.advance_ms(2)
+            sync()
+            sa.LAUNCHES.clear()
+
+            def run(sph=sph, name=name):
+                got[name] = _mesh_step(sph, stream[i], prev[name],
+                                       failing).result()
+            t = time.perf_counter()
+            with no_host_sync(dev == "cuda"):
+                if (seen is not None and i == 1
+                        and meshes[name] is not None):
+                    _capture_blocks(sa, run, seen, sph._state)
+                else:
+                    run()
+            sync()
+            host_ms[name].append((time.perf_counter() - t) * 1e3)
+            launches[name].append(sa.LAUNCHES["scatter_add"])
+            keep = got[name].allow
+            prev[name] = (stream[i][0][keep], stream[i][2][keep])
+            digests[name].append(_verdict_digest(got[name]))
+            if meshes[name] is not None and dev == "cuda" \
+                    and launches[name][-1] == 0:
+                fail(f"phase 18 {route}: a meshed step launched no kernel")
+        for name in names[1:]:
+            if digests[name][-1] != digests[names[0]][-1]:
+                fail(f"phase 18 {route}: {name}'s verdicts differ from "
+                     f"{names[0]}'s at step {i}")
+        one = [n for n in names if meshes[n] is None]
+        for name in names:
+            if one and meshes[name] is not None:
+                diff = _mesh_state_diff(engines[name]._state,
+                                        engines[one[0]]._state)
+                if diff:
+                    fail(f"phase 18 {route}: {name}'s state differs at step "
+                         f"{i}: {diff[:6]}")
+    res = {"route": route, "steps": steps, "B": B, "R": R,
+           "host_ms": {n: summary(v) for n, v in host_ms.items()},
+           "p99_ms": {n: float(np.percentile(v, 99))
+                      for n, v in host_ms.items()},
+           "launches_per_step": {n: sorted(set(v))
+                                 for n, v in launches.items()},
+           "launches": sum(sum(v) for v in launches.values()),
+           "digests": digests[names[0]],
+           "counters": {n: {k: v for k, v in
+                            sph.obs.counters.snapshot().items()
+                            if k.startswith("split_route.")}
+                        for n, sph in engines.items()}}
+    for name, sph in engines.items():
+        c = res["counters"][name]
+        want = steps if meshes[name] is not None else None
+        if c.get("split_route.meshed") != want:
+            fail(f"phase 18 {route}: {name} counted split_route.meshed "
+                 f"{c.get('split_route.meshed')}, want {want}")
+        if c.get("split_route.fused_exit") != steps:
+            fail(f"phase 18 {route}: {name} routes {c}")
+    # a fused call counts split_route.fused_exit alone: the route is the
+    # runtime's host choice (origins and a key that does not fit: general)
+    first = engines[names[0]]
+    res["route_taken"] = ("scalar" if route == "scalar" else
+                          "fast" if first._key_fits() else "general")
+    if dev == "cuda" and res["route_taken"] != route:
+        fail(f"phase 18 {route}: the runtime took the "
+             f"{res['route_taken']} route")
+    if profile_steps:
+        res["device_ms_per_step"] = {}
+        for name, sph in engines.items():
+            last = [prev[name]]
+
+            def run_steps(sph=sph, last=last):
+                for j in range(profile_steps):
+                    sph.clock.advance_ms(2)
+                    v = _mesh_step(sph, stream[j], last[0],
+                                   failing).result()
+                    last[0] = (stream[j][0][v.allow], stream[j][2][v.allow])
+            prof = _profile_steps(run_steps, profile_steps,
+                                  f"meshed_{route}_{name}_trace.json",
+                                  keep_trace=False)
+            res["device_ms_per_step"][name] = prof["device_ms_per_step"]
+    log(f"[meshed] {route}: {steps} fused steps of {B} at {R} rows on "
+        + ", ".join(names) + ": verdicts equal every step"
+        + (", state equal block by block" if len(names) > 1 else "")
+        + "; host ms p50/p99 " + ", ".join(
+            f"{n} {res['host_ms'][n]['median']:.2f}/{res['p99_ms'][n]:.2f}"
+            for n in names)
+        + "; launches a step " + ", ".join(
+            f"{n} {res['launches_per_step'][n]}" for n in names)
+        + ("; device ms a step " + ", ".join(
+            f"{n} {v:.3f}" for n, v in res["device_ms_per_step"].items())
+           if "device_ms_per_step" in res else ""))
+    for sph in engines.values():
+        sph.close()
+    del engines
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def _mesh_serving_drive(sph) -> dict:
+    """(c), serving: ``DispatchPipeline`` at depth 2 (5 mixed batches that
+    split), a short ``frontend()`` run, a telemetry tick → observations."""
+    import asyncio
+    from sentinel_tpu_torch.obs import counters as ck
+    from sentinel_tpu_torch.serving import DispatchPipeline
+    out = {}
+    n = 4096 + 512
+    rows = sph.intern_resources([f"r{i}" for i in range(64)])
+    rng = np.random.default_rng(71)
+    r = rows[rng.integers(0, 64, n)].astype(np.int32)
+    oid = int(sph.origins.pin("app-a"))
+    ra = sph.spec.alt_rows
+    has = rng.random(n) < 0.1
+    orow = np.where(has, _alt_rows_np(r, 0, np.full(n, oid), ra),
+                    ra).astype(np.int32)
+    prio = rng.random(n) < 0.01
+    pipe = DispatchPipeline(sph, depth=2)
+    t0 = sph.clock.now_ms()
+    tickets = [pipe.submit_raw(
+        r, np.where(has, oid, 0).astype(np.int32), orow,
+        np.zeros(n, np.int32), np.full(n, ra, np.int32),
+        np.ones(n, np.int32), np.ones(n, np.bool_), prio,
+        at_ms=t0 + i * 250) for i in range(5)]
+    out["pipeline"] = [_verdict_digest(t.result()) for t in tickets]
+
+    async def fe_run():
+        b = sph.frontend(batch_max=8, deadline_ms=60_000, idle_ms=60_000.0,
+                         depth=2, record_flushes=True)
+        stream = [(f"r{i % 64}", i % 5 == 0, "app-a" if i % 3 else "")
+                  for i in range(48)]
+        vs = await asyncio.gather(*(b.submit(x, prioritized=p, origin=o)
+                                    for x, p, o in stream))
+        await b.drain()
+        b.close()
+        return [(bool(v.allow), int(v.reason), int(v.wait_ms)) for v in vs]
+
+    out["frontend"] = asyncio.run(asyncio.wait_for(fe_run(), 300))
+    out["meshed_counters"] = [sph.obs.counters.get(ck.PIPE_MESHED),
+                              sph.obs.counters.get(ck.ROUTE_MESHED)]
+    sph.clock.advance_ms(100)
+    sph.telemetry.poll()
+    loads, hot = sph.telemetry.last_topk
+    out["topk"] = [np.asarray(loads).tolist(), np.asarray(hot).tolist()]
+    return out
+
+
+def _mesh_tier_drive(stt, sph, tmp: str) -> dict:
+    """(c), the rest: a snapshot saved and restored into the mesh's blocks
+    and into one block, tiered churn with proactive demotions (the
+    ticker's round-robin over blocks), the tune fingerprint →
+    observations."""
+    from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch.core import snapshot as snap
+    from sentinel_tpu_torch.parallel import local_shard as ls
+    from sentinel_tpu_torch.tune import artifact as tart
+    out = {}
+    # the snapshot first: a registry with eviction holes restores cold
+    snap_path = os.path.join(tmp, f"meshed_{sph.device.type}.snap")
+    snap.save_state(sph, snap_path)
+    out["snapshot"] = {}
+    for kind in ("mesh", "one"):
+        where = ({"mesh": sph.mesh} if kind == "mesh"
+                 else {"device": sph.mesh.home})
+        twin = stt.Sentinel(config=sph.cfg, clock=stt.ManualClock(
+            start_ms=sph.clock.now_ms()), **where)
+        twin.load_flow_rules(sph.get_flow_rules())
+        twin.load_degrade_rules(sph.get_degrade_rules())
+        got = snap.load_state(twin, snap_path)
+        after = twin.entry_batch([f"r{i % 64}" for i in range(512)],
+                                 acquire=[1] * 512)
+        out["snapshot"][kind] = [got, _verdict_digest(after)]
+        twin.close()
+    if out["snapshot"]["mesh"] != out["snapshot"]["one"] or \
+            out["snapshot"]["mesh"][0] != "full":
+        fail(f"phase 18 (c): snapshot restores {out['snapshot']}")
+    rng = np.random.default_rng(73)
+    # tiered churn, then a hot-row target below the residents: the
+    # ticker demotes the coldest rows of each block in turn
+    names = [f"c{i}" for i in range(3000)]
+    churn, demoted_rows = [], []
+    reg = sph.resources
+    evict = reg.evict_name
+
+    def recorded(name):             # the row each proactive demotion frees
+        row = reg.lookup(name)
+        ok = evict(name)
+        if ok:
+            demoted_rows.append(row)
+        return ok
+
+    reg.evict_name = recorded
+    for i in range(6):
+        pick = [names[j] for j in rng.integers(0, len(names), 1024)]
+        churn.append(_verdict_digest(sph.entry_batch(
+            pick, acquire=[1] * len(pick))))
+        sph.clock.advance_ms(150)
+        if i >= 3:
+            sph.tiering.hot_rows = len(reg.items()) - 256
+        sph.tiering.poll()
+        sph.entry_batch(["r0"], acquire=[1])        # the drain demotes
+    del reg.evict_name
+    out["churn"] = churn
+    out["demoted_rows"] = demoted_rows
+    tier = sph.tiering.snapshot()
+    out["tier"] = {k: tier[k] for k in ("demoted", "promoted", "hot_hit",
+                                        "cold_miss")}
+    out["demoted_blocks"] = sorted(set(ls.shard_of_rows(
+        sph.spec.rows, sph.mesh, np.asarray(demoted_rows,
+                                            np.int32)).tolist()))
+    if len(out["demoted_blocks"]) < 2 or not tier["promoted"]:
+        fail(f"phase 18 (c): demotions in blocks {out['demoted_blocks']}, "
+             f"want them spread")
+    out["fingerprint_mesh"] = tart.fingerprint(mesh=sph.mesh,
+                                               spec=sph.spec)["mesh"]
+    out["topology"] = ls.mesh_topology(sph.spec, sph.mesh,
+                                       sph._mesh_shardings[0])
+    out["state"] = convert.engine_to_numpy(sph)
+    return out
+
+
+def _mesh_rest(stt, sa, dev, R: int, blocks: int) -> dict:
+    """(c): the serving and tiering drives on a meshed runtime on the card
+    and on a CPU twin (``blocks`` blocks each; the Python tables, for the
+    churn's proactive demotion): every observation and the state equal;
+    the serving drive (the top-K included) also equal to a one-block
+    runtime's on the card."""
+    import tempfile
+    from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch.parallel import local_shard as ls
+    t0 = 1_800_000_000_000
+    got = {}
+    card = "cpu" if dev == "cpu" else "cuda:0"
+    launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp, \
+            _knobs(SENTINEL_TPU_NATIVE=0):
+        for name, devs in (("card", [card] * blocks),
+                           ("cpu", ["cpu"] * blocks)):
+            sph = _mesh_runtime(stt, R, stt.ManualClock(start_ms=t0), None,
+                                ls.local_mesh(devices=devs))
+            sync()
+            sa.LAUNCHES.clear()
+            got[name] = _mesh_serving_drive(sph)
+            got[name].update(_mesh_tier_drive(stt, sph, tmp))
+            if name == "card":
+                launches = sa.LAUNCHES["scatter_add"]
+            sph.close()
+        one = _mesh_runtime(stt, R, stt.ManualClock(start_ms=t0), card)
+        sa.LAUNCHES.clear()
+        got["one"] = _mesh_serving_drive(one)
+        launches += sa.LAUNCHES["scatter_add"]
+        one.close()
+    a, b = got["card"], got["cpu"]
+    for key in ("pipeline", "frontend", "topk"):
+        if got["one"][key] != a[key]:
+            fail(f"phase 18 (c): {key} differs from the one-block runtime")
+    for key in a:
+        if key == "state":
+            bad = convert.leaf_diff(a[key], b[key])
+            if bad:
+                fail(f"phase 18 (c): card and CPU states differ: {bad[:6]}")
+        elif a[key] != b[key]:
+            fail(f"phase 18 (c): {key} differs card {a[key]!r:.200} "
+                 f"CPU {b[key]!r:.200}")
+    if a["meshed_counters"][0] <= 0 or a["meshed_counters"][1] <= 0:
+        fail(f"phase 18 (c): meshed counters {a['meshed_counters']}")
+    if a["fingerprint_mesh"] != {"n_devices": blocks, "axis": "rows",
+                                 "sharded": True}:
+        fail(f"phase 18 (c): fingerprint mesh {a['fingerprint_mesh']}")
+    if launches == 0 and dev == "cuda":
+        fail("phase 18 (c): the card drive launched no kernel")
+    log(f"[meshed] (c) {R} rows, {blocks} blocks, card == CPU twin: "
+        f"pipeline.meshed_dispatch / split_route.meshed "
+        f"{a['meshed_counters']}, top-K {a['topk'][1][:4]}..., "
+        f"tiering {a['tier']}, demotions over blocks "
+        f"{a['demoted_blocks']}, "
+        f"snapshot {a['snapshot']}, fingerprint {a['fingerprint_mesh']}")
+    return {k: v for k, v in a.items() if k != "state"} | {
+        "launches": launches}
+
+
+def phase_meshed(stt, sa, dev="cuda", R=1 << 20, B=1 << 19, steps: int = 12,
+                 timer=None, twin_rows: int = 1 << 14,
+                 profile_steps: int = 3, blocks: int = MESH_BLOCKS) -> dict:
+    """Phase 18 (``meshed``): ``Sentinel(mesh=local_mesh(devices=[card] *
+    8))``, the row-split state as 8 row blocks on the card. (a) phase 8's
+    runtime at full width (``R`` rows, 2^21 alt rows, fused decide+exit
+    steps of ``B``) on the scalar route and on the general route (origins)
+    against the one-block runtime in turns: verdicts and every state leaf
+    equal at every step (block by block on the card), step p50/p99 host
+    ms, launches a step, device ms a step (``torch.profiler``, 3 steps);
+    (b) the kernel against its plain version at every block shape of (a),
+    into phase 2's per-shape table; (c) at ``twin_rows``:
+    ``DispatchPipeline``, ``frontend()``, a telemetry tick, tiered churn
+    with demotions across blocks, a snapshot into 8 blocks and into one,
+    the tune fingerprint — equal to a CPU twin; (d) with two cards or
+    more, (a)'s scalar stream on 8 blocks spread over two cards against
+    (a)'s digests (on one card it prints why not)."""
+    from sentinel_tpu_torch.parallel import local_shard as ls
+    t_phase = time.perf_counter()
+    card = "cpu" if dev == "cpu" else "cuda:0"
+    mesh = ls.local_mesh(devices=[card] * blocks)
+    res = {"blocks": blocks}
+    seen: dict = {}
+    for route in ("scalar", "general"):
+        res[route] = _mesh_run(stt, sa, dev, {"mesh": mesh, "one": None}, R,
+                               B, steps, route, seen=seen,
+                               profile_steps=profile_steps)
+    res["block_cases"] = _mesh_block_cases(sa, timer, list(seen.values()))
+    del seen
+    res["rest"] = _mesh_rest(stt, sa, dev, twin_rows, blocks)
+    cards = torch.cuda.device_count() if dev == "cuda" else 0
+    if cards >= 2:
+        half = blocks // 2
+        two = ls.local_mesh(devices=["cuda:0"] * half
+                            + ["cuda:1"] * (blocks - half))
+        res["two_cards"] = _mesh_run(stt, sa, dev, {"two_cards": two}, R, B,
+                                     steps, "scalar")
+        if res["two_cards"]["digests"] != res["scalar"]["digests"]:
+            fail("phase 18 (d): two cards' verdicts differ from one's")
+    else:
+        res["two_cards"] = {"ran": False, "why": (
+            f"{cards} card: the blocks cannot spread over two cards")}
+        log(f"[meshed] (d) not run: {res['two_cards']['why']}")
+    res["launches"] = (res["scalar"]["launches"] + res["general"]["launches"]
+                       + res["rest"]["launches"]
+                       + res["two_cards"].get("launches", 0))
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase18] took {res['seconds']:.1f} s; kernel launches "
+        f"{res['launches']}")
+    return res
+
+
 def find_syncs(stt, sa) -> int:
     """``--find-syncs``: every place where a kernel-run engine step waits
     on the device, with the port's frames of its stack (the sync debug
@@ -8278,7 +8829,13 @@ def find_syncs(stt, sa) -> int:
     phase_cluster(stt, sa, steps=6, big_steps=2, singles=64, batches=2,
                   calls=1024, rt_batch=1 << 12)
     # phase 12's steps are phase 8's fused scalar steps, and its HTTP
-    # polls run beside them under "error" in the plain pass already
+    # polls run beside them under "error" in the plain pass already;
+    # phase 18's meshed steps, both routes, without the timed legs
+    from sentinel_tpu_torch.parallel import local_shard
+    mesh = local_shard.local_mesh(devices=["cuda:0"] * MESH_BLOCKS)
+    for route in ("scalar", "general"):
+        _mesh_run(stt, sa, "cuda", {"mesh": mesh}, 1 << 20, 1 << 19, 3,
+                  route)
     log(f"[sync] {len(sites)} place(s) wait on the device in a step")
     return 0
 
@@ -8365,15 +8922,21 @@ def main() -> int:
                                           profile=profile)
         report["tiering"] = phase_tiering(stt, sa, timer=timer,
                                           profile=profile)
-    report["cluster"] = phase_cluster(stt, sa, profile=profile)
+    # phases 11 (a), 13, 14, 15 (d) and 17 (b) cut in depth to leave the
+    # script's time limit room for phase 18: 16 steps (were 40), 2 timing
+    # turns (were 4), 2 turns of 10 s at the dashboard's cadence (were 4),
+    # 5 s of 8 gRPC clients (were 10), 20 steps (were 40)
+    report["cluster"] = phase_cluster(stt, sa, steps=16, profile=profile)
     report["command_plane"] = phase_command_plane(stt, sa)
     # phase 13 cut in depth to leave the script's time limit room for
     # phase 16: 2048 gateway requests (were 4096)
-    report["gateway"] = phase_gateway(stt, sa, requests=2048)
-    report["dashboard"] = phase_dashboard(stt, sa)
-    report["tune_snapshot_grpc"] = phase_tune_snapshot_grpc(stt, sa)
+    report["gateway"] = phase_gateway(stt, sa, requests=2048, turns=2)
+    report["dashboard"] = phase_dashboard(stt, sa, turns=2)
+    report["tune_snapshot_grpc"] = phase_tune_snapshot_grpc(stt, sa,
+                                                            grpc_s=5.0)
     report["analysis_demos"] = phase_analysis_demos(stt, sa)
-    report["multihost"] = phase_multihost(stt, sa, timer=timer)
+    report["multihost"] = phase_multihost(stt, sa, timer=timer, steps=20)
+    report["meshed"] = phase_meshed(stt, sa, timer=timer, profile_steps=3)
     report["seconds"] = time.perf_counter() - t_all
 
     decide = report["kernel_cases"][0]
@@ -8383,7 +8946,7 @@ def main() -> int:
         "scalar_param", "general_param", "runtime", "fast_path",
         "param_runtime", "obs_runtime", "serving", "tiering", "cluster",
         "command_plane", "gateway", "dashboard", "tune_snapshot_grpc",
-        "analysis_demos", "multihost"))
+        "analysis_demos", "multihost", "meshed"))
     kernels = [{
         "name": "scatter_add", "route": "cuda",
         "source": "sentinel_tpu_torch/csrc/scatter_add.cu",
@@ -8391,7 +8954,8 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max(c["max_abs_err"] for c in
                            report["kernel_cases"]
-                           + report["multihost"]["block_cases"]),
+                           + report["multihost"]["block_cases"]
+                           + report["meshed"]["block_cases"]),
         "ms": decide["cold"]["kernel"]["median"],
         "plain_ms": decide["plain_ms"],
         "bound_ms": decide["bound_ms"], "bound_by": "bytes",

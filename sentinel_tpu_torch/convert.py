@@ -5,7 +5,11 @@ same field names. :func:`to_numpy` flattens either package's tree into a
 dict of numpy arrays keyed by leaf path (``"second.counters"``,
 ``"flow_table.count"``, ``"param_dyn.tokens"``, ...);
 :func:`state_from_numpy` and :func:`ruleset_from_numpy` build the port's
-tensors from such a dict. The device slots' states (``custom``) are
+tensors from such a dict. A row-sharded engine's state carries over the
+same way: :func:`state_blocks_from_numpy` builds the port's N row blocks
+from the dict of a JAX engine's sharded state (``np.asarray`` of each
+leaf gives the whole array), and :func:`state_blocks_to_numpy` brings the
+blocks back to that dict, block by block. The device slots' states (``custom``) are
 tuples whose items are arrays or tuples again: they flatten by position
 (``"custom.0"``, ``"custom.1.0"``, ...) and come back as nested tuples.
 :func:`engine_to_numpy` adds a runtime's tiering sketch table to its
@@ -26,6 +30,7 @@ import torch
 
 from sentinel_tpu_torch.engine.pipeline import RuleSet, SentinelState
 from sentinel_tpu_torch.parallel.cluster import ClusterRuleTable, ClusterState
+from sentinel_tpu_torch.parallel.row_blocks import RowBlocks
 from sentinel_tpu_torch.rules.authority import AuthorityRuleTable
 from sentinel_tpu_torch.rules.degrade import BreakerState, DegradeRuleTable
 from sentinel_tpu_torch.rules.flow import FlowDynState, FlowRuleTable
@@ -63,6 +68,8 @@ def to_numpy(tree, prefix: str = "") -> Dict[str, np.ndarray]:
         return out
     if isinstance(tree, torch.Tensor):
         out[prefix[:-1]] = tree.detach().cpu().numpy()
+    elif isinstance(tree, RowBlocks):
+        out[prefix[:-1]] = tree.to_numpy()
     else:
         out[prefix[:-1]] = np.asarray(tree)
     return out
@@ -107,6 +114,28 @@ def state_from_numpy(d: Dict[str, np.ndarray],
     """The port's :class:`SentinelState` from a :func:`to_numpy` dict
     (fresh tensors on ``device``; ``rt_hist`` None when absent)."""
     return from_numpy(SentinelState, d, device)
+
+
+def state_blocks_from_numpy(d: Dict[str, np.ndarray], spec,
+                            mesh) -> SentinelState:
+    """The port's row-sharded :class:`SentinelState` on ``mesh`` (a
+    ``parallel.local_shard`` mesh) from a :func:`to_numpy` dict — of a
+    JAX engine's sharded state or of a one-block engine's: each row-split
+    leaf becomes the mesh's row blocks, block ``i`` holding the rows
+    ``[i·R/N, (i+1)·R/N)`` on ``mesh.devices[i]``; the replicated leaves
+    land on the home device. ``spec`` is the engine's ``EngineSpec``."""
+    from sentinel_tpu_torch.parallel import local_shard
+    state = state_from_numpy(d, "cpu")
+    return local_shard.pin_state(
+        state, local_shard.state_shardings(spec, mesh, state))
+
+
+def state_blocks_to_numpy(state: SentinelState) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`state_blocks_from_numpy`: a row-sharded
+    state's leaves as one :func:`to_numpy` dict, each row-split leaf's
+    blocks copied to the host one by one and joined there (fresh
+    arrays)."""
+    return {k: np.array(v, copy=True) for k, v in to_numpy(state).items()}
 
 
 def ruleset_from_numpy(d: Dict[str, np.ndarray],

@@ -57,22 +57,37 @@ def start_host_copy(tensors: Sequence[torch.Tensor]
     For CUDA tensors the copies go into pinned buffers with
     ``non_blocking=True`` on the current stream, and ``event`` is a
     :class:`torch.cuda.Event` recorded after them: ``event.synchronize()``
-    waits for exactly these copies. CPU tensors are returned as they are
+    waits for exactly these copies (tensors on several cards get one
+    event a card, in a tuple). CPU tensors are returned as they are
     with ``event`` None (nothing is in flight)."""
     if not tensors or tensors[0].device.type != "cuda":
         return tuple(tensors), None
     host = []
+    cards = []
     for t in tensors:
         h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         h.copy_(t, non_blocking=True)
         host.append(h)
-    event = torch.cuda.Event()
-    event.record()
-    return tuple(host), event
+        if t.device not in cards:
+            cards.append(t.device)
+    if len(cards) == 1:
+        event = torch.cuda.Event()
+        event.record()
+        return tuple(host), event
+    events = []
+    for d in cards:
+        with torch.cuda.device(d):
+            e = torch.cuda.Event()
+            e.record()
+        events.append(e)
+    return tuple(host), tuple(events)
 
 
 def wait_host_copy(host: Tuple[torch.Tensor, ...], event) -> list:
     """Wait for a :func:`start_host_copy` → numpy arrays."""
-    if event is not None:
+    if isinstance(event, tuple):
+        for e in event:
+            e.synchronize()
+    elif event is not None:
         event.synchronize()
     return [h.numpy() for h in host]

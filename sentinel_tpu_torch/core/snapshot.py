@@ -17,7 +17,10 @@ order), plus a ``.meta.json`` sidecar with the geometry, a digest of the
 loaded rules, the registries' contents (name → row) and the epoch, so
 absolute window indices stay meaningful. Restore requires identical
 engine geometry. Neither the tiering sketch nor the cold tier is saved,
-as in the reference.
+as in the reference. A row-sharded engine saves each row-split leaf whole,
+its blocks copied to the host one by one, and restores through its
+placements (``Sentinel._pin_state_locked``), so a snapshot of an N-block
+engine restores into a one-block engine and back.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from typing import Iterator, List
 
 import numpy as np
 import torch
+
+from sentinel_tpu_torch.parallel.row_blocks import RowBlocks
 
 _META_SUFFIX = ".meta.json"
 
@@ -93,7 +98,8 @@ def save_state(sentinel, path: str) -> None:
     sentinel._fast.expire_all()
     sentinel._flush_fast()
     with sentinel._lock:
-        arrays = {f"leaf_{i}": x.detach().cpu().numpy()
+        arrays = {f"leaf_{i}": (x.to_numpy() if isinstance(x, RowBlocks)
+                                else x.detach().cpu().numpy())
                   for i, x in enumerate(_leaves(sentinel._state))}
         meta = {
             "version": _FORMAT_VERSION,
@@ -168,7 +174,8 @@ def load_state(sentinel, path: str):
             for name, rid in sorted(meta[reg_name], key=lambda p: p[1]):
                 if reg.get_or_create(name) != rid:
                     return False      # interning drifted: treat as cold
-        dev = sentinel.device
+        # a meshed engine splits the host arrays into its blocks below
+        dev = "cpu" if sentinel.mesh is not None else sentinel.device
         full = _rebuild(sentinel._state, iter([
             torch.from_numpy(np.ascontiguousarray(
                 arr.astype(_NP_DTYPES[cur.dtype]))).to(dev)
@@ -187,6 +194,7 @@ def load_state(sentinel, path: str):
                 second=full.second, minute=full.minute,
                 alt_second=full.alt_second)
         sentinel._state = new_state
+        sentinel._pin_state_locked()
         # window indices derive from absolute wall time, so they stay
         # valid across the restart; the relative-ms epoch must carry over
         # for pacing clocks/warm-up state to stay meaningful

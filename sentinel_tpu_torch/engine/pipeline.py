@@ -34,6 +34,13 @@ from the host's copy of the column).
 ``times`` is ``(idx_s, idx_m, rel_ms, in_win_ms)`` and ``sys_scalars``
 ``(load1, cpu_usage)`` — the JAX package's packed int32[4]/float32[2]
 vectors, as host values.
+
+The same functions run the row-sharded engine
+(:mod:`sentinel_tpu_torch.parallel.local_shard`): its row-split fields are
+:class:`~sentinel_tpu_torch.parallel.row_blocks.RowBlocks`, read by owner
+and written block by block (each block's scatter sees only its own rows),
+while the verdicts and the replicated fields are computed on the home
+device as on one device.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from sentinel_tpu_torch.engine.slots import DeviceSlotView, run_device_slots
 from sentinel_tpu_torch.obs import resource_hist
 from sentinel_tpu_torch.ops import scatter_add as sa
 from sentinel_tpu_torch.ops.segments import padded_table_gather
+from sentinel_tpu_torch.parallel.row_blocks import RowBlocks
 from sentinel_tpu_torch.rules import authority as auth_mod
 from sentinel_tpu_torch.rules import degrade as deg_mod
 from sentinel_tpu_torch.rules import flow as flow_mod
@@ -57,10 +65,10 @@ from sentinel_tpu_torch.rules import param_flow as pf_mod
 from sentinel_tpu_torch.rules import system as sys_mod
 from sentinel_tpu_torch.stats import events as ev
 from sentinel_tpu_torch.stats.window import (
-    RowWriter, WindowSpec, WindowState, add_one_row, add_rows,
-    add_rows_multi, add_rows_vec, extract_rows, init_window,
-    invalidate_rows, refresh_all, refresh_rows, restore_rows, row_mask,
-    uncount_rows, window_sum_rows,
+    WindowSpec, WindowState, add_one_row, add_rows, add_rows_multi,
+    add_rows_vec, extract_rows, init_window, invalidate_rows, refresh_all,
+    refresh_rows, restore_rows, row_mask, row_writer, uncount_rows,
+    window_sum_rows,
 )
 
 Times = Tuple[int, int, int, int]
@@ -206,11 +214,26 @@ def _isum(x: torch.Tensor) -> torch.Tensor:
     return x.sum(dtype=torch.int32)
 
 
-def _add_threads(threads: torch.Tensor, rows: torch.Tensor,
+def _scatter_rows(table, rows: torch.Tensor, events, amounts) -> None:
+    """``sa.scatter_add(table, rows, events, amounts)`` on a row-leading
+    table, or on each block of a row-block one with the block's own row
+    indices (one launch a block)."""
+    if isinstance(table, RowBlocks):
+        for _i, b, lr in table.owned(rows):
+            d = b.device
+            sa.scatter_add(b, lr, None if events is None else events.to(d),
+                           amounts.to(d))
+        return
+    sa.scatter_add(table, rows, events, amounts)
+
+
+def _add_threads(threads, rows: torch.Tensor,
                  amounts: torch.Tensor) -> None:
     """``threads.at[rows].add(amounts, mode="drop")`` through the kernel
     seam (payload mode, one lane)."""
-    sa.scatter_add(threads[:, None], rows, None, amounts[:, None])
+    col = (threads.map(lambda b: b[:, None])
+           if isinstance(threads, RowBlocks) else threads[:, None])
+    _scatter_rows(col, rows, None, amounts[:, None])
 
 
 def _refresh_second(spec: EngineSpec, second: WindowState,
@@ -596,8 +619,8 @@ def record_exits(
         # one +1 per valid exit at [row, log2 ms bucket] (completions, not
         # acquire-weighted); invalid lanes ride the pad row and drop
         bidx = resource_hist.bucket_index(rt1, spec.hist_buckets)
-        sa.scatter_add(state.rt_hist, main_rows, bidx,
-                       batch.valid.to(torch.int32))
+        _scatter_rows(state.rt_hist, main_rows, bidx,
+                      batch.valid.to(torch.int32))
 
     return state._replace(second=second, alt_second=alt_second,
                           breakers=breakers)
@@ -704,16 +727,32 @@ def invalidate_resource_rows(spec: EngineSpec, state: SentinelState,
     invalidate_rows(spec.second, state.second, rows)
     if spec.minute:
         invalidate_rows(spec.minute, state.minute, rows)
-    hit = row_mask(rows, spec.rows)
-    state.threads.masked_fill_(hit, 0)
-    if state.rt_hist is not None:
-        state.rt_hist.masked_fill_(hit[:, None], 0)
     occ = state.flow_dyn
-    occ.occupied_count.masked_fill_(hit[:, None], 0.0)
-    occ.occupied_window.masked_fill_(hit[:, None], -(2 ** 30))
+    _clear_rows(rows, [(state.threads, 0), (state.rt_hist, 0),
+                       (occ.occupied_count, 0.0),
+                       (occ.occupied_window, -(2 ** 30))])
     invalidate_rows(spec.second, state.alt_second, alt_rows)
-    state.alt_threads.masked_fill_(row_mask(alt_rows, spec.alt_rows), 0)
+    _clear_rows(alt_rows, [(state.alt_threads, 0)])
     return state
+
+
+def _clear_rows(rows: torch.Tensor, fills) -> None:
+    """Set ``rows`` of each ``(table, value)`` of ``fills`` to ``value``
+    (tables of one row layout, None skipped; padding rows drop): one
+    dense row mask, or one a block on row-block tables."""
+    fills = [(t, v) for t, v in fills if t is not None]
+    layout = fills[0][0]
+    if isinstance(layout, RowBlocks):
+        for i, _b, lr in layout.owned(rows):
+            hit = row_mask(lr, layout.per)
+            for t, v in fills:
+                blk = t.blocks[i]
+                blk.masked_fill_(hit.view((-1,) + (1,) * (blk.dim() - 1)),
+                                 v)
+        return
+    hit = row_mask(rows, layout.shape[0])
+    for t, v in fills:
+        t.masked_fill_(hit.view((-1,) + (1,) * (t.dim() - 1)), v)
 
 
 class ResourceRowSlice(NamedTuple):
@@ -775,7 +814,7 @@ def restore_resource_rows(spec: EngineSpec, state: SentinelState,
     >= RA) drop. Two promoted keys' re-hashed alt slots may coincide:
     the LAST lane's slice wins, as in the reference's scatter on the CPU
     (:class:`~sentinel_tpu_torch.stats.window.RowWriter`)."""
-    main = RowWriter(rows, spec.rows)
+    main = row_writer(rows, state.threads)
     restore_rows(spec.second, state.second, rows, payload.second, main)
     if spec.minute:
         restore_rows(spec.minute, state.minute, rows, payload.minute, main)
@@ -784,7 +823,7 @@ def restore_resource_rows(spec: EngineSpec, state: SentinelState,
     if state.rt_hist is not None and payload.rt_hist is not None:
         main.write(state.rt_hist, payload.rt_hist)
     main.write(state.threads, payload.threads)
-    alt = RowWriter(alt_rows, spec.alt_rows)
+    alt = row_writer(alt_rows, state.alt_threads)
     restore_rows(spec.second, state.alt_second, alt_rows,
                  payload.alt_second, alt)
     alt.write(state.alt_threads, payload.alt_threads)

@@ -5,8 +5,9 @@ Port of ``sentinel_tpu/multihost``. Takes the cluster token engine
 (:mod:`sentinel_tpu_torch.parallel.cluster`) from one process to N
 coordinated processes, each holding a contiguous block of its shards —
 the reference system's own deployment shape (N processes speaking to
-shared state). The row-sharded product engine over the ``"rows"`` mesh
-is the next slice (ROADMAP A11, second half).
+shared state). The row-sharded product engine runs in one process
+(:mod:`sentinel_tpu_torch.parallel.local_shard`, N row blocks); a
+``"rows"`` mesh over several processes is ROADMAP A11's remaining item.
 
 Pieces:
 

@@ -18,10 +18,12 @@ namespace sum, the verdict gather, a row's broadcast), on the backend
 the runtime chose. Geometry checks route through
 :mod:`sentinel_tpu_torch.parallel.shard_math`.
 
-:func:`row_sharding`, :func:`replicated` and :func:`repin_rows` serve the
-row-sharded product engine (the ``"rows"`` mesh), which is the next slice
-of the port (ROADMAP A11, second half): here they only place a
-row-leading tensor tree's local slab on this process's device.
+:func:`row_sharding`, :func:`replicated` and :func:`repin_rows` place a
+row-leading tensor tree's local slab on this process's device; as in the
+reference, nothing consumes them yet. The row-sharded product engine
+takes a one-process ``GlobalMesh`` over the ``"rows"`` axis as its row
+blocks (:func:`sentinel_tpu_torch.parallel.local_shard.as_row_mesh`);
+one over several processes is ROADMAP A11's remaining item.
 """
 
 from __future__ import annotations

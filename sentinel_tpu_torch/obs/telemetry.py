@@ -15,7 +15,12 @@ touching the serving path:
   included, on the CPU and on the card. The hot rows' rolling lanes,
   landed-second lanes and RT histograms are gathered row by row (the
   reference reduces all ``[R, E]`` first and gathers after: the values
-  are equal, the bytes are k rows').
+  are equal, the bytes are k rows'). On a row-sharded engine each block
+  ranks its own rows (``k_local = min(k, rows_per_block)`` candidates,
+  keyed on the GLOBAL row, the ENTRY row masked in block 0), the
+  candidates join in block order and one final rank picks k
+  (:func:`sharded_topk_rows`, the reference's ``_sharded_topk``); the hot
+  rows' lanes and histograms are gathered from their owners.
 * **timeline** — the ENTRY row's completed-second bucket of the minute
   window appended into a small device ring (:class:`TelemetryRing`) once
   per second.
@@ -51,6 +56,7 @@ from sentinel_tpu_torch.core.registry import ENTRY_NODE_ROW
 from sentinel_tpu_torch.obs import counters as obs_keys
 from sentinel_tpu_torch.obs import resource_hist
 from sentinel_tpu_torch.parallel.local_shard import topk_layout
+from sentinel_tpu_torch.parallel.row_blocks import RowBlocks
 from sentinel_tpu_torch.stats import events as ev
 from sentinel_tpu_torch.stats import window
 
@@ -104,16 +110,40 @@ def init_ring(slots: int = RING_SLOTS, num_events: int = ev.NUM_EVENTS,
     )
 
 
+def _top_keys(load: torch.Tensor, k: int, base: int = 0) -> torch.Tensor:
+    """The ``k`` largest keys ``load·2^32 + (2^32−1−row)`` of a load
+    vector whose first entry is global row ``base`` (sorted, unique)."""
+    row = torch.arange(load.shape[0], dtype=torch.int64,
+                       device=load.device) + base
+    key = load.to(torch.int64) * (1 << 32) + (_LOW32 - row)
+    return torch.topk(key, k).values
+
+
+def _split_key(top: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return ((top >> 32).to(torch.int32),
+            (_LOW32 - (top & _LOW32)).to(torch.int32))
+
+
 def topk_rows(load: torch.Tensor, k: int) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
     """``(int32[k] loads, int32[k] rows)`` of the ``k`` largest loads,
     ties to the lowest row: the order of a host
     ``argsort(-load, kind="stable")``. Loads must fit int32."""
-    row = torch.arange(load.shape[0], dtype=torch.int64, device=load.device)
-    key = load.to(torch.int64) * (1 << 32) + (_LOW32 - row)
-    top = torch.topk(key, k).values                  # sorted, unique keys
-    return ((top >> 32).to(torch.int32),
-            (_LOW32 - (top & _LOW32)).to(torch.int32))
+    return _split_key(_top_keys(load, k))
+
+
+def sharded_topk_rows(load: RowBlocks, k: int) -> Tuple[torch.Tensor,
+                                                         torch.Tensor]:
+    """:func:`topk_rows` over a row-block load: each block ranks its own
+    rows (``min(k, rows_per_block)`` candidates are enough: at most k
+    global winners live in one block), the candidates join in block
+    order on the home device and one final rank picks ``k``. The keys
+    carry the global row, so the result equals the one-block ranking,
+    ties included."""
+    per = load.per
+    cand = [_top_keys(b, min(k, per), i * per).to(load.home)
+            for i, b in enumerate(load.blocks)]
+    return _split_key(torch.topk(torch.cat(cand), k).values)
 
 
 def telemetry_tick(second_spec: window.WindowSpec,
@@ -133,9 +163,11 @@ def telemetry_tick(second_spec: window.WindowSpec,
     dev = second.stamps.device
     load = window.rolling_load(second_spec, second, now_idx_s)
     # the global ENTRY row receives every inbound event: the timeline's
-    # source, never a "hot resource"
-    load.narrow(0, ENTRY_NODE_ROW, 1).fill_(-1)    # no host→device copy
-    vals, rows = topk_rows(load, k)
+    # source, never a "hot resource" (row 0: block 0 of row blocks)
+    first = load.blocks[0] if isinstance(load, RowBlocks) else load
+    first.narrow(0, ENTRY_NODE_ROW, 1).fill_(-1)   # no host→device copy
+    vals, rows = (sharded_topk_rows(load, k) if isinstance(load, RowBlocks)
+                  else topk_rows(load, k))
     r64 = rows.to(torch.int64)
     roll_lanes = window.rolling_totals(second_spec, second, now_idx_s, r64)
     if minute_spec is not None:

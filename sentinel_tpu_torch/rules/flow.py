@@ -50,6 +50,7 @@ import torch
 from sentinel_tpu_torch.ops import scatter_add as sa
 from sentinel_tpu_torch.ops import segments as seg
 from sentinel_tpu_torch.ops import sortfree as sfo
+from sentinel_tpu_torch.parallel.row_blocks import RowBlocks
 from sentinel_tpu_torch.stats import events as ev
 from sentinel_tpu_torch.stats.window import (
     WindowSpec, WindowState, prev_window_sum_rows, window_sum_all,
@@ -600,8 +601,22 @@ def _book_next_window(dyn: FlowDynState, event_occ: torch.Tensor,
     ring slot ``(now+1) % S`` (the reference's first denying rule throws
     PriorityWait and books on the node once), in place. The grants are a
     float32 scatter-add of ``acquire`` through the kernel seam; lanes not
-    admitted point one past the table and drop."""
+    admitted point one past the table and drop. A row-block ring books
+    block by block, each block over its own rows."""
     occ_cnt, occ_win = dyn.occupied_count, dyn.occupied_window
+    if isinstance(occ_cnt, RowBlocks):
+        for i, cb, lr in occ_cnt.owned(rows):
+            d = cb.device
+            _book_block(cb, occ_win.blocks[i], event_occ.to(d), lr,
+                        acquire.to(d), now_idx_s)
+        return
+    _book_block(occ_cnt, occ_win, event_occ, rows, acquire, now_idx_s)
+
+
+def _book_block(occ_cnt: torch.Tensor, occ_win: torch.Tensor,
+                event_occ: torch.Tensor, rows: torch.Tensor,
+                acquire: torch.Tensor, now_idx_s: int) -> None:
+    """:func:`_book_next_window` on one ring (rows >= its length drop)."""
     R, S = occ_cnt.shape
     nxt = wrap_i32(now_idx_s + 1)
     slot = nxt % S
@@ -690,15 +705,25 @@ def flow_check_fast(
     # ---- stat reads: MAIN/REF rows are per rule (the rule's sync_row);
     # ORIGIN/CHAIN rows per event, from the small alt table summed densely
     # once (padding rows read the appended 0) ----
-    zero = torch.zeros((1,), dtype=torch.float32, device=dev)
-    alt_pass_dense = torch.cat([window_sum_all(
-        spec, alt_second, ev.PASS, now_idx_s).to(torch.float32), zero])
-    orow = torch.clamp(batch.origin_rows, max=RA).long()
-    crow = torch.clamp(batch.chain_rows, max=RA).long()
-    or_pass, cr_pass = alt_pass_dense[orow], alt_pass_dense[crow]
-    if has_thread_rules:
-        alt_thr_dense = torch.cat([alt_threads.to(torch.float32), zero])
-        or_thr, cr_thr = alt_thr_dense[orow], alt_thr_dense[crow]
+    if isinstance(alt_threads, RowBlocks):
+        # row blocks: each lane reads its row from the owner (a dense sum
+        # would span every block)
+        or_pass, or_thr = _alt_lane_reads(spec, alt_second, alt_threads,
+                                          batch.origin_rows, now_idx_s,
+                                          has_thread_rules)
+        cr_pass, cr_thr = _alt_lane_reads(spec, alt_second, alt_threads,
+                                          batch.chain_rows, now_idx_s,
+                                          has_thread_rules)
+    else:
+        zero = torch.zeros((1,), dtype=torch.float32, device=dev)
+        alt_pass_dense = torch.cat([window_sum_all(
+            spec, alt_second, ev.PASS, now_idx_s).to(torch.float32), zero])
+        orow = torch.clamp(batch.origin_rows, max=RA).long()
+        crow = torch.clamp(batch.chain_rows, max=RA).long()
+        or_pass, cr_pass = alt_pass_dense[orow], alt_pass_dense[crow]
+        if has_thread_rules:
+            alt_thr_dense = torch.cat([alt_threads.to(torch.float32), zero])
+            or_thr, cr_thr = alt_thr_dense[orow], alt_thr_dense[crow]
     srow_sel = torch.clamp(table.sync_row, max=R - 1)
     row_pass = window_sum_rows(spec, main_second, srow_sel, ev.PASS,
                                now_idx_s).to(torch.float32)
@@ -838,6 +863,22 @@ def flow_check_fast(
 
     allow = allow | ~batch.valid
     return dyn, allow, wait_ms.to(torch.int32), occupied, sf_ovf
+
+
+def _alt_lane_reads(spec: WindowSpec, alt_second: WindowState, alt_threads,
+                    alt_rows: torch.Tensor, now_idx_s: int,
+                    with_threads: bool):
+    """Per-lane (PASS, threads) of ``alt_rows`` as float32, zero for a
+    pad (>= RA): the values the dense alt sums give, read from each
+    lane's owner."""
+    RA = alt_threads.shape[0]
+    has = alt_rows < RA
+    r = torch.clamp(alt_rows, max=RA - 1)
+    pas = torch.where(has, window_sum_rows(spec, alt_second, r, ev.PASS,
+                                           now_idx_s).to(torch.float32), 0.0)
+    thr = (torch.where(has, alt_threads[r.long()].to(torch.float32), 0.0)
+           if with_threads else None)
+    return pas, thr
 
 
 def _occupy_attempt_fast(dyn, spec, main_second, batch, srow_sel, rules_bk,

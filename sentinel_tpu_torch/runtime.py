@@ -54,9 +54,11 @@ every rule reload, as in the JAX package). Two API tiers:
 Cluster-mode flow and param rules ask the token service installed with
 :meth:`Sentinel.set_token_service` (a ``ClusterTokenClient``, or the
 embedded server's engine through ``cluster.coordinator``) before the
-local decide, as the JAX runtime does. What is not ported raises
-:class:`NotImplementedError` naming the ROADMAP item that will port it —
-meshes — and never quietly takes another path. A decide step reads nothing back from the
+local decide, as the JAX runtime does. ``Sentinel(mesh=...)`` holds the
+row-split state as N row blocks (:mod:`~sentinel_tpu_torch.parallel.
+local_shard`; one block a device, or several on one); a mesh that spans
+processes raises :class:`NotImplementedError` naming the ROADMAP item,
+and never quietly takes another path. A decide step reads nothing back from the
 device: the verdicts (and the sort-free steps' claim overflow count) come
 home through :class:`PendingVerdicts` (pinned memory, ``non_blocking``
 copies, one CUDA event). A lease renewal of the host fast path reads its
@@ -135,7 +137,10 @@ from sentinel_tpu_torch.obs import RuntimeObs
 from sentinel_tpu_torch.obs import counters as obs_keys
 from sentinel_tpu_torch.obs.resource_hist import engine_hist_buckets
 from sentinel_tpu_torch.obs.telemetry import HotTelemetry, telemetry_tick
-from sentinel_tpu_torch.parallel.local_shard import MESH_NOT_PORTED
+from sentinel_tpu_torch.parallel import local_shard
+from sentinel_tpu_torch.parallel.row_blocks import (
+    start_host_read, wait_host_read,
+)
 from sentinel_tpu_torch.rules import authority as auth_mod
 from sentinel_tpu_torch.rules import degrade as deg_mod
 from sentinel_tpu_torch.rules import flow as flow_mod
@@ -157,12 +162,6 @@ _log = logging.getLogger("sentinel_tpu_torch.runtime")
 #: Depth of the serving dispatch pipeline — how many batches may be in
 #: flight before a submit settles the oldest (sizes the staging ring).
 PIPELINE_DEPTH_ENV = "SENTINEL_PIPELINE_DEPTH"
-
-# what the port rejects, and where ROADMAP.md queues it
-_NOT_PORTED = {
-    "mesh": MESH_NOT_PORTED,
-}
-
 
 #: a mixed batch splits when it has at least this many scalar events
 SPLIT_MIN_SCALAR = 4096
@@ -438,11 +437,28 @@ class Sentinel:
 
     def __init__(self, config: Optional[SentinelConfig] = None,
                  clock: Optional[Clock] = None, device=None, mesh=None):
-        self.device = resolve_device(device)
+        """``mesh`` (a :func:`~sentinel_tpu_torch.parallel.local_shard.
+        local_mesh`, or a one-process ``multihost.mesh.GlobalMesh`` over
+        the ``"rows"`` axis) splits the windows, the thread gauges, the
+        occupy ring and the RT histogram into N row blocks on the mesh's
+        devices; the rest of the engine runs on its home device
+        (``devices[0]``, which ``device`` must name when given), where
+        the batch columns are built, so they need no placement step.
+        Verdicts and state equal the one-block engine's;
+        ``max_resources`` must be a multiple of N."""
         self.cfg = cfg = config or load_config()
+        # (state placements, verdict placements) when meshed
+        self._mesh_shardings = None
+        self.mesh = None
         if mesh is not None:
-            raise NotImplementedError(_NOT_PORTED["mesh"])
-        self.mesh = None            # one GPU; meshes are ROADMAP A11
+            self.mesh = local_shard.as_row_mesh(mesh)
+            if device is not None and local_shard.as_device(
+                    resolve_device(device)) != self.mesh.home:
+                raise ValueError(
+                    f"device={device!r} is not the mesh's home device "
+                    f"{self.mesh.home}")
+            device = self.mesh.home
+        self.device = resolve_device(device)
         self.clock = clock or global_clock()
 
         # the factories pick the native C++ interning table when it builds
@@ -489,7 +505,7 @@ class Sentinel:
         # self.obs exists below.
         from sentinel_tpu_torch.tune import artifact as tune_art
         self._tuned, self._tune_events = tune_art.resolve_startup(
-            device=self.device)
+            device=self.device, mesh=self.mesh, spec=self.spec)
         # SORTFREE_BITS/CHUNK have no injection path (ops/sortfree reads
         # the env at every step), so a tuned value pins the unset env var
         # for this process; first engine wins, and the pin is logged
@@ -503,6 +519,9 @@ class Sentinel:
         self._lock = threading.RLock()
         self._state = init_state(self.spec, cfg.max_flow_rules,
                                  cfg.max_degrade_rules, device=self.device)
+        if self.mesh is not None:
+            local_shard.validate_mesh(self.spec, self.mesh)
+            self._refresh_shardings_locked()
         self._sys_rules: List[sys_mod.SystemRule] = []
         self._rule_pins: Dict[str, Tuple[set, set, set]] = {}
         self._cpu = _CpuSampler(self.clock)
@@ -824,6 +843,7 @@ class Sentinel:
                 self.spec.rows, device=self.device)
             self._state = self._state._replace(flow_dyn=fresh._replace(
                 occupied_count=pend_cnt, occupied_window=pend_win))
+            self._pin_state_locked()
             self._rebuild_fastpath()
             res: set = set()
             org: set = set()
@@ -851,6 +871,7 @@ class Sentinel:
             self._state = self._state._replace(
                 breakers=deg_mod.init_breaker_state(
                     self.cfg.max_degrade_rules, device=self.device))
+            self._pin_state_locked()
             self._rebuild_fastpath()
             self._update_rule_pins_locked(
                 "degrade", {r.resource for r in compiled.rules}, set(),
@@ -926,6 +947,7 @@ class Sentinel:
             self._state = self._state._replace(
                 param_dyn=pf_mod.init_param_dyn(self.spec.param_keys,
                                                 device=self.device))
+            self._pin_state_locked()
             self._rebuild_fastpath()
             # cluster-mode param rules compile into no device table, but
             # their rows stay resident for the delegation
@@ -1011,6 +1033,7 @@ class Sentinel:
         them all and renews the program keys, as the reference's re-jit
         does)."""
         self._state = self._state._replace(custom=self._custom_init_states())
+        self._refresh_shardings_locked()    # custom states change structure
         self._renew_programs_locked()
 
     @staticmethod
@@ -1237,6 +1260,25 @@ class Sentinel:
     # ------------------------------------------------------------------
     # Time and device helpers
     # ------------------------------------------------------------------
+
+    def _refresh_shardings_locked(self) -> None:
+        """Meshed: derive the placement tree from the CURRENT state
+        structure (a custom-slot registration or a geometry change alters
+        it) and re-place every leaf. Callers hold ``self._lock``."""
+        if self.mesh is None:
+            return
+        self._mesh_shardings = local_shard.shardings_for(
+            self.spec, self.mesh, self._state)
+        self._state = local_shard.pin_state(self._state,
+                                            self._mesh_shardings[0])
+
+    def _pin_state_locked(self) -> None:
+        """Re-place state leaves after host code rebuilt some of them (a
+        rule reload's fresh tables, a restore): no-op without a mesh, and
+        leaves already in place stay. Callers hold ``self._lock``."""
+        if self.mesh is not None:
+            self._state = local_shard.pin_state(self._state,
+                                                self._mesh_shardings[0])
 
     def _rel_ms(self, now_ms: int) -> int:
         return int((now_ms - self.epoch_ms + 2 ** 31) % 2 ** 32 - 2 ** 31)
@@ -2287,6 +2329,8 @@ class Sentinel:
             if n_general > 0 and n_scalar >= SPLIT_MIN_SCALAR:
                 if obs_on:
                     obs.counters.add(obs_keys.ROUTE_SPLIT)
+                    if self.mesh is not None:
+                        obs.counters.add(obs_keys.ROUTE_MESHED)
                     if tr:
                         obs.spans.record(
                             tr, "decide.split_decision", t_d0,
@@ -2399,6 +2443,10 @@ class Sentinel:
                                    self.cfg.max_degrade_rules,
                                    device=self.device)
                 state = state._replace(custom=self._custom_init_states())
+                if self.mesh is not None:
+                    # the throwaway runs on row blocks like the real step
+                    state = local_shard.pin_state(
+                        state, self._mesh_shardings[0])
                 warm = [b._replace(valid=torch.zeros_like(b.valid))
                         for b in batches]
                 step = (decide_entries if len(warm) == 1
@@ -2442,6 +2490,10 @@ class Sentinel:
             obs.counters.add(route_key)
         if self._sortfree:
             obs.counters.add(obs_keys.ROUTE_SORTFREE)
+        if route_key is not None and self.mesh is not None:
+            # a decide or a fused dispatch on row blocks (a split counts
+            # at its decision)
+            obs.counters.add(obs_keys.ROUTE_MESHED)
         obs.counters.add(obs_keys.PIPE_DISPATCH, dispatches)
         if single:
             obs.counters.add(obs_keys.ROUTE_SINGLE_DISPATCH)
@@ -2788,6 +2840,7 @@ class Sentinel:
                 flow_dyn=flow_mod.init_flow_dyn(
                     self.cfg.max_flow_rules, new_second.buckets,
                     self.spec.rows, device=dev))
+            self._refresh_shardings_locked()
             self._renew_programs_locked()
             self._occupy_live_until_ms = -1
             self._seen_idx = -(2 ** 62)
@@ -2882,11 +2935,11 @@ class Sentinel:
         with self._lock:
             counters, rt = bucket_snapshot(self.spec.minute,
                                            self._state.minute, idx)
-            host, event = start_host_copy(
+            copy = start_host_read(
                 (counters, rt, self._state.threads.clone()))
             items = self.resources.items()
             rtypes = dict(self.resource_types)
-        counters, rt, threads = wait_host_copy(host, event)
+        counters, rt, threads = wait_host_read(copy)
         sec_ms = (time_ms // 1000) * 1000
         nodes = []
         for name, row in items:
@@ -2934,10 +2987,10 @@ class Sentinel:
                                min_rt=w.min_rt[sel])
                 threads = threads[sel]
             # one wait for all three copies, off the engine lock
-            host, event = start_host_copy((
+            copy = start_host_read((
                 rolling_totals(self.spec.second, w, idx_s),
                 rt_totals(self.spec.second, w, idx_s), threads.clone()))
-        tot, rt, threads = wait_host_copy(host, event)
+        tot, rt, threads = wait_host_read(copy)
         return tot, rt, threads
 
     @staticmethod
@@ -2975,10 +3028,10 @@ class Sentinel:
         with self._lock:
             touched = set(self._alt_rows_by_row.get(row, ()))
             origins = self.origins.items()
-            host, event = start_host_copy((
+            copy = start_host_read((
                 rolling_totals(self.spec.second, self._state.alt_second,
                                idx_s), self._state.alt_threads.clone()))
-        tot, threads = wait_host_copy(host, event)
+        tot, threads = wait_host_read(copy)
         out = []
         for name, oid in origins:
             if not name:

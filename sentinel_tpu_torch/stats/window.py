@@ -22,6 +22,14 @@ counterpart of the JAX package's buffer donation (one copy of each table,
 no new table per step). The counter and ``rt_sum`` scatter-adds go
 through :func:`ops.scatter_add.scatter_add`, the port of the JAX
 package's one TPU kernel; the ``min_rt`` min stays plain PyTorch.
+
+A row-sharded engine holds each field as
+:class:`~sentinel_tpu_torch.parallel.row_blocks.RowBlocks`: the
+functions here then work by owner — a per-lane read gathers from each
+lane's owner (the row-block tables index like tensors), a write goes to
+each block with the block's own row indices (a lane it does not own
+drops), and a whole-table pass runs block by block, its per-row result
+again row blocks.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import torch
 
 from sentinel_tpu_torch.ops import scatter_add as sa
 from sentinel_tpu_torch.ops import segments as seg
+from sentinel_tpu_torch.parallel.row_blocks import RowBlocks
 from sentinel_tpu_torch.stats import events as ev
 
 INT32_MAX = 2 ** 31 - 1
@@ -88,6 +97,34 @@ def init_window(spec: WindowSpec, rows: int, num_events: int = ev.NUM_EVENTS,
     )
 
 
+def _blocked(state: WindowState) -> bool:
+    return isinstance(state.stamps, RowBlocks)
+
+
+def window_blocks(state: WindowState):
+    """A row-block window's per-block ``WindowState``\\ s (views of its
+    blocks: an in-place update of one lands in the state)."""
+    return [WindowState(*(f.blocks[i] for f in state))
+            for i in range(state.stamps.n)]
+
+
+def _owned(state: WindowState, rows: torch.Tensor):
+    """``(block window, its row indices, its device)`` per block of a
+    row-block window (:meth:`RowBlocks.local_rows`)."""
+    for i, b in enumerate(window_blocks(state)):
+        yield b, state.stamps.local_rows(rows, i), b.stamps.device
+
+
+def _per_block(state: WindowState, fn) -> RowBlocks:
+    """``fn(block window)`` on every block → row blocks of the results."""
+    return RowBlocks([fn(b) for b in window_blocks(state)],
+                     state.stamps.home)
+
+
+def _to(t: Optional[torch.Tensor], dev) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dev)
+
+
 def _bucket_of(spec: WindowSpec, now_idx: int) -> int:
     return now_idx % spec.buckets
 
@@ -138,6 +175,9 @@ def window_sum_rows(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
 def window_sum_all(spec: WindowSpec, state: WindowState, event: int,
                    now_idx: int) -> torch.Tensor:
     """Sum of ``event`` over live buckets for every row → int32[R]."""
+    if _blocked(state):
+        return _per_block(state, lambda b: window_sum_all(
+            spec, b, event, now_idx))
     mask = valid_mask(spec, state.stamps, now_idx)       # [R, B]
     return torch.where(mask, state.counters[:, :, event], 0).sum(
         1, dtype=torch.int32)
@@ -148,6 +188,9 @@ def rolling_totals(spec: WindowSpec, state: WindowState, now_idx: int,
     """All events of ``rows`` (all rows by default; else an in-range
     index tensor) → int32[N, E]: gathering the rows first gives the same
     values as indexing the full result, for the bytes of N rows."""
+    if _blocked(state) and isinstance(rows, slice):
+        return _per_block(state, lambda b: rolling_totals(
+            spec, b, now_idx, rows))
     mask = valid_mask(spec, state.stamps[rows], now_idx)  # [N, B]
     return torch.where(mask[:, :, None], state.counters[rows], 0).sum(
         1, dtype=torch.int32)
@@ -158,6 +201,8 @@ def rolling_load(spec: WindowSpec, state: WindowState,
     """Rolling PASS+BLOCK total per row → int32[R]: the hot-resource
     ranking key of the telemetry tick (obs/telemetry.py), one masked
     sweep over two lanes."""
+    if _blocked(state):
+        return _per_block(state, lambda b: rolling_load(spec, b, now_idx))
     mask = valid_mask(spec, state.stamps, now_idx)       # [R, B]
     sub = state.counters[:, :, ev.PASS] + state.counters[:, :, ev.BLOCK]
     return torch.where(mask, sub, 0).sum(1, dtype=torch.int32)
@@ -170,6 +215,8 @@ def rt_totals(spec: WindowSpec, state: WindowState,
     the two packages may differ)."""
     if not spec.track_rt:
         raise ValueError("rt untracked for this window spec")
+    if _blocked(state):
+        return _per_block(state, lambda b: rt_totals(spec, b, now_idx))
     mask = valid_mask(spec, state.stamps, now_idx)
     return torch.where(mask, state.rt_sum, 0.0).sum(1)
 
@@ -198,6 +245,10 @@ def refresh_rows(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
     stamp differs from ``now_idx`` restarts from zero — exactly the JAX
     package's multiply-by-keep scatter, without a scatter whose duplicate
     writes PyTorch would resolve in arbitrary order."""
+    if _blocked(state):
+        for b, lr, _dev in _owned(state, rows):
+            refresh_rows(spec, b, lr, now_idx)
+        return state
     k = _bucket_of(spec, now_idx)
     touched = row_mask(rows, state.stamps.shape[0])
     stamps_k = state.stamps[:, k]
@@ -221,6 +272,10 @@ def refresh_all(spec: WindowSpec, state: WindowState,
     :func:`refresh_rows` there)."""
     if spec.buckets < 2:
         raise ValueError("refresh_all needs B >= 2 (see docstring)")
+    if _blocked(state):
+        for b in window_blocks(state):
+            refresh_all(spec, b, now_idx)
+        return state
     k = _bucket_of(spec, now_idx)
     stamps_k = state.stamps[:, k]
     keep = stamps_k == now_idx                               # [R]
@@ -254,6 +309,11 @@ def add_rows_vec(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
     """Scatter-add a full event-lane vector per row: ``payload[N, E]``
     lands in the current bucket of ``rows`` (one kernel launch in payload
     mode). Padding rows >= R drop."""
+    if _blocked(state):
+        for b, lr, d in _owned(state, rows):
+            add_rows_vec(spec, b, lr, payload.to(d), now_idx,
+                         _to(rt_ms, d), _to(rt_valid, d))
+        return state
     k = _bucket_of(spec, now_idx)
     sa.scatter_add(state.counters[:, k, :], rows, None, payload)
     if spec.track_rt and rt_ms is not None:
@@ -271,6 +331,13 @@ def add_one_row(spec: WindowSpec, state: WindowState, row: int,
     """Add a pre-reduced event vector to ONE row's current bucket (the
     global ENTRY row's contribution as one slice update, not a second
     scatter half). Caller must have refreshed the row at ``now_idx``."""
+    if _blocked(state):
+        i, loc = divmod(row % state.stamps.rows, state.stamps.per)
+        b = window_blocks(state)[i]
+        d = b.stamps.device
+        add_one_row(spec, b, loc, vec.to(d), now_idx, _to(rt_add, d),
+                    _to(rt_min, d))
+        return state
     k = _bucket_of(spec, now_idx)
     state.counters[row, k, :].add_(vec)
     if spec.track_rt and rt_add is not None:
@@ -286,6 +353,11 @@ def add_rows(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
              rt_ms: Optional[torch.Tensor] = None) -> WindowState:
     """Scatter-add ``amounts`` of ``event`` into the current bucket of
     ``rows`` (caller refreshed first). Padding rows must be >= R."""
+    if _blocked(state):
+        for b, lr, d in _owned(state, rows):
+            add_rows(spec, b, lr, event, amounts.to(d), now_idx,
+                     _to(rt_ms, d))
+        return state
     k = _bucket_of(spec, now_idx)
     sa.scatter_add(state.counters[:, k, :], rows,
                    torch.full_like(rows, event), amounts)
@@ -298,6 +370,11 @@ def add_rows_multi(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
                    event_ids: torch.Tensor, amounts: torch.Tensor,
                    now_idx: int) -> WindowState:
     """Scatter-add with per-element event ids (fused multi-event record)."""
+    if _blocked(state):
+        for b, lr, d in _owned(state, rows):
+            add_rows_multi(spec, b, lr, event_ids.to(d), amounts.to(d),
+                           now_idx)
+        return state
     k = _bucket_of(spec, now_idx)
     sa.scatter_add(state.counters[:, k, :], rows, event_ids, amounts)
     return state
@@ -317,6 +394,20 @@ def uncount_rows(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
     table's end and a negative row wraps once, as the reference's
     ``.at[rows, k, event]`` does."""
     r_dim, b_dim, e_dim = state.counters.shape
+    if _blocked(state):
+        # the liveness read is the whole table's (clamped rows, from each
+        # lane's owner); the subtraction lands block by block
+        k = torch.remainder(idxs, b_dim)
+        live = state.stamps[torch.clamp(rows, 0, r_dim - 1).long(),
+                            k.long()] == idxs
+        amt = torch.where(live, amounts, 0)
+        per = state.stamps.per
+        for b, lr, d in _owned(state, rows):
+            kd = k.to(d)
+            sa.scatter_add(b.counters.view(per * b_dim, e_dim),
+                           lr * b_dim + kd, torch.full_like(lr, event),
+                           -amt.to(d))
+        return state
     k = torch.remainder(idxs, b_dim)
     live = state.stamps[torch.clamp(rows, 0, r_dim - 1).long(),
                         k.long()] == idxs
@@ -340,7 +431,15 @@ def settle_occupied(spec: WindowSpec, state: WindowState,
     in ``pend_cnt``/``pend_win`` (zero / NEVER elsewhere) for the fresh
     ring; anything older is dropped. Dense over the table, one pass per
     ring slot; ``state`` is updated in place. Runs at a rule reload only,
-    and reads nothing back."""
+    and reads nothing back. Row-block state settles block by block, its
+    pending ring again row blocks."""
+    if _blocked(state):
+        out = [settle_occupied(spec, b, c, w, now_idx, event)
+               for b, c, w in zip(window_blocks(state), occ_cnt.blocks,
+                                  occ_win.blocks)]
+        home = state.stamps.home
+        return (state, RowBlocks([o[1] for o in out], home),
+                RowBlocks([o[2] for o in out], home))
     r_dim = state.stamps.shape[0]
     b_dim = spec.buckets
     rr = torch.arange(r_dim, device=occ_cnt.device)
@@ -376,6 +475,10 @@ def invalidate_rows(spec: WindowSpec, state: WindowState,
     """Forget all history of ``rows`` (registry eviction → row reuse):
     stamps go to NEVER so every bucket reads as deprecated. Padding rows
     >= R drop."""
+    if _blocked(state):
+        for b, lr, _dev in _owned(state, rows):
+            invalidate_rows(spec, b, lr)
+        return state
     hit = row_mask(rows, state.stamps.shape[0])
     state.stamps.masked_fill_(hit[:, None], NEVER)
     return state
@@ -431,6 +534,28 @@ class RowWriter:
         dest.index_put_((self.tgt,), torch.where(mask, vals, keep0))
 
 
+class BlockRowWriter:
+    """:class:`RowWriter` over row-block tables of one layout: one writer
+    a block, over the block's own row indices (a lane the block does not
+    own drops there), so each row still takes its last lane's payload."""
+
+    def __init__(self, rows: torch.Tensor, layout: RowBlocks):
+        self.parts = [RowWriter(lr, layout.per)
+                      for _i, _b, lr in layout.owned(rows)]
+
+    def write(self, dest: RowBlocks, values: torch.Tensor) -> None:
+        for w, b in zip(self.parts, dest.blocks):
+            w.write(b, values.to(b.device))
+
+
+def row_writer(rows: torch.Tensor, table):
+    """The writer for ``rows`` of tables laid out like ``table`` (a
+    tensor, or row blocks)."""
+    if isinstance(table, RowBlocks):
+        return BlockRowWriter(rows, table)
+    return RowWriter(rows, table.shape[0])
+
+
 def restore_rows(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
                  payload: WindowState, writer: Optional[RowWriter] = None
                  ) -> WindowState:
@@ -440,8 +565,7 @@ def restore_rows(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
     to one that never left. Padding rows drop; repeated rows take the
     last lane's slice (see :class:`RowWriter`, which a caller restoring
     several tables over the same rows may pass in)."""
-    w = writer if writer is not None else RowWriter(
-        rows, state.stamps.shape[0])
+    w = writer if writer is not None else row_writer(rows, state.stamps)
     for name in WindowState._fields:
         w.write(getattr(state, name), getattr(payload, name))
     return state
@@ -452,7 +576,14 @@ def bucket_snapshot(spec: WindowSpec, state: WindowState, idx: int,
     """The counters (+ rt sum) of ``rows`` (all rows by default; else an
     in-range index tensor) for the bucket at window index ``idx`` — zeros
     where that bucket is dead → ``(int32[N, E], float32[N])``. The
-    per-second read of the metric-file pipeline and the telemetry tick."""
+    per-second read of the metric-file pipeline and the telemetry tick.
+    Every row of row-block state gives row blocks of both."""
+    if _blocked(state) and isinstance(rows, slice):
+        parts = [bucket_snapshot(spec, b, idx, rows)
+                 for b in window_blocks(state)]
+        home = state.stamps.home
+        return (RowBlocks([p[0] for p in parts], home),
+                RowBlocks([p[1] for p in parts], home))
     k = _bucket_of(spec, idx)
     live = state.stamps[rows, k] == idx                     # [N]
     counters = torch.where(live[:, None], state.counters[rows, k, :], 0)

@@ -13,8 +13,9 @@ Fingerprint (:func:`fingerprint`), read from torch for the engine's own
 device: ``backend`` (``"cuda"`` or ``"cpu"``), ``device_kind``
 (``torch.cuda.get_device_name`` on the card, ``"cpu"`` on the CPU),
 ``n_devices_visible`` (``torch.cuda.device_count()``, 1 on the CPU),
-``host_cores`` and the ``mesh`` block (one device, unsharded: meshes are
-ROADMAP A11). The five fields are the reference's, so an artifact swept
+``host_cores`` and the ``mesh`` block (``n_devices``, ``axis`` and
+``sharded``: one unsharded device, or a row-sharded engine's layout from
+``parallel.local_shard.mesh_topology``). The five fields are the reference's, so an artifact swept
 on a TPU is read here and falls back to defaults on its
 ``backend``/``device_kind``. Geometry is deliberately not part of it:
 geometry is configuration, not hardware.
@@ -44,15 +45,28 @@ SCHEMA = "sentinel_tune/1"
 TUNED_CONFIG_ENV = "SENTINEL_TUNED_CONFIG"
 
 
-def fingerprint(device=None, mesh=None) -> Dict:
+def fingerprint(device=None, mesh=None, spec=None) -> Dict:
     """The live hardware/layout fingerprint of ``device`` (``cuda``
-    unless given; see module docstring)."""
+    unless given; a mesh's home device when ``mesh`` is given) and of
+    the row blocks of ``mesh`` (see module docstring; ``spec`` is the
+    engine's geometry, when known)."""
     import torch
 
-    from sentinel_tpu_torch.parallel.local_shard import MESH_NOT_PORTED
+    from sentinel_tpu_torch.parallel import local_shard
     from sentinel_tpu_torch.runtime import resolve_device
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    if mesh is None:
+        mesh_block = {"n_devices": 1, "axis": None, "sharded": False}
+    else:
+        m = local_shard.as_row_mesh(mesh)
+        if device is None:
+            device = m.home
+        if spec is not None:
+            topo = local_shard.mesh_topology(spec, m)
+            mesh_block = {k: topo.get(k)
+                          for k in ("n_devices", "axis", "sharded")}
+        else:
+            mesh_block = {"n_devices": int(m.shape[local_shard.MESH_AXIS]),
+                          "axis": local_shard.MESH_AXIS, "sharded": True}
     dev = resolve_device(device)
     if dev.type == "cuda":
         index = dev.index if dev.index is not None \
@@ -66,7 +80,7 @@ def fingerprint(device=None, mesh=None) -> Dict:
         "device_kind": kind,
         "n_devices_visible": visible,
         "host_cores": int(os.cpu_count() or 1),
-        "mesh": {"n_devices": 1, "axis": None, "sharded": False},
+        "mesh": mesh_block,
     }
 
 
@@ -123,7 +137,7 @@ def overrides_for(doc: Dict, live_fp: Dict) -> Optional[Dict]:
     return dict(doc["knobs"]) if ok else None
 
 
-def resolve_startup(device=None, environ=None):
+def resolve_startup(device=None, environ=None, mesh=None, spec=None):
     """Everything ``Sentinel.__init__`` needs for its ``device``, in one
     call that a missing, corrupt or mismatched artifact never makes
     raise: (overrides, events).
@@ -149,7 +163,7 @@ def resolve_startup(device=None, environ=None):
                        f"tuned config {path}: unreadable ({e}); "
                        f"serving on defaults"))
         return {}, events
-    live = fingerprint(device)
+    live = fingerprint(device, mesh, spec)
     ok, why = fingerprints_match(doc.get("fingerprint") or {}, live)
     if not ok:
         events.append((obs_keys.TUNE_FALLBACK,
@@ -164,7 +178,7 @@ def resolve_startup(device=None, environ=None):
     return overrides, events
 
 
-def provenance(device=None, environ=None) -> Dict:
+def provenance(device=None, environ=None, mesh=None, spec=None) -> Dict:
     """The provenance block for a bench record: did a tuned config
     apply, from where, under which fingerprint, and which per-knob
     values."""
@@ -178,7 +192,7 @@ def provenance(device=None, environ=None) -> Dict:
     except (OSError, ValueError) as e:
         block["error"] = str(e)
         return block
-    live = fingerprint(device)
+    live = fingerprint(device, mesh, spec)
     ok, why = fingerprints_match(doc.get("fingerprint") or {}, live)
     if not ok:
         block["fingerprint_mismatch"] = why

@@ -19,10 +19,12 @@ guard switched on: counters equal to the reference's, verdicts equal to
 a run without the guard.
 """
 
+import itertools
 import json
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -221,12 +223,45 @@ def test_first_dispatch_hit_miss_twins(tmp_path, monkeypatch,
     assert (hits, misses, retries) == (5, 9, 0)
 
 
+def _stall_first_attempt(cc_mod, monkeypatch):
+    """Make the guard's first attempt of every key stall for certain:
+    it waits until the guard's timeout has fired (its retry callback)
+    before it runs. A short eager step can otherwise finish before the
+    caller reaches its timed wait, when the caller is descheduled right
+    after starting the attempt's thread, and then no retry is counted."""
+    real = cc_mod.guarded_first_fetch
+
+    def guarded(fn, what, timeout_s, retries, on_retry=None):
+        if timeout_s <= 0 or retries <= 0:      # no timeout to wait for
+            return real(fn, what, timeout_s, retries, on_retry)
+        fired = threading.Event()
+        calls = itertools.count()
+
+        def attempt():
+            if next(calls) == 0:
+                fired.wait(60.0)
+            return fn()
+
+        def retry():
+            fired.set()
+            if on_retry is not None:
+                on_retry()
+
+        return real(attempt, what, timeout_s, retries, on_retry=retry)
+
+    monkeypatch.setattr(cc_mod, "guarded_first_fetch", guarded)
+
+
 def test_first_fetch_guard_counts_retries(tmp_path, monkeypatch):
     """With an operator timeout far below any step's time, every first
     dispatch of a key stalls once and retries once (the final attempt
     waits): one ``compile_cache.first_fetch_retry`` per miss, in both
-    packages, and the throwaway executions leave the verdicts alone."""
+    packages, and the throwaway executions leave the verdicts alone.
+    The stall is made certain in both packages alike
+    (:func:`_stall_first_attempt`)."""
     monkeypatch.setenv("SENTINEL_TPU_LOG_DIR", str(tmp_path / "logs"))
+    for cc_mod in (tcc, jcc):
+        _stall_first_attempt(cc_mod, monkeypatch)
     runs = {}
     for guard in (False, True):
         if guard:

@@ -57,6 +57,10 @@ import sentinel_tpu_torch.frontend.workloads
 import sentinel_tpu_torch.obs.telemetry
 import sentinel_tpu_torch.obs.resource_hist
 import sentinel_tpu_torch.parallel.local_shard
+import sentinel_tpu_torch.parallel.row_blocks
+import sentinel_tpu_torch.core.snapshot
+import sentinel_tpu_torch.core.pending
+import sentinel_tpu_torch.tune.artifact
 import sentinel_tpu_torch.tiering
 import sentinel_tpu_torch.tiering.coldtier
 import sentinel_tpu_torch.tiering.manager
@@ -190,6 +194,15 @@ SERVING_MODULES = [
     "sentinel_tpu_torch.frontend.workloads",
     "sentinel_tpu_torch.obs.telemetry", "sentinel_tpu_torch.obs.resource_hist",
     "sentinel_tpu_torch.parallel.local_shard",
+]
+
+#: the row-sharded engine's row blocks and the modules it changed that no
+#: other list holds (host copies, the flow and system checks), imported
+#: the same way (local_shard, snapshot and tune are in their lists)
+ROW_SHARDED_MODULES = [
+    "sentinel_tpu_torch.parallel.row_blocks",
+    "sentinel_tpu_torch.core.pending", "sentinel_tpu_torch.rules.flow",
+    "sentinel_tpu_torch.rules.system",
 ]
 
 #: tiered resource state, the overload controller and the conversion
@@ -333,7 +346,8 @@ def _import_blocked(*modules):
                          + GATEWAY_EXPORTER_NATIVE_MODULES
                          + DASHBOARD_ADAPTER_MODULES
                          + TUNE_SNAPSHOT_GRPC_MODULES
-                         + ANALYSIS_DEMO_MODULES + MULTIHOST_MODULES)
+                         + ANALYSIS_DEMO_MODULES + MULTIHOST_MODULES
+                         + ROW_SHARDED_MODULES)
 def test_module_imports_with_jax_blocked(module):
     _import_blocked(module)
 

@@ -205,13 +205,31 @@ def test_sentinel_without_cuda_needs_an_explicit_device(monkeypatch):
 
 
 def test_off_route_calls_raise_not_implemented():
-    """Meshes (A11) still raise; cluster-mode flow and param rules load
+    """A row-block mesh constructs (A11); a ``"rows"`` mesh over several
+    processes still raises NotImplementedError naming ROADMAP A11, and a
+    mesh without a ``"rows"`` axis raises ValueError, as the reference's
+    ``validate_mesh`` does. Cluster-mode flow and param rules load
     (their rows keyed by rule slot for the token delegation), as do
     param rules and call args (A8), the host fast path (A6, the default
     config) and prioritized events (A7b), as the reference does."""
+    from sentinel_tpu_torch.multihost.bootstrap import ShardDevice
+    from sentinel_tpu_torch.multihost.mesh import GlobalMesh
+    from sentinel_tpu_torch.parallel import local_shard
     cfg = stt.load_config(**CFG)
+    two = GlobalMesh([ShardDevice(p, 0, "cpu") for p in (0, 1)], "rows")
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        stt.Sentinel(config=cfg, mesh=two)
+    with pytest.raises(ValueError, match="rows"):
         stt.Sentinel(config=cfg, device="cpu", mesh=object())
+    meshed = stt.Sentinel(
+        config=cfg, clock=stt.ManualClock(start_ms=T0),
+        mesh=local_shard.local_mesh(devices=[torch.device("cpu")] * 8))
+    assert meshed.device == torch.device("cpu")
+    assert meshed._state.second.counters.n == 8
+    with meshed.entry("m"):
+        pass
+    assert meshed.node_totals("m")["pass"] == 1
+    meshed.close()
     sph = stt.Sentinel(config=cfg, clock=stt.ManualClock(start_ms=T0),
                        device="cpu")
     sph.load_flow_rules([stt.FlowRule(resource="c", count=1.0,

@@ -250,3 +250,65 @@ def test_snapshot_restores_across_packages(tmp_path, monkeypatch, native,
     assert int(states[reader]["second.counters"].sum()) > 0
     assert after[reader][0] == after[writer][0]
     assert convert.leaf_diff(after[reader][1], after[writer][1]) == []
+
+
+@pytest.mark.parametrize("outcome", ["full", "partial"])
+def test_snapshot_between_row_blocks_and_one_block(tmp_path, outcome):
+    """A snapshot of an 8-block engine restores into a one-block engine,
+    and the one-block engine's back into 8 blocks (the blocks go to the
+    host one by one at save; a restore re-places them through the
+    engine's placements), with the reference's outcomes; the following
+    traffic gives the same verdicts and state on both, and on the JAX
+    meshed engine restored from the same file."""
+    from sentinel_tpu.parallel import local_shard as jls
+    from sentinel_tpu_torch.parallel import local_shard as tls
+    from sentinel_tpu_torch.parallel.row_blocks import RowBlocks
+    meshes = {"mesh": {"mesh": tls.local_mesh(
+        devices=[torch.device("cpu")] * 8)}, "one": {"device": "cpu"}}
+
+    def port(kind):
+        s = stt.Sentinel(config=stt.load_config(
+            max_resources=64, max_flow_rules=16, max_degrade_rules=16,
+            max_authority_rules=16), clock=stt.ManualClock(start_ms=T0),
+            **meshes[kind])
+        s._cpu.sample = lambda: (0.5, 0.25)
+        return s
+
+    rules = [dict(resource=f"svc-{i}", count=4.0) for i in range(10)]
+    later = rules if outcome == "full" else rules[:-1]
+    traffic = [f"svc-{i % 10}" for i in range(70)]
+    results = {}
+    for src, dst in (("mesh", "one"), ("one", "mesh")):
+        a = port(src)
+        a.load_flow_rules([stt.FlowRule(**r) for r in rules])
+        for name in traffic:
+            _try(stt, a, name)
+        path = str(tmp_path / f"{src}.snap")
+        tsnap.save_state(a, path)
+        a.close()
+        b = port(dst)
+        b.load_flow_rules([stt.FlowRule(**r) for r in later])
+        got = tsnap.load_state(b, path)
+        assert got == outcome
+        assert isinstance(b._state.second.counters, RowBlocks) == (
+            dst == "mesh")
+        if dst == "mesh":
+            assert b._state.second.counters.n == 8
+        after = [_try(stt, b, name) for name in traffic[:30]]
+        results[src] = (after, convert.engine_to_numpy(b))
+        b.close()
+    assert results["mesh"][0] == results["one"][0]
+    assert convert.leaf_diff(results["mesh"][1], results["one"][1]) == []
+    # the file restores into the JAX meshed engine alike
+    j = stpu.Sentinel(config=stpu.load_config(
+        max_resources=64, max_flow_rules=16, max_degrade_rules=16,
+        max_authority_rules=16), clock=stpu.ManualClock(start_ms=T0),
+        mesh=jls.local_mesh(8))
+    j._cpu.sample = lambda: (0.5, 0.25)
+    j.load_flow_rules([stpu.FlowRule(**r) for r in later])
+    assert jsnap.load_state(j, str(tmp_path / "mesh.snap")) == outcome
+    after = [_try(stpu, j, name) for name in traffic[:30]]
+    assert after == results["mesh"][0]
+    assert convert.leaf_diff(convert.engine_to_numpy(j),
+                             results["mesh"][1]) == []
+    j.close()

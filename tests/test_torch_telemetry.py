@@ -16,7 +16,12 @@ on one device.
   are compared by the shared twin harness of ``test_torch_obs.py``.
 
 Exact everywhere; every RT histogram row total here is far below 2^24.
-The reference's meshed (8-device) top-K waits for ROADMAP A11.
+The reference's three meshed scenarios (the sharded top-K against the
+host recompute, determinism, the ``<app>-metric`` lines) run on the JAX
+engine on its 8-device mesh, the port on 8 row blocks and both one-device
+engines (the harness of ``test_torch_sharded_local.py``): the port's
+blocks rank their own rows and merge, and the hot set equals the
+reference's and the host recompute's, ties included.
 """
 
 import dataclasses
@@ -454,3 +459,94 @@ def test_carry_api_claims_and_queues(tmp_path):
         return out + [_tel_view(s)]
 
     twin(scenario, tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# the reference's meshed scenarios: 8 row blocks against its 8 devices
+# ---------------------------------------------------------------------------
+
+def _meshed_view(s):
+    """:func:`_tel_view` less the layout fields, which are checked
+    against the engine's mesh here (8 blocks of 8 rows, or 1 of 64)."""
+    view = _tel_view(s)
+    n = 8 if s.mesh is not None else 1
+    assert s.telemetry._n_shards == n
+    assert s.telemetry._rows_per_shard == s.spec.rows // n
+    snap = view["snap"]
+    for key in ("n_shards", "rows_per_shard"):
+        for holder in [snap] + [v for v in snap.values()
+                                if isinstance(v, dict)]:
+            if key in holder:
+                assert holder[key] == (n if key == "n_shards"
+                                       else s.spec.rows // n)
+                del holder[key]
+    return view
+
+
+def test_sharded_topk_bit_equal_to_host_recompute():
+    from test_torch_sharded_local import trio
+
+    def scenario(pkg, s):
+        assert s.telemetry.enabled
+        _zipf_drive(pkg, s)
+        s.clock.advance_ms(100)
+        assert s.telemetry.poll() == 1
+        loads, rows = s.telemetry.last_topk
+        h_loads, h_rows = _host_topk(s, s.telemetry.k)
+        assert list(rows) == list(h_rows)
+        assert list(loads) == list(h_loads)
+        hot = s.telemetry.hot_entries()
+        assert hot and hot[0]["load"] == int(h_loads[0])
+        assert all(h["load"] > 0 and h["resource"] != "" for h in hot)
+        return _meshed_view(s)
+
+    trio(scenario).close()
+
+
+def test_meshed_manual_clock_determinism():
+    from test_torch_sharded_local import trio
+    views = []
+    for _rep in range(2):
+        def scenario(pkg, s):
+            _zipf_drive(pkg, s, seed=3)
+            s.clock.advance_ms(1500)        # one completed second
+            s.telemetry.poll()
+            snap = s.telemetry.snapshot()
+            assert snap["timeline"]
+            return [snap["hot"], snap["timeline"]]
+
+        sh = trio(scenario)
+        snap = sh.telemetry.snapshot()
+        views.append([snap["hot"], snap["timeline"]])
+        sh.close()
+    assert views[0] == views[1]
+
+
+def test_meshed_metric_lines_roundtrip_for_topk_only(tmp_path):
+    from test_torch_sharded_local import trio
+
+    def scenario(pkg, s):
+        from importlib import import_module
+        searcher = import_module(pkg.__name__ + ".metrics.searcher")
+        kind = f"{pkg.__name__}_{'mesh' if s.mesh is not None else 'one'}"
+        d = tmp_path / kind
+        base = s.telemetry.configure(str(d), "telapp")
+        s.clock.advance_ms(600)
+        for _ in range(5):
+            s.entry("hot-res").exit()
+        s.entry("cold-res").exit()
+        s.clock.advance_ms(450)             # completes second T0/1000
+        assert s.telemetry.poll() == 1
+        found = searcher.MetricSearcher(str(d), base).find(
+            T0 - 1000, T0 + 10_000)
+        by_res = {n.resource: n for n in found}
+        assert by_res["hot-res"].pass_qps == 5
+        assert by_res["cold-res"].pass_qps == 1
+        assert all(n.timestamp == (T0 // 1000) * 1000 for n in found)
+        s.telemetry.stop()
+        files = sorted(p.name for p in d.iterdir())
+        body = [(d / f).read_bytes() for f in files
+                if not f.endswith(".idx")]
+        return [[dataclasses.asdict(n) for n in found], body]
+
+    trio(scenario).close()

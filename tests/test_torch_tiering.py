@@ -19,6 +19,8 @@ alt slots (the last lane wins, as on the reference's CPU), and the
 port's one-shard ``shard_of_rows``.
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -528,11 +530,81 @@ def test_row_writer_without_a_kept_lane_changes_nothing():
 
 
 def test_shard_of_rows_is_one_shard():
-    rows = np.asarray([0, 5, 1 << 19], np.int32)
+    """One shard without a mesh; on a row-block mesh, the reference's
+    owner per row for the same geometry; a mesh without a ``"rows"``
+    axis and one over several processes raise as ``Sentinel(mesh=)``
+    does."""
+    from sentinel_tpu.parallel import local_shard as jls
+    from sentinel_tpu_torch.multihost.bootstrap import ShardDevice
+    from sentinel_tpu_torch.multihost.mesh import GlobalMesh
+    rows = np.asarray([0, 5, 1 << 17, 1 << 19, (1 << 20) - 1], np.int32)
     np.testing.assert_array_equal(
-        local_shard.shard_of_rows(1 << 20, None, rows), [0, 0, 0])
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        local_shard.shard_of_rows(1 << 20, None, rows), [0] * 5)
+    mesh = local_shard.local_mesh(devices=[torch.device("cpu")] * 8)
+    got = local_shard.shard_of_rows(1 << 20, mesh, rows)
+    np.testing.assert_array_equal(got, [0, 0, 1, 4, 7])
+    np.testing.assert_array_equal(
+        got, jls.shard_of_rows(1 << 20, jls.local_mesh(8), rows))
+    assert got.dtype == np.int32
+    with pytest.raises(ValueError, match="rows"):
         local_shard.shard_of_rows(1 << 20, object(), rows)
+    two = GlobalMesh([ShardDevice(p, 0, "cpu") for p in (0, 1)], "rows")
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        local_shard.shard_of_rows(1 << 20, two, rows)
+
+
+def test_proactive_demotions_round_robin_across_shards():
+    """The ticker's demotions on a meshed engine take the coldest row of
+    each shard in turn (the reference's round-robin): the JAX engine on
+    its 8-device mesh and the port on 8 row blocks demote the same
+    names, and their cold tiers, tier views and state agree; on one
+    device the same estimates demote the globally coldest instead."""
+    from sentinel_tpu.parallel import local_shard as jls
+    got = {}
+    for kind in ("jax", "torch", "jax1", "torch1"):
+        pkg = PKGS[kind.rstrip("1")]
+        clk = pkg.ManualClock(start_ms=T0)
+        cfg = pkg.load_config(max_resources=64, max_flow_rules=8,
+                              max_degrade_rules=8, max_authority_rules=8)
+        if kind == "jax":
+            mesh = {"mesh": jls.local_mesh(8)}
+        elif kind == "torch":
+            mesh = {"mesh": local_shard.local_mesh(
+                devices=[torch.device("cpu")] * 8)}
+        else:
+            mesh = {"device": "cpu"} if pkg is stt else {}
+        s = pkg.Sentinel(cfg, clock=clk, **mesh)
+        s._cpu.sample = lambda: (0.5, 0.25)
+        try:
+            names = [f"k{i}" for i in range(40)]
+            s.entry_batch(names, acquire=[1] * 40)
+            rows = [s.resources.lookup(n) for n in names]
+            est = np.zeros(s.spec.rows, np.int32)
+            rng = np.random.default_rng(4)
+            est[rows] = rng.permutation(40) + 1
+            s.tiering.hot_rows = 40 + 1 - 12        # 12 demotions
+            s.tiering._demote_cold_rows(est)
+            s.entry_batch(["k0"], acquire=[1])      # the drain demotes
+            s.tiering.poll()
+            demoted = sorted(s.tiering.cold.names())
+            shards = sorted(int(r) // 8 for r in
+                            (rows[names.index(n)] for n in demoted))
+            got[kind] = (demoted, shards, _tier_view(s),
+                         convert.engine_to_numpy(s),
+                         convert.cold_tier_to_numpy(s.tiering.cold))
+        finally:
+            s.close()
+    for a, b in (("jax", "torch"), ("jax1", "torch1")):
+        assert got[a][:3] == got[b][:3], (a, b)
+        assert convert.leaf_diff(got[a][3], got[b][3]) == []
+        _cold_equal(got[a][4], got[b][4])
+    assert len(got["torch"][0]) == 12
+    # round-robin: the names sit in rows 1..40, so shards 0-4 hold 7-8
+    # candidates and shard 5 one; the full shards give up rows in turn
+    counts = np.bincount(got["torch"][1], minlength=8)
+    assert counts[5] == 1 and counts[6:].sum() == 0
+    assert counts[:5].max() - counts[:5].min() <= 1
+    assert got["torch"][0] != got["torch1"][0]
 
 
 # ---------------------------------------------------------------------------
@@ -654,6 +726,32 @@ def test_parity_fuzz_small_vs_resident(seed):
     engine (verdicts) under flow rules, prioritized acquires and a
     mid-run reload, while demoting and promoting."""
     _check_churn(24, 512, 32, 12, KEYS, RULES, RELOAD, seed)
+
+
+def test_parity_fuzz_on_row_blocks(monkeypatch):
+    """The churn fuzz with origins on row-block engines: the port's 8
+    blocks against the JAX engine on its 8-device mesh (verdicts, state,
+    sketch, cold tier, counters) and against the port's 8-block
+    all-resident engine (verdicts). Demotion gathers and promotion
+    restores go through each row's owner."""
+    from sentinel_tpu.parallel import local_shard as jls
+    plain = _make
+
+    def meshed(pkg, clk, **cfg):
+        mesh = (jls.local_mesh(8) if pkg is stpu
+                else local_shard.local_mesh(devices=[torch.device("cpu")]
+                                            * 8))
+        sph = pkg.Sentinel(pkg.load_config(**cfg), clock=clk, mesh=mesh)
+        sph._cpu.sample = lambda: (0.5, 0.25)
+        return sph
+
+    monkeypatch.setattr(sys.modules[__name__], "_make", meshed)
+    try:
+        small = _check_churn(24, 512, 32, 12, KEYS, RULES, RELOAD, 1501,
+                             origins=["app-a", "app-b"])
+    finally:
+        monkeypatch.setattr(sys.modules[__name__], "_make", plain)
+    assert small[2]["second.counters"].shape[0] == 24
 
 
 def test_parity_alt_rows_carry_through_churn():

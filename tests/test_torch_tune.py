@@ -581,3 +581,69 @@ def test_cli_takes_the_reference_flags(capsys):
     jflags, tflags = flags(jcli), flags(tcli)
     assert set(tflags) == set(jflags) | {"--device"}
     assert {k: tflags[k] for k in jflags} == jflags
+
+
+def test_fingerprint_mesh_block_and_meshed_startup(tmp_path, monkeypatch):
+    """The fingerprint's ``mesh`` block of a row-sharded engine is the
+    reference's for the same geometry — from ``mesh_topology`` with the
+    engine's geometry, from the mesh alone without it — and the round
+    trip keeps it; a meshed runtime loads an artifact swept on its own
+    layout and falls back on another's, naming ``mesh.n_devices``, with
+    counters equal to the JAX meshed runtime's."""
+    from sentinel_tpu.parallel import local_shard as jls
+    from sentinel_tpu_torch.parallel import local_shard as tls
+    jm = jls.local_mesh(8)
+    tm = tls.local_mesh(devices=[torch.device("cpu")] * 8)
+    cfg = dict(max_resources=64, max_flow_rules=8, max_degrade_rules=8,
+               max_authority_rules=8, host_fast_path=False)
+    js = stpu.Sentinel(stpu.load_config(**cfg),
+                       clock=stpu.ManualClock(start_ms=T0))
+    ts = stt.Sentinel(stt.load_config(**cfg), clock=ManualClock(start_ms=T0),
+                      device="cpu")
+    want = {"n_devices": 8, "axis": "rows", "sharded": True}
+    for spec_j, spec_t in ((js.spec, ts.spec), (None, None)):
+        fj = jart.fingerprint(spec_j, jm)
+        ft = tart.fingerprint(mesh=tm, spec=spec_t)
+        assert ft["mesh"] == fj["mesh"] == want
+        assert ft["backend"] == "cpu" and ft["n_devices_visible"] == 1
+    assert tart.fingerprint("cpu")["mesh"] == jart.fingerprint()["mesh"] \
+        == {"n_devices": 1, "axis": None, "sharded": False}
+    js.close()
+    ts.close()
+    got = {}
+    for name, (pkg, art, _, _, keys) in PKGS.items():
+        mesh = jm if name == "jax" else tm
+        live = (art.fingerprint(None, mesh) if name == "jax"
+                else art.fingerprint(mesh=mesh))
+        good, other = (str(tmp_path / f"{name}_{k}.json")
+                       for k in ("good", "other"))
+        for path, fp in ((good, live), (other, dict(
+                live, mesh={"n_devices": 1, "axis": None,
+                            "sharded": False}))):
+            art.save_tuned(path, fingerprint=fp,
+                           knob_values={"SENTINEL_PIPELINE_DEPTH": 4},
+                           score={}, baseline={}, slo_p99_ms=50.0,
+                           workload={}, trials=1, parity_checks=1)
+            assert art.load_tuned(path)["fingerprint"]["mesh"] == fp["mesh"]
+        runs = []
+        for path in (good, other):
+            monkeypatch.setenv(art.TUNED_CONFIG_ENV, path)
+            sph = pkg.Sentinel(pkg.load_config(**cfg),
+                               clock=pkg.ManualClock(start_ms=T0),
+                               mesh=mesh)
+            try:
+                prov = (art.provenance(None, mesh) if name == "jax"
+                        else art.provenance(mesh=mesh))
+                runs.append((dict(sph._tuned), _tune_counters(sph),
+                             prov["tuned"],
+                             prov.get("fingerprint_mismatch")))
+            finally:
+                sph.close()
+        got[name] = runs
+    assert got["torch"] == got["jax"]
+    (tuned, counters, prov_ok, _), (tuned_b, counters_b, prov_b, why) = \
+        got["torch"]
+    assert tuned == {"SENTINEL_PIPELINE_DEPTH": 4} and prov_ok
+    assert counters == {tck.TUNE_LOADED: 1}
+    assert tuned_b == {} and counters_b == {tck.TUNE_FALLBACK: 1}
+    assert not prov_b and why.startswith("mesh.n_devices")
