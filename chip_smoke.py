@@ -4609,7 +4609,7 @@ def phase_cluster(stt, sa, dev="cuda", B=1 << 16, steps=40,
     """The cluster token tier: (a) :func:`_cluster_engine_leg` at 2^16
     requests a step and the kernel run alone at 2^18; (b)
     :func:`_cluster_server_leg`; (c) :func:`_cluster_runtime_leg` (1024
-    calls: phase 12 sends 1024 more cluster-ruled calls through the
+    calls: phase 12 sends 512 more cluster-ruled calls through the
     facade)."""
     import tempfile
     from sentinel_tpu_torch.parallel import cluster as tcl
@@ -7867,7 +7867,7 @@ def _mh_lines(results, tag: str) -> list:
 
 
 def _mh_launch(argv, n: int, shards: int, platform: str, env: dict,
-               timeout_s: float = 300.0):
+               timeout_s: float = 300.0, phase: str = "phase 17"):
     """The port's launcher → (worker results, wall s); a failed worker
     fails the phase with every rank's log."""
     import importlib
@@ -7877,7 +7877,7 @@ def _mh_launch(argv, n: int, shards: int, platform: str, env: dict,
         res = mh_launch.launch(argv, n, devices_per_process=shards, env=env,
                                timeout_s=timeout_s, platform=platform)
     except mh_launch.LaunchError as exc:
-        fail(f"phase 17: {' '.join(argv[-3:])} in {n} process(es) on "
+        fail(f"{phase}: {' '.join(argv[-3:])} in {n} process(es) on "
              f"{platform} failed:\n{str(exc)[-4000:]}")
     return res, time.perf_counter() - t0
 
@@ -8784,6 +8784,471 @@ def phase_meshed(stt, sa, dev="cuda", R=1 << 20, B=1 << 19, steps: int = 12,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the row-sharded runtime over processes (a "rows" mesh that
+# spans ranks)
+# ---------------------------------------------------------------------------
+
+RMP_ARGV = [os.path.abspath(__file__), "--rows-mp"]
+RMP_WORKER = ["-m", "sentinel_tpu_torch.multihost._rows_worker"]
+RMP_BLOCKS = 4           # row blocks a rank: 2 x 4 against 1 x 8
+
+
+class _sync_census:
+    """PyTorch's sync debug mode at "warn" over the body on the card:
+    every wait on the device is counted — inside a collective (a frame of
+    ``multihost/bootstrap.py`` on its stack: gloo copies a card's tensor
+    to the host) or anywhere else, with its site."""
+
+    def __init__(self, on: bool):
+        self.on = on
+        self.collective = 0
+        self.other = []
+
+    def _show(self, message, *_args, **_kw):
+        import traceback
+        if "called a synchronizing" not in str(message):
+            return      # the mode's own notice ("... a prototype feature")
+        frames = traceback.extract_stack()
+        if any(f.filename.endswith(os.path.join("multihost", "bootstrap.py"))
+               for f in frames):
+            self.collective += 1
+            return
+        ours = [f"{os.path.basename(f.filename)}:{f.lineno}" for f in frames
+                if "sentinel_tpu_torch" in f.filename]
+        self.other.append(f"{str(message)[:60]} at {ours[-3:]}")
+
+    def __enter__(self):
+        if self.on:
+            import warnings
+            self._cm = warnings.catch_warnings()
+            self._cm.__enter__()
+            warnings.simplefilter("always")
+            warnings.showwarning = self._show
+            torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        if self.on:
+            torch.cuda.set_sync_debug_mode(0)
+            self._cm.__exit__(*exc)
+
+
+def _rmp_state_diff(mp, ref) -> tuple:
+    """This rank's row-block state against a one-process engine's state
+    on all the blocks → (differing leaves, digest of the replicated
+    leaves): block ``i`` against the reference's block ``first + i``,
+    each replicated leaf whole (``torch.equal`` on the card)."""
+    import hashlib
+    from sentinel_tpu_torch.parallel.row_blocks import RowBlocks
+    bad = []
+    h = hashlib.sha256()
+
+    def walk(a, b, path):
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                bad.append(path)
+            return
+        if isinstance(a, RowBlocks):
+            for i, blk in enumerate(a.blocks):
+                part = b.blocks[a.first + i]
+                if (blk.shape != part.shape or blk.dtype != part.dtype
+                        or not torch.equal(blk, part.to(blk.device))):
+                    bad.append(f"{path}[block {a.first + i}]")
+            return
+        if isinstance(a, torch.Tensor):
+            if (a.shape != b.shape or a.dtype != b.dtype
+                    or not torch.equal(a, b.to(a.device))):
+                bad.append(path)
+            h.update(path.encode())
+            h.update(np.ascontiguousarray(a.detach().cpu().numpy())
+                     .tobytes())
+            return
+        names = getattr(a, "_fields", None) or range(len(a))
+        for name, x, y in zip(names, a, b):
+            walk(x, y, f"{path}{name}.")
+
+    walk(mp, ref, "")
+    return bad, h.hexdigest()[:16]
+
+
+def _rmp_route(stt, sa, mesh, engines: dict, spec: dict,
+               route: str) -> dict:
+    """One route of (a) on this rank: phase 18's runtime on the spanning
+    mesh (``engines["mp"]``) and — with ``engines["ref"]`` — on one
+    process's 8 blocks, the same stream in turns; verdict digests equal
+    every step, this rank's blocks equal the reference's same rows after
+    the route; per step the host ms, the collectives (calls, bytes, ms),
+    the launches and the waits on the device; then the profiled steps,
+    and the kernel against its plain version at this rank's block
+    shapes."""
+    B, steps = spec["B"], spec["steps"]
+    prof = spec["profile_steps"]
+    dev = str(mesh.local_device)
+    on_card = dev.startswith("cuda")
+    meshed0 = engines["mp"].obs.counters.get("split_route.meshed") or 0
+    streams = {n: _mesh_stream(sph, B, steps + prof, route)
+               for n, sph in engines.items()}
+    stream, failing = streams["mp"]
+    if "ref" in streams and not all(
+            np.array_equal(a[0], b[0]) and np.array_equal(a[2], b[2])
+            for a, b in zip(stream, streams["ref"][0])):
+        fail(f"phase 19 {route}: the runtimes interned apart")
+    names = list(engines)
+    host_ms = {n: [] for n in names}
+    launches = {n: [] for n in names}
+    digests = {n: [] for n in names}
+    coll = []
+    waits = []
+    prev = {n: (np.empty(0, np.int32), np.empty(0, np.int32))
+            for n in names}
+    seen: dict = {}
+    for i in range(steps):
+        got = {}
+        for name in (names if i % 2 == 0 else names[::-1]):
+            sph = engines[name]
+            sph.clock.advance_ms(2)
+            if on_card:
+                sync()
+            sa.LAUNCHES.clear()
+            c0 = mesh.stats.snapshot()
+
+            def run(sph=sph, name=name):
+                got[name] = _mesh_step(sph, stream[i], prev[name],
+                                       failing).result()
+            t = time.perf_counter()
+            with _sync_census(on_card and name == "mp") as census:
+                if i == 1 and name == "mp" and spec["capture"]:
+                    _capture_blocks(sa, run, seen, sph._state)
+                else:
+                    run()
+            if on_card:
+                sync()
+            host_ms[name].append((time.perf_counter() - t) * 1e3)
+            launches[name].append(sa.LAUNCHES["scatter_add"])
+            if name == "mp":
+                c1 = mesh.stats.snapshot()
+                coll.append({k: c1[k] - c0[k] for k in c1})
+                waits.append(census.collective)
+                if census.other:
+                    fail(f"phase 19 {route}: a multi-process step waited "
+                         f"on the device outside its collectives: "
+                         f"{census.other[:4]}")
+                if on_card and launches[name][-1] == 0:
+                    fail(f"phase 19 {route}: a step launched no kernel")
+            keep = got[name].allow
+            prev[name] = (stream[i][0][keep], stream[i][2][keep])
+            digests[name].append(_verdict_digest(got[name]))
+        if "ref" in digests and digests["mp"][-1] != digests["ref"][-1]:
+            fail(f"phase 19 {route}: rank {mesh.process_index}'s verdicts "
+                 f"differ from the one-process engine's at step {i}")
+    res = {"route": route, "steps": steps, "B": B, "R": spec["R"],
+           "digests": digests["mp"],
+           "host_ms": summary(host_ms["mp"]),
+           "p99_ms": float(np.percentile(host_ms["mp"], 99)),
+           "launches_per_step": sorted(set(launches["mp"])),
+           "launches": sum(sum(v) for v in launches.values()),
+           "collectives_per_step": {k: float(np.mean([c[k] for c in coll]))
+                                    for k in coll[0]},
+           "waits_per_step": sorted(set(waits)),
+           "split_route_meshed": (engines["mp"].obs.counters.get(
+               "split_route.meshed") or 0) - meshed0}
+    if "ref" in engines:
+        res["ref_host_ms"] = summary(host_ms["ref"])
+        res["ref_p99_ms"] = float(np.percentile(host_ms["ref"], 99))
+        res["ref_launches_per_step"] = sorted(set(launches["ref"]))
+        bad, res["replicated_digest"] = _rmp_state_diff(
+            engines["mp"]._state, engines["ref"]._state)
+        if bad:
+            fail(f"phase 19 {route}: rank {mesh.process_index}'s state "
+                 f"differs from the one-process engine's: {bad[:6]}")
+    else:
+        _bad, res["replicated_digest"] = _rmp_state_diff(
+            engines["mp"]._state, engines["mp"]._state)
+    first = engines["mp"]
+    res["route_taken"] = ("scalar" if route == "scalar" else
+                          "fast" if first._key_fits() else "general")
+    if on_card and res["route_taken"] != route:
+        fail(f"phase 19 {route}: the runtime took the "
+             f"{res['route_taken']} route")
+    if prof:
+        def run_steps(name):
+            sph, last = engines[name], prev[name]
+            for j in range(steps, steps + prof):
+                sph.clock.advance_ms(2)
+                v = _mesh_step(sph, stream[j], last, failing).result()
+                last = (stream[j][0][v.allow], stream[j][2][v.allow])
+        res["device_ms_per_step"] = _profile_steps(
+            lambda: run_steps("mp"), prof,
+            f"rows_mp_{route}_{mesh.process_index}.json",
+            keep_trace=False)["device_ms_per_step"]
+        if "ref" in engines:
+            # the same steps unprofiled: the next route starts both
+            # runtimes from equal states
+            run_steps("ref")
+    if seen:
+        res["block_cases"] = _mesh_block_cases(sa, None, list(seen.values()))
+    return res
+
+
+def _rmp_rank_main(spec_path: str) -> int:
+    """``--rows-mp SPEC``: one rank of phase 19 (a) or (d) — the JSON at
+    ``SPEC`` names the geometry, the routes, whether to run the
+    one-process reference and the output path; the rank writes its
+    results to ``<out>.<rank>.json``."""
+    from sentinel_tpu_torch import multihost
+    from sentinel_tpu_torch.multihost import mesh as mh_mesh
+    from sentinel_tpu_torch.ops import scatter_add as sa
+    from sentinel_tpu_torch.parallel import local_shard as ls
+    import sentinel_tpu_torch as stt
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    with multihost.initialize() as rt:
+        mesh = mh_mesh.global_mesh(axis="rows")
+        dev = str(mesh.local_device)
+        meshes = {"mp": mesh}
+        if spec["reference"]:
+            meshes["ref"] = ls.local_mesh(devices=[dev] * mesh.size)
+        # one pair of runtimes for both routes (the general route runs on
+        # the state the scalar route left)
+        engines = {n: _mesh_runtime(stt, spec["R"], stt.ManualClock(
+            start_ms=1_800_000_000_000), None, m) for n, m in meshes.items()}
+        out = {"rank": rt.process_index, "backend": rt.backend,
+               "device": dev, "blocks": mh_mesh.local_shard_indices(mesh),
+               "routes": {}}
+        for route in spec["routes"]:
+            out["routes"][route] = _rmp_route(stt, sa, mesh, engines, spec,
+                                              route)
+        for sph in engines.values():
+            sph.close()
+        with open(f"{spec['out']}.{rt.process_index}.json", "w") as fh:
+            json.dump(out, fh)
+        rt.barrier("rows-mp-done")
+    return 0
+
+
+def _rmp_launch(tmp: str, tag: str, spec: dict, dev: str, env: dict,
+                timeout_s: float = 600.0) -> list:
+    """(a)/(d): two ``--rows-mp`` ranks → their results in rank order."""
+    spec = dict(spec, out=os.path.join(tmp, tag))
+    path = os.path.join(tmp, f"{tag}.spec.json")
+    with open(path, "w") as fh:
+        json.dump(spec, fh)
+    _res, wall = _mh_launch(RMP_ARGV + [path], 2, RMP_BLOCKS, dev, env,
+                            timeout_s=timeout_s, phase=f"phase 19 {tag}")
+    ranks = []
+    for r in range(2):
+        with open(f"{spec['out']}.{r}.json") as fh:
+            ranks.append(json.load(fh))
+    ranks[0]["wall_s"] = wall
+    return ranks
+
+
+def _rmp_check(tag: str, ranks: list, backend: str, devices: list,
+               steps: int) -> None:
+    got = [(r["backend"], r["device"]) for r in ranks]
+    if got != [(backend, d) for d in devices]:
+        fail(f"phase 19 {tag}: ranks ran on {got}, want {backend} on "
+             f"{devices}")
+    if [r["blocks"] for r in ranks] != [[0, 1, 2, 3], [4, 5, 6, 7]]:
+        fail(f"phase 19 {tag}: blocks {[r['blocks'] for r in ranks]}")
+    for route in ranks[0]["routes"]:
+        a, b = (r["routes"][route] for r in ranks)
+        if a["digests"] != b["digests"]:
+            fail(f"phase 19 {tag} {route}: the ranks' verdicts differ")
+        if a["replicated_digest"] != b["replicated_digest"]:
+            fail(f"phase 19 {tag} {route}: the replicated leaves differ "
+                 f"between the ranks")
+        for r in (a, b):
+            if r["split_route_meshed"] != steps:
+                fail(f"phase 19 {tag} {route}: split_route.meshed "
+                     f"{r['split_route_meshed']}, want {steps}")
+            if r["collectives_per_step"]["calls"] <= 0:
+                fail(f"phase 19 {tag} {route}: no collective a step")
+
+
+def _rmp_twin(tmp: str, dev: str, env: dict, rows: int) -> dict:
+    """(c): ``_rows_worker``'s stream at ``rows`` rows, 2 x 4 on the card
+    and 2 x 4 on the CPU (both gloo), obs on, then the refused readers;
+    against the same stream on one process's 8 blocks on the card:
+    observations (the telemetry top-K among them) and the ranks' joined
+    state equal, every refused reader raising the named error on every
+    rank, in time, with no collective."""
+    import importlib
+
+    import sentinel_tpu_torch as stt
+    from sentinel_tpu_torch import convert
+    from sentinel_tpu_torch.parallel import local_shard as ls
+    from sentinel_tpu_torch.parallel.row_blocks import RemoteRowsError
+    rw = importlib.import_module("sentinel_tpu_torch.multihost._rows_worker")
+    jobs = {"card": dev, "cpu": "cpu"}
+    dirs = {k: os.path.join(tmp, f"twin_{k}") for k in jobs}
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        futs = {k: pool.submit(
+            _mh_launch, RMP_WORKER + ["--out", dirs[k], "--refusals",
+                                      "--rows", str(rows)],
+            2, RMP_BLOCKS, p, env, 600.0, "phase 19 (c)")
+            for k, p in jobs.items()}
+        # the one-process reference on the card meanwhile
+        card = "cpu" if dev == "cpu" else "cuda:0"
+        ref = rw.make_sentinel(stt, mesh=ls.local_mesh(devices=[card] * 8),
+                               rows=rows)
+        ref_states = {}
+        sa_mod = importlib.import_module("sentinel_tpu_torch.ops.scatter_add")
+        sa_mod.LAUNCHES.clear()
+        ref_obs = rw.stream(stt, ref, lambda tag: ref_states.__setitem__(
+            tag, convert.engine_to_numpy(ref)))
+        ref_launches = sa_mod.LAUNCHES["scatter_add"]
+        ref.close()
+        done = {k: f.result() for k, f in futs.items()}
+    out = {"rows": rows, "wall_s": {k: v[1] for k, v in done.items()}}
+    lines = {}
+    for k, (res, _wall) in done.items():
+        got = sorted(_mh_lines(res, "ROWS_JSON:"), key=lambda d: d["rank"])
+        if [d["rank"] for d in got] != [0, 1]:
+            fail(f"phase 19 (c) {k}: {len(got)} rank line(s)")
+        lines[k] = got
+        for d in got:
+            if d["observations"] != ref_obs:
+                bad = [s for s in ref_obs
+                       if d["observations"].get(s) != ref_obs[s]]
+                fail(f"phase 19 (c) {k} rank {d['rank']}: stages {bad} "
+                     f"differ from one process's 8 blocks")
+            for name, (kind, msg) in ((n, d["refusals"][n])
+                                      for n, _c in rw.REFUSED):
+                if kind != RemoteRowsError.__name__ or "C19" not in msg:
+                    fail(f"phase 19 (c) {k}: {name} gave {kind}: {msg}")
+            if d["collectives_after_refusals"] != d["collectives"] or \
+                    d["refusal_s"] > 5.0:
+                fail(f"phase 19 (c) {k}: the refusals took "
+                     f"{d['refusal_s']:.2f} s or ran a collective")
+        for tag in rw.CHECKPOINTS:
+            dumps = [(dict(np.load(os.path.join(dirs[k],
+                                                f"{tag}.{r}.npz"))),
+                      got[r]["offsets"]) for r in range(2)]
+            merged, unequal = convert.merge_rank_states(dumps)
+            bad = convert.leaf_diff(ref_states[tag], merged)
+            if bad or unequal:
+                fail(f"phase 19 (c) {k} at {tag}: leaves {bad[:6]} "
+                     f"differ, replicated leaves {unequal[:6]} unequal")
+    card_lines = lines["card"]
+    out["launches"] = sum(d["launches"] for d in card_lines)
+    if dev == "cuda" and not out["launches"]:
+        fail("phase 19 (c): the card ranks launched no kernel")
+    if any(d["launches"] for d in lines["cpu"]):
+        fail("phase 19 (c): the CPU ranks launched the kernel")
+    out["ref_launches"] = ref_launches
+    out["topk"] = ref_obs["topk"][1][:8]
+    out["collectives"] = [d["collectives"] for d in card_lines]
+    out["refusal_s"] = max(d["refusal_s"] for d in card_lines)
+    log(f"[meshed_mp] (c) {rows} rows, 2 x 4 on the card == 2 x 4 on the "
+        f"CPU == 1 x 8 on the card: every stage's observations (top-K "
+        f"rows {out['topk']}...) and state; the collectives "
+        + ", ".join(f"rank {d['rank']} {d['collectives']['calls']} calls "
+                    f"{d['collectives']['ms']:.0f} ms"
+                    for d in card_lines)
+        + f"; {len(rw.REFUSED)} readers refused on every rank with "
+        f"RemoteRowsError in <= {out['refusal_s'] * 1e3:.2f} ms")
+    return out
+
+
+def phase_meshed_mp(stt, sa, dev="cuda", R=1 << 20, B=1 << 19,
+                    steps: int = 8, profile_steps: int = 3,
+                    twin_rows: int = 1 << 14) -> dict:
+    """Phase 19 (``meshed_mp``): ``Sentinel(mesh=global_mesh(axis="rows"))``
+    over two processes of 4 row blocks each, both on ``cuda:0`` (gloo),
+    through the port's own launcher. (a) phase 18's runtime at full width
+    (``R`` rows, 2^21 alt rows, fused steps of ``B``), ``steps`` steps on
+    the scalar route and on the general route, against the one-process
+    engine on 8 blocks in each rank, in turns: verdict digests equal
+    every step, each rank's blocks equal the reference's same rows, the
+    replicated leaves equal on both ranks; per rank the step p50/p99,
+    collectives, bytes and ms a step, launches a step, waits on the
+    device (inside collectives only), device ms a step (``torch.profiler``,
+    ``profile_steps`` steps); (b) the kernel against its plain version at
+    every launch shape of each rank's second block (the shapes of phase
+    18's table, timed there, so not timed again); (c) ``_rows_worker``'s stream at ``twin_rows`` rows
+    against a CPU twin and one process's 8 blocks, then the refused
+    readers; (d) with two cards or more, (a)'s scalar stream with a card
+    a rank on NCCL (on one card it prints why not)."""
+    import tempfile
+    from sentinel_tpu_torch.core.compile_cache import cache_dir
+    t_phase = time.perf_counter()
+    built = sorted(os.listdir(cache_dir()))
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    env = {"SENTINEL_COMPILE_CACHE": cache_dir()}
+    one_card = dict(env, CUDA_VISIBLE_DEVICES=first)
+    card = "cpu" if dev == "cpu" else "cuda:0"
+    spec = {"R": R, "B": B, "steps": steps, "profile_steps": profile_steps,
+            "routes": ["scalar", "general"], "reference": True,
+            "capture": True}
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rmp_") as tmp:
+        ranks = _rmp_launch(tmp, "a", spec, dev, one_card)
+        _rmp_check("(a)", ranks, "gloo", [card, card], steps)
+        res["wall_s"] = {"a": ranks[0].pop("wall_s")}
+        res["a"] = {route: [r["routes"][route] for r in ranks]
+                    for route in spec["routes"]}
+        for route, per in res["a"].items():
+            log(f"[meshed_mp] (a) {route}: {steps} fused steps of {B} at "
+                f"{R} rows, 2 x 4 (gloo, one card) == 1 x 8 in each rank: "
+                f"verdicts every step, each rank's blocks and the "
+                f"replicated leaves after the route; " + "; ".join(
+                    f"rank {k}: host ms p50/p99 "
+                    f"{p['host_ms']['median']:.2f}/{p['p99_ms']:.2f} "
+                    f"(1 x 8 {p['ref_host_ms']['median']:.2f}/"
+                    f"{p['ref_p99_ms']:.2f}), collectives a step "
+                    f"{p['collectives_per_step']['calls']:.0f} calls "
+                    f"{p['collectives_per_step']['bytes'] / 2**20:.1f} MiB "
+                    f"{p['collectives_per_step']['ms']:.2f} ms, waits "
+                    f"{p['waits_per_step']}, launches a step "
+                    f"{p['launches_per_step']} (1 x 8 "
+                    f"{p['ref_launches_per_step']}), device ms a step "
+                    f"{p.get('device_ms_per_step', float('nan')):.3f}"
+                    for k, p in enumerate(per)))
+        res["block_cases"] = [dict(c, rank=k) for route in spec["routes"]
+                              for k, p in enumerate(res["a"][route])
+                              for c in p.get("block_cases", [])]
+        if dev == "cuda" and not res["block_cases"]:
+            fail("phase 19 (b): no block shape captured")
+        log(f"[meshed_mp] (b) {len(res['block_cases'])} launch shapes of "
+            f"the ranks' blocks (each rank's second block, "
+            f"2^{(R // 8).bit_length() - 1} rows: phase 18's block "
+            f"shapes, timed there, so not timed again), kernel == plain")
+        t = time.perf_counter()
+        res["c"] = _rmp_twin(tmp, dev, one_card, twin_rows)
+        res["wall_s"]["c"] = time.perf_counter() - t
+        cards = torch.cuda.device_count() if dev == "cuda" else 0
+        if cards >= 2:
+            nccl = _rmp_launch(tmp, "d", dict(
+                spec, routes=["scalar"], reference=False, capture=False,
+                profile_steps=0), dev, env)
+            _rmp_check("(d)", nccl, "nccl", ["cuda:0", "cuda:1"], steps)
+            if nccl[0]["routes"]["scalar"]["digests"] != \
+                    res["a"]["scalar"][0]["digests"]:
+                fail("phase 19 (d): NCCL's verdicts differ from gloo's")
+            res["nccl"] = {"launches": sum(
+                r["routes"]["scalar"]["launches"] for r in nccl),
+                "per_rank": [r["routes"]["scalar"] for r in nccl]}
+        else:
+            res["nccl"] = {"ran": False, "why": (
+                f"{cards} card: NCCL refuses two ranks on one GPU, so a "
+                f"rank a card needs two cards")}
+            log(f"[meshed_mp] (d) not run: {res['nccl']['why']}")
+    if sorted(os.listdir(cache_dir())) != built:
+        fail("phase 19: a child process compiled: the build directory "
+             "changed")
+    res["launches"] = (sum(p["launches"] for per in res["a"].values()
+                           for p in per)
+                       + res["c"]["launches"] + res["c"]["ref_launches"]
+                       + res["nccl"].get("launches", 0))
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase19] took {res['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in res["wall_s"].items())
+        + f"); kernel launches {res['launches']}")
+    return res
+
+
 def find_syncs(stt, sa) -> int:
     """``--find-syncs``: every place where a kernel-run engine step waits
     on the device, with the port's frames of its stack (the sync debug
@@ -8872,6 +9337,8 @@ def main() -> int:
         return _demo_child_main(sys.argv[2], sys.argv[3], sys.argv[4])
     if sys.argv[1:2] == ["--mh-fleet"]:
         return _mh_fleet_main(sys.argv[2])
+    if sys.argv[1:2] == ["--rows-mp"]:
+        return _rmp_rank_main(sys.argv[2])
     # the runtimes' block logs and record log go to a directory of this
     # run, removed at exit
     import tempfile
@@ -8920,23 +9387,35 @@ def main() -> int:
     with _knobs(SENTINEL_TPU_NATIVE=0):
         report["serving"] = phase_serving(stt, sa, timer=timer,
                                           profile=profile)
+        # (d) cut in depth for phase 19's room: 2 controller turns, off
+        # and on (were 4)
         report["tiering"] = phase_tiering(stt, sa, timer=timer,
-                                          profile=profile)
+                                          profile=profile, ctl_turns=2)
     # phases 11 (a), 13, 14, 15 (d) and 17 (b) cut in depth to leave the
     # script's time limit room for phase 18: 16 steps (were 40), 2 timing
     # turns (were 4), 2 turns of 10 s at the dashboard's cadence (were 4),
-    # 5 s of 8 gRPC clients (were 10), 20 steps (were 40)
-    report["cluster"] = phase_cluster(stt, sa, steps=16, profile=profile)
-    report["command_plane"] = phase_command_plane(stt, sa)
-    # phase 13 cut in depth to leave the script's time limit room for
-    # phase 16: 2048 gateway requests (were 4096)
-    report["gateway"] = phase_gateway(stt, sa, requests=2048, turns=2)
+    # 5 s of 8 gRPC clients (were 10), 20 steps (were 40); then for phase
+    # 19's room: 11 (a) 10 steps and 4 at 2^18 (were 16 and 8), 12's
+    # 2048 api calls, 1024 WSGI requests, 512 cluster calls, 8 fused steps
+    # and 2 timing turns (were 4096, 2048, 1024, 16 and 4; every outcome
+    # it requires still occurs), 13's 1024 requests and 256 timed ones
+    # (were 2048 — 4096 before phase 16 — and 512; its requests still
+    # pass, block and wait), 15 (d) 3 s (were 5) and (e) 1024 RLS requests
+    # (were 4096)
+    report["cluster"] = phase_cluster(stt, sa, steps=10, big_steps=4,
+                                      profile=profile)
+    report["command_plane"] = phase_command_plane(
+        stt, sa, calls=2048, wsgi_calls=1024, cluster_calls=512, steps=8,
+        turns=2)
+    report["gateway"] = phase_gateway(stt, sa, requests=1024, turns=2,
+                                      timing_requests=256)
     report["dashboard"] = phase_dashboard(stt, sa, turns=2)
-    report["tune_snapshot_grpc"] = phase_tune_snapshot_grpc(stt, sa,
-                                                            grpc_s=5.0)
+    report["tune_snapshot_grpc"] = phase_tune_snapshot_grpc(
+        stt, sa, grpc_s=3.0, rls_requests=1024)
     report["analysis_demos"] = phase_analysis_demos(stt, sa)
     report["multihost"] = phase_multihost(stt, sa, timer=timer, steps=20)
     report["meshed"] = phase_meshed(stt, sa, timer=timer, profile_steps=3)
+    report["meshed_mp"] = phase_meshed_mp(stt, sa)
     report["seconds"] = time.perf_counter() - t_all
 
     decide = report["kernel_cases"][0]
@@ -8946,7 +9425,7 @@ def main() -> int:
         "scalar_param", "general_param", "runtime", "fast_path",
         "param_runtime", "obs_runtime", "serving", "tiering", "cluster",
         "command_plane", "gateway", "dashboard", "tune_snapshot_grpc",
-        "analysis_demos", "multihost", "meshed"))
+        "analysis_demos", "multihost", "meshed", "meshed_mp"))
     kernels = [{
         "name": "scatter_add", "route": "cuda",
         "source": "sentinel_tpu_torch/csrc/scatter_add.cu",
@@ -8955,7 +9434,8 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in
                            report["kernel_cases"]
                            + report["multihost"]["block_cases"]
-                           + report["meshed"]["block_cases"]),
+                           + report["meshed"]["block_cases"]
+                           + report["meshed_mp"]["block_cases"]),
         "ms": decide["cold"]["kernel"]["median"],
         "plain_ms": decide["plain_ms"],
         "bound_ms": decide["bound_ms"], "bound_by": "bytes",

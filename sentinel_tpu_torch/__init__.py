@@ -46,6 +46,13 @@ from sentinel_tpu_torch.core.clock import (
     Clock, ManualClock, SystemClock, set_global_clock,
 )
 from sentinel_tpu_torch.core.config import SentinelConfig, load_config
+from sentinel_tpu_torch.core.context import (
+    ContextScope,
+    enter_context,
+    exit_context,
+    restore_context,
+    snapshot_context,
+)
 from sentinel_tpu_torch.core.errors import (
     AuthorityException,
     BlockException,
@@ -115,6 +122,8 @@ __all__ = [
     "STRATEGY_DIRECT", "STRATEGY_RELATE", "STRATEGY_CHAIN",
     "STRATEGY_WHITE", "STRATEGY_BLACK",
     "Clock", "ManualClock", "SystemClock", "set_global_clock",
+    "ContextScope", "enter_context", "exit_context",
+    "snapshot_context", "restore_context",
     "SentinelConfig", "load_config",
     "CadenceScheduler", "DispatchPipeline", "PipelinedVerdicts",
     "pipeline_depth",

@@ -163,6 +163,62 @@ def engine_to_numpy(sentinel) -> Dict[str, np.ndarray]:
     return {k: np.array(v, copy=True) for k, v in out.items()}
 
 
+def rank_state_to_numpy(sentinel):
+    """A runtime's state as this process holds it → ``(leaves,
+    offsets)``: :func:`engine_to_numpy`'s leaves, but a row-split leaf of
+    a mesh over processes holds only this rank's blocks (joined), and
+    ``offsets[path]`` is the global row of its first row (replicated
+    leaves have no entry). :func:`merge_rank_states` joins the ranks'."""
+    offsets: Dict[str, int] = {}
+
+    def local(tree, prefix=""):
+        out: Dict[str, np.ndarray] = {}
+        if tree is None:
+            return out
+        if isinstance(tree, tuple):
+            names = (tree._fields if hasattr(tree, "_fields")
+                     else [str(i) for i in range(len(tree))])
+            for name, item in zip(names, tree):
+                out.update(local(item, prefix + name + "."))
+        elif isinstance(tree, RowBlocks) and tree.rank_local:
+            out[prefix[:-1]] = np.concatenate(
+                [b.detach().cpu().numpy() for b in tree.blocks])
+            offsets[prefix[:-1]] = tree.first * tree.per
+        else:
+            out.update(to_numpy(tree, prefix))
+        return out
+
+    out = local(sentinel._state)
+    tiering = getattr(sentinel, "tiering", None)
+    sketch = getattr(tiering, "_sketch", None)
+    if sketch is not None:
+        out[SKETCH_LEAF] = to_numpy((sketch,))["0"]
+    return {k: np.array(v, copy=True) for k, v in out.items()}, offsets
+
+
+def merge_rank_states(dumps, offsets: Dict[str, int] = None):
+    """Join per-rank :func:`rank_state_to_numpy` leaves (in rank order)
+    → ``(leaves, unequal)``: each row-split leaf (a key of ``offsets``,
+    any rank's) from the ranks' rows in row order, each other leaf
+    rank 0's, and ``unequal`` the replicated paths on which some rank
+    differs from rank 0. ``dumps`` is a list of ``(leaves, offsets)``."""
+    split = {}
+    for _leaves, offs in dumps:
+        split.update(offs)
+    merged, unequal = {}, []
+    for key in dumps[0][0]:
+        if key in split:
+            parts = sorted(((offs[key], leaves[key])
+                            for leaves, offs in dumps), key=lambda p: p[0])
+            merged[key] = np.concatenate([p[1] for p in parts])
+        else:
+            merged[key] = dumps[0][0][key]
+            if any(leaf_diff({key: merged[key]}, {key: leaves[key]})
+                   for leaves, _o in dumps[1:]):
+                unequal.append(key)
+    return merged, unequal
+
+
 def sketch_from_numpy(d: Dict[str, np.ndarray], device="cpu") -> torch.Tensor:
     """The port's sketch table from an :func:`engine_to_numpy` dict."""
     return _tensor(d[SKETCH_LEAF], device)

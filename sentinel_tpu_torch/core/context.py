@@ -35,6 +35,20 @@ def current_context() -> Context:
     return ctx if ctx is not None else _DEFAULT
 
 
+def enter_context(name: str, origin: str = "") -> Context:
+    """Reference ``ContextUtil.enter``: set this task's context (an empty
+    name is the default context; names beyond the registry's capacity
+    degrade to the shared default context at lookup time, not here)."""
+    ctx = Context(name=name or DEFAULT_CONTEXT_NAME, origin=origin or "")
+    _ctx_var.set(ctx)
+    return ctx
+
+
+def exit_context() -> None:
+    """Reference ``ContextUtil.exit``: back to the default context."""
+    _ctx_var.set(None)
+
+
 def snapshot_context() -> Context:
     """Copy of the current context for asynchronous continuation — the
     ``AsyncEntry.java`` context snapshot. Restore with

@@ -91,7 +91,11 @@ def _geometry(sentinel) -> dict:
 
 
 def save_state(sentinel, path: str) -> None:
-    """Snapshot the device state + registries of a Sentinel instance."""
+    """Snapshot the device state + registries of a Sentinel instance.
+    On a ``"rows"`` mesh that spans processes it raises
+    :class:`~sentinel_tpu_torch.parallel.row_blocks.RemoteRowsError`
+    before it flushes anything, as the JAX package's raises."""
+    sentinel._refuse_remote_rows("save_state")
     # land buffered fast-path stats and reconcile live lease remainders
     # first: the restored process knows nothing about host-held tokens, so
     # leaving them reserved would snapshot phantom passes

@@ -236,6 +236,15 @@ def _add_threads(threads, rows: torch.Tensor,
     _scatter_rows(col, rows, None, amounts[:, None])
 
 
+def _add_row(table, row: int, value: torch.Tensor) -> None:
+    """``table[row] += value`` in place, on a tensor or in the owner's
+    block of row blocks (:meth:`RowBlocks.add_row_`)."""
+    if isinstance(table, RowBlocks):
+        table.add_row_(row, value)
+    else:
+        table[row].add_(value)
+
+
 def _refresh_second(spec: EngineSpec, second: WindowState,
                     rows: torch.Tensor, entry_vec_or_mask: torch.Tensor,
                     now_idx: int) -> WindowState:
@@ -514,8 +523,8 @@ def decide_entries(
                 else passed & batch.count_thread)
         _add_threads(state.threads, torch.where(passed, batch.rows, R),
                      thr1.to(torch.int32))
-        state.threads[ENTRY_NODE_ROW].add_(
-            _isum((thr1 & ein).to(torch.int32)))
+        _add_row(state.threads, ENTRY_NODE_ROW,
+                 _isum((thr1 & ein).to(torch.int32)))
         if record_alt:
             pass2 = torch.cat([passed, passed])
             _add_threads(state.alt_threads,
@@ -599,8 +608,8 @@ def record_exits(
                else batch.valid & batch.count_thread)
         dec1 = ct1.to(torch.int32)
         _add_threads(state.threads, main_rows, -dec1)
-        state.threads[ENTRY_NODE_ROW].sub_(
-            _isum((ein & ct1).to(torch.int32)))
+        _add_row(state.threads, ENTRY_NODE_ROW,
+                 -_isum((ein & ct1).to(torch.int32)))
         state.threads.clamp_(min=0)
         if record_alt:
             _add_threads(state.alt_threads, alt_targets,

@@ -5,9 +5,10 @@ Port of ``sentinel_tpu/multihost``. Takes the cluster token engine
 (:mod:`sentinel_tpu_torch.parallel.cluster`) from one process to N
 coordinated processes, each holding a contiguous block of its shards —
 the reference system's own deployment shape (N processes speaking to
-shared state). The row-sharded product engine runs in one process
-(:mod:`sentinel_tpu_torch.parallel.local_shard`, N row blocks); a
-``"rows"`` mesh over several processes is ROADMAP A11's remaining item.
+shared state) — and the row-sharded product engine
+(:mod:`sentinel_tpu_torch.parallel.local_shard`) from N row blocks in
+one process to a ``"rows"`` mesh over N processes, each holding its own
+blocks (``Sentinel(mesh=mesh.global_mesh(axis="rows"))``, SPMD).
 
 Pieces:
 
@@ -15,7 +16,8 @@ Pieces:
   bring-up/teardown from env vars or programmatic config, the backend
   and device rule, and the collectives on the chosen backend;
 * :mod:`~sentinel_tpu_torch.multihost.mesh` — the global mesh over every
-  process's logical shards, plus row-layout re-pinning helpers;
+  process's logical shards and its collectives (counted in
+  ``GlobalMesh.stats``), plus row-layout re-pinning helpers;
 * :mod:`~sentinel_tpu_torch.multihost.ingest` — host-local batch
   ingestion driving :meth:`ClusterEngine.step_routed` collectively;
 * :mod:`~sentinel_tpu_torch.multihost.launch` — N-process spawner on one

@@ -242,6 +242,29 @@ def all_reduce_sum(t: torch.Tensor, backend: str, device: torch.device,
     return w.to(t.device)
 
 
+#: the integer view each dtype is summed through by :func:`all_reduce_bits`
+_BIT_VIEWS = {torch.float32: torch.int32, torch.float64: torch.int64,
+              torch.int32: torch.int32, torch.int64: torch.int64}
+
+
+def all_reduce_bits(t: torch.Tensor, backend: str, device: torch.device,
+                    world: int) -> torch.Tensor:
+    """Elementwise sum of every process's ``t`` taken over its integer
+    bit view, on ``t``'s device: exact where at most one process holds a
+    non-zero element at each position (the others all zero bits). A
+    float sum would turn the one holder's ``-0.0`` into ``+0.0`` and
+    need not keep a NaN's payload; the bit sum returns the holder's
+    bits. A bool travels as int32."""
+    if t.dtype == torch.bool:
+        return all_reduce_sum(t.to(torch.int32), backend, device,
+                              world) != 0
+    view = _BIT_VIEWS.get(t.dtype)
+    if view is None:
+        raise TypeError(f"no integer bit view for {t.dtype}")
+    bits = t.contiguous().view(view)
+    return all_reduce_sum(bits, backend, device, world).view(t.dtype)
+
+
 def broadcast(t: torch.Tensor, src: int, backend: str,
               device: torch.device, world: int) -> torch.Tensor:
     """Process ``src``'s ``t`` on every process, on ``t``'s device."""

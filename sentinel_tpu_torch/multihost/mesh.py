@@ -13,21 +13,23 @@ ownership math in ``shard_math``. It pins the conventions in one place:
 * the product engine's axis is ``"rows"``
   (``parallel/local_shard.py``'s ``MESH_AXIS`` in the JAX package).
 
-The mesh also carries the collectives the engine runs across it (the
-namespace sum, the verdict gather, a row's broadcast), on the backend
-the runtime chose. Geometry checks route through
-:mod:`sentinel_tpu_torch.parallel.shard_math`.
+The mesh also carries the collectives the engines run across it (the
+namespace sum, the verdict gather, a row's broadcast, the row-sharded
+engine's bit-view reads), on the backend the runtime chose, and counts
+what they cost this process (:class:`CollectiveStats`). Geometry checks
+route through :mod:`sentinel_tpu_torch.parallel.shard_math`.
 
 :func:`row_sharding`, :func:`replicated` and :func:`repin_rows` place a
 row-leading tensor tree's local slab on this process's device; as in the
-reference, nothing consumes them yet. The row-sharded product engine
-takes a one-process ``GlobalMesh`` over the ``"rows"`` axis as its row
-blocks (:func:`sentinel_tpu_torch.parallel.local_shard.as_row_mesh`);
-one over several processes is ROADMAP A11's remaining item.
+reference, nothing consumes them. The row-sharded product engine takes
+a ``GlobalMesh`` over the ``"rows"`` axis as its row blocks
+(:func:`sentinel_tpu_torch.parallel.local_shard.as_row_mesh`): all of
+them with one process, this process's entries with several.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, NamedTuple, Optional, Sequence
 
 import torch
@@ -63,25 +65,66 @@ class GlobalMesh:
                 f"{sorted(set(local))}: a process holds its shards on one")
         self.local_device = torch.device(local[0]) if local else None
 
+        self.stats = CollectiveStats()
+
     @property
     def size(self) -> int:
         return len(self.devices)
 
     # -- collectives (every process calls each, in the same order) --------
+    def _timed(self, fn, t: torch.Tensor, *args) -> torch.Tensor:
+        if self.process_count == 1:
+            return fn(t, *args, self.backend, self.local_device, 1)
+        t0 = time.perf_counter()
+        out = fn(t, *args, self.backend, self.local_device,
+                 self.process_count)
+        self.stats.add(t.numel() * t.element_size(),
+                       time.perf_counter() - t0)
+        return out
+
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """Elementwise sum over the processes, on ``t``'s device."""
-        return bootstrap.all_reduce_sum(t, self.backend, self.local_device,
-                                        self.process_count)
+        return self._timed(bootstrap.all_reduce_sum, t)
+
+    def all_reduce_bits(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise sum over the processes of ``t``'s integer bit view
+        (:func:`~.bootstrap.all_reduce_bits`: exact where one process
+        holds each element and the rest hold zero bits)."""
+        return self._timed(bootstrap.all_reduce_bits, t)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """``[P, *t.shape]`` in process order (the host under gloo)."""
-        return bootstrap.all_gather(t, self.backend, self.local_device,
-                                    self.process_count)
+        return self._timed(bootstrap.all_gather, t)
 
     def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         """Process ``src``'s ``t``, on ``t``'s device."""
-        return bootstrap.broadcast(t, src, self.backend, self.local_device,
-                                   self.process_count)
+        return self._timed(bootstrap.broadcast, t, src)
+
+
+class CollectiveStats:
+    """What a mesh's collectives cost this process: calls, the bytes of
+    its own contribution, and the host seconds inside them (a gloo
+    collective on a card includes the copies to and from the host).
+    One process issues none."""
+
+    __slots__ = ("calls", "bytes", "seconds")
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls = 0
+        self.bytes = 0
+        self.seconds = 0.0
+
+    def add(self, nbytes: int, seconds: float) -> None:
+        self.calls += 1
+        self.bytes += int(nbytes)
+        self.seconds += seconds
+
+    def snapshot(self) -> dict:
+        return {"calls": self.calls, "bytes": self.bytes,
+                "ms": self.seconds * 1e3}
 
 
 def global_mesh(axis: str = CLUSTER_AXIS,

@@ -139,11 +139,16 @@ def sharded_topk_rows(load: RowBlocks, k: int) -> Tuple[torch.Tensor,
     global winners live in one block), the candidates join in block
     order on the home device and one final rank picks ``k``. The keys
     carry the global row, so the result equals the one-block ranking,
-    ties included."""
+    ties included. In the rank-local form each rank's candidates meet in
+    one ``all_gather`` (rank order is block order) before the final
+    rank, the pattern of ``multihost.obs_agg.aggregate_topk``."""
     per = load.per
-    cand = [_top_keys(b, min(k, per), i * per).to(load.home)
-            for i, b in enumerate(load.blocks)]
-    return _split_key(torch.topk(torch.cat(cand), k).values)
+    cand = torch.cat([_top_keys(b, min(k, per),
+                                (load.first + i) * per).to(load.home)
+                      for i, b in enumerate(load.blocks)])
+    if load.rank_local:
+        cand = load.comm.all_gather(cand).reshape(-1).to(load.home)
+    return _split_key(torch.topk(cand, k).values)
 
 
 def telemetry_tick(second_spec: window.WindowSpec,
@@ -163,9 +168,12 @@ def telemetry_tick(second_spec: window.WindowSpec,
     dev = second.stamps.device
     load = window.rolling_load(second_spec, second, now_idx_s)
     # the global ENTRY row receives every inbound event: the timeline's
-    # source, never a "hot resource" (row 0: block 0 of row blocks)
-    first = load.blocks[0] if isinstance(load, RowBlocks) else load
-    first.narrow(0, ENTRY_NODE_ROW, 1).fill_(-1)   # no host→device copy
+    # source, never a "hot resource" (row 0: block 0 of row blocks,
+    # which one rank holds in the rank-local form)
+    if not isinstance(load, RowBlocks):
+        load.narrow(0, ENTRY_NODE_ROW, 1).fill_(-1)  # no host→device copy
+    elif load.first == 0:
+        load.blocks[0].narrow(0, ENTRY_NODE_ROW, 1).fill_(-1)
     vals, rows = (sharded_topk_rows(load, k) if isinstance(load, RowBlocks)
                   else topk_rows(load, k))
     r64 = rows.to(torch.int64)

@@ -24,8 +24,19 @@ The port's mesh is a :class:`RowMesh`: ``axis_names == ("rows",)``,
 ``shape["rows"] == N`` and a tuple of ``torch.device`` s, which may
 repeat — N blocks may share one card (or the CPU). A one-process
 :class:`~sentinel_tpu_torch.multihost.mesh.GlobalMesh` over the
-``"rows"`` axis is accepted as such a mesh; a mesh that spans processes
-is not ported (ROADMAP A11's remaining item).
+``"rows"`` axis is accepted as such a mesh.
+
+A ``GlobalMesh`` over ``"rows"`` that spans processes (``global_mesh(
+axis="rows")`` after ``multihost.initialize()``) gives each process the
+blocks its entries name, all on its own device, in the rank-local form
+of :class:`RowBlocks` (per-lane reads join the ranks with one
+``all_reduce``; writes stay local). That mode is SPMD, as the JAX
+runtime's: every process constructs the engine identically and replays
+the same rule loads and batches at the same times (a ``ManualClock`` or
+an explicit ``at_ms``), because every row read is a collective. Host
+reads of a whole row-split table raise
+:class:`~sentinel_tpu_torch.parallel.row_blocks.RemoteRowsError`, as the
+reference's do.
 
 Field map (state field → placement), the single source of truth:
 
@@ -49,6 +60,7 @@ A disabled minute window is a 1-row stub and stays replicated.
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
@@ -60,10 +72,11 @@ from sentinel_tpu_torch.parallel.row_blocks import RowBlocks
 
 MESH_AXIS = "rows"
 
-#: what a mesh over several processes raises (ROADMAP A11's remaining item)
-MULTIPROCESS_NOT_PORTED = (
-    "a \"rows\" mesh that spans processes (the JAX runtime's multihost "
-    "row-sharded Sentinel) is not ported: ROADMAP A11, remaining item")
+#: what a mesh over several processes raises without a process group
+NO_PROCESS_GROUP = (
+    "a \"rows\" mesh that spans processes needs the process group: call "
+    "sentinel_tpu_torch.multihost.initialize() on every process first "
+    "(and build the mesh with multihost.mesh.global_mesh(axis=\"rows\"))")
 
 
 def as_device(device) -> torch.device:
@@ -75,38 +88,65 @@ def as_device(device) -> torch.device:
 
 
 class RowMesh:
-    """A 1-D mesh of row blocks: block ``i`` lives on ``devices[i]``
-    (devices may repeat); the home device is ``devices[0]``."""
+    """A 1-D mesh of row blocks: block ``first + i`` lives on
+    ``devices[i]`` (devices may repeat); the home device is
+    ``devices[0]``. By default the blocks are all of the mesh's; over
+    processes (``comm``, the spanning ``GlobalMesh``) ``devices`` are
+    this process's blocks, ``first`` the global index of its first and
+    ``total`` the global count."""
 
     axis_names = (MESH_AXIS,)
 
-    def __init__(self, devices: Sequence):
+    def __init__(self, devices: Sequence, *, first: int = 0,
+                 total: Optional[int] = None, comm=None):
         self.devices = tuple(as_device(d) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
+        self.first = int(first)
+        self.total = len(self.devices) if total is None else int(total)
+        self.comm = comm
 
     @property
     def shape(self):
-        return {MESH_AXIS: len(self.devices)}
+        return {MESH_AXIS: self.total}
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        return self.total
 
     @property
     def home(self) -> torch.device:
         return self.devices[0]
 
-    process_count = 1
+    @property
+    def process_count(self) -> int:
+        return 1 if self.comm is None else self.comm.process_count
+
+    @property
+    def process_index(self) -> int:
+        return 0 if self.comm is None else self.comm.process_index
+
+    def blocks_of(self, t: torch.Tensor) -> RowBlocks:
+        """``t``'s row blocks held here (a copy each)."""
+        return RowBlocks.split(t, self.devices, self.home, first=self.first,
+                               total=self.total, comm=self.comm)
+
+    def _key(self):
+        return (self.devices, self.first, self.total, id(self.comm))
 
     def __eq__(self, other) -> bool:
-        return isinstance(other, RowMesh) and other.devices == self.devices
+        return isinstance(other, RowMesh) and other._key() == self._key()
 
     def __hash__(self) -> int:
-        return hash(self.devices)
+        return hash(self._key())
 
     def __repr__(self) -> str:
-        return f"RowMesh({[str(d) for d in self.devices]})"
+        if self.comm is None:
+            return f"RowMesh({[str(d) for d in self.devices]})"
+        return (f"RowMesh(process {self.process_index} of "
+                f"{self.process_count}: blocks {self.first}.."
+                f"{self.first + len(self.devices) - 1} of {self.total} on "
+                f"{self.home})")
 
 
 def visible_devices() -> Tuple[torch.device, ...]:
@@ -139,8 +179,11 @@ def local_mesh(n_devices: Optional[int] = None,
 def as_row_mesh(mesh) -> RowMesh:
     """``mesh`` as a :class:`RowMesh`: a RowMesh as it is; a one-process
     ``multihost.mesh.GlobalMesh`` over the ``"rows"`` axis by its
-    devices; a mesh without that axis raises ValueError, one that spans
-    processes NotImplementedError."""
+    devices; one that spans processes by this process's entries, on its
+    device, with the mesh as the collective (a process without the
+    process group raises RuntimeError, rather than hang or fall back to
+    one process; processes must hold equal block counts). A mesh without
+    the axis raises ValueError."""
     names = tuple(getattr(mesh, "axis_names", ()))
     if MESH_AXIS not in names:
         raise ValueError(
@@ -148,9 +191,21 @@ def as_row_mesh(mesh) -> RowMesh:
             f"build it with local_mesh(...)")
     if isinstance(mesh, RowMesh):
         return mesh
-    if getattr(mesh, "process_count", 1) > 1:
-        raise NotImplementedError(MULTIPROCESS_NOT_PORTED)
-    return RowMesh([getattr(d, "device", d) for d in mesh.devices])
+    if getattr(mesh, "process_count", 1) == 1:
+        return RowMesh([getattr(d, "device", d) for d in mesh.devices])
+    import torch.distributed as dist
+    if mesh.backend is None or not (dist.is_available()
+                                    and dist.is_initialized()):
+        raise RuntimeError(NO_PROCESS_GROUP)
+    counts = collections.Counter(d.process_index for d in mesh.devices)
+    if len(set(counts.values())) > 1:
+        raise ValueError(
+            f"every process must hold the same number of row blocks; got "
+            f"{dict(sorted(counts.items()))}")
+    from sentinel_tpu_torch.multihost.mesh import local_shard_indices
+    mine = local_shard_indices(mesh)
+    return RowMesh([mesh.local_device] * len(mine), first=mine[0],
+                   total=mesh.size, comm=mesh)
 
 
 def validate_mesh(spec, mesh) -> None:
@@ -248,10 +303,11 @@ def _place(x, p: Placement):
     m = p.mesh
     if p.spec == (MESH_AXIS,):
         if isinstance(x, RowBlocks):
-            if x.devices() != m.devices:
-                raise ValueError(f"{x} is not on the mesh's devices")
+            if (x.devices() != m.devices or x.first != m.first
+                    or x.total != m.total):
+                raise ValueError(f"{x} is not on the mesh's blocks")
             return x
-        return RowBlocks.split(torch.as_tensor(x), m.devices, m.home)
+        return m.blocks_of(torch.as_tensor(x))
     if isinstance(x, RowBlocks):
         raise ValueError("a replicated leaf arrived as row blocks")
     return torch.as_tensor(x).to(m.home)
@@ -324,7 +380,10 @@ def mesh_topology(spec, mesh, state_sh=None) -> dict:
     n = m.shape[MESH_AXIS]
     out = {"n_devices": int(n), "axis": MESH_AXIS,
            "rows_per_device": spec.rows // int(n), "sharded": True,
-           "multihost": False}
+           "multihost": m.process_count > 1}
+    if m.process_count > 1:
+        out["process_count"] = m.process_count
+        out["local_blocks"] = len(m.devices)
     if state_sh is not None:
         leaves = _leaves(state_sh)
         n_rows = sum(1 for p in leaves if p.spec == (MESH_AXIS,))

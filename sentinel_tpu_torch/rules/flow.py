@@ -50,7 +50,7 @@ import torch
 from sentinel_tpu_torch.ops import scatter_add as sa
 from sentinel_tpu_torch.ops import segments as seg
 from sentinel_tpu_torch.ops import sortfree as sfo
-from sentinel_tpu_torch.parallel.row_blocks import RowBlocks
+from sentinel_tpu_torch.parallel.row_blocks import RowBlocks, read_rows
 from sentinel_tpu_torch.stats import events as ev
 from sentinel_tpu_torch.stats.window import (
     WindowSpec, WindowState, prev_window_sum_rows, window_sum_all,
@@ -725,8 +725,10 @@ def flow_check_fast(
             alt_thr_dense = torch.cat([alt_threads.to(torch.float32), zero])
             or_thr, cr_thr = alt_thr_dense[orow], alt_thr_dense[crow]
     srow_sel = torch.clamp(table.sync_row, max=R - 1)
-    row_pass = window_sum_rows(spec, main_second, srow_sel, ev.PASS,
-                               now_idx_s).to(torch.float32)
+    row_pass, more = window_sum_rows(
+        spec, main_second, srow_sel, ev.PASS, now_idx_s,
+        also=(main_threads,) if has_thread_rules else ())
+    row_pass = row_pass.to(torch.float32)
     if enable_occupy:
         row_pass = row_pass + _landed_per_rule(dyn, srow_sel, spec,
                                                now_idx_s)
@@ -746,7 +748,7 @@ def flow_check_fast(
         ncol += 4
     if has_thread_rules:
         i_thr, i_grade = ncol, ncol + 1
-        row_thr = main_threads[srow_sel.long()].to(torch.float32)
+        row_thr = more[0].to(torch.float32)
         cols += [row_thr.view(torch.int32), table.grade]
         ncol += 2
     if enable_occupy:
@@ -874,9 +876,12 @@ def _alt_lane_reads(spec: WindowSpec, alt_second: WindowState, alt_threads,
     RA = alt_threads.shape[0]
     has = alt_rows < RA
     r = torch.clamp(alt_rows, max=RA - 1)
-    pas = torch.where(has, window_sum_rows(spec, alt_second, r, ev.PASS,
-                                           now_idx_s).to(torch.float32), 0.0)
-    thr = (torch.where(has, alt_threads[r.long()].to(torch.float32), 0.0)
+    # the window and the gauge at the same lanes: one read (one
+    # collective over processes)
+    pas, more = window_sum_rows(spec, alt_second, r, ev.PASS, now_idx_s,
+                                also=(alt_threads,) if with_threads else ())
+    pas = torch.where(has, pas.to(torch.float32), 0.0)
+    thr = (torch.where(has, more[0].to(torch.float32), 0.0)
            if with_threads else None)
     return pas, thr
 
@@ -974,12 +979,14 @@ def flow_check_scalar(
         table, dyn, spec, main_second, now_idx_s, rel_now_ms,
         minute_spec, main_minute, now_idx_m)
     sel_row = torch.clamp(table.sync_row, max=R - 1)
-    base_pass = window_sum_rows(spec, main_second, sel_row, ev.PASS,
-                                now_idx_s).to(torch.float32)
+    base_pass, (base_thr,) = window_sum_rows(
+        spec, main_second, sel_row, ev.PASS, now_idx_s,
+        also=(main_threads,))
+    base_pass = base_pass.to(torch.float32)
     if occupy_base:
         base_pass = base_pass + _landed_per_rule(dyn, sel_row, spec,
                                                  now_idx_s)
-    base_thr = main_threads[sel_row.long()].to(torch.float32)
+    base_thr = base_thr.to(torch.float32)
     base = torch.where(table.grade == GRADE_QPS, base_pass, base_thr)
 
     # rules that can apply to an origin-less, fallback-free batch
@@ -1055,9 +1062,11 @@ def _landed_per_rule(dyn: FlowDynState, sel_row: torch.Tensor,
     rule's selected main row whose target window has been reached and is
     still inside the rolling interval (age in [0, B))."""
     r = sel_row.long()
-    occ_age = now_idx_s - dyn.occupied_window[r]             # [NF+1, S]
+    win, cnt = read_rows([(dyn.occupied_window, (r,)),
+                          (dyn.occupied_count, (r,))])       # [NF+1, S]
+    occ_age = now_idx_s - win
     return torch.where((occ_age >= 0) & (occ_age < spec.buckets),
-                       dyn.occupied_count[r], 0.0).sum(1)
+                       cnt, 0.0).sum(1)
 
 
 def _rl_closed_form(table: FlowRuleTable, dyn: FlowDynState,

@@ -56,9 +56,19 @@ Cluster-mode flow and param rules ask the token service installed with
 embedded server's engine through ``cluster.coordinator``) before the
 local decide, as the JAX runtime does. ``Sentinel(mesh=...)`` holds the
 row-split state as N row blocks (:mod:`~sentinel_tpu_torch.parallel.
-local_shard`; one block a device, or several on one); a mesh that spans
-processes raises :class:`NotImplementedError` naming the ROADMAP item,
-and never quietly takes another path. A decide step reads nothing back from the
+local_shard`; one block a device, or several on one). A ``"rows"`` mesh
+that spans processes (``multihost.mesh.global_mesh(axis="rows")`` after
+``multihost.initialize()``) runs SPMD, as the JAX runtime's does: each
+process holds its own blocks, every process makes the same calls in the
+same order at the same times, and every per-lane row read is a
+collective. Every host branch of the step path reads replicated values
+only (the verdicts, the claim overflow, the breaker states, the fast
+path's host counts, the tiering sketch), so the processes cannot
+diverge; the host readers of whole row-split tables
+(:meth:`Sentinel.metrics_snapshot`, the node and origin totals,
+:meth:`Sentinel.system_status`, ``core.snapshot.save_state``) raise
+:class:`~sentinel_tpu_torch.parallel.row_blocks.RemoteRowsError` there,
+as the JAX runtime's raise. A decide step reads nothing back from the
 device: the verdicts (and the sort-free steps' claim overflow count) come
 home through :class:`PendingVerdicts` (pinned memory, ``non_blocking``
 copies, one CUDA event). A lease renewal of the host fast path reads its
@@ -139,7 +149,7 @@ from sentinel_tpu_torch.obs.resource_hist import engine_hist_buckets
 from sentinel_tpu_torch.obs.telemetry import HotTelemetry, telemetry_tick
 from sentinel_tpu_torch.parallel import local_shard
 from sentinel_tpu_torch.parallel.row_blocks import (
-    start_host_read, wait_host_read,
+    RemoteRowsError, remote_rows_message, start_host_read, wait_host_read,
 )
 from sentinel_tpu_torch.rules import authority as auth_mod
 from sentinel_tpu_torch.rules import degrade as deg_mod
@@ -438,14 +448,19 @@ class Sentinel:
     def __init__(self, config: Optional[SentinelConfig] = None,
                  clock: Optional[Clock] = None, device=None, mesh=None):
         """``mesh`` (a :func:`~sentinel_tpu_torch.parallel.local_shard.
-        local_mesh`, or a one-process ``multihost.mesh.GlobalMesh`` over
-        the ``"rows"`` axis) splits the windows, the thread gauges, the
+        local_mesh`, or a ``multihost.mesh.GlobalMesh`` over the
+        ``"rows"`` axis) splits the windows, the thread gauges, the
         occupy ring and the RT histogram into N row blocks on the mesh's
         devices; the rest of the engine runs on its home device
         (``devices[0]``, which ``device`` must name when given), where
         the batch columns are built, so they need no placement step.
         Verdicts and state equal the one-block engine's;
-        ``max_resources`` must be a multiple of N."""
+        ``max_resources`` must be a multiple of N. A ``GlobalMesh`` that
+        spans processes gives this process its own blocks on its device
+        (``is_multihost`` True); that mode is SPMD: every process
+        constructs the engine identically and replays the same rule
+        loads and batches in the same order at the same times (a
+        ``ManualClock``, or the same ``at_ms``)."""
         self.cfg = cfg = config or load_config()
         # (state placements, verdict placements) when meshed
         self._mesh_shardings = None
@@ -1279,6 +1294,20 @@ class Sentinel:
         if self.mesh is not None:
             self._state = local_shard.pin_state(self._state,
                                                 self._mesh_shardings[0])
+
+    @property
+    def is_multihost(self) -> bool:
+        """True on a ``"rows"`` mesh that spans processes (the SPMD
+        mode: every process replays the same calls)."""
+        return self.mesh is not None and self.mesh.process_count > 1
+
+    def _refuse_remote_rows(self, what: str) -> None:
+        """Raise :class:`RemoteRowsError` for a host reader of row-split
+        state on a mesh that spans processes — before it flushes or reads
+        anything, so it issues no collective from one rank's thread."""
+        if self.is_multihost:
+            raise RemoteRowsError(remote_rows_message(
+                what, self.mesh.process_count))
 
     def _rel_ms(self, now_ms: int) -> int:
         return int((now_ms - self.epoch_ms + 2 ** 31) % 2 ** 32 - 2 ** 31)
@@ -2930,6 +2959,7 @@ class Sentinel:
         second's bucket ``[R, E]`` and one copy to the host."""
         if self.spec.minute is None:
             return []
+        self._refuse_remote_rows("metrics_snapshot")
         self._flush_fast()      # buffered fast-path stats land first
         idx = self.spec.minute.index_of(time_ms)
         with self._lock:
@@ -2974,6 +3004,7 @@ class Sentinel:
     def _totals_snapshot(self, rows: Optional[List[int]] = None):
         """Rolling-second (counters[n, E], rt[n], threads[n]) of ``rows``
         (all rows when None), one device read."""
+        self._refuse_remote_rows("a node totals read")
         self._flush_fast()      # buffered fast-path stats land first
         idx_s = self.spec.second.index_of(self.clock.now_ms())
         with self._lock:
@@ -3023,6 +3054,7 @@ class Sentinel:
         row = self.resources.lookup(resource)
         if row is None:
             return []
+        self._refuse_remote_rows("origin_totals")
         self._flush_fast()      # buffered fast-path stats land first
         idx_s = self.spec.second.index_of(self.clock.now_ms())
         with self._lock:

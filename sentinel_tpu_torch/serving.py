@@ -19,13 +19,21 @@ Self-telemetry: ``pipeline.enqueue`` / ``pipeline.settle`` spans on
 sampled batches, ``pipeline.depth`` (the in-flight count summed at each
 enqueue), ``pipeline.stall`` (submits that had to settle the oldest batch
 first) and ``pipeline.meshed_dispatch`` (submits over a row-sharded
-runtime; none while meshes are not ported). Knob:
-``SENTINEL_PIPELINE_DEPTH`` (default 2), which also sizes the runtime's
-staging ring.
+runtime). Knob: ``SENTINEL_PIPELINE_DEPTH`` (default 2), which also
+sizes the runtime's staging ring.
+
+Over a ``"rows"`` mesh that spans processes a submit dispatches on the
+caller's thread, in submission order, and a settle reads replicated
+verdicts only: processes that submit the same batches in the same order
+run the same collectives (the SPMD contract).
 
 :class:`CadenceScheduler` is the one daemon that drives the runtime's
 periodic services: the hot-set telemetry, the tiering ticker and, once a
-``control.ControlLoop`` is attached, the overload controller.
+``control.ControlLoop`` is attached, the overload controller. Its ticks
+fall at each process's own wall-clock times, outside the SPMD contract
+of a mesh over processes (in the JAX package too): there, call
+``Sentinel.telemetry.tick()`` and the tiering ticker explicitly, in the
+same order on every process.
 """
 
 from __future__ import annotations

@@ -41,7 +41,7 @@ import torch
 
 from sentinel_tpu_torch.ops import scatter_add as sa
 from sentinel_tpu_torch.ops import segments as seg
-from sentinel_tpu_torch.parallel.row_blocks import RowBlocks
+from sentinel_tpu_torch.parallel.row_blocks import RowBlocks, read_rows
 from sentinel_tpu_torch.stats import events as ev
 
 INT32_MAX = 2 ** 31 - 1
@@ -117,8 +117,7 @@ def _owned(state: WindowState, rows: torch.Tensor):
 
 def _per_block(state: WindowState, fn) -> RowBlocks:
     """``fn(block window)`` on every block → row blocks of the results."""
-    return RowBlocks([fn(b) for b in window_blocks(state)],
-                     state.stamps.home)
+    return state.stamps.like([fn(b) for b in window_blocks(state)])
 
 
 def _to(t: Optional[torch.Tensor], dev) -> Optional[torch.Tensor]:
@@ -163,13 +162,19 @@ def valid_mask(spec: WindowSpec, stamps: torch.Tensor,
 
 
 def window_sum_rows(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
-                    event: int, now_idx: int) -> torch.Tensor:
+                    event: int, now_idx: int, also=None):
     """Sum of ``event`` over live buckets for each row in ``rows`` →
-    int32[N] (int32 sum: wraps like the JAX package's)."""
+    int32[N] (int32 sum: wraps like the JAX package's). With ``also`` (a
+    tuple of more tables read at the same rows) → ``(sum, [their
+    per-lane values])``, so that row blocks over processes read them all
+    in one collective."""
     r = _gather_rows(rows, state.stamps.shape[0])
-    sub = state.counters[r, :, event]                    # [N, B]
-    mask = valid_mask(spec, state.stamps[r], now_idx)
-    return torch.where(mask, sub, 0).sum(1, dtype=torch.int32)
+    sub, stamps, *more = read_rows(
+        [(state.counters, (r, slice(None), event)), (state.stamps, (r,))]
+        + [(t, (r,)) for t in also or ()])                 # [N, B], ...
+    mask = valid_mask(spec, stamps, now_idx)
+    out = torch.where(mask, sub, 0).sum(1, dtype=torch.int32)
+    return out if also is None else (out, more)
 
 
 def window_sum_all(spec: WindowSpec, state: WindowState, event: int,
@@ -191,8 +196,10 @@ def rolling_totals(spec: WindowSpec, state: WindowState, now_idx: int,
     if _blocked(state) and isinstance(rows, slice):
         return _per_block(state, lambda b: rolling_totals(
             spec, b, now_idx, rows))
-    mask = valid_mask(spec, state.stamps[rows], now_idx)  # [N, B]
-    return torch.where(mask[:, :, None], state.counters[rows], 0).sum(
+    stamps, counters = read_rows([(state.stamps, (rows,)),
+                                  (state.counters, (rows,))])
+    mask = valid_mask(spec, stamps, now_idx)              # [N, B]
+    return torch.where(mask[:, :, None], counters, 0).sum(
         1, dtype=torch.int32)
 
 
@@ -230,9 +237,9 @@ def prev_window_sum_rows(spec: WindowSpec, state: WindowState,
     prev = wrap_i32(now_idx - 1)
     k = _bucket_of(spec, prev)
     r = _gather_rows(rows, state.stamps.shape[0])
-    vals = state.counters[r, k, event]
-    live = state.stamps[r, k] == prev
-    return torch.where(live, vals, 0)
+    vals, stamps = read_rows([(state.counters, (r, k, event)),
+                              (state.stamps, (r, k))])
+    return torch.where(stamps == prev, vals, 0)
 
 
 def refresh_rows(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
@@ -332,7 +339,9 @@ def add_one_row(spec: WindowSpec, state: WindowState, row: int,
     global ENTRY row's contribution as one slice update, not a second
     scatter half). Caller must have refreshed the row at ``now_idx``."""
     if _blocked(state):
-        i, loc = divmod(row % state.stamps.rows, state.stamps.per)
+        i, loc = state.stamps.block_of(row)
+        if i is None:               # another process holds the row
+            return state
         b = window_blocks(state)[i]
         d = b.stamps.device
         add_one_row(spec, b, loc, vec.to(d), now_idx, _to(rt_add, d),
@@ -437,9 +446,8 @@ def settle_occupied(spec: WindowSpec, state: WindowState,
         out = [settle_occupied(spec, b, c, w, now_idx, event)
                for b, c, w in zip(window_blocks(state), occ_cnt.blocks,
                                   occ_win.blocks)]
-        home = state.stamps.home
-        return (state, RowBlocks([o[1] for o in out], home),
-                RowBlocks([o[2] for o in out], home))
+        return (state, occ_cnt.like([o[1] for o in out]),
+                occ_win.like([o[2] for o in out]))
     r_dim = state.stamps.shape[0]
     b_dim = spec.buckets
     rr = torch.arange(r_dim, device=occ_cnt.device)
@@ -494,8 +502,7 @@ def extract_rows(spec: WindowSpec, state: WindowState,
     restored into any row at any later time. Out-of-range rows (padding)
     gather the clamped row; the restore drops them."""
     r = torch.clamp(rows, 0, state.stamps.shape[0] - 1).long()
-    return WindowState(counters=state.counters[r], stamps=state.stamps[r],
-                       rt_sum=state.rt_sum[r], min_rt=state.min_rt[r])
+    return WindowState(*read_rows([(f, (r,)) for f in state]))
 
 
 class RowWriter:
@@ -581,14 +588,18 @@ def bucket_snapshot(spec: WindowSpec, state: WindowState, idx: int,
     if _blocked(state) and isinstance(rows, slice):
         parts = [bucket_snapshot(spec, b, idx, rows)
                  for b in window_blocks(state)]
-        home = state.stamps.home
-        return (RowBlocks([p[0] for p in parts], home),
-                RowBlocks([p[1] for p in parts], home))
+        lay = state.stamps
+        return (lay.like([p[0] for p in parts]),
+                lay.like([p[1] for p in parts]))
     k = _bucket_of(spec, idx)
-    live = state.stamps[rows, k] == idx                     # [N]
-    counters = torch.where(live[:, None], state.counters[rows, k, :], 0)
+    reads = [(state.stamps, (rows, k)), (state.counters, (rows, k))]
     if spec.track_rt:
-        rt = torch.where(live, state.rt_sum[rows, k], 0.0)
+        reads.append((state.rt_sum, (rows, k)))
+    stamps, lanes, *rt_k = read_rows(reads)
+    live = stamps == idx                                    # [N]
+    counters = torch.where(live[:, None], lanes, 0)
+    if spec.track_rt:
+        rt = torch.where(live, rt_k[0], 0.0)
     else:
         rt = torch.zeros(live.shape, dtype=torch.float32,
                          device=live.device)
@@ -602,7 +613,8 @@ def min_rt_rows(spec: WindowSpec, state: WindowState, rows: torch.Tensor,
     if not spec.track_rt:
         raise ValueError("rt untracked for this window spec")
     r = _gather_rows(rows, state.stamps.shape[0])
-    mask = valid_mask(spec, state.stamps[r], now_idx)
-    vals = torch.where(mask, state.min_rt[r], INT32_MAX)
+    stamps, min_rt = read_rows([(state.stamps, (r,)), (state.min_rt, (r,))])
+    mask = valid_mask(spec, stamps, now_idx)
+    vals = torch.where(mask, min_rt, INT32_MAX)
     m = vals.min(dim=1).values
     return torch.where(m == INT32_MAX, default_rt, m).to(torch.int32)

@@ -15,7 +15,9 @@ device: ``backend`` (``"cuda"`` or ``"cpu"``), ``device_kind``
 ``n_devices_visible`` (``torch.cuda.device_count()``, 1 on the CPU),
 ``host_cores`` and the ``mesh`` block (``n_devices``, ``axis`` and
 ``sharded``: one unsharded device, or a row-sharded engine's layout from
-``parallel.local_shard.mesh_topology``). The five fields are the reference's, so an artifact swept
+``parallel.local_shard.mesh_topology``; a ``"rows"`` mesh over processes
+adds ``process_count``, and its ``n_devices`` counts the global blocks).
+The five fields are the reference's, so an artifact swept
 on a TPU is read here and falls back to defaults on its
 ``backend``/``device_kind``. Geometry is deliberately not part of it:
 geometry is configuration, not hardware.
@@ -67,6 +69,9 @@ def fingerprint(device=None, mesh=None, spec=None) -> Dict:
         else:
             mesh_block = {"n_devices": int(m.shape[local_shard.MESH_AXIS]),
                           "axis": local_shard.MESH_AXIS, "sharded": True}
+        if m.process_count > 1:
+            # a mesh over processes: n_devices counts the global blocks
+            mesh_block["process_count"] = m.process_count
     dev = resolve_device(device)
     if dev.type == "cuda":
         index = dev.index if dev.index is not None \
@@ -93,6 +98,10 @@ def fingerprints_match(stored: Dict, live: Dict) -> Tuple[bool, str]:
     for k in ("n_devices", "axis", "sharded"):
         if sm.get(k) != lm.get(k):
             return False, f"mesh.{k}: {sm.get(k)!r} != {lm.get(k)!r}"
+    # one process when the block has no count (the JAX package's artifacts)
+    if sm.get("process_count", 1) != lm.get("process_count", 1):
+        return False, (f"mesh.process_count: {sm.get('process_count', 1)!r}"
+                       f" != {lm.get('process_count', 1)!r}")
     return True, ""
 
 

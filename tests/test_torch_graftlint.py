@@ -402,6 +402,24 @@ def test_spmd001_multihost_entry_points():
         assert "tn_" not in torch_line("spmd_multihost_cases.py", f.line)
 
 
+def test_spmd001_rank_local_row_reads():
+    """The row-sharded engine over processes: a ``RowBlocks`` per-lane
+    read or ``sum()`` is an ``all_reduce`` — flagged under a branch on
+    ``process_index`` or after a coordinator-only early exit, as is the
+    mesh's ``all_reduce_bits``; reads every rank makes, and a plain
+    tensor's index under the branch, stay silent."""
+    findings = lint_torch("spmd_rows_cases.py")
+    hits = active(findings, "SPMD001")
+    msgs = [f.message for f in hits]
+    assert len(hits) == 3, msgs
+    assert any("table[...]" in m and "rank-divergent branch" in m
+               for m in msgs)
+    assert any("blocks.sum()" in m and "early exit" in m for m in msgs)
+    assert any("all_reduce_bits" in m for m in msgs)
+    for f in hits:
+        assert "tn_" not in torch_line("spmd_rows_cases.py", f.line)
+
+
 # ----------------------------------------------------------------------
 # TRACE001 — host syncs in device-step code
 # ----------------------------------------------------------------------

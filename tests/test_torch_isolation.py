@@ -144,6 +144,7 @@ import sentinel_tpu_torch.multihost.ingest
 import sentinel_tpu_torch.multihost.obs_agg
 import sentinel_tpu_torch.multihost._parity_worker
 import sentinel_tpu_torch.multihost._topk_worker
+import sentinel_tpu_torch.multihost._rows_worker
 import demos.torch.slot_spi
 import demos.torch.plugin_spi
 import demos.torch.command_handler_spi
@@ -327,6 +328,7 @@ MULTIHOST_MODULES = [
     "sentinel_tpu_torch.multihost.obs_agg",
     "sentinel_tpu_torch.multihost._parity_worker",
     "sentinel_tpu_torch.multihost._topk_worker",
+    "sentinel_tpu_torch.multihost._rows_worker",
 ]
 
 

@@ -206,7 +206,9 @@ def test_sentinel_without_cuda_needs_an_explicit_device(monkeypatch):
 
 def test_off_route_calls_raise_not_implemented():
     """A row-block mesh constructs (A11); a ``"rows"`` mesh over several
-    processes still raises NotImplementedError naming ROADMAP A11, and a
+    processes in a process without the process group raises a
+    RuntimeError that says to initialize it (the spanning mesh itself
+    runs in ``tests/test_torch_rows_multiprocess.py``), and a
     mesh without a ``"rows"`` axis raises ValueError, as the reference's
     ``validate_mesh`` does. Cluster-mode flow and param rules load
     (their rows keyed by rule slot for the token delegation), as do
@@ -217,7 +219,7 @@ def test_off_route_calls_raise_not_implemented():
     from sentinel_tpu_torch.parallel import local_shard
     cfg = stt.load_config(**CFG)
     two = GlobalMesh([ShardDevice(p, 0, "cpu") for p in (0, 1)], "rows")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(RuntimeError, match="process group"):
         stt.Sentinel(config=cfg, mesh=two)
     with pytest.raises(ValueError, match="rows"):
         stt.Sentinel(config=cfg, device="cpu", mesh=object())

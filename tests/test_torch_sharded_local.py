@@ -343,9 +343,10 @@ def test_mesh_validation_errors():
     with pytest.raises(ValueError, match="divide"):
         stt.Sentinel(cfg, clock=stt.ManualClock(start_ms=T0),
                      mesh=port_mesh(7))
-    # a "rows" mesh over two processes: not ported, named
+    # a "rows" mesh over two processes in a process without the process
+    # group: a named RuntimeError, never a hang or a one-process fallback
     two = GlobalMesh([ShardDevice(p, 0, "cpu") for p in (0, 1)], "rows")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(RuntimeError, match="process group"):
         stt.Sentinel(cfg, clock=stt.ManualClock(start_ms=T0), mesh=two)
     # fewer devices visible than asked: the fix names repeated devices
     with pytest.raises(ValueError, match=r"devices=\[device\] \* 9"):

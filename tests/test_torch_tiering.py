@@ -549,7 +549,8 @@ def test_shard_of_rows_is_one_shard():
     with pytest.raises(ValueError, match="rows"):
         local_shard.shard_of_rows(1 << 20, object(), rows)
     two = GlobalMesh([ShardDevice(p, 0, "cpu") for p in (0, 1)], "rows")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    # a spanning mesh in a process without the process group: named
+    with pytest.raises(RuntimeError, match="process group"):
         local_shard.shard_of_rows(1 << 20, two, rows)
 
 
