@@ -54,7 +54,7 @@ import torch
 from sentinel_tpu_torch.core.errors import BlockReason
 from sentinel_tpu_torch.core.registry import ENTRY_NODE_ROW
 from sentinel_tpu_torch.engine.slots import DeviceSlotView, run_device_slots
-from sentinel_tpu_torch.obs import resource_hist
+from sentinel_tpu_torch.obs import resource_hist, trace_annotation
 from sentinel_tpu_torch.ops import scatter_add as sa
 from sentinel_tpu_torch.ops.segments import padded_table_gather
 from sentinel_tpu_torch.parallel.row_blocks import RowBlocks
@@ -325,215 +325,224 @@ def decide_entries(
     load1, cpu_usage = sys_scalars
 
     live = batch.valid
-    if skip_auth:
-        auth_ok = torch.ones_like(live)
-    else:
-        auth_ok = auth_mod.authority_check(
-            rules.auth_table, rules.auth_idx, batch.rows, batch.origin_ids,
-            live)
-    live1 = live & auth_ok
-    if skip_sys:
-        sys_ok = torch.ones_like(live1)
-    else:
-        sys_ok = sys_mod.system_check(
-            rules.sys_thresholds, spec.second, state.second, state.threads,
-            batch.is_in, batch.acquire, live1, now_idx_s, load1, cpu_usage,
-            spec.statistic_max_rt)
-    live2 = live1 & sys_ok
+    with trace_annotation("engine.authority"):
+        if skip_auth:
+            auth_ok = torch.ones_like(live)
+        else:
+            auth_ok = auth_mod.authority_check(
+                rules.auth_table, rules.auth_idx, batch.rows, batch.origin_ids,
+                live)
+        live1 = live & auth_ok
+    with trace_annotation("engine.system"):
+        if skip_sys:
+            sys_ok = torch.ones_like(live1)
+        else:
+            sys_ok = sys_mod.system_check(
+                rules.sys_thresholds, spec.second, state.second, state.threads,
+                batch.is_in, batch.acquire, live1, now_idx_s, load1, cpu_usage,
+                spec.statistic_max_rt)
+        live2 = live1 & sys_ok
 
     # ParamFlowSlot sits between SystemSlot and FlowSlot
-    param_dyn = state.param_dyn
-    use_param = spec.param_keys and batch.param_rules is not None
-    if use_param:
-        pcheck = (pf_mod.param_check_scalar if (scalar_flow or fast_flow)
-                  else pf_mod.param_check)
-        param_dyn, param_ok, param_wait = pcheck(
-            rules.param_table, param_dyn, batch.param_rules,
-            batch.param_keys, batch.acquire, live2, rel_now_ms)
-        live2 = live2 & param_ok
-    else:
-        param_ok = torch.ones_like(live2)
-
-    flow_bk = deg_bk = None
-    if (scalar_flow or fast_flow) and rules.joint_idx is not None:
-        kf = rules.flow_idx.shape[1]
-        nf = rules.flow_table.active.shape[0] - 1
-        nd = rules.deg_table.active.shape[0] - 1
-        joint = padded_table_gather(rules.joint_idx, batch.rows, 0)
-        in_r = (batch.rows < R)[:, None]
-        flow_bk = torch.where(in_r, joint[:, :kf], nf)
-        deg_bk = torch.where(in_r, joint[:, kf:], nd)
-    main_minute = state.minute if spec.minute else None
-    sf_ovf = torch.zeros((), dtype=torch.int32, device=live.device)
-    occupied = None      # no occupy-admitted event on this step
-    if scalar_flow:
-        flow_dyn, flow_ok, wait_ms = flow_mod.flow_check_scalar(
-            rules.flow_table, state.flow_dyn, rules.flow_idx, spec.second,
-            state.second, state.threads, batch.rows, batch.acquire, live2,
-            now_idx_s, rel_now_ms, minute_spec=spec.minute,
-            main_minute=main_minute, now_idx_m=now_idx_m,
-            has_rate_limiter=scalar_has_rl, rules_bk=flow_bk,
-            occupy_base=enable_occupy)
-    else:
-        fview = flow_mod.FlowBatchView(
-            rows=batch.rows, origin_ids=batch.origin_ids,
-            origin_rows=batch.origin_rows, context_ids=batch.context_ids,
-            chain_rows=batch.chain_rows, acquire=batch.acquire, valid=live2,
-            cluster_fallback=(batch.cluster_fallback
-                              if batch.cluster_fallback is not None
-                              else torch.zeros_like(batch.rows)),
-            prioritized=batch.prioritized)
-        args = (rules.flow_table, state.flow_dyn, rules.flow_idx,
-                spec.second, state.second, state.alt_second, state.threads,
-                state.alt_threads, fview, now_idx_s, rel_now_ms)
-        common = dict(minute_spec=spec.minute, main_minute=main_minute,
-                      now_idx_m=now_idx_m, has_thread_rules=not skip_threads,
-                      sortfree=sortfree, in_win_ms=in_win_ms,
-                      occupy_timeout_ms=spec.occupy_timeout_ms,
-                      enable_occupy=enable_occupy, any_prio=any_prio)
-        if fast_flow:
-            flow_dyn, flow_ok, wait_ms, occ, sf_ovf = \
-                flow_mod.flow_check_fast(
-                    *args, has_rate_limiter=scalar_has_rl, rules_bk=flow_bk,
-                    **common)
+    with trace_annotation("engine.param"):
+        param_dyn = state.param_dyn
+        use_param = spec.param_keys and batch.param_rules is not None
+        if use_param:
+            pcheck = (pf_mod.param_check_scalar if (scalar_flow or fast_flow)
+                      else pf_mod.param_check)
+            param_dyn, param_ok, param_wait = pcheck(
+                rules.param_table, param_dyn, batch.param_rules,
+                batch.param_keys, batch.acquire, live2, rel_now_ms)
+            live2 = live2 & param_ok
         else:
-            flow_dyn, flow_ok, wait_ms, occ, sf_ovf = flow_mod.flow_check(
-                *args, **common)
-        if enable_occupy:
-            occupied = occ
-    live3 = live2 & flow_ok
+            param_ok = torch.ones_like(live2)
+    with trace_annotation("engine.flow"):
+        flow_bk = deg_bk = None
+        if (scalar_flow or fast_flow) and rules.joint_idx is not None:
+            kf = rules.flow_idx.shape[1]
+            nf = rules.flow_table.active.shape[0] - 1
+            nd = rules.deg_table.active.shape[0] - 1
+            joint = padded_table_gather(rules.joint_idx, batch.rows, 0)
+            in_r = (batch.rows < R)[:, None]
+            flow_bk = torch.where(in_r, joint[:, :kf], nf)
+            deg_bk = torch.where(in_r, joint[:, kf:], nd)
+        main_minute = state.minute if spec.minute else None
+        sf_ovf = torch.zeros((), dtype=torch.int32, device=live.device)
+        occupied = None      # no occupy-admitted event on this step
+        if scalar_flow:
+            flow_dyn, flow_ok, wait_ms = flow_mod.flow_check_scalar(
+                rules.flow_table, state.flow_dyn, rules.flow_idx, spec.second,
+                state.second, state.threads, batch.rows, batch.acquire, live2,
+                now_idx_s, rel_now_ms, minute_spec=spec.minute,
+                main_minute=main_minute, now_idx_m=now_idx_m,
+                has_rate_limiter=scalar_has_rl, rules_bk=flow_bk,
+                occupy_base=enable_occupy)
+        else:
+            fview = flow_mod.FlowBatchView(
+                rows=batch.rows, origin_ids=batch.origin_ids,
+                origin_rows=batch.origin_rows, context_ids=batch.context_ids,
+                chain_rows=batch.chain_rows, acquire=batch.acquire,
+                valid=live2,
+                cluster_fallback=(batch.cluster_fallback
+                                  if batch.cluster_fallback is not None
+                                  else torch.zeros_like(batch.rows)),
+                prioritized=batch.prioritized)
+            args = (rules.flow_table, state.flow_dyn, rules.flow_idx,
+                    spec.second, state.second, state.alt_second, state.threads,
+                    state.alt_threads, fview, now_idx_s, rel_now_ms)
+            common = dict(minute_spec=spec.minute, main_minute=main_minute,
+                          now_idx_m=now_idx_m,
+                          has_thread_rules=not skip_threads,
+                          sortfree=sortfree, in_win_ms=in_win_ms,
+                          occupy_timeout_ms=spec.occupy_timeout_ms,
+                          enable_occupy=enable_occupy, any_prio=any_prio)
+            if fast_flow:
+                flow_dyn, flow_ok, wait_ms, occ, sf_ovf = \
+                    flow_mod.flow_check_fast(
+                        *args, has_rate_limiter=scalar_has_rl,
+                        rules_bk=flow_bk, **common)
+            else:
+                flow_dyn, flow_ok, wait_ms, occ, sf_ovf = flow_mod.flow_check(
+                    *args, **common)
+            if enable_occupy:
+                occupied = occ
+        live3 = live2 & flow_ok
     # the degrade slot is origin-independent: one check serves every path
     # (deg_mod.degrade_entry_check says why it equals the sorted form).
     # Occupied (PriorityWait) events bypass it: the reference's
     # PriorityWaitException ends the slot chain before DegradeSlot.entry.
-    breakers, deg_ok = deg_mod.degrade_entry_check(
-        rules.deg_table, state.breakers, rules.deg_idx, batch.rows,
-        live3 if occupied is None else live3 & ~occupied, rel_now_ms,
-        rules_bk=deg_bk)
-    if occupied is not None:
-        deg_ok = deg_ok | occupied
+    with trace_annotation("engine.degrade"):
+        breakers, deg_ok = deg_mod.degrade_entry_check(
+            rules.deg_table, state.breakers, rules.deg_idx, batch.rows,
+            live3 if occupied is None else live3 & ~occupied, rel_now_ms,
+            rules_bk=deg_bk)
+        if occupied is not None:
+            deg_ok = deg_ok | occupied
 
     # the user's DeviceSlots, after the built-in cascade; the window is
     # read before this step records into it
-    custom_states = state.custom
-    if custom_slots:
-        pass_counts = window_sum_rows(
-            spec.second, state.second, torch.clamp(batch.rows, max=R - 1),
-            ev.PASS, now_idx_s).float()
-        view = DeviceSlotView(
-            rows=batch.rows, origin_ids=batch.origin_ids,
-            acquire=batch.acquire, is_in=batch.is_in,
-            prioritized=batch.prioritized, live=live3 & deg_ok,
-            now_idx_s=now_idx_s, rel_now_ms=rel_now_ms,
-            pass_counts=pass_counts)
-        custom_states, custom_ok, custom_reason = run_device_slots(
-            custom_slots, state.custom, view)
-    else:
-        custom_ok = torch.ones_like(live)
-
-    allow = live & auth_ok & sys_ok & param_ok & flow_ok & deg_ok & custom_ok
-    reason = torch.zeros(batch.rows.shape, dtype=torch.int8,
-                         device=batch.rows.device)
-    if custom_slots:
-        reason = torch.where(~custom_ok, custom_reason, reason)
-    reason = torch.where(~deg_ok, BlockReason.DEGRADE, reason)
-    reason = torch.where(~flow_ok, BlockReason.FLOW, reason)
-    reason = torch.where(~param_ok, BlockReason.PARAM_FLOW, reason)
-    reason = torch.where(~sys_ok, BlockReason.SYSTEM, reason)
-    reason = torch.where(~auth_ok, BlockReason.AUTHORITY, reason)
-    reason = torch.where(~batch.valid, BlockReason.NONE, reason)
-    wait_ms = (torch.maximum(wait_ms, param_wait) if use_param
-               else torch.clamp(wait_ms, min=0))
-    wait_ms = torch.where(allow, wait_ms, 0)
-
+    with trace_annotation("engine.custom"):
+        custom_states = state.custom
+        if custom_slots:
+            pass_counts = window_sum_rows(
+                spec.second, state.second, torch.clamp(batch.rows, max=R - 1),
+                ev.PASS, now_idx_s).float()
+            view = DeviceSlotView(
+                rows=batch.rows, origin_ids=batch.origin_ids,
+                acquire=batch.acquire, is_in=batch.is_in,
+                prioritized=batch.prioritized, live=live3 & deg_ok,
+                now_idx_s=now_idx_s, rel_now_ms=rel_now_ms,
+                pass_counts=pass_counts)
+            custom_states, custom_ok, custom_reason = run_device_slots(
+                custom_slots, state.custom, view)
+        else:
+            custom_ok = torch.ones_like(live)
+    with trace_annotation("engine.verdict"):
+        allow = (live & auth_ok & sys_ok & param_ok & flow_ok & deg_ok
+                 & custom_ok)
+        reason = torch.zeros(batch.rows.shape, dtype=torch.int8,
+                             device=batch.rows.device)
+        if custom_slots:
+            reason = torch.where(~custom_ok, custom_reason, reason)
+        reason = torch.where(~deg_ok, BlockReason.DEGRADE, reason)
+        reason = torch.where(~flow_ok, BlockReason.FLOW, reason)
+        reason = torch.where(~param_ok, BlockReason.PARAM_FLOW, reason)
+        reason = torch.where(~sys_ok, BlockReason.SYSTEM, reason)
+        reason = torch.where(~auth_ok, BlockReason.AUTHORITY, reason)
+        reason = torch.where(~batch.valid, BlockReason.NONE, reason)
+        wait_ms = (torch.maximum(wait_ms, param_wait) if use_param
+                   else torch.clamp(wait_ms, min=0))
+        wait_ms = torch.where(allow, wait_ms, 0)
     # ---- StatisticSlot.entry (post-decision recording) ----
-    passed = allow & batch.valid
-    blocked = ~allow & batch.valid
-    # an occupied event's pass belongs to the booked window: it records
-    # OCCUPIED_PASS now, not PASS; a denial with record_block False
-    # records nothing
-    pass_now = passed
-    occ1 = None
-    if occupied is not None:
-        occ1 = occupied & passed
-        pass_now = passed & ~occupied
-    blocked_rec = (blocked if batch.record_block is None
-                   else blocked & batch.record_block)
-    # each event lands in exactly ONE lane, so the per-row record is one
-    # fused scatter of B indices; the global ENTRY row is a reduction plus
-    # one single-row update
-    rec1 = pass_now | blocked_rec
-    ev_ids1 = torch.where(pass_now, ev.PASS, ev.BLOCK)
-    if occ1 is not None:
-        rec1 = rec1 | occ1
-        ev_ids1 = torch.where(occ1, ev.OCCUPIED_PASS, ev_ids1)
-    ev_ids1 = ev_ids1.to(torch.int32)
-    acq = batch.acquire
-    rec_amt1 = torch.where(rec1, acq, 0)
-    main_rec1 = torch.where(rec1, batch.rows, R)
+    with trace_annotation("engine.statistic"):
+        passed = allow & batch.valid
+        blocked = ~allow & batch.valid
+        # an occupied event's pass belongs to the booked window: it records
+        # OCCUPIED_PASS now, not PASS; a denial with record_block False
+        # records nothing
+        pass_now = passed
+        occ1 = None
+        if occupied is not None:
+            occ1 = occupied & passed
+            pass_now = passed & ~occupied
+        blocked_rec = (blocked if batch.record_block is None
+                       else blocked & batch.record_block)
+        # each event lands in exactly ONE lane, so the per-row record is one
+        # fused scatter of B indices; the global ENTRY row is a reduction plus
+        # one single-row update
+        rec1 = pass_now | blocked_rec
+        ev_ids1 = torch.where(pass_now, ev.PASS, ev.BLOCK)
+        if occ1 is not None:
+            rec1 = rec1 | occ1
+            ev_ids1 = torch.where(occ1, ev.OCCUPIED_PASS, ev_ids1)
+        ev_ids1 = ev_ids1.to(torch.int32)
+        acq = batch.acquire
+        rec_amt1 = torch.where(rec1, acq, 0)
+        main_rec1 = torch.where(rec1, batch.rows, R)
 
-    ein = batch.is_in
-    entry_vec = torch.zeros((ev.NUM_EVENTS,), dtype=torch.int32,
-                            device=acq.device)
-    entry_vec[ev.PASS] = _isum(torch.where(pass_now & ein, acq, 0))
-    if occ1 is not None:
-        entry_vec[ev.OCCUPIED_PASS] = _isum(torch.where(occ1 & ein, acq, 0))
-    entry_vec[ev.BLOCK] = _isum(torch.where(blocked_rec & ein, acq, 0))
+        ein = batch.is_in
+        entry_vec = torch.zeros((ev.NUM_EVENTS,), dtype=torch.int32,
+                                device=acq.device)
+        entry_vec[ev.PASS] = _isum(torch.where(pass_now & ein, acq, 0))
+        if occ1 is not None:
+            entry_vec[ev.OCCUPIED_PASS] = _isum(
+                torch.where(occ1 & ein, acq, 0))
+        entry_vec[ev.BLOCK] = _isum(torch.where(blocked_rec & ein, acq, 0))
 
-    second = _refresh_second(spec, state.second, main_rec1, entry_vec != 0,
-                             now_idx_s)
-    add_rows_multi(spec.second, second, main_rec1, ev_ids1, rec_amt1,
-                   now_idx_s)
-    add_one_row(spec.second, second, ENTRY_NODE_ROW, entry_vec, now_idx_s)
+        second = _refresh_second(spec, state.second, main_rec1, entry_vec != 0,
+                                 now_idx_s)
+        add_rows_multi(spec.second, second, main_rec1, ev_ids1, rec_amt1,
+                       now_idx_s)
+        add_one_row(spec.second, second, ENTRY_NODE_ROW, entry_vec, now_idx_s)
 
-    # alt rows (origin + chain hashes), one scatter of 2B lanes: every
-    # event is recorded, so the targets are the valid events' rows
-    alt_second = state.alt_second
-    if record_alt:
-        alt_targets = _stat_targets(spec, batch.origin_rows,
-                                    batch.chain_rows, batch.valid)
-        ev_ids2 = torch.cat([ev_ids1, ev_ids1])
-        alt_second = _refresh_alt(spec, alt_second, alt_targets, now_idx_s)
-        # one scatter on every route: the JAX package's one-hot histogram
-        # branch for small alt tables (fast route, RA <= 4096) adds the
-        # same sum under its uniform acquire, and the kernel's plan takes
-        # the shared-memory path for such a table by itself
-        acq2 = torch.cat([acq, acq])
-        alt_rec = alt_targets
-        if occ1 is not None or batch.record_block is not None:
-            # no OCCUPIED lane on the alt rows, no unrecorded denials
-            alt_mask1 = pass_now | blocked_rec
-            alt_rec = torch.where(torch.cat([alt_mask1, alt_mask1]),
-                                  alt_targets, RA)
-        alt_amt = torch.where(alt_rec < RA, acq2, 0)
-        add_rows_multi(spec.second, alt_second, alt_rec, ev_ids2,
-                       alt_amt, now_idx_s)
-
-    if spec.minute:
-        refresh_all(spec.minute, state.minute, now_idx_m)
-        add_rows_multi(spec.minute, state.minute, main_rec1, ev_ids1,
-                       rec_amt1, now_idx_m)
-        add_one_row(spec.minute, state.minute, ENTRY_NODE_ROW, entry_vec,
-                    now_idx_m)
-
-    if not skip_threads:
-        # +1 per admitted entry (reference curThreadNum); leased
-        # admissions opt out (count_thread)
-        thr1 = (passed if batch.count_thread is None
-                else passed & batch.count_thread)
-        _add_threads(state.threads, torch.where(passed, batch.rows, R),
-                     thr1.to(torch.int32))
-        _add_row(state.threads, ENTRY_NODE_ROW,
-                 _isum((thr1 & ein).to(torch.int32)))
+        # alt rows (origin + chain hashes), one scatter of 2B lanes: every
+        # event is recorded, so the targets are the valid events' rows
+        alt_second = state.alt_second
         if record_alt:
-            pass2 = torch.cat([passed, passed])
-            _add_threads(state.alt_threads,
-                         torch.where(pass2, alt_targets, RA),
-                         torch.cat([thr1, thr1]).to(torch.int32))
-        if use_param:
-            param_dyn = pf_mod.param_thread_update(
-                rules.param_table, param_dyn, batch.param_rules,
-                batch.param_keys, passed, +1)
+            alt_targets = _stat_targets(spec, batch.origin_rows,
+                                        batch.chain_rows, batch.valid)
+            ev_ids2 = torch.cat([ev_ids1, ev_ids1])
+            alt_second = _refresh_alt(spec, alt_second, alt_targets, now_idx_s)
+            # one scatter on every route: the JAX package's one-hot histogram
+            # branch for small alt tables (fast route, RA <= 4096) adds the
+            # same sum under its uniform acquire, and the kernel's plan takes
+            # the shared-memory path for such a table by itself
+            acq2 = torch.cat([acq, acq])
+            alt_rec = alt_targets
+            if occ1 is not None or batch.record_block is not None:
+                # no OCCUPIED lane on the alt rows, no unrecorded denials
+                alt_mask1 = pass_now | blocked_rec
+                alt_rec = torch.where(torch.cat([alt_mask1, alt_mask1]),
+                                      alt_targets, RA)
+            alt_amt = torch.where(alt_rec < RA, acq2, 0)
+            add_rows_multi(spec.second, alt_second, alt_rec, ev_ids2,
+                           alt_amt, now_idx_s)
+
+        if spec.minute:
+            refresh_all(spec.minute, state.minute, now_idx_m)
+            add_rows_multi(spec.minute, state.minute, main_rec1, ev_ids1,
+                           rec_amt1, now_idx_m)
+            add_one_row(spec.minute, state.minute, ENTRY_NODE_ROW, entry_vec,
+                        now_idx_m)
+
+        if not skip_threads:
+            # +1 per admitted entry (reference curThreadNum); leased
+            # admissions opt out (count_thread)
+            thr1 = (passed if batch.count_thread is None
+                    else passed & batch.count_thread)
+            _add_threads(state.threads, torch.where(passed, batch.rows, R),
+                         thr1.to(torch.int32))
+            _add_row(state.threads, ENTRY_NODE_ROW,
+                     _isum((thr1 & ein).to(torch.int32)))
+            if record_alt:
+                pass2 = torch.cat([passed, passed])
+                _add_threads(state.alt_threads,
+                             torch.where(pass2, alt_targets, RA),
+                             torch.cat([thr1, thr1]).to(torch.int32))
+            if use_param:
+                param_dyn = pf_mod.param_thread_update(
+                    rules.param_table, param_dyn, batch.param_rules,
+                    batch.param_keys, passed, +1)
 
     new_state = state._replace(second=second, alt_second=alt_second,
                                flow_dyn=flow_dyn, breakers=breakers,
@@ -560,77 +569,77 @@ def record_exits(
     R = spec.rows
     now_idx_s, now_idx_m, rel_now_ms, _in_win_ms = times
 
-    main_rows = torch.where(batch.valid, batch.rows, R)
-    acq1 = torch.where(batch.valid, batch.acquire, 0)
-    err1 = torch.where(batch.error, acq1, 0)
-    rt1 = batch.rt_ms
-    ein = batch.valid & batch.is_in
+    with trace_annotation("engine.exits"):
+        main_rows = torch.where(batch.valid, batch.rows, R)
+        acq1 = torch.where(batch.valid, batch.acquire, 0)
+        err1 = torch.where(batch.error, acq1, 0)
+        rt1 = batch.rt_ms
+        ein = batch.valid & batch.is_in
 
-    # an exit can record BOTH SUCCESS and EXCEPTION: the per-row record is
-    # one payload-mode scatter of full event-lane vectors
-    payload = torch.zeros((batch.rows.shape[0], ev.NUM_EVENTS),
-                          dtype=torch.int32, device=acq1.device)
-    payload[:, ev.SUCCESS] = acq1
-    payload[:, ev.EXCEPTION] = err1
+        # an exit can record BOTH SUCCESS and EXCEPTION: the per-row record is
+        # one payload-mode scatter of full event-lane vectors
+        payload = torch.zeros((batch.rows.shape[0], ev.NUM_EVENTS),
+                              dtype=torch.int32, device=acq1.device)
+        payload[:, ev.SUCCESS] = acq1
+        payload[:, ev.EXCEPTION] = err1
 
-    entry_vec = torch.zeros((ev.NUM_EVENTS,), dtype=torch.int32,
-                            device=acq1.device)
-    entry_vec[ev.SUCCESS] = _isum(torch.where(ein, acq1, 0))
-    entry_vec[ev.EXCEPTION] = _isum(torch.where(ein, err1, 0))
-    # float32 BEFORE the sum: the ENTRY aggregate overflows int32 within a
-    # single large batch
-    entry_rt_add = torch.where(ein, rt1, 0).to(torch.float32).sum()
-    entry_rt_min = torch.where(ein, rt1, 2 ** 31 - 1).min()
+        entry_vec = torch.zeros((ev.NUM_EVENTS,), dtype=torch.int32,
+                                device=acq1.device)
+        entry_vec[ev.SUCCESS] = _isum(torch.where(ein, acq1, 0))
+        entry_vec[ev.EXCEPTION] = _isum(torch.where(ein, err1, 0))
+        # float32 BEFORE the sum: the ENTRY aggregate overflows int32 within a
+        # single large batch
+        entry_rt_add = torch.where(ein, rt1, 0).to(torch.float32).sum()
+        entry_rt_min = torch.where(ein, rt1, 2 ** 31 - 1).min()
 
-    second = _refresh_second(spec, state.second, main_rows, ein, now_idx_s)
-    add_rows_vec(spec.second, second, main_rows, payload, now_idx_s,
-                 rt_ms=rt1, rt_valid=batch.valid)
-    add_one_row(spec.second, second, ENTRY_NODE_ROW, entry_vec, now_idx_s,
-                rt_add=entry_rt_add, rt_min=entry_rt_min)
-    alt_second = state.alt_second
-    if record_alt:
-        alt_targets = _stat_targets(spec, batch.origin_rows,
-                                    batch.chain_rows, batch.valid)
-        alt_second = _refresh_alt(spec, alt_second, alt_targets, now_idx_s)
-        valid2 = torch.cat([batch.valid, batch.valid])
-        add_rows_vec(spec.second, alt_second, alt_targets,
-                     torch.cat([payload, payload]), now_idx_s,
-                     rt_ms=torch.cat([rt1, rt1]), rt_valid=valid2)
-    if spec.minute:
-        refresh_all(spec.minute, state.minute, now_idx_m)
-        add_rows_vec(spec.minute, state.minute, main_rows, payload,
-                     now_idx_m, rt_ms=rt1, rt_valid=batch.valid)
-        add_one_row(spec.minute, state.minute, ENTRY_NODE_ROW, entry_vec,
-                    now_idx_m, rt_add=entry_rt_add, rt_min=entry_rt_min)
-
-    if not skip_threads:
-        ct1 = (batch.valid if batch.count_thread is None
-               else batch.valid & batch.count_thread)
-        dec1 = ct1.to(torch.int32)
-        _add_threads(state.threads, main_rows, -dec1)
-        _add_row(state.threads, ENTRY_NODE_ROW,
-                 -_isum((ein & ct1).to(torch.int32)))
-        state.threads.clamp_(min=0)
+        second = _refresh_second(spec, state.second, main_rows, ein, now_idx_s)
+        add_rows_vec(spec.second, second, main_rows, payload, now_idx_s,
+                     rt_ms=rt1, rt_valid=batch.valid)
+        add_one_row(spec.second, second, ENTRY_NODE_ROW, entry_vec, now_idx_s,
+                    rt_add=entry_rt_add, rt_min=entry_rt_min)
+        alt_second = state.alt_second
         if record_alt:
-            _add_threads(state.alt_threads, alt_targets,
-                         -torch.cat([dec1, dec1]))
-            state.alt_threads.clamp_(min=0)
-        if spec.param_keys and batch.param_rules is not None:
-            pf_mod.param_thread_update(
-                rules.param_table, state.param_dyn, batch.param_rules,
-                batch.param_keys, batch.valid, -1)
+            alt_targets = _stat_targets(spec, batch.origin_rows,
+                                        batch.chain_rows, batch.valid)
+            alt_second = _refresh_alt(spec, alt_second, alt_targets, now_idx_s)
+            valid2 = torch.cat([batch.valid, batch.valid])
+            add_rows_vec(spec.second, alt_second, alt_targets,
+                         torch.cat([payload, payload]), now_idx_s,
+                         rt_ms=torch.cat([rt1, rt1]), rt_valid=valid2)
+        if spec.minute:
+            refresh_all(spec.minute, state.minute, now_idx_m)
+            add_rows_vec(spec.minute, state.minute, main_rows, payload,
+                         now_idx_m, rt_ms=rt1, rt_valid=batch.valid)
+            add_one_row(spec.minute, state.minute, ENTRY_NODE_ROW, entry_vec,
+                        now_idx_m, rt_add=entry_rt_add, rt_min=entry_rt_min)
 
-    breakers = deg_mod.degrade_exit_feed(
-        rules.deg_table, state.breakers, rules.deg_idx, batch.rows,
-        batch.rt_ms, batch.error, batch.valid, rel_now_ms)
-
-    if spec.hist_buckets:
-        # one +1 per valid exit at [row, log2 ms bucket] (completions, not
-        # acquire-weighted); invalid lanes ride the pad row and drop
-        bidx = resource_hist.bucket_index(rt1, spec.hist_buckets)
-        _scatter_rows(state.rt_hist, main_rows, bidx,
-                      batch.valid.to(torch.int32))
-
+        if not skip_threads:
+            ct1 = (batch.valid if batch.count_thread is None
+                   else batch.valid & batch.count_thread)
+            dec1 = ct1.to(torch.int32)
+            _add_threads(state.threads, main_rows, -dec1)
+            _add_row(state.threads, ENTRY_NODE_ROW,
+                     -_isum((ein & ct1).to(torch.int32)))
+            state.threads.clamp_(min=0)
+            if record_alt:
+                _add_threads(state.alt_threads, alt_targets,
+                             -torch.cat([dec1, dec1]))
+                state.alt_threads.clamp_(min=0)
+            if spec.param_keys and batch.param_rules is not None:
+                pf_mod.param_thread_update(
+                    rules.param_table, state.param_dyn, batch.param_rules,
+                    batch.param_keys, batch.valid, -1)
+    with trace_annotation("engine.degrade"):
+        breakers = deg_mod.degrade_exit_feed(
+            rules.deg_table, state.breakers, rules.deg_idx, batch.rows,
+            batch.rt_ms, batch.error, batch.valid, rel_now_ms)
+    with trace_annotation("engine.rt_hist"):
+        if spec.hist_buckets:
+            # one +1 per valid exit at [row, log2 ms bucket] (completions, not
+            # acquire-weighted); invalid lanes ride the pad row and drop
+            bidx = resource_hist.bucket_index(rt1, spec.hist_buckets)
+            _scatter_rows(state.rt_hist, main_rows, bidx,
+                          batch.valid.to(torch.int32))
     return state._replace(second=second, alt_second=alt_second,
                           breakers=breakers)
 

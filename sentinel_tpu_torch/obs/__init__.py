@@ -22,6 +22,15 @@ Env knobs (read at ``RuntimeObs`` construction), the reference's names:
 :meth:`RuntimeObs.annotate` names a dispatch in ``torch.profiler``
 timelines (``torch.profiler.record_function``) where the reference uses
 ``jax.profiler.TraceAnnotation``; the names are the reference's.
+:func:`trace_annotation` opens such a range only while a torch profiler
+collects (one module-attribute read otherwise), and is the one place
+that decides it: ``annotate``, the engine step's slot ranges
+(``engine.*``, no ring entry) and :meth:`RuntimeObs.span` go through it.
+
+:meth:`RuntimeObs.span` opens a span that the ring records when it
+closes and that, while a profiler collects, is also a range of the same
+name (``ranged=False`` leaves the range out): on the profiler's clock,
+beside the kernels it launched.
 """
 
 from __future__ import annotations
@@ -29,6 +38,9 @@ from __future__ import annotations
 import contextlib
 import os
 from typing import Dict, Optional
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from sentinel_tpu_torch.obs import counters as counters_mod
 from sentinel_tpu_torch.obs.counters import CounterSet
@@ -59,10 +71,79 @@ def trace_sample_rate() -> float:
 
 
 def trace_annotation(name: str):
-    """A ``torch.profiler.record_function`` context: names the enclosed
-    dispatch in profiler timelines."""
-    import torch
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    torch profiler collects, else a shared no-op context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL_CTX
     return torch.profiler.record_function(name)
+
+
+class Span:
+    """One open span of :meth:`RuntimeObs.span`. Closing it (``with`` or
+    :meth:`close`, once) records ``(trace, name, start, end, n, note)``
+    into the thread's ring as :meth:`SpanRecorder.record` does (a
+    ``with`` block left by an exception before it closed records
+    nothing); ``end`` is then its end time. ``ranged``: it is also a
+    :func:`trace_annotation` range of the same name."""
+
+    __slots__ = ("_rec", "trace", "name", "start", "end", "n", "note",
+                 "_range")
+
+    def __init__(self, rec: SpanRecorder, trace_id: int, name: str,
+                 n: int, note: str, ranged: bool) -> None:
+        self._rec = rec
+        self.trace = trace_id
+        self.name = name
+        self.n = n
+        self.note = note
+        self.end = 0
+        self._range = trace_annotation(name) if ranged else _NULL_CTX
+        self._range.__enter__()
+        self.start = rec.now_ns()
+
+    def drop(self) -> None:
+        """Record nothing into the ring at close."""
+        self.trace = 0
+
+    def close(self) -> None:
+        if self._range is None:
+            return
+        self.end = self._rec.now_ns()
+        self._range.__exit__(None, None, None)
+        self._range = None
+        self._rec.record(self.trace, self.name, self.start, self.end,
+                         n=self.n, note=self.note)
+
+    def __enter__(self) -> "Span":
+        return self
+
+    def __exit__(self, exc_type, *exc) -> bool:
+        if exc_type is not None:
+            # a call that raised records no span
+            self.trace = 0
+        self.close()
+        return False
+
+
+class _NullSpan:
+    """The span of a disabled bundle: records nothing."""
+
+    __slots__ = ()
+
+    def drop(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NULL_SPAN = _NullSpan()
 
 
 class RuntimeObs:
@@ -108,6 +189,18 @@ class RuntimeObs:
         if self.flight.active:
             return self.spans.mint()
         return self.spans.maybe_trace()
+
+    def span(self, trace_id: int, name: str, n: int = 0, note: str = "",
+             detail: bool = False, ranged: bool = True):
+        """Open a span on ``trace_id`` (:class:`Span`; a shared no-op one
+        when disabled). A ``detail`` span splits a call's host time into
+        its parts: the ring records it only on the real clock, since a
+        virtual clock does not move inside a call."""
+        if not self.enabled:
+            return _NULL_SPAN
+        if detail and not self.spans.real_time:
+            trace_id = 0
+        return Span(self.spans, trace_id, name, n, note, ranged)
 
     def annotate(self, name: str):
         """Profiler annotation for a dispatched step — a shared no-op
@@ -162,4 +255,5 @@ __all__ = [
     "OBS_DISABLE_ENV", "TRACE_SAMPLE_ENV", "RuntimeObs", "CounterSet",
     "LogHistogram", "SpanRecorder", "BlockEventLog", "FlightRecorder",
     "obs_disabled", "trace_sample_rate", "trace_annotation", "counters_mod",
+    "Span",
 ]

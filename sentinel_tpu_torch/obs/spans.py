@@ -41,8 +41,10 @@ pull every sibling request of the batch into every request's chain.
 
 Ring overflow is an explicit signal: every overwritten span/link
 fires ``on_wrap`` (wired by RuntimeObs to the ``obs.span_ring_wrap``
-counter) so operators can see when capacity 2048 is too small instead of
-silently losing the tail.
+counter) so operators can see when capacity 8192 is too small instead of
+silently losing the tail. The port's rings hold 8192 spans a thread (the
+reference's 2048): a serving thread records about nine spans a batch,
+the dispatch's parts among them (``RuntimeObs.span``'s detail spans).
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
-DEFAULT_CAPACITY = 2048
+DEFAULT_CAPACITY = 8192
 LINK_CAPACITY = 4096
 
 #: link kinds (the causal-edge vocabulary; docs/OBSERVABILITY.md)
@@ -76,6 +78,8 @@ class SpanRecorder:
         self._stride = 0 if sample <= 0 else max(1, round(1.0 / sample))
         self.sample = 0.0 if sample <= 0 else 1.0 / self._stride
         self._time_ns = time_ns or time.perf_counter_ns
+        # stamps from perf_counter_ns, not a virtual clock
+        self.real_time = time_ns is None
         self._dispatch_seq = itertools.count()   # sampling stride counter
         self._trace_seq = itertools.count(1)     # issued trace ids
         self._tls = threading.local()

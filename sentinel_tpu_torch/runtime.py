@@ -143,7 +143,7 @@ from sentinel_tpu_torch.engine.pipeline import (
 from sentinel_tpu_torch.metrics.node import (
     TOTAL_IN_RESOURCE_NAME, MetricNode,
 )
-from sentinel_tpu_torch.obs import RuntimeObs
+from sentinel_tpu_torch.obs import RuntimeObs, trace_annotation
 from sentinel_tpu_torch.obs import counters as obs_keys
 from sentinel_tpu_torch.obs.resource_hist import engine_hist_buckets
 from sentinel_tpu_torch.obs.telemetry import HotTelemetry, telemetry_tick
@@ -1574,8 +1574,8 @@ class Sentinel:
     # concurrent entry() thread
     _STAGING_MIN_B = 512
 
-    def _pending(self, parts, n: int, *, staged=(), brk=None,
-                 on_read=None) -> PendingVerdicts:
+    def _pending(self, parts, n: int, trace_id: int = 0, *, staged=(),
+                 brk=None, on_read=None) -> PendingVerdicts:
         """Start the verdict copies of one dispatch → a leak-guarded
         handle. ``parts`` is ``[(verdicts, event indices or None for
         0..n-1)]`` (a split dispatch has two). Each part's
@@ -1595,31 +1595,35 @@ class Sentinel:
         if brk is not None:
             cols.append(brk[2])
         host, event = start_host_copy(cols)
+        obs = self.obs
 
         def _read() -> Verdicts:
-            got = wait_host_copy(host, event)
-            out = Verdicts(allow=np.empty(n, np.bool_),
-                           reason=np.empty(n, np.int8),
-                           wait_ms=np.empty(n, np.int32))
-            k = 0
-            for _v, idx in parts:
-                sel = slice(None) if idx is None else idx
-                out.allow[sel] = got[k]
-                out.reason[sel] = got[k + 1]
-                out.wait_ms[sel] = got[k + 2]
-                k += 3
-            states = got.pop()[:-1].tolist() if brk is not None else None
-            overflow = sum(int(x) for x in got[k:])
-            while staged:
-                ring, slot = staged.pop()
-                ring.release(slot)
-            if overflow:
-                with self._lock:
-                    self.sortfree_overflow += overflow
-            if on_read is not None:
-                on_read(out, overflow)
-            if brk is not None:
-                self._diff_and_fire_breakers(brk[0], brk[1], states)
+            with obs.span(trace_id, "verdicts.wait", detail=True):
+                got = wait_host_copy(host, event)
+            with obs.span(trace_id, "verdicts.unpack", n=n, detail=True):
+                out = Verdicts(allow=np.empty(n, np.bool_),
+                               reason=np.empty(n, np.int8),
+                               wait_ms=np.empty(n, np.int32))
+                k = 0
+                for _v, idx in parts:
+                    sel = slice(None) if idx is None else idx
+                    out.allow[sel] = got[k]
+                    out.reason[sel] = got[k + 1]
+                    out.wait_ms[sel] = got[k + 2]
+                    k += 3
+                states = (got.pop()[:-1].tolist() if brk is not None
+                          else None)
+                overflow = sum(int(x) for x in got[k:])
+                while staged:
+                    ring, slot = staged.pop()
+                    ring.release(slot)
+                if overflow:
+                    with self._lock:
+                        self.sortfree_overflow += overflow
+                if on_read is not None:
+                    on_read(out, overflow)
+                if brk is not None:
+                    self._diff_and_fire_breakers(brk[0], brk[1], states)
             return out
 
         return self._pending_verdicts(_read)
@@ -2332,92 +2336,120 @@ class Sentinel:
         obs_on = obs.enabled
         tr = trace_id if trace_id else (obs.spans.maybe_trace()
                                         if obs_on else 0)
-        t_d0 = obs.spans.now_ns() if obs_on else 0
-        vfull = self._valid_full(n, valid)
-        acq_uniform, no_origin_ids = self._batch_facts(acquire, origin_ids,
-                                                       vfull)
-        no_alt = self._no_alt(origin_rows, chain_rows)
-        prio_np = np.asarray(prioritized, np.bool_)
-        any_prio = bool(prio_np.any())
-        now = self.clock.now_ms() if at_ms is None else at_ms
-        pure_scalar = no_origin_ids and no_alt and cluster_fallback is None
-        if (not pure_scalar or any_prio) and acq_uniform \
-                and self._key_fits():
-            # per-event scalar eligibility (prioritized events only on
-            # the fast side, the one that may book; no cluster-fallback
-            # bits); invalid lanes are scalar-safe
-            pad_a = self.spec.alt_rows
-            ev_scalar = ((np.asarray(origin_ids) == 0)
-                         & (np.asarray(origin_rows) >= pad_a)
-                         & (np.asarray(chain_rows) >= pad_a) & ~prio_np)
-            if cluster_fallback is not None:
-                ev_scalar &= np.asarray(cluster_fallback) == 0
-            ev_scalar |= ~vfull
-            n_general = int(np.count_nonzero(~ev_scalar & vfull))
-            n_scalar = int(np.count_nonzero(ev_scalar & vfull))
-            if n_general > 0 and n_scalar >= SPLIT_MIN_SCALAR:
+        # the parts of the dispatch are detail spans inside its own. A
+        # split batch records decide.split_decision and split.dispatch
+        # instead, known only after the route scan: this span and the
+        # route's open no profiler range (the engine's annotation and
+        # the staging's do)
+        with obs.span(tr, "decide.dispatch", n=n, ranged=False) as disp:
+            with obs.span(tr, "dispatch.route", detail=True,
+                          ranged=False) as route_span:
+                vfull = self._valid_full(n, valid)
+                acq_uniform, no_origin_ids = self._batch_facts(
+                    acquire, origin_ids, vfull)
+                no_alt = self._no_alt(origin_rows, chain_rows)
+                prio_np = np.asarray(prioritized, np.bool_)
+                any_prio = bool(prio_np.any())
+                now = self.clock.now_ms() if at_ms is None else at_ms
+                pure_scalar = (no_origin_ids and no_alt
+                               and cluster_fallback is None)
+                split = None
+                if (not pure_scalar or any_prio) and acq_uniform \
+                        and self._key_fits():
+                    # per-event scalar eligibility (prioritized events
+                    # only on the fast side, the one that may book; no
+                    # cluster-fallback bits); invalid lanes are
+                    # scalar-safe
+                    pad_a = self.spec.alt_rows
+                    ev_scalar = ((np.asarray(origin_ids) == 0)
+                                 & (np.asarray(origin_rows) >= pad_a)
+                                 & (np.asarray(chain_rows) >= pad_a)
+                                 & ~prio_np)
+                    if cluster_fallback is not None:
+                        ev_scalar &= np.asarray(cluster_fallback) == 0
+                    ev_scalar |= ~vfull
+                    n_general = int(np.count_nonzero(~ev_scalar & vfull))
+                    n_scalar = int(np.count_nonzero(ev_scalar & vfull))
+                    if n_general > 0 and n_scalar >= SPLIT_MIN_SCALAR:
+                        split = ev_scalar
+                        route_span.drop()
+                route = self._route(acq_uniform, pure_scalar, any_prio)
+            if split is not None:
+                disp.drop()
                 if obs_on:
                     obs.counters.add(obs_keys.ROUTE_SPLIT)
                     if self.mesh is not None:
                         obs.counters.add(obs_keys.ROUTE_MESHED)
                     if tr:
                         obs.spans.record(
-                            tr, "decide.split_decision", t_d0,
+                            tr, "decide.split_decision", disp.start,
                             obs.spans.now_ns(), n=n,
                             note=f"scalar={n_scalar} general={n_general}")
                 return self._decide_split_nowait(
                     rows, origin_ids, origin_rows, context_ids, chain_rows,
-                    acquire, is_in, ev_scalar, vfull, prio_np, any_prio,
+                    acquire, is_in, split, vfull, prio_np, any_prio,
                     count_thread, record_block, param_rules, param_keys,
                     param_gen, cluster_fallback, now, tr)
-        route = self._route(acq_uniform, pure_scalar, any_prio)
-        staged: list = []
-        batch = self._entry_batch(rows, origin_ids, origin_rows, context_ids,
-                                  chain_rows, acquire, is_in, prio_np,
-                                  vfull, count_thread, record_block,
-                                  param_rules, param_keys, cluster_fallback,
-                                  staged=staged)
-        times = self._time_scalars(now)
-        sys_scalars = self._sys_scalars()
-        with self._lock:
-            # under the lock that guards reloads: stale pairs never meet
-            # the new table
-            if batch.param_rules is not None and param_gen != self._param_gen:
-                batch = batch._replace(param_rules=None, param_keys=None)
-            now, times = self._restamp_if_stale_locked(at_ms, now, times)
-            self._drain_evictions_locked()
-            # hot-set sketch (tiering): single dispatch updates it inside
-            # this decide call; off, it is an update call of its own
-            sd_sketch = self._sd_sketch_locked()
-            observed = (sd_sketch is None
-                        and self.tiering.observe_locked(batch.rows,
-                                                        batch.valid))
-            use_occ = self._note_dispatch_locked(now, any_prio)
-            flags = self._flags(route, not no_alt, use_occ, any_prio)
-            self._first_dispatch_locked(
-                "decide" if sd_sketch is None else "decide_sd",
-                (2 if no_alt else 0) + int(use_occ), route, (batch,),
-                times, sys_scalars, flags, tr)
-            with obs.annotate("sentinel_tpu.decide"):
-                self._state, verdicts = decide_entries(
-                    self.spec, self._ruleset, self._state, batch, times,
-                    sys_scalars, **flags)
-                if sd_sketch is not None:
-                    self.tiering.set_sketch_locked(sk_mod.update_sketch(
-                        sd_sketch, batch.rows, batch.valid)[0])
-            routed = "fast_occupy" if route == "fast" and use_occ else route
-            self.routes[routed] += 1
-            t_disp = self._obs_dispatched(
-                tr, t_d0, n, "decide.dispatch", _ROUTE_KEYS[routed],
-                dispatches=2 if observed else 1,
-                single=sd_sketch is not None,
-                note=_ROUTE_KEYS[routed].split(".", 1)[1])
-            return self._pending(
-                [(verdicts, None)], n, staged=staged,
-                brk=self._breaker_snapshot_locked(),
-                on_read=(self._obs_settled(tr, t_disp, n, "decide.device",
-                                           prio_np if any_prio else None)
-                         if obs_on else None))
+            staged: list = []
+            with obs.span(tr, "dispatch.stage", detail=True):
+                batch = self._entry_batch(
+                    rows, origin_ids, origin_rows, context_ids, chain_rows,
+                    acquire, is_in, prio_np, vfull, count_thread,
+                    record_block, param_rules, param_keys, cluster_fallback,
+                    staged=staged)
+            times = self._time_scalars(now)
+            sys_scalars = self._sys_scalars()
+            with self._lock:
+                # under the lock that guards reloads: stale pairs never
+                # meet the new table
+                if (batch.param_rules is not None
+                        and param_gen != self._param_gen):
+                    batch = batch._replace(param_rules=None,
+                                           param_keys=None)
+                now, times = self._restamp_if_stale_locked(at_ms, now,
+                                                           times)
+                self._drain_evictions_locked()
+                # hot-set sketch (tiering): single dispatch updates it
+                # inside this decide call; off, it is an update call of
+                # its own
+                sd_sketch = self._sd_sketch_locked()
+                observed = (sd_sketch is None
+                            and self.tiering.observe_locked(batch.rows,
+                                                            batch.valid))
+                use_occ = self._note_dispatch_locked(now, any_prio)
+                flags = self._flags(route, not no_alt, use_occ, any_prio)
+                self._first_dispatch_locked(
+                    "decide" if sd_sketch is None else "decide_sd",
+                    (2 if no_alt else 0) + int(use_occ), route, (batch,),
+                    times, sys_scalars, flags, tr)
+                with obs.span(tr, "dispatch.engine", detail=True,
+                              ranged=False), \
+                        obs.annotate("sentinel_tpu.decide"):
+                    self._state, verdicts = decide_entries(
+                        self.spec, self._ruleset, self._state, batch, times,
+                        sys_scalars, **flags)
+                    if sd_sketch is not None:
+                        with trace_annotation("engine.epilogue"):
+                            self.tiering.set_sketch_locked(
+                                sk_mod.update_sketch(sd_sketch, batch.rows,
+                                                     batch.valid)[0])
+                routed = ("fast_occupy" if route == "fast" and use_occ
+                          else route)
+                self.routes[routed] += 1
+                self._obs_dispatched(
+                    disp, _ROUTE_KEYS[routed],
+                    dispatches=2 if observed else 1,
+                    single=sd_sketch is not None,
+                    note=_ROUTE_KEYS[routed].split(".", 1)[1])
+                with trace_annotation("dispatch.readback"):
+                    pending = self._pending(
+                        [(verdicts, None)], n, tr, staged=staged,
+                        brk=self._breaker_snapshot_locked(),
+                        on_read=(self._obs_settled(
+                            tr, disp, n, "decide.device",
+                            prio_np if any_prio else None)
+                            if obs_on else None))
+        return pending
 
     def _renew_programs_locked(self) -> None:
         """A new step generation for the program keys, wherever the
@@ -2504,17 +2536,19 @@ class Sentinel:
             return None
         return self.tiering.sketch_for_fuse_locked()
 
-    def _obs_dispatched(self, tr: int, t_d0: int, n: int, span: str,
-                        route_key: Optional[str], dispatches: int = 1,
-                        single: bool = False, note: str = "") -> int:
-        """The counters and span of a dispatch just enqueued → its end
-        time (0 with obs off): the route's counter (``route_key``), the
-        sort-free one beside it, ``dispatches`` device steps (a standalone
-        sketch update counts as one), and ``split_route.single_dispatch``
-        when the call updated the sketch itself (``single``)."""
+    def _obs_dispatched(self, disp, route_key: Optional[str],
+                        dispatches: int = 1, single: bool = False,
+                        note: str = "") -> None:
+        """The counters of a dispatch just enqueued, then its span
+        ``disp`` (:meth:`RuntimeObs.span`) closed with ``note``, before
+        the verdict copies start: the route's counter (``route_key``),
+        the sort-free one beside it, ``dispatches`` device steps (a
+        standalone sketch update counts as one), and
+        ``split_route.single_dispatch`` when the call updated the sketch
+        itself (``single``)."""
         obs = self.obs
         if not obs.enabled:
-            return 0
+            return
         if route_key is not None:
             obs.counters.add(route_key)
         if self._sortfree:
@@ -2526,24 +2560,22 @@ class Sentinel:
         obs.counters.add(obs_keys.PIPE_DISPATCH, dispatches)
         if single:
             obs.counters.add(obs_keys.ROUTE_SINGLE_DISPATCH)
-        t_disp = obs.spans.now_ns()
-        if tr:
-            obs.spans.record(tr, span, t_d0, t_disp, n=n, note=note)
-        return t_disp
+        disp.note = note
+        disp.close()
 
-    def _obs_settled(self, tr: int, t_disp: int, n: int, span: str,
-                     prio_mask):
+    def _obs_settled(self, tr: int, disp, n: int, span: str, prio_mask):
         """→ ``on_read(verdicts, overflow)`` for :meth:`_pending`: the
-        dispatch→verdict histogram, the device span, the claim overflow
-        and the occupy grants (prioritized events admitted with a wait;
+        dispatch→verdict histogram and the device span, both from the
+        end of the dispatch's span ``disp``, the claim overflow and the
+        occupy grants (prioritized events admitted with a wait;
         ``prio_mask`` is None when the batch had none)."""
         obs = self.obs
 
         def on_read(out: Verdicts, overflow: int) -> None:
             t_end = obs.spans.now_ns()
-            obs.hist_dispatch.record(t_end - t_disp)
+            obs.hist_dispatch.record(t_end - disp.end)
             if tr:
-                obs.spans.record(tr, span, t_disp, t_end, n=n)
+                obs.spans.record(tr, span, disp.end, t_end, n=n)
             if overflow:
                 obs.counters.add(obs_keys.SORTFREE_OVERFLOW, overflow)
             if prio_mask is not None:
@@ -2570,82 +2602,83 @@ class Sentinel:
         n = rows.shape[0]
         obs = self.obs
         tr = trace_id
-        t_d0 = obs.spans.now_ns() if obs.enabled else 0
-        idx_s = np.nonzero(ev_scalar)[0]
-        idx_g = np.nonzero(~ev_scalar)[0]
-        staged: list = []
+        with obs.span(tr, "split.dispatch", n=n) as disp:
+            idx_s = np.nonzero(ev_scalar)[0]
+            idx_g = np.nonzero(~ev_scalar)[0]
+            staged: list = []
 
-        def batch_of(idx, prio):
-            cols = [np.asarray(a)[idx] for a in (
-                rows, origin_ids, origin_rows, context_ids, chain_rows,
-                acquire, is_in)]
-            opt = [None if a is None else np.asarray(a)[idx]
-                   for a in (count_thread, record_block, param_rules,
-                             param_keys, cluster_fallback)]
-            return self._entry_batch(*cols, prio, vfull[idx], *opt,
-                                     staged=staged)
+            def batch_of(idx, prio):
+                cols = [np.asarray(a)[idx] for a in (
+                    rows, origin_ids, origin_rows, context_ids, chain_rows,
+                    acquire, is_in)]
+                opt = [None if a is None else np.asarray(a)[idx]
+                       for a in (count_thread, record_block, param_rules,
+                                 param_keys, cluster_fallback)]
+                return self._entry_batch(*cols, prio, vfull[idx], *opt,
+                                         staged=staged)
 
-        prio_g = prio_np[idx_g]
-        bs = batch_of(idx_s, np.zeros(idx_s.shape[0], np.bool_))
-        bg = batch_of(idx_g, prio_g)
-        no_alt_g = self._no_alt(np.asarray(origin_rows)[idx_g],
-                                np.asarray(chain_rows)[idx_g])
-        times = self._time_scalars(now)
-        sys_scalars = self._sys_scalars()
-        with self._lock:
-            if bs.param_rules is not None and param_gen != self._param_gen:
-                bs = bs._replace(param_rules=None, param_keys=None)
-                bg = bg._replace(param_rules=None, param_keys=None)
-            self._drain_evictions_locked()
-            # hot-set sketch: both halves carry traffic rows; with single
-            # dispatch each half's call updates it (scalar half first)
-            sd_sketch = self._sd_sketch_locked()
-            observed = 0
-            if sd_sketch is None:
-                observed += int(self.tiering.observe_locked(bs.rows,
-                                                            bs.valid))
-                observed += int(self.tiering.observe_locked(bg.rows,
-                                                            bg.valid))
-            use_occ = self._note_dispatch_locked(now, any_prio)
-            fl_s = self._flags("scalar", False, use_occ)
-            fl_g = self._flags("fast", not no_alt_g, use_occ,
-                               bool(prio_g.any()))
-            kind = "decide" if sd_sketch is None else "decide_sd"
-            self._first_dispatch_locked(kind, 2 + int(use_occ), "scalar",
-                                        (bs,), times, sys_scalars, fl_s, tr)
-            self._first_dispatch_locked(
-                kind, (2 if no_alt_g else 0) + int(use_occ), "fast", (bg,),
-                times, sys_scalars, fl_g, tr)
-            with obs.annotate("sentinel_tpu.decide_split"):
-                state, v1 = decide_entries(
-                    self.spec, self._ruleset, self._state, bs, times,
-                    sys_scalars, **fl_s)
-                self._state, v2 = decide_entries(
-                    self.spec, self._ruleset, state, bg, times, sys_scalars,
-                    **fl_g)
-                if sd_sketch is not None:
-                    sk1, _ = sk_mod.update_sketch(sd_sketch, bs.rows,
-                                                  bs.valid)
-                    self.tiering.set_sketch_locked(sk_mod.update_sketch(
-                        sk1, bg.rows, bg.valid)[0])
-            self.routes["split"] += 1
-            # two calls plus any standalone sketch updates; a split never
-            # counts split_route.single_dispatch (it is two calls)
-            t_disp = self._obs_dispatched(
-                tr, t_d0, n, "split.dispatch", None,
-                dispatches=2 + observed,
-                note=f"scalar={idx_s.shape[0]} general={idx_g.shape[0]} "
-                     f"occ={int(use_occ)}")
-            prio_mask = None
-            if any_prio:
-                prio_mask = np.zeros(n, np.bool_)
-                prio_mask[idx_g] = prio_g
-            return self._pending(
-                [(v1, idx_s), (v2, idx_g)], n, staged=staged,
-                brk=self._breaker_snapshot_locked(),
-                on_read=(self._obs_settled(tr, t_disp, n, "split.device",
-                                           prio_mask)
-                         if obs.enabled else None))
+            prio_g = prio_np[idx_g]
+            bs = batch_of(idx_s, np.zeros(idx_s.shape[0], np.bool_))
+            bg = batch_of(idx_g, prio_g)
+            no_alt_g = self._no_alt(np.asarray(origin_rows)[idx_g],
+                                    np.asarray(chain_rows)[idx_g])
+            times = self._time_scalars(now)
+            sys_scalars = self._sys_scalars()
+            with self._lock:
+                if bs.param_rules is not None and param_gen != self._param_gen:
+                    bs = bs._replace(param_rules=None, param_keys=None)
+                    bg = bg._replace(param_rules=None, param_keys=None)
+                self._drain_evictions_locked()
+                # hot-set sketch: both halves carry traffic rows; with single
+                # dispatch each half's call updates it (scalar half first)
+                sd_sketch = self._sd_sketch_locked()
+                observed = 0
+                if sd_sketch is None:
+                    observed += int(self.tiering.observe_locked(bs.rows,
+                                                                bs.valid))
+                    observed += int(self.tiering.observe_locked(bg.rows,
+                                                                bg.valid))
+                use_occ = self._note_dispatch_locked(now, any_prio)
+                fl_s = self._flags("scalar", False, use_occ)
+                fl_g = self._flags("fast", not no_alt_g, use_occ,
+                                   bool(prio_g.any()))
+                kind = "decide" if sd_sketch is None else "decide_sd"
+                self._first_dispatch_locked(
+                    kind, 2 + int(use_occ), "scalar", (bs,), times,
+                    sys_scalars, fl_s, tr)
+                self._first_dispatch_locked(
+                    kind, (2 if no_alt_g else 0) + int(use_occ), "fast", (bg,),
+                    times, sys_scalars, fl_g, tr)
+                with obs.annotate("sentinel_tpu.decide_split"):
+                    state, v1 = decide_entries(
+                        self.spec, self._ruleset, self._state, bs, times,
+                        sys_scalars, **fl_s)
+                    self._state, v2 = decide_entries(
+                        self.spec, self._ruleset, state, bg, times,
+                        sys_scalars, **fl_g)
+                    if sd_sketch is not None:
+                        sk1, _ = sk_mod.update_sketch(sd_sketch, bs.rows,
+                                                      bs.valid)
+                        self.tiering.set_sketch_locked(sk_mod.update_sketch(
+                            sk1, bg.rows, bg.valid)[0])
+                self.routes["split"] += 1
+                # two calls plus any standalone sketch updates; a split never
+                # counts split_route.single_dispatch (it is two calls)
+                self._obs_dispatched(
+                    disp, None, dispatches=2 + observed,
+                    note=f"scalar={idx_s.shape[0]} general={idx_g.shape[0]} "
+                         f"occ={int(use_occ)}")
+                prio_mask = None
+                if any_prio:
+                    prio_mask = np.zeros(n, np.bool_)
+                    prio_mask[idx_g] = prio_g
+                pending = self._pending(
+                    [(v1, idx_s), (v2, idx_g)], n, tr, staged=staged,
+                    brk=self._breaker_snapshot_locked(),
+                    on_read=(self._obs_settled(tr, disp, n, "split.device",
+                                               prio_mask)
+                             if obs.enabled else None))
+        return pending
 
     def decide_and_exit_raw_nowait(
             self, rows, origin_ids, origin_rows, context_ids, chain_rows,
@@ -2666,81 +2699,97 @@ class Sentinel:
         obs_on = obs.enabled
         tr = trace_id if trace_id else (obs.spans.maybe_trace()
                                         if obs_on else 0)
-        t_d0 = obs.spans.now_ns() if obs_on else 0
         ra = self.spec.alt_rows
-        vfull = self._valid_full(n, valid)
-        acq_uniform, no_origin_ids = self._batch_facts(acquire, origin_ids,
-                                                       vfull)
-        prio_np = np.asarray(prioritized, np.bool_)
-        any_prio = bool(prio_np.any())
-        now = self.clock.now_ms() if at_ms is None else at_ms
-        x_orows = (exit_origin_rows if exit_origin_rows is not None
-                   else np.full(n_x, ra, np.int32))
-        x_crows = (exit_chain_rows if exit_chain_rows is not None
-                   else np.full(n_x, ra, np.int32))
-        no_alt = (self._no_alt(origin_rows, chain_rows)
-                  and self._no_alt(x_orows, x_crows))
-        route = self._route(acq_uniform, no_origin_ids and no_alt, any_prio)
-        staged: list = []
-        batch = self._entry_batch(rows, origin_ids, origin_rows, context_ids,
-                                  chain_rows, acquire, is_in, prio_np,
-                                  vfull, staged=staged)
-        xbatch = self._exit_batch(
-            exit_rows, x_orows, x_crows,
-            exit_acquire if exit_acquire is not None
-            else np.ones(n_x, np.int32),
-            exit_rt_ms if exit_rt_ms is not None else np.zeros(n_x, np.int32),
-            exit_error if exit_error is not None
-            else np.zeros(n_x, np.bool_),
-            exit_is_in if exit_is_in is not None
-            else np.ones(n_x, np.bool_),
-            exit_valid if exit_valid is not None
-            else np.ones(n_x, np.bool_))
-        times = self._time_scalars(now)
-        sys_scalars = self._sys_scalars()
-        with self._lock:
-            now, times = self._restamp_if_stale_locked(at_ms, now, times)
-            self._drain_evictions_locked()
-            # single dispatch: the sketch update and any due telemetry /
-            # tiering tick ride this call (see _fused_epilogue_locked)
-            sd_sketch = self._sd_sketch_locked()
-            observed = (sd_sketch is None
-                        and self.tiering.observe_locked(batch.rows,
-                                                        batch.valid))
-            use_occ = self._note_dispatch_locked(now, any_prio)
-            flags = self._flags(route, not no_alt, use_occ, any_prio)
-            # the carries due on this call are claimed before it, as the
-            # reference claims them for its epilogue program
-            tel_prep = tier_due = None
-            kind = "fused"
-            if sd_sketch is not None:
-                tel_prep = self.telemetry.carry_due_locked(now)
-                tier_due = self.tiering.carry_due_locked(now)
-                kind = ("fused_sd_epi" if tel_prep is not None or tier_due
-                        else "fused_sd")
-            self._first_dispatch_locked(
-                kind, (2 if no_alt else 0) + int(use_occ), route,
-                (batch, xbatch), times, sys_scalars, flags, tr)
-            with obs.annotate("sentinel_tpu.fused"):
-                self._state, verdicts = decide_and_record_exits(
-                    self.spec, self._ruleset, self._state, batch, xbatch,
-                    times, sys_scalars, **flags)
+        with obs.span(tr, "fused.dispatch", n=n) as disp:
+            with obs.span(tr, "dispatch.route", detail=True):
+                vfull = self._valid_full(n, valid)
+                acq_uniform, no_origin_ids = self._batch_facts(
+                    acquire, origin_ids, vfull)
+                prio_np = np.asarray(prioritized, np.bool_)
+                any_prio = bool(prio_np.any())
+                now = self.clock.now_ms() if at_ms is None else at_ms
+                x_orows = (exit_origin_rows if exit_origin_rows is not None
+                           else np.full(n_x, ra, np.int32))
+                x_crows = (exit_chain_rows if exit_chain_rows is not None
+                           else np.full(n_x, ra, np.int32))
+                no_alt = (self._no_alt(origin_rows, chain_rows)
+                          and self._no_alt(x_orows, x_crows))
+                route = self._route(acq_uniform, no_origin_ids and no_alt,
+                                    any_prio)
+            staged: list = []
+            with obs.span(tr, "dispatch.stage", detail=True):
+                batch = self._entry_batch(
+                    rows, origin_ids, origin_rows, context_ids, chain_rows,
+                    acquire, is_in, prio_np, vfull, staged=staged)
+                xbatch = self._exit_batch(
+                    exit_rows, x_orows, x_crows,
+                    exit_acquire if exit_acquire is not None
+                    else np.ones(n_x, np.int32),
+                    exit_rt_ms if exit_rt_ms is not None
+                    else np.zeros(n_x, np.int32),
+                    exit_error if exit_error is not None
+                    else np.zeros(n_x, np.bool_),
+                    exit_is_in if exit_is_in is not None
+                    else np.ones(n_x, np.bool_),
+                    exit_valid if exit_valid is not None
+                    else np.ones(n_x, np.bool_))
+            times = self._time_scalars(now)
+            sys_scalars = self._sys_scalars()
+            with self._lock:
+                now, times = self._restamp_if_stale_locked(at_ms, now,
+                                                           times)
+                self._drain_evictions_locked()
+                # single dispatch: the sketch update and any due
+                # telemetry / tiering tick ride this call (see
+                # _fused_epilogue_locked)
+                sd_sketch = self._sd_sketch_locked()
+                observed = (sd_sketch is None
+                            and self.tiering.observe_locked(batch.rows,
+                                                            batch.valid))
+                use_occ = self._note_dispatch_locked(now, any_prio)
+                flags = self._flags(route, not no_alt, use_occ, any_prio)
+                # the carries due on this call are claimed before it, as
+                # the reference claims them for its epilogue program
+                tel_prep = tier_due = None
+                kind = "fused"
                 if sd_sketch is not None:
-                    self._fused_epilogue_locked(sd_sketch, batch, tel_prep,
-                                                tier_due)
-            self.routes["fused"] += 1
-            routed = "fast_occupy" if route == "fast" and use_occ else route
-            t_disp = self._obs_dispatched(
-                tr, t_d0, n, "fused.dispatch", obs_keys.ROUTE_FUSED,
-                dispatches=2 if observed else 1,
-                single=sd_sketch is not None,
-                note=f"{_ROUTE_KEYS[routed].split('.', 1)[1]} exits={n_x}")
-            return self._pending(
-                [(verdicts, None)], n, staged=staged,
-                brk=self._breaker_snapshot_locked(),
-                on_read=(self._obs_settled(tr, t_disp, n, "fused.device",
-                                           prio_np if any_prio else None)
-                         if obs_on else None))
+                    tel_prep = self.telemetry.carry_due_locked(now)
+                    tier_due = self.tiering.carry_due_locked(now)
+                    kind = ("fused_sd_epi" if tel_prep is not None
+                            or tier_due else "fused_sd")
+                self._first_dispatch_locked(
+                    kind, (2 if no_alt else 0) + int(use_occ), route,
+                    (batch, xbatch), times, sys_scalars, flags, tr)
+                # the engine's issue; its profiler range is the
+                # annotation's
+                with obs.span(tr, "dispatch.engine", detail=True,
+                              ranged=False), \
+                        obs.annotate("sentinel_tpu.fused"):
+                    self._state, verdicts = decide_and_record_exits(
+                        self.spec, self._ruleset, self._state, batch, xbatch,
+                        times, sys_scalars, **flags)
+                    if sd_sketch is not None:
+                        with trace_annotation("engine.epilogue"):
+                            self._fused_epilogue_locked(
+                                sd_sketch, batch, tel_prep, tier_due)
+                self.routes["fused"] += 1
+                routed = ("fast_occupy" if route == "fast" and use_occ
+                          else route)
+                self._obs_dispatched(
+                    disp, obs_keys.ROUTE_FUSED,
+                    dispatches=2 if observed else 1,
+                    single=sd_sketch is not None,
+                    note=f"{_ROUTE_KEYS[routed].split('.', 1)[1]} "
+                         f"exits={n_x}")
+                with trace_annotation("dispatch.readback"):
+                    pending = self._pending(
+                        [(verdicts, None)], n, tr, staged=staged,
+                        brk=self._breaker_snapshot_locked(),
+                        on_read=(self._obs_settled(
+                            tr, disp, n, "fused.device",
+                            prio_np if any_prio else None)
+                            if obs_on else None))
+        return pending
 
     def _fused_epilogue_locked(self, sketch, batch: EntryBatch, tel_prep,
                                tier_due: bool) -> None:
@@ -2788,47 +2837,47 @@ class Sentinel:
         n = rows.shape[0]
         obs = self.obs
         tr = obs.spans.maybe_trace() if obs.enabled else 0
-        t0 = obs.spans.now_ns() if tr else 0
-        batch = self._exit_batch(rows, origin_rows, chain_rows, acquire,
-                                 rt_ms, error, is_in, np.ones(n, np.bool_),
-                                 count_thread, param_rules, param_keys)
-        now = self.clock.now_ms() if at_ms is None else at_ms
-        times = self._time_scalars(now)
         unpin = None
         brk = None
-        with self._lock:
-            now, times = self._restamp_if_stale_locked(at_ms, now, times)
-            if self.tiering.enabled:
-                # a key demoted between entry and exit promotes back
-                # before this decrement (else it lands on a recycled or
-                # invalidated row); tiering off keeps the no-drain exit
-                self._drain_evictions_locked()
-            self._seen_idx = max(self._seen_idx,
-                                 self.spec.second.index_of(now))
-            if batch.param_rules is not None:
-                if param_gen != self._param_gen:
-                    batch = batch._replace(param_rules=None, param_keys=None)
-                else:
-                    unpin = (self.param_key_registry,
-                             pf_mod.thread_key_rows(self._param, param_rules,
-                                                    param_keys))
-            with obs.annotate("sentinel_tpu.exit"):
-                self._state = record_exits(
-                    self.spec, self._ruleset, self._state, batch, times,
-                    record_alt=not self._no_alt(origin_rows, chain_rows),
-                    skip_threads=self._skip_threads)
-            if self._breaker_observers:
-                self._breaker_seq += 1
-                brk = (self._breaker_seq, self._deg.rules,
-                       self._state.breakers.state[:-1].tolist())
-        # unpin only after the decrement is enqueued
-        if unpin is not None:
-            unpin[0].unpin_rows(unpin[1])
-        if obs.enabled:
-            obs.counters.add(obs_keys.PIPE_DISPATCH)
-        if tr:
-            obs.spans.record(tr, "exit.dispatch", t0, obs.spans.now_ns(),
-                             n=n)
+        with obs.span(tr, "exit.dispatch", n=n):
+            batch = self._exit_batch(
+                rows, origin_rows, chain_rows, acquire, rt_ms, error, is_in,
+                np.ones(n, np.bool_), count_thread, param_rules, param_keys)
+            now = self.clock.now_ms() if at_ms is None else at_ms
+            times = self._time_scalars(now)
+            with self._lock:
+                now, times = self._restamp_if_stale_locked(at_ms, now,
+                                                           times)
+                if self.tiering.enabled:
+                    # a key demoted between entry and exit promotes back
+                    # before this decrement (else it lands on a recycled
+                    # or invalidated row); tiering off keeps the no-drain
+                    # exit
+                    self._drain_evictions_locked()
+                self._seen_idx = max(self._seen_idx,
+                                     self.spec.second.index_of(now))
+                if batch.param_rules is not None:
+                    if param_gen != self._param_gen:
+                        batch = batch._replace(param_rules=None,
+                                               param_keys=None)
+                    else:
+                        unpin = (self.param_key_registry,
+                                 pf_mod.thread_key_rows(
+                                     self._param, param_rules, param_keys))
+                with obs.annotate("sentinel_tpu.exit"):
+                    self._state = record_exits(
+                        self.spec, self._ruleset, self._state, batch, times,
+                        record_alt=not self._no_alt(origin_rows, chain_rows),
+                        skip_threads=self._skip_threads)
+                if self._breaker_observers:
+                    self._breaker_seq += 1
+                    brk = (self._breaker_seq, self._deg.rules,
+                           self._state.breakers.state[:-1].tolist())
+            # unpin only after the decrement is enqueued
+            if unpin is not None:
+                unpin[0].unpin_rows(unpin[1])
+            if obs.enabled:
+                obs.counters.add(obs_keys.PIPE_DISPATCH)
         if brk is not None:
             self._diff_and_fire_breakers(*brk)
 

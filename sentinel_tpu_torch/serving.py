@@ -157,27 +157,27 @@ class DispatchPipeline:
         obs = self._s.obs
         obs_on = obs.enabled
         tr = (trace_id or obs.spans.maybe_trace()) if obs_on else 0
-        t0 = obs.spans.now_ns() if tr else 0
-        with self._lock:
-            # make room BEFORE dispatching: settling the oldest here (a
-            # stall) keeps at most `depth` batches in flight
-            while len(self._inflight) >= self.depth:
+        with obs.span(tr, "pipeline.enqueue", n=n) as span:
+            with self._lock:
+                # make room BEFORE dispatching: settling the oldest here
+                # (a stall) keeps at most `depth` batches in flight
+                while len(self._inflight) >= self.depth:
+                    if obs_on:
+                        obs.counters.add(obs_keys.PIPE_STALL)
+                    self._settle_oldest_locked()
+                handle = dispatch()
+                seq = self._next_seq
+                self._next_seq += 1
+                # the trace id rides the in-flight entry so the settle
+                # span lands on the same chain as the enqueue span
+                self._inflight.append((seq, handle, tr))
                 if obs_on:
-                    obs.counters.add(obs_keys.PIPE_STALL)
-                self._settle_oldest_locked()
-            handle = dispatch()
-            seq = self._next_seq
-            self._next_seq += 1
-            # the trace id rides the in-flight entry so the settle span
-            # lands on the same chain as the enqueue span
-            self._inflight.append((seq, handle, tr))
-            if obs_on:
-                obs.counters.add(obs_keys.PIPE_DEPTH, len(self._inflight))
-                if self._meshed:
-                    obs.counters.add(obs_keys.PIPE_MESHED)
-        if tr:
-            obs.spans.record(tr, "pipeline.enqueue", t0, obs.spans.now_ns(),
-                             n=n, note=f"seq={seq}")
+                    obs.counters.add(obs_keys.PIPE_DEPTH,
+                                     len(self._inflight))
+                    if self._meshed:
+                        obs.counters.add(obs_keys.PIPE_MESHED)
+            if tr:
+                span.note = f"seq={seq}"
         return PipelinedVerdicts(self, seq)
 
     # ---- settlement --------------------------------------------------
@@ -187,11 +187,9 @@ class DispatchPipeline:
         obs = self._s.obs
         if not obs.enabled:
             tr = 0
-        t0 = obs.spans.now_ns() if tr else 0
-        self._results[seq] = handle.result()
-        if tr:
-            obs.spans.record(tr, "pipeline.settle", t0, obs.spans.now_ns(),
-                             note=f"seq={seq}")
+        with obs.span(tr, "pipeline.settle",
+                      note=f"seq={seq}" if tr else ""):
+            self._results[seq] = handle.result()
         if self._on_settle is not None:
             self._on_settle(seq, self._results[seq])
 

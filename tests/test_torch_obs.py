@@ -720,3 +720,229 @@ def test_runtime_module_has_every_public_method_of_the_reference():
     have = {n for n in dir(trt.Sentinel) if not n.startswith("_")}
     assert want - have == set()
     assert hasattr(trt.PendingVerdicts, "attach_leak_guard")
+
+
+# ------------------------------------- the dispatch's parts (port only)
+
+PARTS = ("dispatch.route", "dispatch.stage", "dispatch.engine")
+SETTLE_PARTS = ("verdicts.wait", "verdicts.unpack")
+ENGINE_RANGES = ("engine.flow", "engine.degrade", "engine.statistic",
+                 "engine.exits")
+#: the profiler ranges of a fused and a decide dispatch: the ring's spans
+#: except those whose region an annotation already names (dispatch.engine
+#: is sentinel_tpu.fused / .decide) or that a split may yet replace
+#: (decide.dispatch and its route), and the profiler-only readback
+FUSED_RANGES = ("pipeline.enqueue", "pipeline.settle", "fused.dispatch",
+                "dispatch.route", "dispatch.stage", "dispatch.readback",
+                "sentinel_tpu.fused", *SETTLE_PARTS, *ENGINE_RANGES)
+DECIDE_RANGES = ("dispatch.stage", "dispatch.readback",
+                 "sentinel_tpu.decide", "engine.verdict", *SETTLE_PARTS)
+
+
+def _real_clock_sentinel(**over):
+    """A port Sentinel on the real clock (its spans on perf_counter_ns),
+    with a flow rule and a breaker, so every slot of the step runs."""
+    cfg = stt.load_config(**{**BASE_CFG, **over})
+    sph = stt.Sentinel(config=cfg, device="cpu")
+    sph._cpu.sample = lambda: (0.5, 0.25)
+    sph.load_flow_rules(rules(stt, RULES))
+    sph.load_degrade_rules([stt.DegradeRule(
+        resource="api", grade=stt.GRADE_EXCEPTION_RATIO, count=0.5,
+        time_window=10)])
+    return sph
+
+
+def _raw_columns(sph, n=64):
+    rows = sph.intern_resources(["api"] * n)
+    ra = sph.spec.alt_rows
+    z = np.zeros(n, np.int32)
+    return (rows, z, np.full(n, ra, np.int32), z, np.full(n, ra, np.int32),
+            np.ones(n, np.int32), np.ones(n, np.bool_),
+            np.zeros(n, np.bool_))
+
+
+def _one_dispatch(sph, route):
+    cols = _raw_columns(sph)
+    if route == "decide":
+        return sph.decide_raw_nowait(*cols).result()
+    return sph.decide_and_exit_raw_nowait(
+        *cols, exit_rows=cols[0][:16], exit_rt_ms=np.full(16, 7, np.int32),
+        exit_error=np.arange(16) % 2 == 0).result()
+
+
+def _inside(child, parent):
+    return (child["trace"] == parent["trace"]
+            and child["thread"] == parent["thread"]
+            and parent["start_ns"] <= child["start_ns"]
+            <= child["end_ns"] <= parent["end_ns"])
+
+
+@pytest.mark.parametrize("route", ["decide", "fused"])
+def test_dispatch_records_its_parts_inside_its_span(route):
+    """Under the real clock a dispatch records its route choice, staging
+    and engine issue as spans on its trace, each inside the dispatch's
+    own span on its thread; together they take no longer than it. The
+    dispatch's span ends before the verdict copies start, where its
+    device span starts."""
+    sph = _real_clock_sentinel()
+    _one_dispatch(sph, route)
+    spans = sph.obs.spans.snapshot()
+    (parent,) = [s for s in spans if s["name"] == f"{route}.dispatch"]
+    assert parent["note"].startswith("scalar")
+    parts = {s["name"]: s for s in spans if s["name"] in PARTS}
+    assert set(parts) == set(PARTS)
+    for s in parts.values():
+        assert _inside(s, parent), s
+    assert sum(s["dur_ns"] for s in parts.values()) <= parent["dur_ns"]
+    (device,) = [s for s in spans if s["name"] == f"{route}.device"]
+    assert device["start_ns"] == parent["end_ns"]
+    assert "dispatch.readback" not in {s["name"] for s in spans}
+    sph.close()
+
+
+def test_pipeline_settle_records_the_verdict_wait_inside_it():
+    sph = _real_clock_sentinel()
+    pipe = stt.DispatchPipeline(sph)
+    cols = _raw_columns(sph)
+    tickets = [pipe.submit_fused(*cols, exit_rows=cols[0][:8])
+               for _ in range(3)]
+    for t in tickets:
+        t.result()
+    spans = sph.obs.spans.snapshot()
+    settles = [s for s in spans if s["name"] == "pipeline.settle"]
+    dispatches = [s for s in spans if s["name"] == "fused.dispatch"]
+    assert len(settles) == len(dispatches) == 3
+    for name in SETTLE_PARTS:
+        got = [s for s in spans if s["name"] == name]
+        assert len(got) == 3
+        for s, d in zip(sorted(got, key=lambda s: s["start_ns"]),
+                        sorted(dispatches, key=lambda s: s["start_ns"])):
+            # the dispatch's trace, inside a settle on its thread (the
+            # settle span is on the pipeline's trace)
+            assert s["trace"] == d["trace"]
+            assert any(_inside(s, {**o, "trace": s["trace"]})
+                       for o in settles)
+    sph.close()
+
+
+def _profiled(fn):
+    """The profiler's range names over ``fn()`` (CPU activity)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    return [e.name for e in prof.events()]
+
+
+def test_profiler_sees_the_spans_and_the_engine_ranges(monkeypatch):
+    """While a profiler collects, the ring's spans are ``record_function``
+    ranges of their names, the engine step's slots are ranges of their
+    own (the single-dispatch epilogue too, with tiering on), and each
+    region has one range: ``dispatch.engine`` is the ``sentinel_tpu.*``
+    annotation's, and a decide dispatch, which may yet split, opens no
+    range for itself or its route."""
+    monkeypatch.delenv("SENTINEL_TIERING_DISABLE")
+    sph = _real_clock_sentinel()
+    pipe = stt.DispatchPipeline(sph)
+    cols = _raw_columns(sph)
+    fused = _profiled(
+        lambda: pipe.submit_fused(*cols, exit_rows=cols[0][:8]).result())
+    assert {*FUSED_RANGES, "engine.epilogue"} <= set(fused), \
+        set(FUSED_RANGES) - set(fused)
+    assert "dispatch.engine" not in fused
+    for name in ("fused.dispatch", "dispatch.route", "dispatch.stage",
+                 "sentinel_tpu.fused", "dispatch.readback"):
+        assert fused.count(name) == 1, name
+    decide = _profiled(lambda: _one_dispatch(sph, "decide"))
+    assert set(DECIDE_RANGES) <= set(decide)
+    assert not {"decide.dispatch", "dispatch.route",
+                "dispatch.engine"} & set(decide)
+    sph.close()
+
+
+def test_a_split_decide_records_no_route_span_and_no_range():
+    """A decide batch that splits records ``decide.split_decision`` and
+    ``split.dispatch`` in the ring, and neither ``decide.dispatch`` nor
+    its route; under a profiler no ``decide.dispatch`` range wraps the
+    ``split.dispatch`` one."""
+    sph = _real_clock_sentinel()
+    resources, origins = mixed_batch(stt, sph)
+    names = _profiled(lambda: sph.entry_batch(resources, origins=origins))
+    assert sph.routes["split"] == 1
+    ring = [s["name"] for s in sph.obs.spans.snapshot()]
+    assert {"decide.split_decision", "split.dispatch"} <= set(ring)
+    assert not {"decide.dispatch", "dispatch.route"} & set(ring)
+    assert "split.dispatch" in names and "decide.dispatch" not in names
+    sph.close()
+
+
+def test_no_profiler_no_record_function(monkeypatch):
+    """With no profiler running, neither the spans, the engine's ranges
+    nor the ``sentinel_tpu.*`` dispatch annotations enter
+    ``record_function``; with one, they do."""
+    entered = []
+    real = torch.profiler.record_function
+
+    def counting(name, *a, **kw):
+        entered.append(name)
+        return real(name, *a, **kw)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    sph = _real_clock_sentinel()
+    pipe = stt.DispatchPipeline(sph)
+    cols = _raw_columns(sph)
+
+    def both_routes():
+        pipe.submit_fused(*cols, exit_rows=cols[0][:8]).result()
+        _one_dispatch(sph, "decide")
+        sph.exit_batch(rows=cols[0][:8], origin_rows=cols[2][:8],
+                       chain_rows=cols[4][:8], acquire=cols[5][:8],
+                       rt_ms=np.full(8, 5, np.int32),
+                       error=np.zeros(8, np.bool_), is_in=cols[6][:8])
+
+    both_routes()
+    assert entered == []
+    assert {s["name"] for s in sph.obs.spans.snapshot()} >= set(PARTS)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        both_routes()
+    assert {*FUSED_RANGES, *DECIDE_RANGES, "exit.dispatch",
+            "sentinel_tpu.exit"} <= set(entered)
+    sph.close()
+
+
+def test_obs_off_records_no_span_and_no_span_range(monkeypatch):
+    """Observability off: the ring stays empty and, under a profiler,
+    only the profiler-only ranges (the engine's slots, the readback)
+    appear."""
+    monkeypatch.setenv("SENTINEL_OBS_DISABLE", "1")
+    sph = _real_clock_sentinel()
+    pipe = stt.DispatchPipeline(sph)
+    cols = _raw_columns(sph)
+    names = set(_profiled(lambda: (
+        pipe.submit_fused(*cols, exit_rows=cols[0][:8]).result(),
+        _one_dispatch(sph, "decide"))))
+    assert sph.obs.spans.snapshot() == []
+    assert {*ENGINE_RANGES, "dispatch.readback"} <= names
+    assert not names & {"fused.dispatch", "pipeline.enqueue",
+                        "sentinel_tpu.fused", *PARTS, *SETTLE_PARTS}
+    sph.close()
+
+
+def test_detail_spans_need_the_real_clock():
+    """On a virtual clock a call's parts would all last 0 ns: the ring
+    keeps only the spans the reference records (the twins above agree
+    on them)."""
+    from sentinel_tpu_torch.obs import RuntimeObs
+    for clock, want in ((stt.ManualClock(start_ms=T0), ["outer"]),
+                        (None, ["outer", "inner"])):
+        obs = RuntimeObs(clock=clock)
+        tr = obs.spans.mint()
+        with obs.span(tr, "outer", n=3):
+            with obs.span(tr, "inner", detail=True):
+                pass
+        assert [s["name"] for s in obs.spans.snapshot()] == want
+        with pytest.raises(ValueError):
+            with obs.span(tr, "raised"):
+                raise ValueError
+        assert "raised" not in {s["name"] for s in obs.spans.snapshot()}
+        obs.close()

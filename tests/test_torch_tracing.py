@@ -157,18 +157,24 @@ def test_chrome_trace_tolerates_zero_duration_manual_spans():
 
 
 def test_span_ring_wrap_counter():
+    """Each overwritten span ticks the counter, alike in both packages;
+    the port's ring is larger (8192 spans a thread, the reference's
+    2048: its serving thread records the dispatch's parts too)."""
     def run(m, clk):
         obs = m["obs"](clock=clk)
         tr = obs.spans.mint()
         cap = obs.spans.capacity
+        assert cap == m["spans"].DEFAULT_CAPACITY
         for _ in range(cap + 3):
             obs.spans.record(tr, "x", 0, 1)
-        out = (cap, obs.counters.get(m["ck"].SPAN_RING_WRAP))
+        out = (obs.counters.get(m["ck"].SPAN_RING_WRAP),
+               len(obs.spans.snapshot()) == cap)
         obs.close()
         return out
 
-    cap, wraps = both(run)
-    assert wraps == 3 and cap > 0
+    wraps, full = both(run)
+    assert wraps == 3 and full
+    assert (tspans.DEFAULT_CAPACITY, jspans.DEFAULT_CAPACITY) == (8192, 2048)
 
 
 @pytest.mark.parametrize("kind", ["deadline_miss", "shed", "p99",
