@@ -82,7 +82,10 @@ occupy grants, breaker states for observers) ride the verdict readback
 the dispatch already makes; only an exit batch with observers registered
 reads the breaker states itself. Serving-sized batches are staged in a
 ring of pinned host slots (``SENTINEL_HOST_STAGING``), each released only
-once its dispatch's verdicts have been read.
+once its dispatch's verdicts have been read; a column whose content the
+dispatch already knows (an exit column the caller leaves out, a fused
+entry column the route has seen whole) is a view of a cached device
+constant.
 
 Tiered resource state (``Sentinel.tiering``,
 :mod:`sentinel_tpu_torch.tiering`) is on unless
@@ -221,7 +224,9 @@ def single_dispatch_enabled() -> bool:
 def host_staging_enabled() -> bool:
     """``SENTINEL_HOST_STAGING``: serving-sized batches fill reused
     (pinned, on CUDA) host slots of a :class:`_StagingRing` in place of
-    fresh allocations per column per call."""
+    fresh allocations per column per call, and the columns whose content
+    a dispatch already knows are device constants. Off, every column is
+    fresh."""
     return _env_on("SENTINEL_HOST_STAGING")
 
 
@@ -389,50 +394,75 @@ class PendingVerdicts(PendingResult):
 
 
 class _StagingRing:
-    """Reused host staging for the always-present entry-batch columns of
-    one padded size: :meth:`Sentinel._entry_batch` fills a free slot in
-    place (``pad_into``) instead of allocating and pinning ~9 fresh
-    arrays per call.
+    """Reused host staging for the columns of one padded size:
+    :meth:`Sentinel._stage` fills a free slot's columns in place
+    (``pad_into``) instead of allocating and pinning a fresh array per
+    column per call. A slot is a dict of columns by name, each made on
+    its first use (``column``), so entry and exit batches of one size
+    share the ring.
 
-    On CUDA each slot holds pinned tensors (their ``.numpy()`` views are
+    On CUDA each column is a pinned tensor (its ``.numpy()`` view is
     what ``pad_into`` fills) that the step copies over with
     ``non_blocking``, so a copy may still be reading a slot after the
     dispatch call returns. A slot is therefore released only from the
     dispatch's deferred read, after the verdict readback has settled —
     by then the device has consumed it. ``acquire()`` grows the pool
     with a fresh slot rather than ever rewriting one in flight (a
-    pipeline deeper than the ring); ``grown`` counts those growths. A
-    slot lost on an exception path just shrinks the pool."""
+    pipeline deeper than the ring); ``grown`` counts those growths and
+    ``hits`` the slots served from the pool. A slot lost on an exception
+    path just shrinks the pool."""
 
-    __slots__ = ("b", "pinned", "_free", "_lock", "grown")
-
-    _INT_COLS = ("rows", "origin_ids", "origin_rows", "context_ids",
-                 "chain_rows", "acquire")
-    _BOOL_COLS = ("is_in", "prioritized", "valid")
+    __slots__ = ("b", "pinned", "_free", "_lock", "grown", "hits")
 
     def __init__(self, b: int, depth: int, pinned: bool):
         self.b = b
         self.pinned = pinned
         self.grown = 0
+        self.hits = 0
         self._lock = threading.Lock()
-        self._free = [self._new_slot() for _ in range(depth)]
-
-    def _new_slot(self) -> Dict[str, torch.Tensor]:
-        def col(dtype):
-            return torch.empty(self.b, dtype=dtype, pin_memory=self.pinned)
-        return {**{c: col(torch.int32) for c in self._INT_COLS},
-                **{c: col(torch.bool) for c in self._BOOL_COLS}}
+        self._free: List[Dict[str, torch.Tensor]] = [{} for _ in range(depth)]
 
     def acquire(self) -> Dict[str, torch.Tensor]:
         with self._lock:
             if self._free:
+                self.hits += 1
                 return self._free.pop()
             self.grown += 1
-        return self._new_slot()
+        return {}
 
     def release(self, slot: Dict[str, torch.Tensor]) -> None:
         with self._lock:
             self._free.append(slot)
+
+    def column(self, slot: Dict[str, torch.Tensor], name: str,
+               dtype: torch.dtype) -> torch.Tensor:
+        """``slot``'s column ``name``, made on its first use."""
+        t = slot.get(name)
+        if t is None:
+            t = slot[name] = torch.empty(self.b, dtype=dtype,
+                                         pin_memory=self.pinned)
+        return t
+
+
+class _Staged:
+    """The host staging of one dispatch: the ring slots its columns fill
+    (released by its settle, once the device has consumed them) and how
+    many of its columns went through a slot, were staged fresh, or were
+    served as device constants (the ``dispatch.stage`` span's note)."""
+
+    __slots__ = ("slots", "ring", "fresh", "const")
+
+    def __init__(self):
+        self.slots: list = []
+        self.ring = self.fresh = self.const = 0
+
+    def release(self) -> None:
+        while self.slots:
+            ring, slot = self.slots.pop()
+            ring.release(slot)
+
+    def note(self) -> str:
+        return f"ring={self.ring} fresh={self.fresh} const={self.const}"
 
 
 class Sentinel:
@@ -645,6 +675,9 @@ class Sentinel:
         self._staging_on = bool(self._tuned.get("SENTINEL_HOST_STAGING",
                                                 host_staging_enabled()))
         self._staging: Dict[int, _StagingRing] = {}
+        # (b, dtype, default, pad) → the device constant whose views are
+        # the columns a caller left out (see _const_col)
+        self._consts: Dict[tuple, torch.Tensor] = {}
         self._staging_depth = max(4, 2 * int(self._tuned.get(
             PIPELINE_DEPTH_ENV, pipeline_depth())) + 2)
 
@@ -1426,10 +1459,11 @@ class Sentinel:
         return o_row, c_row
 
     def _no_alt(self, origin_rows, chain_rows) -> bool:
-        """Every origin/chain row is padding (>= alt_rows)."""
+        """Every origin/chain row is padding (>= alt_rows); a column left
+        out (None) is all padding."""
         pad_a = self.spec.alt_rows
-        return bool(np.min(origin_rows, initial=pad_a) >= pad_a
-                    and np.min(chain_rows, initial=pad_a) >= pad_a)
+        return all(np.min(c, initial=pad_a) >= pad_a
+                   for c in (origin_rows, chain_rows) if c is not None)
 
     def _key_fits(self) -> bool:
         """The fast path's composite key ``rule · (RA+1) + subrow`` fits
@@ -1440,12 +1474,14 @@ class Sentinel:
     @staticmethod
     def _batch_facts(acquire, origin_ids, vfull) -> Tuple[bool, bool]:
         """(acquire uniform >= 1 over valid lanes, no origin id on a valid
-        lane)."""
-        acq_v = np.asarray(acquire)[vfull]
+        lane). ``vfull`` None: every lane is valid, and the columns are
+        reduced as they are (no masked copies)."""
+        acq_v, oid_v = np.asarray(acquire), np.asarray(origin_ids)
+        if vfull is not None:
+            acq_v, oid_v = acq_v[vfull], oid_v[vfull]
         acq_uniform = (acq_v.size > 0
                        and int(acq_v.min()) == int(acq_v.max()) >= 1)
-        no_origin_ids = int(np.max(np.asarray(origin_ids)[vfull],
-                                   initial=0)) == 0
+        no_origin_ids = int(np.max(oid_v, initial=0)) == 0
         return acq_uniform, no_origin_ids
 
     def _route(self, acq_uniform: bool, pure_scalar: bool,
@@ -1486,27 +1522,32 @@ class Sentinel:
         out[:arr.shape[0]] = arr
         return self._dev(out)
 
-    def _entry_batch(self, rows, origin_ids, origin_rows, context_ids,
-                     chain_rows, acquire, is_in, prioritized, vfull,
-                     count_thread=None, record_block=None, param_rules=None,
-                     param_keys=None, cluster_fallback=None,
-                     staged=None) -> EntryBatch:
-        """Pad the raw columns to a power of two and copy them over (the
-        pairs padded with the NP and PK sentinels).
+    #: torch dtype of a staged column's numpy dtype
+    _TORCH_DTYPES = {np.int32: torch.int32, np.bool_: torch.bool}
+
+    # below this padded size staging buys nothing: the per-call tier pads
+    # to b=8..256, and a ring would be shared mutable state for every
+    # concurrent entry() thread
+    _STAGING_MIN_B = 512
+
+    def _stage(self, n: int, cols, staged: Optional[_Staged]) -> dict:
+        """Pad host columns of ``n`` lanes to ``b = pad_pow2(n)`` and copy
+        them over → ``{name: device tensor}``. ``cols`` holds ``(name,
+        arr, pad, dtype, default)``; ``arr`` None is a column the caller
+        left out, ``default`` on its ``n`` lanes.
 
         A serving-sized batch (``b >= _STAGING_MIN_B``) whose caller
-        passes a ``staged`` list fills a slot of the size's
-        :class:`_StagingRing` in place; the slot is appended to
-        ``staged`` as ``(ring, slot)`` and the caller releases it once the
-        dispatch has settled. Without a list the columns are fresh (a
-        slot nobody will release is never acquired); the rare optional
-        columns are always fresh."""
-        b = pad_pow2(rows.shape[0])
-        r, ra = self.spec.rows, self.spec.alt_rows
-        cols = ((rows, r), (origin_ids, 0), (origin_rows, ra),
-                (context_ids, 0), (chain_rows, ra), (acquire, 0),
-                (is_in, False), (prioritized, False), (vfull, False))
-        names = _StagingRing._INT_COLS + _StagingRing._BOOL_COLS
+        passes ``staged`` takes the ring path: each given column fills
+        its column of a slot of the size's :class:`_StagingRing` in one
+        pass and is copied ``non_blocking``; the slot joins
+        ``staged.slots`` for the caller's settle to release. A column
+        left out is a view of a device constant (:meth:`_const_col`): no
+        host fill, no copy, no launch. Otherwise every column is padded
+        into a fresh array and copied (pinned on CUDA): the per-call
+        tier, a call that never settles, and ``SENTINEL_HOST_STAGING``
+        off."""
+        b = pad_pow2(n)
+        dev = {}
         if (self._staging_on and b >= self._STAGING_MIN_B
                 and staged is not None):
             ring = self._staging.get(b)
@@ -1514,50 +1555,120 @@ class Sentinel:
                 ring = self._staging.setdefault(b, _StagingRing(
                     b, self._staging_depth, self.device.type == "cuda"))
             slot = ring.acquire()
-            staged.append((ring, slot))
-            dev = {}
-            for name, (arr, fill) in zip(names, cols):
-                t = slot[name]
-                pad_into(t.numpy(), arr, fill)
+            staged.slots.append((ring, slot))
+            for name, arr, pad, dtype, default in cols:
+                if arr is None:
+                    dev[name] = self._const_col(b, n, default, pad, dtype)
+                    staged.const += 1
+                    continue
+                t = ring.column(slot, name, self._TORCH_DTYPES[dtype])
+                pad_into(t.numpy(), arr, pad)
                 # CPU: a copy, so the batch never aliases a reused slot
                 dev[name] = (t.to(self.device, non_blocking=True)
                              if ring.pinned else t.clone())
-        else:
-            dev = {name: self._dev(pad_to(
-                       arr, b, fill,
-                       np.int32 if name in _StagingRing._INT_COLS
-                       else np.bool_))
-                   for name, (arr, fill) in zip(names, cols)}
+                staged.ring += 1
+            return dev
+        for name, arr, pad, dtype, default in cols:
+            if arr is None:
+                host = np.full(b, pad, dtype)
+                host[:n] = default
+            else:
+                host = pad_to(arr, b, pad, dtype)
+            dev[name] = self._dev(host)
+        if staged is not None:
+            staged.fresh += len(cols)
+        return dev
+
+    def _const_col(self, b: int, n: int, default, pad,
+                   dtype) -> torch.Tensor:
+        """A ``b``-lane column of ``default`` on its first ``n`` lanes and
+        ``pad`` on the rest, as a view of one cached device constant
+        (``default`` × b, then ``pad`` × b) at offset ``b - n``. No engine
+        op writes a batch column in place, so every dispatch may read
+        the same constant."""
+        key = (b, dtype, default, pad)
+        c = self._consts.get(key)
+        if c is None:
+            td = self._TORCH_DTYPES[dtype]
+            c = self._consts.setdefault(key, torch.cat([
+                torch.full((b,), default, dtype=td, device=self.device),
+                torch.full((b,), pad, dtype=td, device=self.device)]))
+        return c[b - n:2 * b - n]
+
+    @staticmethod
+    def _count_fresh(staged: Optional[_Staged], *optional) -> None:
+        """Tally the optional columns a batch carries (always fresh)."""
+        if staged is not None:
+            staged.fresh += sum(a is not None for a in optional)
+
+    def _opt_col(self, arr, b: int, fill, dtype):
+        """A rare optional column, padded and copied fresh (None passes
+        through)."""
+        return None if arr is None else self._dev(pad_to(arr, b, fill, dtype))
+
+    def _entry_batch(self, rows, origin_ids, origin_rows, context_ids,
+                     chain_rows, acquire, is_in, prioritized, vfull,
+                     count_thread=None, record_block=None, param_rules=None,
+                     param_keys=None, cluster_fallback=None,
+                     staged=None, known=None) -> EntryBatch:
+        """Pad the raw columns to a power of two and copy them over
+        (:meth:`_stage`; the pairs padded with the NP and PK sentinels).
+        ``known`` maps a column to the one value every lane of it holds,
+        as the route found: such a column is staged as if left out. The
+        rare optional columns are always fresh."""
+        n = rows.shape[0]
+        b = pad_pow2(n)
+        r, ra = self.spec.rows, self.spec.alt_rows
+        i32, bl = np.int32, np.bool_
+        cols = (("rows", rows, r, i32),
+                ("origin_ids", origin_ids, 0, i32),
+                ("origin_rows", origin_rows, ra, i32),
+                ("context_ids", context_ids, 0, i32),
+                ("chain_rows", chain_rows, ra, i32),
+                ("acquire", acquire, 0, i32),
+                ("is_in", is_in, False, bl),
+                ("prioritized", prioritized, False, bl),
+                ("valid", vfull, False, bl))
+        known = known or {}
+        dev = self._stage(n, [
+            (name, None if name in known else arr, pad, dtype,
+             known.get(name)) for name, arr, pad, dtype in cols], staged)
+        self._count_fresh(staged, param_rules, param_keys, cluster_fallback,
+                          count_thread, record_block)
         return EntryBatch(
             **dev,
             param_rules=self._pairs(param_rules, b, self.cfg.max_param_rules),
             param_keys=self._pairs(param_keys, b, self.spec.param_keys),
-            cluster_fallback=(None if cluster_fallback is None else self._dev(
-                pad_to(cluster_fallback, b, 0, np.int32))),
-            count_thread=(None if count_thread is None else self._dev(
-                pad_to(count_thread, b, False, np.bool_))),
-            record_block=(None if record_block is None else self._dev(
-                pad_to(record_block, b, False, np.bool_))))
+            cluster_fallback=self._opt_col(cluster_fallback, b, 0, i32),
+            count_thread=self._opt_col(count_thread, b, False, bl),
+            record_block=self._opt_col(record_block, b, False, bl))
 
-    def _exit_batch(self, rows, origin_rows, chain_rows, acquire, rt_ms,
-                    error, is_in, valid, count_thread=None, param_rules=None,
-                    param_keys=None) -> ExitBatch:
-        b = pad_pow2(rows.shape[0])
+    def _exit_batch(self, rows, origin_rows=None, chain_rows=None,
+                    acquire=None, rt_ms=None, error=None, is_in=None,
+                    valid=None, count_thread=None, param_rules=None,
+                    param_keys=None, staged=None) -> ExitBatch:
+        """:meth:`_entry_batch` for completions. A column left out (None)
+        holds the trivial exit on every lane: no origin or chain row,
+        acquire 1, rt 0, no error, inbound, valid."""
+        n = rows.shape[0]
+        b = pad_pow2(n)
         r, ra = self.spec.rows, self.spec.alt_rows
-        col = self._dev
+        i32, bl = np.int32, np.bool_
+        dev = self._stage(n, (
+            ("rows", rows, r, i32, None),
+            ("origin_rows", origin_rows, ra, i32, ra),
+            ("chain_rows", chain_rows, ra, i32, ra),
+            ("acquire", acquire, 0, i32, 1),
+            ("rt_ms", rt_ms, 0, i32, 0),
+            ("error", error, False, bl, False),
+            ("is_in", is_in, False, bl, True),
+            ("valid", valid, False, bl, True)), staged)
+        self._count_fresh(staged, param_rules, param_keys, count_thread)
         return ExitBatch(
-            rows=col(pad_to(rows, b, r, np.int32)),
-            origin_rows=col(pad_to(origin_rows, b, ra, np.int32)),
-            chain_rows=col(pad_to(chain_rows, b, ra, np.int32)),
-            acquire=col(pad_to(acquire, b, 0, np.int32)),
-            rt_ms=col(pad_to(rt_ms, b, 0, np.int32)),
-            error=col(pad_to(error, b, False, np.bool_)),
-            is_in=col(pad_to(is_in, b, False, np.bool_)),
-            valid=col(pad_to(valid, b, False, np.bool_)),
+            **dev,
             param_rules=self._pairs(param_rules, b, self.cfg.max_param_rules),
             param_keys=self._pairs(param_keys, b, self.spec.param_keys),
-            count_thread=(None if count_thread is None else
-                          col(pad_to(count_thread, b, False, np.bool_))))
+            count_thread=self._opt_col(count_thread, b, False, bl))
 
     @staticmethod
     def _valid_full(n: int, valid) -> np.ndarray:
@@ -1569,12 +1680,7 @@ class Sentinel:
             vfull[:m] = vsrc[:m]
         return vfull
 
-    # below this padded size staging buys nothing: the per-call tier pads
-    # to b=8..256, and a ring would be shared mutable state for every
-    # concurrent entry() thread
-    _STAGING_MIN_B = 512
-
-    def _pending(self, parts, n: int, trace_id: int = 0, *, staged=(),
+    def _pending(self, parts, n: int, trace_id: int = 0, *, staged=None,
                  brk=None, on_read=None) -> PendingVerdicts:
         """Start the verdict copies of one dispatch → a leak-guarded
         handle. ``parts`` is ``[(verdicts, event indices or None for
@@ -1614,9 +1720,8 @@ class Sentinel:
                 states = (got.pop()[:-1].tolist() if brk is not None
                           else None)
                 overflow = sum(int(x) for x in got[k:])
-                while staged:
-                    ring, slot = staged.pop()
-                    ring.release(slot)
+                if staged is not None:
+                    staged.release()
                 if overflow:
                     with self._lock:
                         self.sortfree_overflow += overflow
@@ -2346,7 +2451,7 @@ class Sentinel:
                           ranged=False) as route_span:
                 vfull = self._valid_full(n, valid)
                 acq_uniform, no_origin_ids = self._batch_facts(
-                    acquire, origin_ids, vfull)
+                    acquire, origin_ids, None if valid is None else vfull)
                 no_alt = self._no_alt(origin_rows, chain_rows)
                 prio_np = np.asarray(prioritized, np.bool_)
                 any_prio = bool(prio_np.any())
@@ -2390,13 +2495,15 @@ class Sentinel:
                     acquire, is_in, split, vfull, prio_np, any_prio,
                     count_thread, record_block, param_rules, param_keys,
                     param_gen, cluster_fallback, now, tr)
-            staged: list = []
-            with obs.span(tr, "dispatch.stage", detail=True):
+            staged = _Staged()
+            with obs.span(tr, "dispatch.stage", detail=True) as stage_span:
                 batch = self._entry_batch(
                     rows, origin_ids, origin_rows, context_ids, chain_rows,
                     acquire, is_in, prio_np, vfull, count_thread,
                     record_block, param_rules, param_keys, cluster_fallback,
                     staged=staged)
+                if tr:
+                    stage_span.note = staged.note()
             times = self._time_scalars(now)
             sys_scalars = self._sys_scalars()
             with self._lock:
@@ -2605,7 +2712,7 @@ class Sentinel:
         with obs.span(tr, "split.dispatch", n=n) as disp:
             idx_s = np.nonzero(ev_scalar)[0]
             idx_g = np.nonzero(~ev_scalar)[0]
-            staged: list = []
+            staged = _Staged()
 
             def batch_of(idx, prio):
                 cols = [np.asarray(a)[idx] for a in (
@@ -2699,40 +2806,40 @@ class Sentinel:
         obs_on = obs.enabled
         tr = trace_id if trace_id else (obs.spans.maybe_trace()
                                         if obs_on else 0)
-        ra = self.spec.alt_rows
         with obs.span(tr, "fused.dispatch", n=n) as disp:
             with obs.span(tr, "dispatch.route", detail=True):
                 vfull = self._valid_full(n, valid)
                 acq_uniform, no_origin_ids = self._batch_facts(
-                    acquire, origin_ids, vfull)
+                    acquire, origin_ids, None if valid is None else vfull)
                 prio_np = np.asarray(prioritized, np.bool_)
                 any_prio = bool(prio_np.any())
                 now = self.clock.now_ms() if at_ms is None else at_ms
-                x_orows = (exit_origin_rows if exit_origin_rows is not None
-                           else np.full(n_x, ra, np.int32))
-                x_crows = (exit_chain_rows if exit_chain_rows is not None
-                           else np.full(n_x, ra, np.int32))
+                # an exit origin or chain column left out is all padding
                 no_alt = (self._no_alt(origin_rows, chain_rows)
-                          and self._no_alt(x_orows, x_crows))
+                          and self._no_alt(exit_origin_rows,
+                                           exit_chain_rows))
                 route = self._route(acq_uniform, no_origin_ids and no_alt,
                                     any_prio)
-            staged: list = []
-            with obs.span(tr, "dispatch.stage", detail=True):
+            # entry columns whose every lane the route has seen: an
+            # omitted valid mask, a uniform acquire over all lanes, no
+            # prioritized lane
+            known = {} if any_prio else {"prioritized": False}
+            if valid is None:
+                known["valid"] = True
+                if acq_uniform:
+                    known["acquire"] = int(np.asarray(acquire)[0])
+            staged = _Staged()
+            with obs.span(tr, "dispatch.stage", detail=True) as stage_span:
                 batch = self._entry_batch(
                     rows, origin_ids, origin_rows, context_ids, chain_rows,
-                    acquire, is_in, prio_np, vfull, staged=staged)
+                    acquire, is_in, prio_np, vfull, staged=staged,
+                    known=known)
                 xbatch = self._exit_batch(
-                    exit_rows, x_orows, x_crows,
-                    exit_acquire if exit_acquire is not None
-                    else np.ones(n_x, np.int32),
-                    exit_rt_ms if exit_rt_ms is not None
-                    else np.zeros(n_x, np.int32),
-                    exit_error if exit_error is not None
-                    else np.zeros(n_x, np.bool_),
-                    exit_is_in if exit_is_in is not None
-                    else np.ones(n_x, np.bool_),
-                    exit_valid if exit_valid is not None
-                    else np.ones(n_x, np.bool_))
+                    exit_rows, exit_origin_rows, exit_chain_rows,
+                    exit_acquire, exit_rt_ms, exit_error, exit_is_in,
+                    exit_valid, staged=staged)
+                if tr:
+                    stage_span.note = staged.note()
             times = self._time_scalars(now)
             sys_scalars = self._sys_scalars()
             with self._lock:
@@ -2842,7 +2949,8 @@ class Sentinel:
         with obs.span(tr, "exit.dispatch", n=n):
             batch = self._exit_batch(
                 rows, origin_rows, chain_rows, acquire, rt_ms, error, is_in,
-                np.ones(n, np.bool_), count_thread, param_rules, param_keys)
+                count_thread=count_thread, param_rules=param_rules,
+                param_keys=param_keys)
             now = self.clock.now_ms() if at_ms is None else at_ms
             times = self._time_scalars(now)
             with self._lock:

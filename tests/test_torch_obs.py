@@ -800,6 +800,32 @@ def test_dispatch_records_its_parts_inside_its_span(route):
     sph.close()
 
 
+@pytest.mark.parametrize("route,n,note", [
+    ("fused", 600, "ring=9 fresh=0 const=8"),
+    ("fused", 64, "ring=0 fresh=17 const=0"),
+    ("decide", 600, "ring=9 fresh=0 const=0"),
+    ("decide", 64, "ring=0 fresh=9 const=0"),
+])
+def test_stage_span_notes_how_its_columns_were_staged(route, n, note):
+    """``dispatch.stage`` notes how many columns went through ring slots,
+    were staged fresh, or were served as device constants: a serving
+    sized fused batch whose caller passes exit rows, RT and errors
+    stages those and the entry columns in slots and leaves five exit
+    columns to constants; a small batch stages every column fresh."""
+    sph = _real_clock_sentinel()
+    cols = _raw_columns(sph, n)
+    if route == "decide":
+        sph.decide_raw_nowait(*cols).result()
+    else:
+        sph.decide_and_exit_raw_nowait(
+            *cols, exit_rows=cols[0], exit_rt_ms=np.full(n, 7, np.int32),
+            exit_error=np.arange(n) % 2 == 0).result()
+    (stage,) = [s for s in sph.obs.spans.snapshot()
+                if s["name"] == "dispatch.stage"]
+    assert stage["note"] == note
+    sph.close()
+
+
 def test_pipeline_settle_records_the_verdict_wait_inside_it():
     sph = _real_clock_sentinel()
     pipe = stt.DispatchPipeline(sph)

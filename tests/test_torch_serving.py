@@ -11,7 +11,9 @@ runtime of its own. Covered: pipelined == sequential at depths 1, 2 and 4
 fused decide+exit program == decide-then-exit, in-order settle under
 out-of-order ``result()``, the pipeline counters and stalls, the depth
 knob, leaked handles counted once, host staging reuse and in-flight slots
-(a pipeline deeper than the staging ring grows it), and the
+(a pipeline deeper than the staging ring grows it), the fused dispatch's
+staging against the all-fresh path (exit columns in ring slots, known
+columns as device constants, the route's unmasked batch facts), and the
 ``CadenceScheduler``.
 
 ``test_donation_escape_hatch`` has no counterpart: the port donates no
@@ -25,6 +27,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import sentinel_tpu as stpu
 import sentinel_tpu_torch as stt
@@ -387,12 +390,15 @@ def test_staging_reuse_parity(tmp_path):
 def test_staging_ring_settlement_freelist():
     ring = trt._StagingRing(1024, 4, pinned=False)
     held = [ring.acquire() for _ in range(4)]
-    assert len({id(s["rows"]) for s in held}) == 4
+    cols = [ring.column(s, "rows", torch.int32) for s in held]
+    assert len({id(c) for c in cols}) == 4 and ring.hits == 4
     extra = ring.acquire()     # pool exhausted: fresh slot, never reuse
     assert ring.grown == 1
-    assert id(extra["rows"]) not in {id(s["rows"]) for s in held}
+    assert id(ring.column(extra, "rows", torch.int32)) not in {
+        id(c) for c in cols}
     ring.release(held[0])
-    assert id(ring.acquire()["rows"]) == id(held[0]["rows"])
+    assert ring.column(ring.acquire(), "rows", torch.int32) is cols[0]
+    assert ring.hits == 5 and ring.grown == 1
 
 
 def test_staging_inflight_slots_never_rewritten(tmp_path, monkeypatch):
@@ -455,6 +461,186 @@ def test_pipeline_deeper_than_staging_ring_grows_it(tmp_path, depth):
     sph, _, _ = twin(scenario, tmp_path)
     (ring,) = sph._staging.values()
     assert ring.grown == depth - 1
+
+
+# ---------------------------------------------------------------------------
+# fused dispatch staging: exit columns in the ring, omitted ones constants
+# ---------------------------------------------------------------------------
+
+_BREAKER = dict(resource="r1", count=0.3, time_window=1,
+                min_request_amount=5)
+
+
+def _staging_twins(monkeypatch, ring_depth=1):
+    """A port runtime with staging on (a ring of ``ring_depth`` slots) and
+    one with ``SENTINEL_HOST_STAGING=0`` (the all-fresh path), with the
+    same flow rules and an exception-ratio breaker."""
+    on = make(stt, stt.ManualClock(start_ms=T0))
+    monkeypatch.setenv("SENTINEL_HOST_STAGING", "0")
+    off = make(stt, stt.ManualClock(start_ms=T0))
+    monkeypatch.delenv("SENTINEL_HOST_STAGING")
+    assert on._staging_on and not off._staging_on
+    on._staging_depth = ring_depth
+    for s in (on, off):
+        s.load_flow_rules(_rules(stt, RULES))
+        s.load_degrade_rules([stt.DegradeRule(
+            grade=stt.GRADE_EXCEPTION_RATIO, **_BREAKER)])
+    return on, off
+
+
+def _fused_step_args(sph, rng, n, n_x, exit_given, with_valid):
+    """One fused call's columns: an entry batch of ``n`` lanes and ``n_x``
+    exits. ``exit_given``: every exit column is passed (origin rows
+    included, so the alt records run) and the entry batch has mixed
+    acquire and prioritized lanes; else the exits carry only rows, RT
+    and errors, as a serving caller passes them, and the entry batch is
+    scalar (acquire 1, none prioritized: columns the route knows).
+    ``with_valid``: the entry batch carries a ``valid`` mask."""
+    ra = sph.spec.alt_rows
+    rows = np.asarray([sph.resources.get_or_create(f"r{int(i)}")
+                       for i in rng.integers(0, 4, n)], np.int32)
+    z = np.zeros(n, np.int32)
+    acquire, prio = np.ones(n, np.int32), np.zeros(n, np.bool_)
+    if exit_given:
+        acquire = rng.integers(1, 3, n).astype(np.int32)
+        prio = rng.random(n) < 0.05
+    args = (rows, z, np.full(n, ra, np.int32), z, np.full(n, ra, np.int32),
+            acquire, np.ones(n, np.bool_), prio)
+    x_rows = rows[rng.integers(0, n, n_x)]
+    kw = dict(exit_rows=x_rows,
+              exit_rt_ms=rng.integers(1, 400, n_x).astype(np.int32),
+              exit_error=rng.random(n_x) < 0.4)
+    if exit_given:
+        oid = sph.origins.get_or_create("app-a")
+        kw.update(
+            exit_origin_rows=np.asarray(
+                [sph._alt_row(int(r), 0, oid) for r in x_rows], np.int32),
+            exit_chain_rows=np.full(n_x, ra, np.int32),
+            exit_acquire=rng.integers(1, 3, n_x).astype(np.int32),
+            exit_is_in=rng.random(n_x) < 0.8,
+            exit_valid=rng.random(n_x) < 0.9)
+    if with_valid:
+        kw["valid"] = rng.random(n) < 0.9
+    return args, kw
+
+
+@pytest.mark.parametrize("with_valid", [False, True])
+@pytest.mark.parametrize("exit_given", [False, True])
+@pytest.mark.parametrize("n_x", [200, 700])
+def test_fused_staging_matches_all_fresh_path(monkeypatch, n_x, exit_given,
+                                              with_valid):
+    """Fused decide+exit steps through a pipeline deeper than the staging
+    ring: exits above 512 padded lanes fill ring slots (their omitted
+    columns device constants), exits below stay fresh; verdicts and the
+    full state equal the ``SENTINEL_HOST_STAGING=0`` twin's bit for bit."""
+    on, off = _staging_twins(monkeypatch)
+    pipes = {s: tserving.DispatchPipeline(s, depth=3) for s in (on, off)}
+    tickets = {on: [], off: []}
+    for step in range(6):
+        for s in (on, off):
+            args, kw = _fused_step_args(s, np.random.default_rng(step),
+                                        700, n_x, exit_given, with_valid)
+            tickets[s].append(pipes[s].submit_fused(*args, **kw))
+            s.clock.advance_ms(230)
+    for s in (on, off):
+        pipes[s].flush()
+    assert ([_v(t.result()) for t in tickets[on]]
+            == [_v(t.result()) for t in tickets[off]])
+    _same_state(on, off)
+    (ring,) = on._staging.values()
+    assert ring.grown > 0 and len(ring._free) == 1 + ring.grown
+    assert not off._staging and not off._consts
+    # the omitted exit origin and chain rows are a constant when staged
+    ra = on.spec.alt_rows
+    assert (((1024, np.int32, ra, ra) in on._consts)
+            == (n_x > 256 and not exit_given))
+    on.close()
+    off.close()
+
+
+def test_fused_inflight_exit_slots_never_rewritten(monkeypatch):
+    """Unsettled fused dispatches hold their entry and exit slots: the
+    ring grows (``grown``) rather than hand one out again; once settled,
+    the slots serve the next dispatches (``hits``) with no growth."""
+    on, off = _staging_twins(monkeypatch, ring_depth=2)
+    served = []
+    acquire = trt._StagingRing.acquire
+
+    def spy(ring):
+        slot = acquire(ring)
+        served.append(slot)
+        return slot
+
+    monkeypatch.setattr(trt._StagingRing, "acquire", spy)
+    rng_on, rng_off = (np.random.default_rng(77) for _ in range(2))
+    held, want = [], []
+    for _ in range(4):
+        args, kw = _fused_step_args(on, rng_on, 700, 600, False, False)
+        held.append(on.decide_and_exit_raw_nowait(*args, **kw))
+        args, kw = _fused_step_args(off, rng_off, 700, 600, False, False)
+        want.append(_v(off.decide_and_exit_raw_nowait(*args, **kw).result()))
+        for s in (on, off):
+            s.clock.advance_ms(150)
+    (ring,) = on._staging.values()
+    # four dispatches in flight, an entry and an exit slot each
+    assert len({id(s) for s in served}) == 8
+    assert (ring.hits, ring.grown, len(ring._free)) == (2, 6, 0)
+    assert [_v(h.result()) for h in held] == want
+    assert len(ring._free) == 8
+    for _ in range(4):
+        args, kw = _fused_step_args(on, rng_on, 700, 600, False, False)
+        got = _v(on.decide_and_exit_raw_nowait(*args, **kw).result())
+        args, kw = _fused_step_args(off, rng_off, 700, 600, False, False)
+        assert got == _v(off.decide_and_exit_raw_nowait(*args, **kw).result())
+    assert (ring.hits, ring.grown, len(ring._free)) == (10, 6, 8)
+    _same_state(on, off)
+    on.close()
+    off.close()
+
+
+def test_fused_default_constants_unchanged_by_steps(monkeypatch):
+    """The device constants that stand for omitted exit columns are
+    read, never written: after a run of fused steps each holds what it
+    held after the first."""
+    on, _off = _staging_twins(monkeypatch, ring_depth=4)
+    _off.close()
+    rng = np.random.default_rng(5)
+    ra = on.spec.alt_rows
+    first = None
+    for step in range(5):
+        args, kw = _fused_step_args(on, rng, 700, 600 + step, False, False)
+        on.decide_and_exit_raw_nowait(*args, **kw).result()
+        if first is None:
+            first = {k: c.clone() for k, c in on._consts.items()}
+        on.clock.advance_ms(170)
+    # exit origin and chain rows share one; exit and entry acquire
+    # another; exit is_in and valid, and entry valid, a third; entry
+    # prioritized the fourth
+    assert set(first) == {(1024, np.int32, ra, ra), (1024, np.int32, 1, 0),
+                          (1024, np.bool_, True, False),
+                          (1024, np.bool_, False, False)}
+    assert set(on._consts) == set(first)
+    for k, c in on._consts.items():
+        assert torch.equal(c, first[k]), k
+    on.close()
+
+
+@pytest.mark.parametrize("acquire,origin_ids", [
+    ([1, 1, 1, 1], [0, 0, 0, 0]),
+    ([1, 2, 1, 1], [0, -3, 0, 0]),
+    ([0, 0, 0], [-1, -2, -7]),
+    ([2, 2], [0, 5]),
+    ([3, 0, 3], [4, 0, -4]),
+    ([], []),
+])
+def test_batch_facts_unmasked_equals_masked(acquire, origin_ids):
+    """With every lane valid (``vfull`` None) the facts are reduced over
+    the columns themselves, with the masked form's answer."""
+    a = np.asarray(acquire, np.int32)
+    o = np.asarray(origin_ids, np.int32)
+    full = np.ones(a.shape[0], np.bool_)
+    assert (trt.Sentinel._batch_facts(a, o, None)
+            == trt.Sentinel._batch_facts(a, o, full))
 
 
 # ---------------------------------------------------------------------------
