@@ -21,8 +21,9 @@ def pad_pow2(n: int, floor: int = 8) -> int:
 
 
 def pad_to(arr, b: int, fill, dtype) -> np.ndarray:
-    """Copy ``arr`` into a length-``b`` array padded with ``fill``."""
-    out = np.full(b, fill, dtype)
+    """Copy ``arr`` (``[n, ...]``) into a ``[b, ...]`` array padded with
+    ``fill``."""
+    out = np.full((b,) + np.shape(arr)[1:], fill, dtype)
     n = arr.shape[0] if hasattr(arr, "shape") else len(arr)
     out[:n] = arr
     return out

@@ -237,32 +237,38 @@ class NativeRegistry:
                 return result
 
     def items(self) -> List[Tuple[str, int]]:
-        # one C-side lock acquisition: ids and names are a consistent pair
-        # even while another thread is evicting/interning
-        ids = np.empty(self._capacity, np.int32)
-        lens = np.empty(self._capacity, np.int32)
-        buflen = 1 << 16
-        while True:
-            buf = ctypes.create_string_buffer(buflen)
-            n = self._lib.str_snapshot(
-                self._h,
-                ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                self._capacity, buf, buflen)
-            if n >= 0:
-                break
-            buflen = -n
-        out = []
-        off = 0
-        for i in range(n):
-            ln = int(lens[i])
-            out.append((buf.raw[off:off + ln].decode("utf-8"),
-                        int(ids[i])))
-            off += ln
-        return out
+        return [(name.decode("utf-8"), rid)
+                for name, rid in snapshot(self._lib, self._h,
+                                          self._capacity)]
 
     def __len__(self) -> int:
         return int(self._lib.str_len(self._h))
+
+
+def snapshot(lib, handle, capacity: int) -> List[Tuple[bytes, int]]:
+    """``(key bytes, id)`` of every live entry of a C++ table, least
+    recently used first, read under ONE lock acquisition of the table:
+    ids and keys are a consistent pair even while another thread is
+    evicting or interning."""
+    ids = np.empty(capacity, np.int32)
+    lens = np.empty(capacity, np.int32)
+    buflen = 1 << 16
+    while True:
+        buf = ctypes.create_string_buffer(buflen)
+        n = lib.str_snapshot(
+            handle, ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            capacity, buf, buflen)
+        if n >= 0:
+            break
+        buflen = -n
+    raw = buf.raw
+    out = []
+    off = 0
+    for ln, rid in zip(lens[:n].tolist(), ids[:n].tolist()):
+        out.append((raw[off:off + ln], rid))
+        off += ln
+    return out
 
 
 def native_available() -> bool:

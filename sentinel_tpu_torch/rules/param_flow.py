@@ -155,10 +155,66 @@ class CompiledParamRules(NamedTuple):
     num_active: int
     # bool[len(rules)]: THREAD grade per slot (the batch tier's pin mask)
     thread_slot_mask: Any = None
-    # (row_slot int32[max_row+1], row_idx int32[max_row+1]) when every
-    # ruled resource has exactly one rule, with a non-negative index and
-    # no per-item overrides (the vectorized batch resolution); else None
+    # the vectorized batch resolution's tables (:class:`VectorMeta`) when
+    # every rule has a non-negative index; else None
     vector_meta: Any = None
+
+
+class VectorMeta(NamedTuple):
+    """What the vector resolution tier (:func:`_resolve_pairs_vector`)
+    reads: a resource's rules as table columns, and the integer hot items
+    of every rule as packed keys."""
+
+    slot: np.ndarray        # int32[max_row+1, K]: rule slot, -1 = none
+    idx: np.ndarray         # int32[max_row+1, K]: its param index (>= 0)
+    hot_keys: np.ndarray    # int64, sorted: slot · 2^32 + (value + 2^31)
+    hot_counts: np.ndarray  # float64, aligned: each hot item's threshold
+    # distinct keys are interned in sorted order (one rule a resource, no
+    # hot items: the JAX package's tier, whose twin this is); otherwise in
+    # first-seen order, the general loop's, so that the rows, the LRU
+    # order and the queued overrides are the general loop's exactly
+    sorted_order: bool
+
+
+def _int32_key(k) -> Optional[int]:
+    """The int a hot item's key equals as a dict key (``True == 1``,
+    ``2.0 == 2``) when that int lies in the vector tier's value range
+    (-2^31, 2^31); else None: no value the tier takes can equal it."""
+    if isinstance(k, (bool, np.bool_, int, np.integer)):
+        v = int(k)
+    elif (isinstance(k, (float, np.floating)) and np.isfinite(k)
+          and float(k).is_integer()):
+        v = int(k)
+    else:
+        return None
+    return v if -(2 ** 31) < v < 2 ** 31 else None
+
+
+def _vector_meta(by_row) -> Optional[VectorMeta]:
+    """:class:`VectorMeta` of the compiled rules, or None where a rule
+    counts its index from the tail (the general loop then resolves)."""
+    if not by_row or any(idx < 0 for entries in by_row.values()
+                         for _j, idx, _hot in entries):
+        return None
+    k = max(len(entries) for entries in by_row.values())
+    max_row = max(by_row)
+    slot = np.full((max_row + 1, k), -1, np.int32)
+    idx = np.zeros((max_row + 1, k), np.int32)
+    hot: Dict[int, float] = {}
+    for row, entries in by_row.items():
+        for c, (j, i, items) in enumerate(entries):
+            slot[row, c] = j
+            idx[row, c] = i
+            for key, count in items.items():
+                v = _int32_key(key)
+                if v is not None:
+                    hot[j * 2 ** 32 + v + 2 ** 31] = float(count)
+    keys = np.array(sorted(hot), np.int64)
+    return VectorMeta(
+        slot=slot, idx=idx, hot_keys=keys,
+        hot_counts=np.array([hot[int(x)] for x in keys], np.float64),
+        sorted_order=all(len(e) == 1 and not e[0][2]
+                         for e in by_row.values()))
 
 
 def init_param_dyn(pk: int, device="cpu") -> ParamDynState:
@@ -215,23 +271,12 @@ def compile_param_rules(rules: Sequence[ParamFlowRule], *, resource_registry,
         duration_ms=dev(duration_ms), burst=dev(burst),
         behavior=dev(behavior), max_queue_ms=dev(max_queue_ms))
     by_row_t = {k: tuple(v) for k, v in by_row.items()}
-    vector_meta = None
-    if by_row_t and all(
-            len(entries) == 1 and entries[0][1] >= 0 and not entries[0][2]
-            for entries in by_row_t.values()):
-        max_row = max(by_row_t)
-        row_slot = np.full(max_row + 1, -1, np.int32)
-        row_idx = np.zeros(max_row + 1, np.int32)
-        for row, entries in by_row_t.items():
-            row_slot[row] = entries[0][0]
-            row_idx[row] = entries[0][1]
-        vector_meta = (row_slot, row_idx)
     return CompiledParamRules(
         table=table, rules=tuple(valid), by_row=by_row_t,
         num_active=len(valid),
         thread_slot_mask=np.array([r.grade == GRADE_THREAD for r in valid],
                                   np.bool_),
-        vector_meta=vector_meta)
+        vector_meta=_vector_meta(by_row_t))
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +291,9 @@ class ParamKeyRegistry:
     starts cold; a row created for a value with a per-item override queues
     a (row, threshold) write that the runtime flushes into
     ``ParamDynState.override`` before the next decide. Rows pinned by
-    in-flight THREAD-grade entries are never recycled."""
+    in-flight THREAD-grade entries are never recycled. ``created`` and
+    ``evicted`` count the rows handed to new keys and those taken from
+    old ones."""
 
     def __init__(self, capacity: int):
         self._cap = capacity
@@ -256,10 +303,18 @@ class ParamKeyRegistry:
         self._pending_override: List[Tuple[int, float]] = []
         self._pins: Dict[int, int] = {}   # row → live-entry refcount
         self._lock = threading.Lock()
+        self.created = 0
+        self.evicted = 0
 
     @property
     def capacity(self) -> int:
         return self._cap
+
+    def items(self) -> List[Tuple[Tuple[int, Any], int]]:
+        """``((rule slot, key), row)`` of every live key, least recently
+        used first (read only)."""
+        with self._lock:
+            return list(self._map.items())
 
     def get_or_create(self, rule_slot: int, value: Any,
                       override: Optional[int] = None) -> int:
@@ -271,6 +326,7 @@ class ParamKeyRegistry:
                 return row
             row = self._free.pop() if self._free else self._evict_lru_locked()
             self._map[key] = row
+            self.created += 1
             if override is not None:
                 self._pending_override.append((row, float(override)))
             return row
@@ -282,6 +338,7 @@ class ParamKeyRegistry:
             if not self._pins.get(row):
                 del self._map[key]
                 self._evicted.append(row)
+                self.evicted += 1
                 # a queued override of the evicted occupant must not land
                 # on the row's next occupant
                 self._pending_override = [
@@ -338,6 +395,7 @@ class ParamKeyRegistry:
                     row = (self._free.pop() if self._free
                            else self._evict_lru_locked())
                     self._map[key] = row
+                    self.created += 1
                     if override is not None:
                         self._pending_override.append((row, float(override)))
                 out.append(row)
@@ -393,6 +451,8 @@ class NativeParamKeyRegistry:
         self._evicted: List[int] = []
         self._pending_override: List[Tuple[int, float]] = []
         self._drain_buf = np.empty(512, np.int32)
+        self.created = 0
+        self.evicted = 0
 
     def __del__(self):
         h, self._h = getattr(self, "_h", None), None
@@ -451,6 +511,7 @@ class NativeParamKeyRegistry:
                 break
             rows = buf[:n].tolist()
             self._evicted.extend(rows)
+            self.evicted += n
             if self._pending_override:
                 rs = set(rows)
                 self._pending_override = [
@@ -479,6 +540,7 @@ class NativeParamKeyRegistry:
             self._ptr(created, self._ct.c_uint8))
         self._drain_native_locked()
         self._raise_if_full(out)
+        self.created += int(np.count_nonzero(created))
         if overrides is not None:
             for i, ov in overrides:
                 if ov is not None and created[i]:
@@ -515,10 +577,18 @@ class NativeParamKeyRegistry:
                            .tolist())
         return out
 
-    def get_or_create_int_batch(self, packed: np.ndarray) -> np.ndarray:
+    def get_or_create_int_batch(self, packed: np.ndarray,
+                                overrides: Optional[np.ndarray] = None
+                                ) -> np.ndarray:
         """Fast path for the vector resolution tier: ``packed`` is the
         int64 combine-key ``slot * 2**32 + (value + 2**31)`` — key bytes
-        are produced in C++, one FFI call for the whole distinct set."""
+        are produced in C++, one FFI call for the whole distinct set.
+        ``overrides`` (float64, aligned; NaN = none) queues the threshold
+        of each key this call creates, as :meth:`get_or_create_batch`
+        does item by item: a row the call takes from a key it created
+        earlier cancels that key's override, so of the keys created on
+        one row the last alone keeps its own (the drain has cancelled
+        the older queued overrides of the rows it recycled)."""
         packed = np.ascontiguousarray(packed, np.int64)
         n = packed.shape[0]
         out = np.empty(n, np.int32)
@@ -530,6 +600,34 @@ class NativeParamKeyRegistry:
                 self._ptr(created, self._ct.c_uint8))
             self._drain_native_locked()
             self._raise_if_full(out)
+            made = np.flatnonzero(created)
+            self.created += int(made.size)
+            if overrides is not None and made.size:
+                # the last key created on each row
+                _, back = np.unique(out[made][::-1], return_index=True)
+                last = np.sort(made[made.size - 1 - back])
+                ov = np.asarray(overrides, np.float64)[last]
+                keep = ~np.isnan(ov)
+                self._pending_override.extend(
+                    zip(out[last][keep].tolist(), ov[keep].tolist()))
+        return out
+
+    def items(self) -> List[Tuple[Tuple[int, Any], int]]:
+        """``((rule slot, key), row)`` of every live key, least recently
+        used first (read only): each key decoded from the bytes
+        :meth:`_encode` made (integers as ints, floats as floats, strings
+        and other values' ``repr`` as strings)."""
+        import struct
+
+        from sentinel_tpu_torch.native import snapshot
+        out = []
+        for key, row in snapshot(self._lib, self._h, self._cap):
+            slot, tag = struct.unpack_from("<ic", key)
+            body = key[5:]
+            value = (struct.unpack("<q", body)[0] if tag == b"i" else
+                     struct.unpack("<d", body)[0] if tag == b"f" else
+                     body.decode("utf-8"))
+            out.append(((slot, value), row))
         return out
 
     def pin_rows(self, rows) -> None:
@@ -635,12 +733,17 @@ def resolve_pairs(compiled: CompiledParamRules, keys: ParamKeyRegistry,
 
 def _resolve_pairs_vector(compiled: CompiledParamRules,
                           keys: ParamKeyRegistry, rows, args_list,
-                          pr: np.ndarray, pk: np.ndarray):
-    """Vectorized resolution for one rule per resource (``vector_meta``)
-    and integer args of one arity: (slot, value) packed into one int64 and
-    deduplicated with ``np.unique``, one intern per distinct key → (pr,
-    pk) filled, or None where the shape is not provably safe (the caller
-    then takes the general loop)."""
+                          pr: np.ndarray, pk: np.ndarray,
+                          stats: Optional[dict] = None):
+    """Vectorized resolution (``vector_meta``) of integer args of one
+    arity: each event's pairs in its resource's rule order (a rule whose
+    index lies past the arity adds none), (slot, value) packed into one
+    int64 and deduplicated with ``np.unique``, the distinct keys interned
+    in one call with their hot items' thresholds → (pr, pk) filled, as
+    the general loop fills them, or None where the shape is not provably
+    safe (the caller then takes the general loop): not a 2-D integer
+    array, a value outside (-2^31, 2^31), more pairs an event than
+    ``pr`` has columns."""
     try:
         arr = np.asarray(args_list)
     except (ValueError, TypeError):
@@ -649,54 +752,85 @@ def _resolve_pairs_vector(compiled: CompiledParamRules,
         return None
     if arr.dtype.kind == "u" and arr.dtype.itemsize == 8:
         return None                      # uint64 may wrap in the int64 cast
-    n = len(pr)
-    row_slot, row_idx = compiled.vector_meta
+    meta: VectorMeta = compiled.vector_meta
     rows_arr = np.asarray(rows, np.int64)
-    clipped = np.minimum(rows_arr, row_slot.shape[0] - 1)
-    in_range = rows_arr < row_slot.shape[0]
-    slots = np.where(in_range, row_slot[clipped], -1)
-    idxs = np.where(in_range, row_idx[clipped], 0)
-    valid = (slots >= 0) & (idxs < arr.shape[1])
-    if not valid.any():
+    in_range = rows_arr < meta.slot.shape[0]
+    r = np.where(in_range, rows_arr, 0)
+    slots = np.where(in_range[:, None], meta.slot[r], -1)       # [n, K]
+    idxs = meta.idx[r]
+    live = (slots >= 0) & (idxs < arr.shape[1])
+    if stats is not None:
+        stats["pairs"] = stats["distinct"] = 0
+    if not live.any():
         return pr, pk
-    vals = arr[np.arange(n), np.where(valid, idxs, 0)].astype(np.int64)
-    vv = vals[valid]
+    fills = np.cumsum(live, axis=1, dtype=np.int32)
+    if int(fills[:, -1].max()) > pr.shape[1]:
+        return None                      # the general loop raises
+    ev, k = np.nonzero(live)             # event-major: the loop's order
+    vals = arr[ev, idxs[ev, k]].astype(np.int64)
     # direct comparisons: abs(int64.min) overflows
-    if (vv >= 2 ** 31).any() or (vv <= -(2 ** 31)).any():
+    if (vals >= 2 ** 31).any() or (vals <= -(2 ** 31)).any():
         return None
-    comb = slots.astype(np.int64) * (2 ** 32) + (vals + 2 ** 31)
-    uniq, inv = np.unique(comb[valid], return_inverse=True)
+    s = slots[ev, k].astype(np.int64)
+    comb = s * (2 ** 32) + (vals + 2 ** 31)
+    if meta.sorted_order:
+        uniq, inv = np.unique(comb, return_inverse=True)
+        order = None
+    else:
+        uniq, first, inv = np.unique(comb, return_index=True,
+                                     return_inverse=True)
+        order = np.argsort(first, kind="stable")
+        uniq = uniq[order]
+    over = None
+    if meta.hot_keys.size:
+        at = np.minimum(np.searchsorted(meta.hot_keys, uniq),
+                        meta.hot_keys.size - 1)
+        over = np.where(meta.hot_keys[at] == uniq, meta.hot_counts[at],
+                        np.nan)
     goc_int = getattr(keys, "get_or_create_int_batch", None)
     if goc_int is not None:
         # the native table: the packed keys go through one call, the key
         # bytes made in C++
-        rows_out = goc_int(uniq)
+        rows_out = goc_int(uniq, over)
     else:
         u_slot = (uniq // (2 ** 32)).tolist()
         u_val = (uniq % (2 ** 32) - 2 ** 31).tolist()
+        u_ov = ([None] * len(u_slot) if over is None else
+                [None if np.isnan(x) else x for x in over.tolist()])
         rows_out = np.asarray(keys.get_or_create_batch(
-            [(s, v, None) for s, v in zip(u_slot, u_val)]), np.int32)
-    vi = np.nonzero(valid)[0]
-    pr[vi, 0] = slots[valid].astype(np.int32)
-    pk[vi, 0] = rows_out[inv.reshape(-1)]
+            list(zip(u_slot, u_val, u_ov))), np.int32)
+    if order is not None:
+        back = np.empty_like(rows_out)
+        back[order] = rows_out
+        rows_out = back
+    col = fills[ev, k] - 1
+    pr[ev, col] = s.astype(np.int32)
+    pk[ev, col] = rows_out[inv.reshape(-1)]
+    if stats is not None:
+        stats["pairs"], stats["distinct"] = int(ev.size), int(uniq.size)
     return pr, pk
 
 
 def resolve_pairs_many(compiled: CompiledParamRules, keys: ParamKeyRegistry,
                        rows: Sequence[int], args_list: Sequence[Sequence[Any]],
-                       pairs_per_event: int) -> Tuple[np.ndarray, np.ndarray]:
+                       pairs_per_event: int, stats: Optional[dict] = None
+                       ) -> Tuple[np.ndarray, np.ndarray]:
     """Batch form of :func:`resolve_pairs` with one registry lock hold and
     one intern per distinct (slot, key) → ``(param_rules [n, PV],
-    param_keys [n, PV])``."""
+    param_keys [n, PV])``. A ``stats`` dict receives the batch's pair
+    applications (``pairs``) and distinct keys (``distinct``)."""
     n_events = len(rows)
     np_sentinel = compiled.table.active.shape[0] - 1
     pk_sentinel = keys.capacity
     pr = np.full((n_events, pairs_per_event), np_sentinel, np.int32)
     pk = np.full((n_events, pairs_per_event), pk_sentinel, np.int32)
     if compiled.vector_meta is not None:
-        out = _resolve_pairs_vector(compiled, keys, rows, args_list, pr, pk)
+        out = _resolve_pairs_vector(compiled, keys, rows, args_list, pr, pk,
+                                    stats)
         if out is not None:
             return out
+    if stats is not None:
+        stats["pairs"] = stats["distinct"] = 0
     by_row_get = compiled.by_row.get
     uniq_pos: Dict[Tuple[int, Any], int] = {}
     uniq_items: List[Tuple[int, Any, Optional[int]]] = []
@@ -749,6 +883,8 @@ def resolve_pairs_many(compiled: CompiledParamRules, keys: ParamKeyRegistry,
                 want_slot.append(slot_j)
                 want_u.append(u)
                 fills += 1
+    if stats is not None:
+        stats["pairs"], stats["distinct"] = len(want_i), len(uniq_items)
     if not uniq_items:
         return pr, pk
     rows_out = np.asarray(keys.get_or_create_batch(uniq_items), np.int32)

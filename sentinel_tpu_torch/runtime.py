@@ -435,12 +435,13 @@ class _StagingRing:
             self._free.append(slot)
 
     def column(self, slot: Dict[str, torch.Tensor], name: str,
-               dtype: torch.dtype) -> torch.Tensor:
-        """``slot``'s column ``name``, made on its first use."""
+               dtype: torch.dtype, width: tuple = ()) -> torch.Tensor:
+        """``slot``'s column ``name`` (``[b, *width]``), made on its first
+        use."""
         t = slot.get(name)
         if t is None:
-            t = slot[name] = torch.empty(self.b, dtype=dtype,
-                                         pin_memory=self.pinned)
+            t = slot[name] = torch.empty((self.b,) + tuple(width),
+                                         dtype=dtype, pin_memory=self.pinned)
         return t
 
 
@@ -1513,15 +1514,6 @@ class Sentinel:
             flags["fast_flow"] = True
         return flags
 
-    def _pairs(self, arr, b: int, fill: int):
-        """An [n, PV] pair column padded to [b, PV] with ``fill`` and copied
-        over (None passes through)."""
-        if arr is None:
-            return None
-        out = np.full((b, self.spec.param_pairs), fill, np.int32)
-        out[:arr.shape[0]] = arr
-        return self._dev(out)
-
     #: torch dtype of a staged column's numpy dtype
     _TORCH_DTYPES = {np.int32: torch.int32, np.bool_: torch.bool}
 
@@ -1561,7 +1553,8 @@ class Sentinel:
                     dev[name] = self._const_col(b, n, default, pad, dtype)
                     staged.const += 1
                     continue
-                t = ring.column(slot, name, self._TORCH_DTYPES[dtype])
+                t = ring.column(slot, name, self._TORCH_DTYPES[dtype],
+                                np.shape(arr)[1:])
                 pad_into(t.numpy(), arr, pad)
                 # CPU: a copy, so the batch never aliases a reused slot
                 dev[name] = (t.to(self.device, non_blocking=True)
@@ -1601,6 +1594,17 @@ class Sentinel:
         if staged is not None:
             staged.fresh += sum(a is not None for a in optional)
 
+    def _pair_cols(self, param_rules, param_keys) -> list:
+        """The ``[n, PV]`` pair columns of a batch as :meth:`_stage` takes
+        them, padded with the NP and PK sentinels (none where the batch
+        carries no pairs)."""
+        if param_rules is None:
+            return []
+        return [("param_rules", param_rules, self.cfg.max_param_rules,
+                 np.int32, None),
+                ("param_keys", param_keys, self.spec.param_keys, np.int32,
+                 None)]
+
     def _opt_col(self, arr, b: int, fill, dtype):
         """A rare optional column, padded and copied fresh (None passes
         through)."""
@@ -1632,13 +1636,12 @@ class Sentinel:
         known = known or {}
         dev = self._stage(n, [
             (name, None if name in known else arr, pad, dtype,
-             known.get(name)) for name, arr, pad, dtype in cols], staged)
-        self._count_fresh(staged, param_rules, param_keys, cluster_fallback,
-                          count_thread, record_block)
+             known.get(name)) for name, arr, pad, dtype in cols]
+            + self._pair_cols(param_rules, param_keys), staged)
+        self._count_fresh(staged, cluster_fallback, count_thread,
+                          record_block)
         return EntryBatch(
             **dev,
-            param_rules=self._pairs(param_rules, b, self.cfg.max_param_rules),
-            param_keys=self._pairs(param_keys, b, self.spec.param_keys),
             cluster_fallback=self._opt_col(cluster_fallback, b, 0, i32),
             count_thread=self._opt_col(count_thread, b, False, bl),
             record_block=self._opt_col(record_block, b, False, bl))
@@ -1654,7 +1657,7 @@ class Sentinel:
         b = pad_pow2(n)
         r, ra = self.spec.rows, self.spec.alt_rows
         i32, bl = np.int32, np.bool_
-        dev = self._stage(n, (
+        dev = self._stage(n, [
             ("rows", rows, r, i32, None),
             ("origin_rows", origin_rows, ra, i32, ra),
             ("chain_rows", chain_rows, ra, i32, ra),
@@ -1662,12 +1665,11 @@ class Sentinel:
             ("rt_ms", rt_ms, 0, i32, 0),
             ("error", error, False, bl, False),
             ("is_in", is_in, False, bl, True),
-            ("valid", valid, False, bl, True)), staged)
-        self._count_fresh(staged, param_rules, param_keys, count_thread)
+            ("valid", valid, False, bl, True)]
+            + self._pair_cols(param_rules, param_keys), staged)
+        self._count_fresh(staged, count_thread)
         return ExitBatch(
             **dev,
-            param_rules=self._pairs(param_rules, b, self.cfg.max_param_rules),
-            param_keys=self._pairs(param_keys, b, self.spec.param_keys),
             count_thread=self._opt_col(count_thread, b, False, bl))
 
     @staticmethod
@@ -2793,13 +2795,24 @@ class Sentinel:
             exit_origin_rows=None, exit_chain_rows=None, exit_acquire=None,
             exit_rt_ms=None, exit_error=None, exit_is_in=None,
             exit_valid=None, valid=None, at_ms: Optional[int] = None,
-            trace_id: int = 0) -> PendingVerdicts:
+            param_args=None, trace_id: int = 0) -> PendingVerdicts:
         """Fused decide+exit: this step's entry decisions and the previous
         step's completions in one engine step (exits land after decides,
         identical to the decide-then-exit pair). Exit columns default to
         padding-free trivia (no origins, acquire=1, rt=0, no errors). The
         whole batch takes one route (no split); the alt records run when
-        either half carries an origin or chain row."""
+        either half carries an origin or chain row.
+
+        ``param_args`` (an integer array ``[n, A]``: each event's call
+        arguments by ``paramIdx``) puts the batch through the hot-param
+        rules: the call resolves them into key rows itself
+        (:meth:`_fused_param_pairs`, the ``dispatch.param`` span), and the
+        key rows it recycles or gives a hot item's threshold reach the
+        device before the step. A resource with a THREAD-grade or
+        cluster-mode param rule refuses the path (``ValueError``): its key
+        rows stay pinned from entry to exit, which only
+        :meth:`entry_batch` / :meth:`decide_raw_nowait` and
+        :meth:`exit_batch` carry."""
         n = rows.shape[0]
         n_x = exit_rows.shape[0]
         obs = self.obs
@@ -2820,6 +2833,12 @@ class Sentinel:
                                            exit_chain_rows))
                 route = self._route(acq_uniform, no_origin_ids and no_alt,
                                     any_prio)
+            pairs = None
+            if param_args is not None:
+                with obs.span(tr, "dispatch.param", detail=True) as p_span:
+                    pairs = self._fused_param_pairs(rows, param_args)
+                    if tr and pairs is not None:
+                        p_span.note = pairs[3]
             # entry columns whose every lane the route has seen: an
             # omitted valid mask, a uniform acquire over all lanes, no
             # prioritized lane
@@ -2832,8 +2851,10 @@ class Sentinel:
             with obs.span(tr, "dispatch.stage", detail=True) as stage_span:
                 batch = self._entry_batch(
                     rows, origin_ids, origin_rows, context_ids, chain_rows,
-                    acquire, is_in, prio_np, vfull, staged=staged,
-                    known=known)
+                    acquire, is_in, prio_np, vfull,
+                    param_rules=None if pairs is None else pairs[0],
+                    param_keys=None if pairs is None else pairs[1],
+                    staged=staged, known=known)
                 xbatch = self._exit_batch(
                     exit_rows, exit_origin_rows, exit_chain_rows,
                     exit_acquire, exit_rt_ms, exit_error, exit_is_in,
@@ -2843,6 +2864,14 @@ class Sentinel:
             times = self._time_scalars(now)
             sys_scalars = self._sys_scalars()
             with self._lock:
+                if pairs is not None and pairs[2] != self._param_gen:
+                    # the rules were reloaded since: resolve again against
+                    # the ones this step runs
+                    again = self._fused_param_pairs(rows, param_args)
+                    batch = batch._replace(param_rules=None, param_keys=None)
+                    if again is not None:
+                        batch = batch._replace(**self._stage(
+                            n, self._pair_cols(*again[:2]), None))
                 now, times = self._restamp_if_stale_locked(at_ms, now,
                                                            times)
                 self._drain_evictions_locked()
@@ -2897,6 +2926,40 @@ class Sentinel:
                             prio_np if any_prio else None)
                             if obs_on else None))
         return pending
+
+    def _fused_param_pairs(self, rows, param_args):
+        """The pairs of a fused batch's ``param_args`` → ``(param_rules,
+        param_keys, generation, note)``, resolved under the lock against
+        the rules and the key registry of that generation (the note: the
+        pair applications, the distinct keys and the key rows created);
+        None where no param rule is loaded. A THREAD-grade or cluster-mode
+        param rule on one of the batch's resources raises ValueError."""
+        with self._lock:
+            compiled = self._param
+            registry = self.param_key_registry
+            pinned = set(self._cluster_param_rules_by_row)
+            if compiled.thread_slot_mask.any():
+                pinned.update(
+                    row for row, entries in compiled.by_row.items()
+                    if any(compiled.thread_slot_mask[j]
+                           for j, _i, _h in entries))
+            if pinned and np.isin(rows, list(pinned)).any():
+                raise ValueError(
+                    "a resource of this batch has a THREAD-grade or "
+                    "cluster-mode param rule, whose key rows stay pinned "
+                    "from entry to exit: decide it through entry_batch or "
+                    "decide_raw_nowait and report its exits through "
+                    "exit_batch")
+            if not compiled.num_active:
+                return None
+            stats: dict = {}
+            made = registry.created
+            pr, pk = pf_mod.resolve_pairs_many(
+                compiled, registry, rows, param_args, self.spec.param_pairs,
+                stats)
+            return (pr, pk, self._param_gen,
+                    f"pairs={stats['pairs']} distinct={stats['distinct']} "
+                    f"created={registry.created - made}")
 
     def _fused_epilogue_locked(self, sketch, batch: EntryBatch, tel_prep,
                                tier_due: bool) -> None:

@@ -146,7 +146,8 @@ class DispatchPipeline:
     def submit_fused(self, *args, **kwargs) -> PipelinedVerdicts:
         """Dispatch through :meth:`Sentinel.decide_and_exit_raw_nowait`:
         this step's decides and the previous step's completions in one
-        engine step."""
+        engine step (``param_args`` puts the decides through the hot-param
+        rules, resolved in the dispatch)."""
         n = args[0].shape[0] if args else 0
         return self._submit(
             lambda: self._s.decide_and_exit_raw_nowait(*args, **kwargs), n,

@@ -112,12 +112,15 @@ def test_compile_param_rules_matches():
     assert tc.by_row == jc.by_row and tc.num_active == jc.num_active == 9
     np.testing.assert_array_equal(tc.thread_slot_mask, jc.thread_slot_mask)
     assert jc.vector_meta is None and tc.vector_meta is None
-    # one rule per resource, index >= 0, no overrides: the vector form
+    # one rule per resource, index >= 0, no overrides: the reference's
+    # vector form, as the port's one-column tables in sorted order
     one = [jpf.ParamFlowRule(resource=f"r{i}", param_idx=i % 3,
                              count=float(i)) for i in range(5)]
     jc, tc = _compile_both(one)
     for a, b in zip(jc.vector_meta, tc.vector_meta):
-        np.testing.assert_array_equal(b, a)
+        np.testing.assert_array_equal(b[:, 0], a)
+        assert b.shape[1] == 1
+    assert tc.vector_meta.sorted_order and tc.vector_meta.hot_keys.size == 0
     assert tc.table.count.dtype == torch.float32
     # loud overflow, like the reference's compiler
     for kw in (dict(cap=4), dict(k=1)):
